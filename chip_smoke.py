@@ -20,6 +20,19 @@ Phases, each printed as it runs; every run makes all of them:
              LLaVA-Video prompt: apply_framefusion + generate (fused), the
              planned prefill + generate, and the dense prefill. Kernel launch
              counts are read around the fused run.
+5. cross_vision — a tiny SigLIP tower (head dim 72) and projector with the
+             tiny LLM of phase 3, weights drawn with numpy, through
+             TextPipeline.ask on uint8 frames: plain versions on the CPU,
+             kernels on the card. The frontend features agree within a
+             stated bf16 bound; events, cache lengths and tokens are equal
+             and the tokens vary.
+6. pixels  — pixels to answer at full width: random SigLIP-so400m tower,
+             projector and Qwen2-7B (bf16), 64 uint8 frames at 360x480
+             through the native preprocessing, the tower (kernel E), the
+             LLaVA frontend, the compressed prefill and 8 greedy tokens;
+             FrameFusion and dense, encode and pixels-to-answer times, kernel
+             launch counts read around the FrameFusion run, then the W8A8
+             tower once.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -56,6 +69,14 @@ IMP_RTOL = 1e-4
 #   than cuBLAS: fp32 rounding over K <= 18944 terms, relative to the
 #   output's largest magnitude.
 GEMV_RTOL = 1e-4
+# * Kernel E (bidirectional attention) rounds its probabilities and outputs
+#   to bf16 like kernel A, and is held per (row, head) to ATTN_ROW_RTOL too.
+# * The cross-device vision run: the tiny tower's bf16 frontend features
+#   differ from its fp32 run by 6.7e-3 of the largest feature on the CPU
+#   (same numpy weights and frames); the card's bf16 run rounds elsewhere
+#   (kernel E's bf16 probabilities, other summation orders), so it may
+#   differ from the CPU's by up to about twice that.
+FEATURE_RTOL = 1.5e-2
 # * The cross-device run: the tiny model's bf16 prefill logits differ from
 #   its fp32 run by 2.85e-2 of the largest logit on the CPU (same numpy
 #   weights and prompt); two bf16 runs with other roundings (kernel A's bf16
@@ -118,6 +139,7 @@ def _rand(gen, shape, dtype=torch.bfloat16, scale=1.0):
 def phase_kernels(chk: Checks, kernels: dict) -> None:
     from framefusion_tpu_torch.core import descending_rank
     from framefusion_tpu_torch.ops.attention import capture_rows
+    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
     from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
     from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
     from framefusion_tpu_torch.ops.quant import quantize_weight
@@ -241,6 +263,28 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
             if wdtype == "bf16" and name in ("qkv", "gateup"):
                 kernels[key].update(ms=t_k, plain_ms=t_p)
             del stacks, scales
+
+    # -- kernel E at the tower's shapes (so400m: 16 frames, N 729, 16 heads,
+    # head dim 72), and head dims 64 / 80 of the later towers ---------------
+    for b, n, h, hd in ((16, 729, 16, 72), (4, 1025, 16, 64), (4, 1296, 16, 80)):
+        q, k, v = (_rand(gen, (b, n, h, hd)) for _ in range(3))
+        out = ba.flash_bidir_attention(q, k, v)
+        ref = ba.bidir_attn_fwd_plain(q, k, v, hd ** -0.5)
+        torch.cuda.synchronize()
+        err_rh = (out.float() - ref.float()).abs().amax(-1)  # (B, N, H)
+        rel = (err_rh / ref.float().abs().amax(-1).clamp(min=1e-30)).max().item()
+        err = err_rh.max().item()
+        tag = f"E B={b} N={n} H={h} hd={hd}"
+        chk.expect(rel <= ATTN_ROW_RTOL, f"{tag}: max_abs_err {err:.3e}; per (row, head) error / its largest "
+                                         f"output: max {rel:.3e} <= {ATTN_ROW_RTOL}")
+        _max_err(kernels["bidir_attn_fwd"], err)
+        t_k = cuda_time_ms(lambda: ba.flash_bidir_attention(q, k, v), iters=20)
+        t_p = cuda_time_ms(lambda: ba.bidir_attn_fwd_plain(q, k, v, hd ** -0.5), iters=3, warmup=1)
+        tflops = 4 * b * h * n * n * hd / (t_k * 1e-3) / 1e12
+        log(f"  {tag}: kernel {t_k:.4f} ms ({tflops:.1f} TFLOP/s), plain {t_p:.4f} ms")
+        if hd == 72:
+            kernels["bidir_attn_fwd"].update(ms=t_k, plain_ms=t_p)
+        del q, k, v, out, ref
 
 
 def phase_cross(chk: Checks) -> None:
@@ -384,6 +428,208 @@ def phase_full(chk: Checks, kernels: dict) -> None:
     log(f"  int8 decode: generate(8) {t_gen_q:.2f} ms = {t_gen_q / 7:.2f} ms per decode step")
 
 
+class StubTokenizer:
+    """Character-level ids below 101: prompts without a tokenizer file."""
+
+    eos_token_id = None
+
+    def encode(self, text):
+        return [ord(c) % 101 for c in text][:40]
+
+    def decode(self, ids):
+        return " ".join(str(i) for i in ids)
+
+
+QUESTION = "What happens in the video?"
+
+
+def numpy_vit_params(vcfg, seed: int, scale: float, resid_scale: float) -> dict:
+    """Random SigLIP weights in the JAX package's pytree layout, drawn with
+    numpy; the blocks write to the residual stream at ``resid_scale``."""
+    rng = np.random.default_rng(seed)
+    n_l, d, i = vcfg.num_layers, vcfg.hidden_size, vcfg.intermediate_size
+
+    def norm(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    layers = {"ln1_w": np.ones((n_l, d), np.float32), "ln1_b": norm(n_l, d),
+              "ln2_w": np.ones((n_l, d), np.float32), "ln2_b": norm(n_l, d),
+              "wq": norm(n_l, d, d), "bq": norm(n_l, d), "wk": norm(n_l, d, d), "bk": norm(n_l, d),
+              "wv": norm(n_l, d, d), "bv": norm(n_l, d), "wo": norm(n_l, d, d), "bo": norm(n_l, d),
+              "w_fc1": norm(n_l, d, i), "b_fc1": norm(n_l, i), "w_fc2": norm(n_l, i, d), "b_fc2": norm(n_l, d)}
+    for name in ("wo", "bo", "w_fc2", "b_fc2"):
+        layers[name] *= np.float32(resid_scale / scale)
+    return {"patch_kernel": norm(vcfg.patch_size, vcfg.patch_size, 3, d), "patch_bias": norm(d),
+            "pos_embed": norm(vcfg.num_patches, d), "layers": layers,
+            "post_ln_w": np.ones(d, np.float32), "post_ln_b": np.zeros(d, np.float32)}
+
+
+def numpy_projector(vision_dim: int, llm_dim: int, seed: int, scale: float) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"w1": rng.standard_normal((vision_dim, llm_dim), dtype=np.float32) * np.float32(scale),
+            "b1": np.zeros(llm_dim, np.float32),
+            "w2": rng.standard_normal((llm_dim, llm_dim), dtype=np.float32) * np.float32(scale),
+            "b2": np.zeros(llm_dim, np.float32),
+            "image_newline": rng.standard_normal(llm_dim, dtype=np.float32) * np.float32(scale)}
+
+
+def coherent_frames(rng: np.random.Generator, n: int, h: int, w: int) -> np.ndarray:
+    """uint8 (n, h, w, 3) video: each frame drifts from the last
+    (``bench.py``'s coherent synthetic pixels, mapped to 8 bits)."""
+    fr = rng.standard_normal((n, h, w, 3), dtype=np.float32)
+    for f in range(1, n):
+        fr[f] = fr[f - 1] * 0.98 + 0.2 * rng.standard_normal((h, w, 3), dtype=np.float32)
+    return np.clip(128 + 40 * fr, 0, 255).astype(np.uint8)
+
+
+def half_static_frames(rng: np.random.Generator, n: int, h: int, w: int) -> np.ndarray:
+    """uint8 (n, h, w, 3) video whose left half stands still and whose right
+    half is new in every frame: with a tower that mixes patches little,
+    adjacent-frame similarities fall far from the threshold on either side,
+    so bf16 roundings do not flip a merge."""
+    frames = np.repeat(rng.integers(0, 256, (1, h, w, 3)), n, axis=0)
+    frames[:, :, w // 2 :] = rng.integers(0, 256, (n, h, w - w // 2, 3))
+    return frames.astype(np.uint8)
+
+
+def tiny_vision_run(device: str, dtype: torch.dtype):
+    """The tiny pixels-to-answer run of phase 5 on one device: (frontend
+    features fp32 on the CPU, events, cache lengths, tokens, E launches)."""
+    from framefusion_tpu_torch.config import tiny_llm_config
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.vision import llava_frontend, siglip
+    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
+    from framefusion_tpu_torch.pipeline import TextPipeline
+
+    cfg = tiny_llm_config(num_layers=6, hidden_size=512, intermediate_size=1024, num_heads=4, num_kv_heads=2,
+                          dtype=dtype)
+    vcfg = siglip.ViTConfig(image_size=56, patch_size=7, hidden_size=288, intermediate_size=576, num_layers=3,
+                            num_heads=4, dtype=dtype)  # head dim 72, as so400m's
+    params = _cast_floats(qwen2.params_from_numpy(numpy_params(cfg, seed=0, scale=0.05), device), dtype)
+    vit = _cast_floats(siglip.params_from_numpy(numpy_vit_params(vcfg, seed=1, scale=0.05, resid_scale=0.005),
+                                                device), dtype)
+    proj = _cast_floats(llava_frontend.params_from_numpy(
+        numpy_projector(vcfg.hidden_size, cfg.hidden_size, seed=2, scale=0.05), device), dtype)
+    model = apply_framefusion(FrameFusionModel(family="llava_video", cfg=cfg, params=params), 0.3, 0.95, 0.1)
+    model.ff = model.ff.replace(schedule_num_layers=cfg.num_layers, bucket=32)
+    pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg, projector=proj)
+    frames = half_static_frames(np.random.default_rng(6), 12, 45, 61)
+    launches = ba.bidir_attn_fwd.launches
+    feats = llava_frontend.encode_video(vit, vcfg, proj, pipe._prepare_frames(frames))
+    toks = [int(t) for t in pipe.ask(QUESTION, frames=frames, max_new_tokens=8).split()]
+    res = pipe.last_result
+    return (feats.float().cpu(), [(e.layer, e.kind, e.tokens_removed) for e in res.telemetry.events],
+            [c[2] for c in res.layer_caches], toks, ba.bidir_attn_fwd.launches - launches)
+
+
+def phase_cross_vision(chk: Checks) -> None:
+    cpu = tiny_vision_run("cpu", torch.bfloat16)
+    gpu = tiny_vision_run("cuda", torch.bfloat16)
+    rel = float((cpu[0] - gpu[0]).abs().max() / cpu[0].abs().max())
+    log(f"  cpu events {cpu[1]} tokens {cpu[3]}; cuda events {gpu[1]} tokens {gpu[3]}")
+    chk.expect(rel <= FEATURE_RTOL, f"cross vision: frontend features differ by {rel:.3e} of their largest "
+                                    f"<= {FEATURE_RTOL}")
+    chk.expect(cpu[1] == gpu[1] and cpu[2] == gpu[2], "cross vision: events and cache lengths equal")
+    chk.expect(cpu[3] == gpu[3], "cross vision: greedy tokens equal")
+    chk.expect(len(set(gpu[3])) >= 3, f"cross vision: the tokens vary ({len(set(gpu[3]))} distinct of 8)")
+    chk.expect(len(cpu[1]) > 1, f"cross vision: the scenario compresses ({len(cpu[1])} events)")
+    chk.expect(cpu[4] == 0 and gpu[4] > 0, f"cross vision: kernel E launched on the card only ({gpu[4]} launches)")
+
+
+def phase_pixels(chk: Checks, kernels: dict) -> None:
+    from framefusion_tpu_torch import native, preprocess
+    from framefusion_tpu_torch.config import qwen2_7b_config
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.vision import llava_frontend, siglip
+    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+    from framefusion_tpu_torch.pipeline import TextPipeline
+
+    t0 = time.perf_counter()
+    native.load(required=True)
+    log(f"  native preprocessing built and loaded in {time.perf_counter() - t0:.1f} s")
+    cfg = qwen2_7b_config()
+    vcfg = siglip.ViTConfig(dtype=torch.bfloat16)  # so400m@384/14: 27 layers, 1152 wide, 16 heads
+    torch.cuda.reset_peak_memory_stats()
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    vit = siglip.init_params(vcfg, torch.Generator(device="cuda").manual_seed(1))
+    proj = llava_frontend.init_projector(torch.Generator(device="cuda").manual_seed(2), vcfg.hidden_size,
+                                         cfg.hidden_size, dtype=torch.bfloat16)
+    frames = coherent_frames(np.random.default_rng(0), 64, 360, 480)
+    pre = preprocess.preprocess_frames(frames[:2], "llava_video", target=(384, 384), impl="native")
+    pre_np = preprocess.preprocess_frames(frames[:2], "llava_video", target=(384, 384), impl="numpy")
+    perr = float(np.abs(pre - pre_np).max())
+    chk.expect(pre.shape == (2, 384, 384, 3) and perr <= 1e-4,
+               f"native preprocessing 360x480 -> 384x384 equals numpy's within 1e-4 ({perr:.2e})")
+
+    model = FrameFusionModel(family="llava_video", cfg=cfg, params=params,
+                             vision={"kind": "siglip", "cfg": vcfg, "params": vit, "projector": proj})
+    pipes = {"framefusion": apply_framefusion(model, 0.3, 0.6, 0.1), "dense": model}
+    pipes = {k: TextPipeline(model=m, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg, projector=proj)
+             for k, m in pipes.items()}
+    inputs = pipes["framefusion"].build_inputs(QUESTION, frames=frames)
+    chk.expect(inputs.image_token_length == 64 * 182 and inputs.patch_num == 182,
+               f"prompt: {inputs.image_token_length} vision tokens (64 x 182) of {inputs.input_embeds.shape[0]}")
+    chk.expect(bool(torch.isfinite(inputs.input_embeds).all()), "prompt embeddings finite")
+    del inputs
+
+    wrappers = {"flash_attn_fwd": fp.flash_attn_fwd, "attn_importance_rows": fp.attn_importance_rows,
+                "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup, "bidir_attn_fwd": ba.bidir_attn_fwd}
+    for w in wrappers.values():
+        w.launches = 0
+    answer = pipes["framefusion"].ask(QUESTION, frames=frames, max_new_tokens=8)
+    torch.cuda.synchronize()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    kernels["bidir_attn_fwd"]["launches"] = counts["bidir_attn_fwd"]
+    log(f"  framefusion ask: launches {counts}")
+    n_enc = (vcfg.num_layers - 1) * 4  # feature layer -2 runs 26 blocks, 4 batches of 16 frames
+    chk.expect(counts["bidir_attn_fwd"] == n_enc, f"bidir_attn_fwd: {counts['bidir_attn_fwd']} launches in the "
+                                                 f"pixels-to-answer run (26 layers x 4 batches = {n_enc})")
+    res = pipes["framefusion"].last_result
+    toks = [int(t) for t in answer.split()]
+    ev = [(e.layer, e.kind, e.tokens_removed) for e in res.telemetry.events]
+    for name, n in counts.items():
+        if name == "bidir_attn_fwd":
+            continue  # held to its exact count above
+        if name == "attn_importance_rows" and not any(e[1] == "prune" for e in ev):
+            log(f"  attn_importance_rows: {n} launches (no prune event in this run: kernel B is not on its path)")
+            continue
+        chk.expect(n > 0, f"{name}: {n} launches in the pixels-to-answer run")
+    log(f"  framefusion: events {ev}, final length {res.valid_len}, vision-token reduction "
+        f"{res.telemetry.vision_token_reduction:.4f}, tokens {toks}")
+    chk.expect(bool(torch.isfinite(res.logits).all()) and len(toks) == 8
+               and all(0 <= t < cfg.vocab_size for t in toks), "framefusion: logits finite, 8 tokens in the vocabulary")
+    chk.expect(len(ev) > 0 and res.valid_len < 11648, "framefusion: the prompt was compressed")
+    answer_d = pipes["dense"].ask(QUESTION, frames=frames, max_new_tokens=8)
+    toks_d = [int(t) for t in answer_d.split()]
+    log(f"  dense: tokens {toks_d}")
+    chk.expect(bool(torch.isfinite(pipes["dense"].last_result.logits).all()) and len(toks_d) == 8,
+               "dense: logits finite, 8 tokens")
+
+    pre_all = pipes["framefusion"]._prepare_frames(frames)
+    feats = llava_frontend.encode_video(vit, vcfg, proj, pre_all)
+    t_enc = cuda_time_ms(lambda: llava_frontend.encode_video(vit, vcfg, proj, pre_all), iters=3, warmup=1)
+    t_ff = cuda_time_ms(lambda: pipes["framefusion"].ask(QUESTION, frames=frames, max_new_tokens=8), iters=3, warmup=1)
+    t_dense = cuda_time_ms(lambda: pipes["dense"].ask(QUESTION, frames=frames, max_new_tokens=8), iters=3, warmup=1)
+    log(f"  encode ms (64 frames, preprocessed; CUDA events, mean of 3): {t_enc:.2f}")
+    log(f"  pixels-to-answer ms (64 uint8 frames -> 8 tokens; CUDA events, mean of 3): framefusion {t_ff:.2f}, "
+        f"dense {t_dense:.2f}, dense / framefusion {t_dense / t_ff:.3f}")
+    log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # The W8A8 tower: the tower's stacks become int8 pairs in place, so this runs last.
+    siglip.quantize_tower_int8(vit)
+    feats_q = llava_frontend.encode_video(vit, vcfg, proj, pre_all, w8a8=True)
+    cos = torch.nn.functional.cosine_similarity(feats_q.float().flatten(), feats.float().flatten(), dim=0).item()
+    t_enc_q = cuda_time_ms(lambda: llava_frontend.encode_video(vit, vcfg, proj, pre_all, w8a8=True),
+                           iters=3, warmup=1)
+    log(f"  W8A8 tower: encode {t_enc_q:.2f} ms (bf16 {t_enc:.2f}), cosine to the bf16 features {cos:.5f}")
+    chk.expect(feats_q.shape == feats.shape and bool(torch.isfinite(feats_q).all()),
+               "W8A8 tower: features finite, same shape")
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -409,11 +655,14 @@ def main() -> int:
                          "source": "framefusion_tpu_torch/csrc/matvec.cu"},
         "gemv_gateup": {"replaces": "framefusion_tpu/ops/kernels/matvec_q8.py:333",
                         "source": "framefusion_tpu_torch/csrc/matvec.cu"},
+        "bidir_attn_fwd": {"replaces": "framefusion_tpu/ops/kernels/bidir_attention.py:72",
+                           "source": "framefusion_tpu_torch/csrc/bidir_attention.cu"},
     }
     for k in kernels.values():  # every number is filled in by this run's phases
         k.update(route="cuda", launches=None, max_abs_err=None, ms=None, plain_ms=None)
     phases = {"device": lambda: phase_device(chk), "kernels": lambda: phase_kernels(chk, kernels),
-              "cross": lambda: phase_cross(chk), "full": lambda: phase_full(chk, kernels)}
+              "cross": lambda: phase_cross(chk), "full": lambda: phase_full(chk, kernels),
+              "cross_vision": lambda: phase_cross_vision(chk), "pixels": lambda: phase_pixels(chk, kernels)}
     t_start = time.perf_counter()
     for phase, run in phases.items():
         log(f"== {phase} ({time.perf_counter() - t_start:.1f} s)")

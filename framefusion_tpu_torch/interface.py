@@ -40,13 +40,17 @@ FAMILIES = {
 @dataclasses.dataclass
 class FrameFusionModel:
     """A language model's params and config plus (optionally) a FrameFusion
-    config. ``attn_impl`` is "flash" (hand-written kernels; plain versions
-    for CPU tensors) or "einsum" (plain reference)."""
+    config. ``vision`` may hold a vision tower for pixels-to-answer
+    pipelines (``{"kind", "cfg", "params", "projector"}``, as
+    ``weights.load_checkpoint`` attaches it). ``attn_impl`` is "flash"
+    (hand-written kernels; plain versions for CPU tensors) or "einsum"
+    (plain reference), for the decoder and the tower alike."""
 
     family: str
     cfg: LLMConfig
     params: dict
     ff: Optional[FrameFusionConfig] = None
+    vision: Optional[dict] = None
     attn_impl: str = "flash"
     pool_layers: int = 8
     _engine: Optional[CompressionEngine] = dataclasses.field(default=None, repr=False)
@@ -86,6 +90,25 @@ class FrameFusionModel:
         tokens = self.engine().generate(result, max_new_tokens, eos_token_id=eos_token_id,
                                         sampler=sampler, generator=generator)
         return tokens, result
+
+
+# Adapters ported so far; the other families are ROADMAP Queue 1 item 11.
+_PORTED_ADAPTERS = ("llava_video",)
+
+
+def get_token_type(family: str):
+    """The family's prompt-metadata module: the adapter, whose
+    ``build_prefill_inputs`` derives the patch types without enabling
+    compression (the reference's ``get_token_type``)."""
+    import importlib
+
+    if family not in FAMILIES:
+        raise NotImplementedError(f"Model family not supported: {family}")
+    module = FAMILIES[family].adapter_module
+    if module not in _PORTED_ADAPTERS:
+        raise NotImplementedError(f"{family}: its adapter is not ported to PyTorch yet "
+                                  "(ROADMAP Queue 1 item 11: the other families)")
+    return importlib.import_module(f".models.adapters.{module}", __package__)
 
 
 def apply_framefusion(model, cost, similarity_lower_bound, ratio_lower_bound):

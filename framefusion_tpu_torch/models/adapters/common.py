@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ...core.constants import TEXT_TOKEN
 
@@ -26,6 +27,15 @@ class PrefillInputs:
     image_token_start: int
     image_token_length: int
     num_importance_queries: int = 1
+
+
+def splice_embeddings(text_embeds, insert_pos: int, media_embeds):
+    """Insert media embeddings at ``insert_pos``, replacing one placeholder
+    row: tensors splice with ``torch.cat`` (on their device), numpy arrays
+    with ``np.concatenate``."""
+    if isinstance(text_embeds, torch.Tensor):
+        return torch.cat([text_embeds[:insert_pos], media_embeds, text_embeds[insert_pos + 1 :]])
+    return np.concatenate([text_embeds[:insert_pos], media_embeds, text_embeds[insert_pos + 1 :]], axis=0)
 
 
 def contiguous_patch_type(total_len: int, start: int, patch_num: int, n_frames: int) -> np.ndarray:

@@ -110,10 +110,32 @@ def positions_cos_sin(position_ids: torch.Tensor, cfg: LLMConfig):
     return rope_cos_sin(position_ids, cfg.head_dim_, cfg.rope_theta)
 
 
-def mm(x: torch.Tensor, w) -> torch.Tensor:
+def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 (M, K) @ int8 (K, N) -> int32. On the card
+    ``torch._int_mm`` (which takes M > 16 and K, N multiples of 8; short
+    inputs are padded with zero rows); on the CPU an int32 matmul."""
+    if a.device.type != "cuda":
+        return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+    m = a.shape[0]
+    if m <= 16:
+        a = torch.cat([a, a.new_zeros((17 - m, a.shape[1]))])
+    return torch._int_mm(a, b)[:m]
+
+
+def mm(x: torch.Tensor, w, w8a8: bool = False) -> torch.Tensor:
     """x @ w for a dense (K, O) matrix or an int8 pair {"q8", "scale"}; the
-    per-output-channel scale factors out of the contraction exactly."""
+    per-output-channel scale factors out of the contraction exactly.
+
+    ``w8a8=True`` (with an int8 pair) also quantizes the activations per row
+    (symmetric int8, scale rowmax/127) and contracts int8 x int8 -> int32
+    exactly, then descales; a dense ``w`` ignores it."""
     if isinstance(w, dict):
+        if w8a8:
+            xf = x.to(torch.float32)
+            s_x = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-12)
+            x_q = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
+            acc = _int8_matmul(x_q.reshape(-1, x.shape[-1]), w["q8"]).reshape(*x.shape[:-1], -1)
+            return (acc.to(torch.float32) * s_x * w["scale"]).to(x.dtype)
         y = torch.matmul(x, w["q8"].to(x.dtype)).to(torch.float32)
         return (y * w["scale"]).to(x.dtype)
     return x @ w

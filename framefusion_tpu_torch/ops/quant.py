@@ -8,6 +8,7 @@ weight is the pair ``{"q8": int8 (..., K, O), "scale": fp32 (..., O)}``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 QUANTIZED_LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -35,6 +36,17 @@ def quantize_weight(w: torch.Tensor) -> dict:
     for i in range(w.shape[0]):
         q8[i], scale[i] = _quantize_2d(w[i])
     return {"q8": q8, "scale": scale}
+
+
+def quantize_weight_host(w) -> dict:
+    """Host (numpy) twin of :func:`quantize_weight` for quantize-on-load, so
+    the device never holds the bf16 originals. Same math (fp32 max/127 per
+    output channel, round half to even, clip to +-127). Returns numpy
+    {"q8", "scale"}; the caller uploads."""
+    w32 = np.asarray(w, dtype=np.float32)
+    scale = np.maximum(np.max(np.abs(w32), axis=-2, keepdims=True) / 127.0, 1e-12)
+    q8 = np.clip(np.rint(w32 / scale), -127, 127).astype(np.int8)
+    return {"q8": q8, "scale": scale.squeeze(-2).astype(np.float32)}
 
 
 def quantize_params_int8(params: dict) -> dict:
