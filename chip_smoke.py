@@ -9,7 +9,8 @@ Phases, each printed as it runs; every run makes all of them:
 1. device  — the card's name and power limit (nvidia-smi), then the kernels'
              build from ``framefusion_tpu_torch/csrc`` and its time.
 2. kernels — each hand-written kernel against its plain PyTorch version on
-             the card, at the main path's shapes, with the stated bound, and
+             the card, at the main path's shapes (and, for kernel F, at small
+             odd shapes covering its edge cases), with the stated bound, and
              both timed with CUDA events.
 3. cross   — a tiny bf16 model, its weights drawn with numpy from a seed,
              through the compressed prefill and greedy decode twice: plain
@@ -33,6 +34,22 @@ Phases, each printed as it runs; every run makes all of them:
              FrameFusion and dense, encode and pixels-to-answer times, kernel
              launch counts read around the FrameFusion run, then the W8A8
              tower once.
+7. cross_baselines — the tiny model of phase 3 through every baseline
+             method (FastV, StreamingLLM with kernel F, fixed-schedule merging,
+             merge->FastV, FastV->merge, the sink-cache decode) via
+             replace_forward + generate: plain versions on the CPU, kernels on
+             the card. Events, cache lengths and tokens are equal; the
+             prefill logits, and the sink-cache decode's last-step logits,
+             agree within the bf16 bound. The weights give every token one
+             clear successor, so the tokens hold by construction (they do not
+             depend on the method either): the logits bounds are what can fail.
+8. baselines — the paper's method comparison at full width: random Qwen2-7B
+             weights (bf16) and the 64-frame prompt through dense,
+             FrameFusion and the six baseline settings of
+             scripts/example_baselines.py: prefill times, tokens kept, 8 greedy
+             tokens each; kernel launch counts read around the whole
+             comparison, kernel F's around each StreamingLLM prefill; then F
+             against its plain version on that prefill's layer-0 q, k, v.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -44,6 +61,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -70,7 +88,9 @@ IMP_RTOL = 1e-4
 #   output's largest magnitude.
 GEMV_RTOL = 1e-4
 # * Kernel E (bidirectional attention) rounds its probabilities and outputs
-#   to bf16 like kernel A, and is held per (row, head) to ATTN_ROW_RTOL too.
+#   to bf16 like kernel A, and is held per (row, head) to ATTN_ROW_RTOL too;
+#   so is kernel F (StreamingLLM sink + window attention), which computes
+#   like A over fewer keys.
 # * The cross-device vision run: the tiny tower's bf16 frontend features
 #   differ from its fp32 run by 6.7e-3 of the largest feature on the CPU
 #   (same numpy weights and frames); the card's bf16 run rounds elsewhere
@@ -122,10 +142,43 @@ def phase_device(chk: Checks) -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     lib_path, seconds = _build.build()
     log(f"kernel build: {seconds:.1f} s -> {lib_path.name}")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name, usage in ptxas_usage(lib_path.with_suffix(".log").read_text()):
+        log(f"  ptxas: {name}: {usage}")
     _build.load_library()
+
+
+def _kernel_name(mangled: str) -> str:
+    """Short name of a mangled ``namespace::kernel<arg>``: the last name of
+    the nested-name, with its template argument (an int, or the uint16_t /
+    int8_t element type of the bf16 / int8 instantiations)."""
+    i, name = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    arg = re.match(r"I(?:Li(\d+)|([ta]))E", mangled[i:])
+    if arg is None:
+        return name
+    return f"{name}<{arg.group(1) or {'t': 'bf16', 'a': 'int8'}[arg.group(2)]}>"
+
+
+def ptxas_usage(log_text: str) -> list:
+    """(kernel, "registers, shared memory, spills") per kernel of nvcc's
+    ``-Xptxas -v`` output."""
+    out, name, spills = [], None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and name is not None:
+            usage = line.split(":", 1)[1].strip() if ":" in line else line.strip()
+            out.append((name, f"{usage}; {spills}"))
+            name = None
+    return out
 
 
 def _max_err(entry: dict, err: float) -> None:
@@ -142,6 +195,7 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
     from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
     from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
     from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+    from framefusion_tpu_torch.ops.kernels import sink_prefill as sp
     from framefusion_tpu_torch.ops.quant import quantize_weight
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -285,6 +339,42 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
         if hd == 72:
             kernels["bidir_attn_fwd"].update(ms=t_k, plain_ms=t_p)
         del q, k, v, out, ref
+
+    # -- kernel F at the StreamingLLM prefill's full-width shapes (S 11,697,
+    # init 8, window int(0.3 S) - 8; S 11,776, the bucket-padded length the
+    # prefill launches F at) and at small odd shapes ------------------------
+    for s, hq_, hk_, init_num, window in (
+            (11697, hq, hk, 8, int(0.3 * 11697) - 8),
+            (11776, hq, hk, 8, int(0.3 * 11697) - 8),
+            (200, 4, 4, 8, 24),  # G = 1
+            (333, hq, hk, 8, 1),  # the diagonal and the sinks only
+            (301, 14, 2, 0, 50),  # no sink keys
+            (517, hq, hk, 100, 30),  # init_num > window: sink and window tiles overlap
+            (190, hq, hk, 8, 4096)):  # window >= S: causal attention, as kernel A
+        q, k, v = _rand(gen, (s, hq_, d)), _rand(gen, (s, hk_, d)), _rand(gen, (s, hk_, d))
+        out = sp.sink_attn_fwd(q, k, v, init_num, window)
+        refs = {"plain": sp.sink_attn_fwd_plain(q, k, v, init_num, window)}
+        if window >= s:
+            refs["kernel A"] = fp.flash_attn_fwd(q, k, v)[0]
+        torch.cuda.synchronize()
+        tag = f"F S={s} Hq={hq_} Hk={hk_} init={init_num} window={window}"
+        for name, ref in refs.items():
+            err_rh = (out.float() - ref.float()).abs().amax(-1)  # (S, Hq)
+            rel = (err_rh / ref.float().abs().amax(-1).clamp(min=1e-30)).max().item()
+            chk.expect(rel <= ATTN_ROW_RTOL, f"{tag} vs {name}: max_abs_err {err_rh.max().item():.3e}; per (row, "
+                                             f"head) error / its largest output: max {rel:.3e} <= {ATTN_ROW_RTOL}")
+        _max_err(kernels["sink_attn_fwd"], (out.float() - refs["plain"].float()).abs().max().item())
+        if s == 11697:
+            t_k = cuda_time_ms(lambda: sp.sink_attn_fwd(q, k, v, init_num, window), iters=10)
+            t_p = cuda_time_ms(lambda: sp.sink_attn_fwd_plain(q, k, v, init_num, window), iters=2, warmup=1)
+            t_a = cuda_time_ms(lambda: fp.flash_attn_fwd(q, k, v), iters=10)
+            rows = np.arange(s)
+            keys = np.minimum(rows + 1, window) + np.minimum(init_num, np.maximum(rows - window + 1, 0))
+            tflops = 4 * hq_ * d * float(keys.sum()) / (t_k * 1e-3) / 1e12
+            log(f"  {tag}: kernel {t_k:.3f} ms ({tflops:.1f} TFLOP/s), plain {t_p:.3f} ms; kernel A (causal) at "
+                f"this S {t_a:.3f} ms, F / A {t_k / t_a:.3f}")
+            kernels["sink_attn_fwd"].update(ms=t_k, plain_ms=t_p)
+        del q, k, v, out, refs
 
 
 def phase_cross(chk: Checks) -> None:
@@ -630,6 +720,193 @@ def phase_pixels(chk: Checks, kernels: dict) -> None:
                "W8A8 tower: features finite, same shape")
 
 
+def baseline_methods(n_layers: int) -> dict:
+    """The paper's comparison methods with ``scripts/example_baselines.py``'s
+    settings: name -> (replace_forward mode, its keyword arguments)."""
+    return {
+        "fastv": ("fastv", dict(fastv_k=3, fastv_r=0.5)),
+        "streamingllm": ("streamingllm", dict(init_num=8, length_rate=0.3)),
+        "prefill_merge": ("prefill_merge", dict(sparsity=[0.1] * n_layers)),
+        "merge_then_fastv": ("merge_then_fastv", dict(sparsity=[0.1] * n_layers, fastv_k=3, fastv_r=0.5)),
+        "fastv_then_merge": ("fastv_then_merge", dict(fastv_k=2, fastv_r=0.75, merging_sparsity=0.3)),
+        "streamingllm_sink_decode": ("streamingllm", dict(init_num=8, length_rate=0.3, sink_cache_decode=True)),
+    }
+
+
+def readout_params(cfg, seed: int, resid_scale: float) -> dict:
+    """``numpy_params`` with a decisive readout: embeddings of unit scale, an
+    LM head whose column j is embedding perm[j] (so a token's successor is
+    fixed, by a logit margin of over half the largest logit), and blocks
+    that write to the residual stream at ``resid_scale``. Greedy tokens then
+    survive any bf16 rounding, while attention and compression still move
+    the logits by far more than the bf16 bound."""
+    tree = numpy_params(cfg, seed=seed, scale=0.05)
+    tree["embed"] *= np.float32(20.0)
+    perm = np.random.default_rng(seed + 1).permutation(cfg.vocab_size)
+    tree["lm_head"] = np.ascontiguousarray(tree["embed"][perm].T) / np.float32(20.0)
+    for name in ("wo", "w_down"):
+        tree["layers"][name] *= np.float32(resid_scale / 0.05)
+    return tree
+
+
+def tiny_baselines_run(device: str, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Every baseline method through replace_forward + generate(8) on the
+    tiny geometry of phase 3 with ``readout_params`` weights, on a 331-token
+    prompt (40 frames x 8 patches, ending in a vocabulary token) whose merges
+    and prunes cross bucket bounds. Returns name -> (events, cache lengths,
+    tokens, prefill logits fp32 on the CPU, the sink-cache decode's last
+    logits fp32 on the CPU or None), and the number of kernel F launches
+    under "F"."""
+    from framefusion_tpu_torch.baselines import replace_forward
+    from framefusion_tpu_torch.config import tiny_llm_config
+    from framefusion_tpu_torch.interface import FrameFusionModel
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.adapters.common import PrefillInputs, build_video_prompt
+    from framefusion_tpu_torch.ops.kernels import sink_prefill as sp
+
+    cfg = tiny_llm_config(num_layers=6, hidden_size=512, intermediate_size=1024, num_heads=4, num_kv_heads=2,
+                          dtype=dtype)
+    tree = readout_params(cfg, seed=0, resid_scale=0.03)
+    params = _cast_floats(qwen2.params_from_numpy(tree, device), dtype)
+    h, pt, img_start, n_img = build_video_prompt(np.random.default_rng(5), cfg.hidden_size, n_frames=40,
+                                                 patch_num=8, n_pre=6, n_post=5)
+    h[-1] = tree["embed"][7]
+    inputs = PrefillInputs(input_embeds=torch.from_numpy(h), patch_type=pt, position_ids=np.arange(len(pt)),
+                           patch_num=8, image_token_start=img_start, image_token_length=n_img)
+    model = FrameFusionModel(family="llava_video", cfg=cfg, params=params)
+    launches = sp.sink_attn_fwd.launches
+    out = {}
+    for name, (mode, kw) in baseline_methods(cfg.num_layers).items():
+        m = replace_forward(model, mode, **kw)
+        toks, res = m.generate(inputs, max_new_tokens=8)
+        decode_logits = m.engine().sink_cache_decode(res, 8)[1].float().cpu() if kw.get("sink_cache_decode") else None
+        out[name] = ([(e.layer, e.kind, e.tokens_removed) for e in res.telemetry.events],
+                     [c[2] for c in res.layer_caches], toks, res.logits.float().cpu(), decode_logits)
+    out["F"] = sp.sink_attn_fwd.launches - launches
+    return out
+
+
+def phase_cross_baselines(chk: Checks) -> None:
+    """Every method on the CPU (plain versions) and on the card (kernels).
+    With ``readout_params`` the greedy tokens hold by construction, so the
+    token check only guards against a gross fault; the logits bounds are the
+    checks that can fail: the prefill's for every method, and the last decode
+    step's for the sink-cache decode, which shows in nothing else."""
+    cpu = tiny_baselines_run("cpu")
+    gpu = tiny_baselines_run("cuda")
+    for name in baseline_methods(6):
+        c, g = cpu[name], gpu[name]
+        rel = float((c[3] - g[3]).abs().max() / c[3].abs().max())
+        log(f"  {name}: events {g[0]}, cache lengths {g[1]}; cpu tokens {c[2]}, cuda tokens {g[2]}")
+        chk.expect(c[0] == g[0] and c[1] == g[1], f"cross {name}: events and cache lengths equal")
+        chk.expect(c[2] == g[2], f"cross {name}: greedy tokens equal")
+        chk.expect(rel <= LOGIT_RTOL, f"cross {name}: prefill logits differ by {rel:.3e} of their largest "
+                                      f"<= {LOGIT_RTOL}")
+        if c[4] is not None:
+            rel_d = float((c[4] - g[4]).abs().max() / c[4].abs().max())
+            chk.expect(rel_d <= LOGIT_RTOL, f"cross {name}: the last decode step's logits differ by {rel_d:.3e} of "
+                                            f"their largest <= {LOGIT_RTOL}")
+    chk.expect(cpu["F"] == 0 and gpu["F"] == 12, f"cross: kernel F launched on the card only, once per layer of "
+                                                 f"the two StreamingLLM prefills ({cpu['F']}, {gpu['F']})")
+
+
+def phase_baselines(chk: Checks, kernels: dict) -> None:
+    """The paper's method comparison at full width: random Qwen2-7B weights
+    (bf16, drawn afresh: phase 4 quantized its own), the 64-frame prompt,
+    every method's prefill and 8 greedy tokens."""
+    from framefusion_tpu_torch.baselines import replace_forward
+    from framefusion_tpu_torch.config import qwen2_7b_config
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.adapters.common import PrefillInputs, build_video_prompt
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+    from framefusion_tpu_torch.ops.kernels import sink_prefill as sp
+    from framefusion_tpu_torch.ops.rope import apply_rope
+
+    cfg = qwen2_7b_config()
+    torch.cuda.reset_peak_memory_stats()
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    h, pt, img_start, n_img = build_video_prompt(np.random.default_rng(0), cfg.hidden_size)
+    inputs = PrefillInputs(input_embeds=torch.from_numpy(h).to("cuda", torch.bfloat16), patch_type=pt,
+                           position_ids=np.arange(len(pt)), patch_num=182, image_token_start=img_start,
+                           image_token_length=n_img)
+    model = FrameFusionModel(family="llava_video", cfg=cfg, params=params)
+    methods = {"dense": model, "framefusion": apply_framefusion(model, 0.3, 0.6, 0.1)}
+    methods.update({name: replace_forward(model, mode, **kw) for name, (mode, kw) in
+                    baseline_methods(cfg.num_layers).items()})
+    wrappers = {"flash_attn_fwd": fp.flash_attn_fwd, "attn_importance_rows": fp.attn_importance_rows,
+                "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup, "sink_attn_fwd": sp.sink_attn_fwd}
+
+    for w in wrappers.values():
+        w.launches = 0
+    results = {}
+    for name, m in methods.items():
+        f0 = sp.sink_attn_fwd.launches
+        res = m.prefill(inputs)
+        torch.cuda.synchronize()
+        if getattr(m.engine(), "mode", None) == "streamingllm":
+            n_f = sp.sink_attn_fwd.launches - f0
+            chk.expect(n_f == cfg.num_layers, f"{name}: {n_f} kernel F launches in the prefill (one per layer)")
+        toks = m.engine().generate(res, 8)
+        results[name] = (res, toks)
+    torch.cuda.synchronize()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    kernels["sink_attn_fwd"]["launches"] = counts["sink_attn_fwd"]
+    log(f"  launches over the eight methods' prefill + generate(8): {counts}")
+    for name, n in counts.items():
+        chk.expect(n > 0, f"{name}: {n} launches in the method comparison")
+
+    # Kernel F on the tensors the StreamingLLM prefill gives it: layer 0's
+    # q, k, v at the bucket-padded length, with the prefill's sink and window.
+    eng = methods["streamingllm"].engine()
+    h0, _, pos0, _ = eng._prep_inputs(inputs.input_embeds, pt, inputs.position_ids)
+    lp = qwen2.layer_slice(params["layers"], 0)
+    q, k, v = qwen2._project_qkv(lp, qwen2.rmsnorm(h0, lp["ln1"], cfg.rms_norm_eps), cfg)
+    q, k = apply_rope(q, k, *qwen2.positions_cos_sin(pos0, cfg))
+    window = int(0.3 * len(pt)) - 8
+    out, ref = sp.sink_attn_fwd(q, k, v, 8, window).float(), sp.sink_attn_fwd_plain(q, k, v, 8, window).float()
+    err_rh = (out - ref).abs().amax(-1)
+    rel = (err_rh / ref.abs().amax(-1).clamp(min=1e-30)).max().item()
+    _max_err(kernels["sink_attn_fwd"], err_rh.max().item())
+    chk.expect(rel <= ATTN_ROW_RTOL, f"F on the StreamingLLM prefill's layer-0 q, k, v (S={q.shape[0]}, window "
+                                     f"{window}): max_abs_err {err_rh.max().item():.3e}; per (row, head) error / its "
+                                     f"largest output: max {rel:.3e} <= {ATTN_ROW_RTOL}")
+    del h0, q, k, v, out, ref, err_rh
+
+    for name, m in methods.items():
+        res, toks = results[name]
+        t_pre = cuda_time_ms(lambda: m.prefill(inputs), iters=3, warmup=1)
+        tel = res.telemetry
+        reduction = tel.vision_token_reduction if tel is not None else 0.0
+        log(f"  {name}: prefill {t_pre:.2f} ms (CUDA events, mean of 3), tokens kept {res.valid_len} of {len(pt)}, "
+            f"vision-token reduction {reduction:.4f}, tokens {toks}")
+        chk.expect(bool(torch.isfinite(res.logits).all()) and res.logits.shape == (cfg.vocab_size,)
+                   and len(toks) == 8 and all(0 <= t < cfg.vocab_size for t in toks),
+                   f"{name}: logits finite, 8 tokens in the vocabulary")
+    t_gen = cuda_time_ms(lambda: methods["streamingllm_sink_decode"].engine().generate(
+        results["streamingllm_sink_decode"][0], 8), iters=3, warmup=1)
+    log(f"  sink-cache decode: generate(8) {t_gen:.2f} ms = {t_gen / 7:.2f} ms per decode step")
+
+    # A window over the whole prompt makes the sink mask causal: the first
+    # token must be dense's.
+    # FastV keeping every token is a causal prefill (kernel A) at the same
+    # padded length as StreamingLLM's.
+    full = replace_forward(model, "streamingllm", init_num=8, length_rate=1.0).prefill(inputs)
+    causal = replace_forward(model, "fastv", fastv_k=3, fastv_r=0.0).prefill(inputs)
+    dense = results["dense"][0].logits
+    rel = float((full.logits - dense).abs().max() / dense.abs().max())
+    rel_c = float((full.logits - causal.logits).abs().max() / causal.logits.abs().max())
+    top2 = torch.topk(dense, 2).values
+    tok_s, tok_d = int(torch.argmax(full.logits)), int(torch.argmax(dense))
+    chk.expect(tok_s == tok_d, f"streamingllm length_rate 1.0: first token {tok_s} == dense's {tok_d} (logits "
+                               f"differ by {rel:.3e} of their largest; dense's top-2 margin "
+                               f"{float(top2[0] - top2[1]):.4f})")
+    chk.expect(rel_c <= LOGIT_RTOL, f"streamingllm length_rate 1.0: logits differ from the causal prefill at the "
+                                    f"same padded length (FastV keeping every token) by {rel_c:.3e} <= {LOGIT_RTOL}")
+    log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -657,12 +934,16 @@ def main() -> int:
                         "source": "framefusion_tpu_torch/csrc/matvec.cu"},
         "bidir_attn_fwd": {"replaces": "framefusion_tpu/ops/kernels/bidir_attention.py:72",
                            "source": "framefusion_tpu_torch/csrc/bidir_attention.cu"},
+        "sink_attn_fwd": {"replaces": "framefusion_tpu/ops/kernels/sink_prefill.py:102",
+                          "source": "framefusion_tpu_torch/csrc/sink_prefill.cu"},
     }
     for k in kernels.values():  # every number is filled in by this run's phases
         k.update(route="cuda", launches=None, max_abs_err=None, ms=None, plain_ms=None)
     phases = {"device": lambda: phase_device(chk), "kernels": lambda: phase_kernels(chk, kernels),
               "cross": lambda: phase_cross(chk), "full": lambda: phase_full(chk, kernels),
-              "cross_vision": lambda: phase_cross_vision(chk), "pixels": lambda: phase_pixels(chk, kernels)}
+              "cross_vision": lambda: phase_cross_vision(chk), "pixels": lambda: phase_pixels(chk, kernels),
+              "cross_baselines": lambda: phase_cross_baselines(chk),
+              "baselines": lambda: phase_baselines(chk, kernels)}
     t_start = time.perf_counter()
     for phase, run in phases.items():
         log(f"== {phase} ({time.perf_counter() - t_start:.1f} s)")

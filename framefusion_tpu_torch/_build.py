@@ -87,6 +87,7 @@ ENTRY_POINTS = {
     "ff_gemv_gateup": [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
     "ff_gemv_max_kchunk": [],
     "ff_bidir_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "ff_sink_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 

@@ -75,3 +75,48 @@ def apply_merge(hidden: torch.Tensor, marked_pm: torch.Tensor, order: torch.Tens
     merged = merged_pm[inv_order].to(hidden.dtype)
     keep = (~marked_pm)[inv_order]
     return merged, keep
+
+
+def apply_merge_weighted(hidden: torch.Tensor, weights: torch.Tensor, marked_pm: torch.Tensor,
+                         order: torch.Tensor):
+    """Mass-weighted run merging (the merge->FastV baseline): each token
+    carries the number of original tokens it stands for; a run head becomes
+    the mass-weighted mean of itself and its run, and its mass the run's
+    total.
+
+    Args:
+        hidden: (S, D); weights: (S,) fp32 per-token mass (original order);
+            marked_pm, order: as ``apply_merge``.
+
+    Returns:
+        (merged, new_weights, keep), all in original order.
+    """
+    s, d = hidden.shape
+    dev = hidden.device
+    pos = torch.arange(s, device=dev)
+    inv_order = inverse_permutation(order)
+
+    h_pm = hidden[order].to(torch.float32)
+    w_pm = weights[order].to(torch.float32)
+    zero = torch.zeros((), device=dev)
+    contrib = torch.where(marked_pm[:, None], h_pm * w_pm[:, None], zero)
+    csum = torch.cumsum(contrib, dim=0)
+    wcsum = torch.cumsum(torch.where(marked_pm, w_pm, zero), dim=0)
+
+    unmarked_pos = torch.where(marked_pm, torch.full_like(pos, s), pos)
+    nu_at_or_after = torch.flip(torch.cummin(torch.flip(unmarked_pos, [0]), dim=0).values, [0])
+    nu_after = torch.cat([nu_at_or_after[1:], torch.full((1,), s, dtype=pos.dtype, device=dev)])
+    run_end = torch.clamp(nu_after - 1, 0, s - 1)
+
+    csum_pad = torch.cat([torch.zeros((1, d), dtype=torch.float32, device=dev), csum])
+    wcsum_pad = torch.cat([torch.zeros((1,), dtype=torch.float32, device=dev), wcsum])
+    seg_sum = csum_pad[run_end + 1] - csum_pad[pos + 1]
+    seg_w = wcsum_pad[run_end + 1] - wcsum_pad[pos + 1]
+
+    total_w = w_pm + seg_w
+    merged_pm = (h_pm * w_pm[:, None] + seg_sum) / total_w[:, None]
+    merged_pm = torch.where(marked_pm[:, None], h_pm, merged_pm)
+    w_new_pm = torch.where(marked_pm, w_pm, total_w)
+
+    merged = merged_pm[inv_order].to(hidden.dtype)
+    return merged, w_new_pm[inv_order], (~marked_pm)[inv_order]

@@ -73,8 +73,10 @@ class FrameFusionModel:
         return self._engine
 
     def prefill(self, inputs: PrefillInputs, mode: str = "fused") -> PrefillResult:
-        """Compressed prefill if FrameFusion is applied, dense otherwise."""
-        if self.ff is None:
+        """Compressed prefill if FrameFusion or a baseline
+        (``baselines.replace_forward``) is applied, dense otherwise."""
+        is_baseline = getattr(self.engine(), "mode", None) is not None
+        if self.ff is None and not is_baseline:
             return self.engine().dense_prefill(inputs.input_embeds, inputs.position_ids)
         return self.engine().prefill(
             inputs.input_embeds, inputs.patch_type, inputs.position_ids,

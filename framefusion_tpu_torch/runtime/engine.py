@@ -129,7 +129,8 @@ class PrefillResult:
     valid_len: int  # live tokens at stack output
     decode_pos_base: int  # first decode rotary position (= layer-0 cache length)
     telemetry: Optional[PrefillTelemetry]
-    # "fused", "planned", "planned_fallback_fused" or "dense".
+    # "fused", "planned", "planned_fallback_fused" or "dense"; a baseline
+    # engine's results carry its method ("fastv", "streamingllm", ...).
     mode: str = "fused"
     # Where planned buckets came from: "explicit", "history", "measured",
     # "analytic"; "cold" for a measured call that had nothing to measure.

@@ -27,6 +27,7 @@ from framefusion_tpu_torch import _build
 from framefusion_tpu_torch.ops.attention import capture_rows
 from framefusion_tpu_torch.ops.kernels import flash_prefill as tfp
 from framefusion_tpu_torch.ops.kernels import matvec_q8 as tmv
+from framefusion_tpu_torch.ops.kernels import sink_prefill as tsp
 
 ATTN_TOL = 1e-4
 MV_RTOL = 1e-5
@@ -243,3 +244,27 @@ def test_cuda_gemv_kernels_match_plain(cuda, dtype):
     got = tmv.gemv_gateup(x, stacks[0], wu, sg, sg, 1)
     ref = tmv.gemv_gateup_plain(x, stacks[0], wu, sg, sg, 1)
     assert got.shape == (2, 1024) and (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,hq,hk,init_num,window", [
+    (200, 4, 4, 8, 24),  # G = 1
+    (333, 28, 4, 8, 1),  # the diagonal and the sinks only
+    (301, 14, 2, 0, 50),  # no sink keys
+    (517, 28, 4, 100, 30),  # init_num > window: sink and window tiles overlap
+    (190, 28, 4, 8, 4096),  # window >= S: causal attention, as kernel A
+])
+def test_cuda_sink_kernel_matches_plain(cuda, s, hq, hk, init_num, window):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn((s, hq, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((s, hk, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((s, hk, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    launches = tsp.sink_attn_fwd.launches
+    out = tsp.sink_attn_fwd(q, k, v, init_num, window)
+    assert tsp.sink_attn_fwd.launches == launches + 1
+    refs = [tsp.sink_attn_fwd_plain(q, k, v, init_num, window)]
+    if window >= s:
+        refs.append(tfp.flash_attn_fwd(q, k, v)[0])
+    for ref in refs:  # per (row, head), relative to the row's largest output, as for kernel A
+        err = (out.float() - ref.float()).abs().amax(-1)
+        assert (err <= 2e-2 * ref.float().abs().amax(-1)).all()
