@@ -9,9 +9,18 @@ Phases, each printed as it runs; every run makes all of them:
 1. device  — the card's name and power limit (nvidia-smi), then the kernels'
              build from ``framefusion_tpu_torch/csrc`` and its time.
 2. kernels — each hand-written kernel against its plain PyTorch version on
-             the card, at the main path's shapes (and, for kernel F, at small
-             odd shapes covering its edge cases), with the stated bound, and
-             both timed with CUDA events.
+             the card, at the main path's shapes (and, for kernels F and G,
+             at small odd shapes covering their edge cases), with the stated
+             bound; kernel, plain version and one PyTorch call computing the
+             same function (the yardstick, where one exists) timed with CUDA
+             events (the short ones, B, C, D and G, over CUDA-graph replays,
+             so the host's launch overhead does not hide them), beside the
+             least time the card could take (bound_ms).
+2b. kernel_check — ``framefusion_tpu_torch.kernel_bench.check_kernels()``:
+             the JAX package's on-chip check matrix (every attention regime,
+             the importance epilogues, E, F, G, the matvecs at Qwen2-7B
+             shapes, and decode_step / decode_step_batch / verify_step /
+             verify_step_batch against each other), each row within its bound.
 3. cross   — a tiny bf16 model, its weights drawn with numpy from a seed,
              through the compressed prefill and greedy decode twice: plain
              versions on the CPU, kernels on the card. Events, cache lengths
@@ -21,6 +30,15 @@ Phases, each printed as it runs; every run makes all of them:
              LLaVA-Video prompt: apply_framefusion + generate (fused), the
              planned prefill + generate, and the dense prefill. Kernel launch
              counts are read around the fused run.
+4b. decode — the decode step with the ragged decode-attention kernel G on
+             phase 4's int8 model and FrameFusion prefill: "ragged" against
+             "flash" under teacher forcing (both fed the same token for 8
+             steps; the logits agree within the stated bound; G's launches
+             counted around the "ragged" steps, one per layer), then
+             ``kernel_bench.bench_decodestep``: ms/step of "einsum", "flash"
+             and "ragged" on a uniform pool and on the prefill's own caches,
+             with and without the tail split, the weight-stream floor and the
+             launches per step.
 5. cross_vision — a tiny SigLIP tower (head dim 72) and projector with the
              tiny LLM of phase 3, weights drawn with numpy, through
              TextPipeline.ask on uint8 frames: plain versions on the CPU,
@@ -51,8 +69,11 @@ Phases, each printed as it runs; every run makes all of them:
              comparison, kernel F's around each StreamingLLM prefill; then F
              against its plain version on that prefill's layer-0 q, k, v.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+The line before the last is a JSON object with one entry per kernel, built
+from ``framefusion_tpu_torch.ops.kernels`` (the TPU functions each stands
+for, its source): error, kernel / plain / library ms, bound_ms and what sets
+it, and the launches on its path (phase 4 for A-D, 6 for E, 8 for F, 4b for
+G); the last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. The script never runs on the CPU: without a CUDA device
 it exits at once.
 """
@@ -103,6 +124,11 @@ FEATURE_RTOL = 1.5e-2
 #   probabilities, other summation orders) may differ by up to about twice
 #   that.
 LOGIT_RTOL = 6e-2
+# * Phase 4b holds "ragged" decode against "flash" at full width: the two
+#   differ only in where the attention rounds (kernel G's fp32 split-K sums
+#   against the plain fp32 einsum, both rounded to bf16), two bf16 runs as
+#   above, so LOGIT_RTOL holds them too.
+
 
 
 def log(msg: str) -> None:
@@ -110,17 +136,10 @@ def log(msg: str) -> None:
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    """Mean device time of ``fn()`` over ``iters`` eager calls, by CUDA events."""
+    from framefusion_tpu_torch.kernel_bench import events_time_ms
+
+    return events_time_ms(fn, iters, warmup)
 
 
 class Checks:
@@ -185,14 +204,26 @@ def _max_err(entry: dict, err: float) -> None:
     entry["max_abs_err"] = err if entry["max_abs_err"] is None else max(entry["max_abs_err"], err)
 
 
+def _bound(entry: dict, nbytes: float, ops: float) -> float:
+    """Set ``entry``'s bound_ms and bound_by (``kernel_bench.bound_ms``: the
+    bytes to move over the memory rate or the operations over the bf16 rate,
+    whichever is larger) and return bound_ms."""
+    from framefusion_tpu_torch.kernel_bench import bound_ms
+
+    entry["bound_ms"], entry["bound_by"] = bound_ms(nbytes, ops)
+    return entry["bound_ms"]
+
+
 def _rand(gen, shape, dtype=torch.bfloat16, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32) * scale).to(dtype)
 
 
 def phase_kernels(chk: Checks, kernels: dict) -> None:
     from framefusion_tpu_torch.core import descending_rank
+    from framefusion_tpu_torch.kernel_bench import graph_time_ms, kernel_device_us, sdpa
     from framefusion_tpu_torch.ops.attention import capture_rows
     from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
+    from framefusion_tpu_torch.ops.kernels import decode_attention as da
     from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
     from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
     from framefusion_tpu_torch.ops.kernels import sink_prefill as sp
@@ -235,7 +266,17 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
         cases[s] = (q, k, kv, m, l)
         _max_err(kernels["flash_attn_fwd"], err)
         if s == 6528:
-            kernels["flash_attn_fwd"].update(ms=t_k, plain_ms=t_p)
+            # The data decides the work: the (row, key) pairs below the
+            # diagonal whose key is live.
+            pairs = float(torch.cumsum(kv.to(torch.int64), 0).sum())
+            t_b = _bound(kernels["flash_attn_fwd"], (2 * s * hq * d + 2 * s * hk * d) * 2 + s + 2 * hq * s * 4,
+                         4 * hq * d * pairs)
+            mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device="cuda")) & kv[None, :]
+            t_l = cuda_time_ms(lambda: sdpa(q, k, v, mask), iters=2, warmup=1)
+            del mask
+            log(f"  {tag}: bound {t_b:.3f} ms ({kernels['flash_attn_fwd']['bound_by']}), "
+                f"scaled_dot_product_attention (GQA, bool mask) {t_l:.3f} ms")
+            kernels["flash_attn_fwd"].update(ms=t_k, plain_ms=t_p, library_ms=t_l)
 
     # -- kernel B -------------------------------------------------------
     q, k, kv, m, l = cases[6528]
@@ -260,9 +301,14 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
         chk.expect(bool((keep == keep_p).all()), f"B {tag}: top-{n_keep} keep set equals the plain one")
         _max_err(kernels["attn_importance_rows"], err)
         if tag == "num=1":
-            t_k = cuda_time_ms(lambda: fp.attn_importance_rows(q, k, rows, m, l, kv), iters=20)
-            t_p = cuda_time_ms(lambda: fp.attn_importance_rows_plain(q, k, rows, m, l, kv), iters=5)
-            log(f"  B {tag} S={s}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
+            t_k = graph_time_ms(lambda: fp.attn_importance_rows(q, k, rows, m, l, kv), iters=20)
+            t_p = graph_time_ms(lambda: fp.attn_importance_rows_plain(q, k, rows, m, l, kv), iters=5)
+            n = rows.shape[0]
+            seen = float(torch.cumsum(kv.to(torch.int64), 0)[rows].sum())  # live keys at or before each row
+            t_b = _bound(kernels["attn_importance_rows"],
+                         n * hq * d * 2 + s * hk * d * 2 + s + n * 8 + 2 * n * hq * 4 + s * 4, 2 * hq * d * seen)
+            log(f"  B {tag} S={s}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {t_b:.4f} ms "
+                f"({kernels['attn_importance_rows']['bound_by']}); no single PyTorch call computes it")
             kernels["attn_importance_rows"].update(ms=t_k, plain_ms=t_p)
     del cases, q, k, m, l
 
@@ -309,14 +355,44 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
             err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
             rel = err / max(r.abs().max().item() for r in refs)
             chk.expect(rel <= GEMV_RTOL, f"{key} {name} {wdtype} K={kdim} N={ns}: max_abs_err {err:.3e} (rel {rel:.3e}) <= {GEMV_RTOL}")
-            t_k = cuda_time_ms(run_k, iters=20)
-            t_p = cuda_time_ms(run_p, iters=20)
+            t_k = graph_time_ms(run_k, iters=20)
+            t_p = graph_time_ms(run_p, iters=10)
             gbs = per_layer / (t_k * 1e-3) / 1e9
-            log(f"  {key} {name} {wdtype}: kernel {t_k:.4f} ms ({gbs:.0f} GB/s of weights), plain {t_p:.4f} ms")
+            n_out = sum(ns) // (2 if name == "gateup" else 1)
+            entry = kernels[key] if wdtype == "bf16" and name in ("qkv", "gateup") else {}
+            t_b = _bound(entry, per_layer + sum(ns) * 4 * (wdtype == "int8") + kdim * 2 + n_out * 4,
+                         2 * kdim * sum(ns))
+            t_l = None
+            if wdtype == "bf16" and name != "gateup":
+                # Yardstick: one torch.matmul against the stacks side by
+                # side (the same bytes and products; gate-up and int8 have
+                # no single call).
+                w_cat = torch.cat(stacks, dim=2) if len(stacks) > 1 else stacks[0]
+                t_l = graph_time_ms(lambda: torch.matmul(x, w_cat[next_layer()]), iters=20)
+                del w_cat
+            log(f"  {key} {name} {wdtype}: kernel {t_k:.4f} ms ({gbs:.0f} GB/s of weights), plain {t_p:.4f} ms, "
+                f"torch.matmul {'none' if t_l is None else f'{t_l:.4f} ms'}, bound {t_b:.4f} ms ({entry['bound_by']})")
             _max_err(kernels[key], err)
-            if wdtype == "bf16" and name in ("qkv", "gateup"):
-                kernels[key].update(ms=t_k, plain_ms=t_p)
+            if entry:
+                entry.update(ms=t_k, plain_ms=t_p)
+                if t_l is not None:
+                    entry["library_ms"] = t_l
             del stacks, scales
+
+    # matvec_q8 / matvec_bf16 (the JAX package's plain (K, N) matvec): kernel
+    # C with the weight as a one-layer stack.
+    x = _rand(gen, (1, hid))
+    w8 = torch.randint(-127, 128, (hid, 4608), generator=gen, device="cuda", dtype=torch.int8)
+    sc = torch.rand((4608,), generator=gen, device="cuda") * 0.01 + 0.005
+    wbf = (w8.to(torch.bfloat16) * sc).to(torch.bfloat16)
+    for tag, got, ref in (("matvec_q8", mv.matvec_q8(x, w8, sc), mv.gemv_stacked_plain(x, [w8[None]], 0)[0] * sc),
+                          ("matvec_bf16", mv.matvec_bf16(x, wbf), mv.gemv_stacked_plain(x, [wbf[None]], 0)[0])):
+        err = (got - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        chk.expect(rel <= GEMV_RTOL, f"{tag} 1x{hid} . {hid}x4608 on kernel C: max_abs_err {err:.3e} (rel {rel:.3e}) "
+                                     f"<= {GEMV_RTOL}")
+        _max_err(kernels["gemv_stacked"], err)
+    del w8, wbf
 
     # -- kernel E at the tower's shapes (so400m: 16 frames, N 729, 16 heads,
     # head dim 72), and head dims 64 / 80 of the later towers ---------------
@@ -337,7 +413,11 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
         tflops = 4 * b * h * n * n * hd / (t_k * 1e-3) / 1e12
         log(f"  {tag}: kernel {t_k:.4f} ms ({tflops:.1f} TFLOP/s), plain {t_p:.4f} ms")
         if hd == 72:
-            kernels["bidir_attn_fwd"].update(ms=t_k, plain_ms=t_p)
+            t_l = cuda_time_ms(lambda: sdpa(q, k, v), iters=20)
+            t_b = _bound(kernels["bidir_attn_fwd"], 4 * b * n * h * hd * 2, 4 * b * h * n * n * hd)
+            log(f"  {tag}: bound {t_b:.4f} ms ({kernels['bidir_attn_fwd']['bound_by']}), "
+                f"scaled_dot_product_attention {t_l:.4f} ms")
+            kernels["bidir_attn_fwd"].update(ms=t_k, plain_ms=t_p, library_ms=t_l)
         del q, k, v, out, ref
 
     # -- kernel F at the StreamingLLM prefill's full-width shapes (S 11,697,
@@ -373,8 +453,66 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
             tflops = 4 * hq_ * d * float(keys.sum()) / (t_k * 1e-3) / 1e12
             log(f"  {tag}: kernel {t_k:.3f} ms ({tflops:.1f} TFLOP/s), plain {t_p:.3f} ms; kernel A (causal) at "
                 f"this S {t_a:.3f} ms, F / A {t_k / t_a:.3f}")
-            kernels["sink_attn_fwd"].update(ms=t_k, plain_ms=t_p)
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & ((pos[None, :] < init_num) | (pos[None, :] > pos[:, None] - window))
+            t_l = cuda_time_ms(lambda: sdpa(q, k, v, mask), iters=2, warmup=1)
+            del mask
+            t_b = _bound(kernels["sink_attn_fwd"], (2 * s * hq_ * d + 2 * s * hk_ * d) * 2,
+                         4 * hq_ * d * float(keys.sum()))
+            log(f"  {tag}: bound {t_b:.3f} ms ({kernels['sink_attn_fwd']['bound_by']}), "
+                f"scaled_dot_product_attention (GQA, bool mask) {t_l:.3f} ms")
+            kernels["sink_attn_fwd"].update(ms=t_k, plain_ms=t_p, library_ms=t_l)
         del q, k, v, out, refs
+
+    # -- kernel G at the decode step's shapes: the phase layers' ~11,697 keys
+    # (+1) in the 11,776-row pool and the tail layers' ~3,292 (+1) in a
+    # 3,328-row tail view; then edge cases: one key, every row of the view,
+    # lengths off the 64-key tile, G = 1 (Hq = Hk = 4) and G = 16 (the most
+    # the kernel takes). Timed over views cycled past the 50 MB L2, as a
+    # decode step finds each layer's cache cold.
+    for length, s_view, hq_, hk_ in ((11698, 11776, hq, hk), (3293, 3328, hq, hk), (1, 11776, hq, hk),
+                                     (3328, 3328, hq, hk), (65, 200, hq, hk), (517, 600, 4, 4), (777, 800, 16, 1)):
+        main_shape = length in (11698, 3293)
+        view_bytes = 2 * s_view * hk_ * d * 2
+        n_views = max(2, math.ceil(150e6 / view_bytes)) if main_shape else 1
+        kpool, vpool = _rand(gen, (n_views, s_view, hk_, d)), _rand(gen, (n_views, s_view, hk_, d))
+        q = _rand(gen, (hq_, d))
+        out = da.ragged_decode_attn(q, kpool[0], vpool[0], length)
+        ref = da.ragged_decode_attn_plain(q, kpool[0], vpool[0], length)
+        torch.cuda.synchronize()
+        err_h = (out.float() - ref.float()).abs().amax(-1)
+        rel = (err_h / ref.float().abs().amax(-1).clamp(min=1e-30)).max().item()
+        tag = f"G length {length} of S_view {s_view}, Hq={hq_} Hk={hk_}"
+        chk.expect(rel <= ATTN_ROW_RTOL, f"{tag}: max_abs_err {err_h.max().item():.3e}; per head error / its largest "
+                                         f"output: max {rel:.3e} <= {ATTN_ROW_RTOL}")
+        _max_err(kernels["ragged_decode_attn"], err_h.max().item())
+        if main_shape:
+            view = [0]
+
+            def kv_view():
+                view[0] = (view[0] + 1) % n_views
+                return kpool[view[0]], vpool[view[0]]
+
+            t_k = graph_time_ms(lambda: da.ragged_decode_attn(q, *kv_view(), length), iters=50)
+            t_eager = cuda_time_ms(lambda: da.ragged_decode_attn(q, *kv_view(), length), iters=50)
+            t_p = graph_time_ms(lambda: da.ragged_decode_attn_plain(q, *kv_view(), length), iters=10)
+            # The yardstick attends the live rows as a view: no mask, so
+            # the library may take its fused decode path.
+            t_l = graph_time_ms(lambda: sdpa(q[None], *(t[:length] for t in kv_view())), iters=20)
+            parts = kernel_device_us(lambda: da.ragged_decode_attn(q, *kv_view(), length),
+                                     ("decode_split_kernel", "decode_combine_kernel"))
+            log(f"  {tag}: profiler, per call: split pass {parts['decode_split_kernel']:.2f} us, combine "
+                f"{parts['decode_combine_kernel']:.2f} us")
+            entry = {} if length != 11698 else kernels["ragged_decode_attn"]
+            t_b = _bound(entry, 2 * length * hk_ * d * 2 + 2 * hq_ * d * 2, 4 * hq_ * d * length)
+            gbs = 2 * length * hk_ * d * 2 / (t_k * 1e-3) / 1e9
+            log(f"  {tag}: kernel {t_k * 1e3:.2f} us ({gbs:.0f} GB/s of live K/V; eager launches {t_eager * 1e3:.2f} "
+                f"us per call), plain {t_p * 1e3:.2f} us, scaled_dot_product_attention on the live rows (GQA) "
+                f"{t_l * 1e3:.2f} us, bound {t_b * 1e3:.2f} us ({entry['bound_by']}); split plan (keys per CTA, "
+                f"splits) {da.split_plan(length, hk_)}")
+            if length == 11698:
+                kernels["ragged_decode_attn"].update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+        del kpool, vpool, q, out, ref
 
 
 def phase_cross(chk: Checks) -> None:
@@ -436,7 +574,18 @@ def _cast_floats(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-def phase_full(chk: Checks, kernels: dict) -> None:
+def phase_kernel_check(chk: Checks) -> None:
+    from framefusion_tpu_torch import kernel_bench
+
+    n_fail = kernel_bench.check_kernels(log=log)
+    chk.expect(n_fail == 0, f"kernel_check: {n_fail} failed rows")
+
+
+def _set_launches(entry: dict, n: int) -> None:
+    entry.update(launches=n, main_path_launches=n)
+
+
+def phase_full(chk: Checks, kernels: dict, ctx: dict) -> None:
     from framefusion_tpu_torch.config import qwen2_7b_config
     from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
     from framefusion_tpu_torch.models import qwen2
@@ -467,7 +616,7 @@ def phase_full(chk: Checks, kernels: dict) -> None:
     toks, res = model.generate(inputs, max_new_tokens=8)
     torch.cuda.synchronize()
     for name, w in wrappers.items():
-        kernels[name]["launches"] = w.launches
+        _set_launches(kernels[name], w.launches)
     for name in wrappers:
         chk.expect(kernels[name]["launches"] > 0, f"{name}: {kernels[name]['launches']} launches in the fused run")
 
@@ -516,6 +665,52 @@ def phase_full(chk: Checks, kernels: dict) -> None:
                f"int8 decode through the int8 gemv kernels: tokens {toks_q}")
     t_gen_q = cuda_time_ms(lambda: eng_q.generate(res_p, 8), iters=3, warmup=1)
     log(f"  int8 decode: generate(8) {t_gen_q:.2f} ms = {t_gen_q / 7:.2f} ms per decode step")
+    ctx.update(cfg=cfg, params_q=params_q, eng_q=eng_q, res=res)  # for phase 4b
+
+
+def phase_decode(chk: Checks, kernels: dict, ctx: dict) -> None:
+    """The decode step with kernel G at full width, on phase 4's int8 model
+    and FrameFusion prefill."""
+    from framefusion_tpu_torch import kernel_bench
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.ops.kernels import decode_attention as da
+    from framefusion_tpu_torch.runtime.engine import best_tail_split
+
+    cfg, params, eng, res = ctx["cfg"], ctx["params_q"], ctx["eng_q"], ctx["res"]
+    n = 8
+    states = {impl: list(eng.make_decode_state(res, n)) for impl in ("flash", "ragged")}
+    lens0 = states["flash"][2]
+    split = best_tail_split(lens0, int(states["flash"][0].shape[1]), n, eng.ff.bucket)
+    log(f"  pool {tuple(states['flash'][0].shape)}, per-layer lengths {lens0}, tail split {split}")
+    # Teacher forcing: both variants take the "flash" variant's greedy token.
+    tok = torch.argmax(res.logits)
+    worst, toks, finite = 0.0, [], True
+    da.ragged_decode_attn.launches = 0
+    for step in range(n):
+        logits = {}
+        for impl, st in states.items():
+            logits[impl], st[0], st[1], st[2] = qwen2.decode_step(
+                params, qwen2.embed(params, tok), res.decode_pos_base + step, st[0], st[1], st[2], cfg,
+                attn_impl=impl, tail_split=split)
+        ref = logits["flash"]
+        finite = finite and bool(torch.isfinite(logits["ragged"]).all())
+        worst = max(worst, float((logits["ragged"] - ref).abs().max() / ref.abs().max()))
+        tok = torch.argmax(ref)
+        toks.append(int(tok))
+    torch.cuda.synchronize()
+    _set_launches(kernels["ragged_decode_attn"], da.ragged_decode_attn.launches)
+    log(f"  teacher-forced tokens {toks}")
+    chk.expect(finite, "decode: ragged logits finite at every step")
+    chk.expect(worst <= LOGIT_RTOL, f"decode ragged vs flash, {n} teacher-forced int8 steps at full width: logits "
+                                    f"differ by {worst:.3e} of their largest <= {LOGIT_RTOL}")
+    chk.expect(da.ragged_decode_attn.launches == n * cfg.num_layers,
+               f"ragged_decode_attn: {da.ragged_decode_attn.launches} launches in {n} ragged steps "
+               f"(one per layer: {n * cfg.num_layers})")
+    del states
+    out = kernel_bench.bench_decodestep(params, cfg, res, log=log)
+    chk.expect(all(math.isfinite(r["ms_per_step"]) and r["ms_per_step"] > 0 for r in out["rows"]),
+               f"decodestep: {len(out['rows'])} timings measured")
+    ctx.clear()
 
 
 class StubTokenizer:
@@ -673,7 +868,7 @@ def phase_pixels(chk: Checks, kernels: dict) -> None:
     answer = pipes["framefusion"].ask(QUESTION, frames=frames, max_new_tokens=8)
     torch.cuda.synchronize()
     counts = {name: w.launches for name, w in wrappers.items()}
-    kernels["bidir_attn_fwd"]["launches"] = counts["bidir_attn_fwd"]
+    _set_launches(kernels["bidir_attn_fwd"], counts["bidir_attn_fwd"])
     log(f"  framefusion ask: launches {counts}")
     n_enc = (vcfg.num_layers - 1) * 4  # feature layer -2 runs 26 blocks, 4 batches of 16 frames
     chk.expect(counts["bidir_attn_fwd"] == n_enc, f"bidir_attn_fwd: {counts['bidir_attn_fwd']} launches in the "
@@ -852,7 +1047,7 @@ def phase_baselines(chk: Checks, kernels: dict) -> None:
         results[name] = (res, toks)
     torch.cuda.synchronize()
     counts = {name: w.launches for name, w in wrappers.items()}
-    kernels["sink_attn_fwd"]["launches"] = counts["sink_attn_fwd"]
+    _set_launches(kernels["sink_attn_fwd"], counts["sink_attn_fwd"])
     log(f"  launches over the eight methods' prefill + generate(8): {counts}")
     for name, n in counts.items():
         chk.expect(n > 0, f"{name}: {n} launches in the method comparison")
@@ -922,25 +1117,23 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from framefusion_tpu_torch.ops import kernels as registry
+
     chk = Checks()
-    kernels = {
-        "flash_attn_fwd": {"replaces": "framefusion_tpu/ops/kernels/flash_prefill.py:719",
-                           "source": "framefusion_tpu_torch/csrc/flash_prefill.cu"},
-        "attn_importance_rows": {"replaces": "framefusion_tpu/ops/kernels/flash_prefill.py:603",
-                                 "source": "framefusion_tpu_torch/csrc/flash_prefill.cu"},
-        "gemv_stacked": {"replaces": "framefusion_tpu/ops/kernels/matvec_q8.py:171",
-                         "source": "framefusion_tpu_torch/csrc/matvec.cu"},
-        "gemv_gateup": {"replaces": "framefusion_tpu/ops/kernels/matvec_q8.py:333",
-                        "source": "framefusion_tpu_torch/csrc/matvec.cu"},
-        "bidir_attn_fwd": {"replaces": "framefusion_tpu/ops/kernels/bidir_attention.py:72",
-                           "source": "framefusion_tpu_torch/csrc/bidir_attention.cu"},
-        "sink_attn_fwd": {"replaces": "framefusion_tpu/ops/kernels/sink_prefill.py:102",
-                          "source": "framefusion_tpu_torch/csrc/sink_prefill.cu"},
-    }
-    for k in kernels.values():  # every number is filled in by this run's phases
-        k.update(route="cuda", launches=None, max_abs_err=None, ms=None, plain_ms=None)
+    kernels = {}
+    for name, (_, source) in registry.KERNELS.items():
+        replaced = registry.replaces(name)
+        # Every number is filled in by this run's phases (library_ms stays
+        # null where no single PyTorch call computes the function).
+        kernels[name] = dict(route="cuda", source=source, replaces=replaced if len(replaced) > 1 else replaced[0],
+                             launches=None, main_path_launches=None, max_abs_err=None, ms=None, plain_ms=None,
+                             bound_ms=None, bound_by=None, library_ms=None)
+    no_library = {"attn_importance_rows", "gemv_gateup"}
+    ctx: dict = {}
     phases = {"device": lambda: phase_device(chk), "kernels": lambda: phase_kernels(chk, kernels),
-              "cross": lambda: phase_cross(chk), "full": lambda: phase_full(chk, kernels),
+              "kernel_check": lambda: phase_kernel_check(chk),
+              "cross": lambda: phase_cross(chk), "full": lambda: phase_full(chk, kernels, ctx),
+              "decode": lambda: phase_decode(chk, kernels, ctx),
               "cross_vision": lambda: phase_cross_vision(chk), "pixels": lambda: phase_pixels(chk, kernels),
               "cross_baselines": lambda: phase_cross_baselines(chk),
               "baselines": lambda: phase_baselines(chk, kernels)}
@@ -956,7 +1149,8 @@ def main() -> int:
             chk.failures.append(f"phase {phase} raised {type(exc).__name__}: {exc}")
         torch.cuda.synchronize()
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
-    unmeasured = [f"{n}.{f}" for n, k in kernels.items() for f, v in k.items() if v is None]
+    unmeasured = [f"{n}.{f}" for n, k in kernels.items() for f, v in k.items()
+                  if v is None and not (f == "library_ms" and n in no_library)]
     chk.expect(not unmeasured, f"every number of the kernels line was measured in this run (missing: {unmeasured})")
     if chk.failures:
         log("FAILED: " + "; ".join(chk.failures))

@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, at first use, into ``_build/`` beside this file (listed in
+``nvcc`` compiles every ``csrc/*.cu`` at first use, one process per source,
+all started together, and links the objects into one shared library with a
+plain C interface in ``_build/`` beside this file (listed in
 ``.gitignore``). The library's name carries a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one loads at once. The library
-is loaded with ``ctypes``; each kernel module declares the argument types of
-its entry points.
+is loaded with ``ctypes``; ``ENTRY_POINTS`` declares the argument types of
+the kernels' entry points.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -64,15 +65,25 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees a partial file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_sources(), objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [f"{src.name} ({proc.returncode})" for src, proc in zip(_sources(), procs) if proc.returncode]
+        if not failed:
+            so = Path(tmp) / "lib.so"
+            link = subprocess.run([nvcc, "-shared", "-o", str(so), *map(str, objs)], capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode:
+                failed.append(f"link ({link.returncode})")
+        log_text = "".join(logs)
+        lib.with_suffix(".log").write_text(log_text)
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{log_text[-4000:]}")
+        os.replace(so, lib)  # atomic: a concurrent loader never sees a partial file
     return lib, time.perf_counter() - t0
 
 
@@ -88,6 +99,8 @@ ENTRY_POINTS = {
     "ff_gemv_max_kchunk": [],
     "ff_bidir_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "ff_sink_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "ff_ragged_decode_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "ff_ragged_decode_max_group": [],
 }
 
 

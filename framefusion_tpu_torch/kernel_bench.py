@@ -1,0 +1,563 @@
+"""On-card kernel check and decode-step benchmark of the port.
+
+Counterpart of ``scripts/kernel_bench.py`` in two of its modes; run from the
+repository root on a machine with a CUDA card:
+
+    python -m framefusion_tpu_torch.kernel_bench --check
+    python -m framefusion_tpu_torch.kernel_bench --what decodestep
+
+``--check`` (:func:`check_kernels`) runs the JAX check's case matrix on the
+card: every hand-written kernel at each shape regime the TPU kernels had
+(the per-query-head, grouped, blocked and long attention regimes, the fused
+importance epilogues, the sink, bidirectional and ragged decode kernels, the
+matvecs at Qwen2-7B shapes), each held against the port's own plain version
+with the bound stated below, then the decode-side programs of
+``models/qwen2.py`` against each other on a 2-layer Qwen2-7B-geometry stack.
+It prints PASS or FAIL per row and the number of failures, and exits
+non-zero on any failure.
+
+``--what decodestep`` (:func:`bench_decodestep`) times ``decode_step`` at
+full Qwen2-7B width (int8 weight-only, full vocabulary) with CUDA events over
+32 steps for ``"einsum"``, ``"flash"`` and ``"ragged"``, in turns, on three
+pools: a uniform one (S 3,328), the per-layer caches of a FrameFusion
+prefill of the 64-frame prompt, and the JAX bench's stand-in for it (two
+layers of 11,697 keys, the rest 3,292, S_pool 11,776), the last two with
+and without ``best_tail_split``; beside the times, the weight-stream floor
+and the CUDA launches per step (``torch.profiler``).
+
+Both need a CUDA device and exit non-zero at once without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Bounds, with their reasons:
+# * Attention kernels (A, E, F) round their probabilities to bf16 for the
+#   P.V product and write bf16 outputs; G rounds only its output. Each
+#   (row, head) output agrees with the plain fp32 version to a few bf16 ulps
+#   (2^-8..2^-7 relative) of that row's own largest output.
+ATTN_ROW_RTOL = 2e-2
+# * Kernel B's importance from A's fp32 row statistics against the plain
+#   fp32 softmax einsum: fp32 sums in other orders, relative to the largest
+#   importance.
+IMP_RTOL = 1e-3
+# * Kernel C/D's fp32 sums of bf16 x bf16/int8 products in another order:
+#   fp32 rounding over K <= 18944 terms, relative to the largest output.
+GEMV_RTOL = 1e-4
+# * Two decode-side programs on the same stack: the logits are bf16
+#   products (an ulp is 2^-8..2^-7 of the largest), and the programs round
+#   every projection at other places (cuBLAS against kernels C/D, fp32
+#   against split-K attention). On the CPU this check's geometry gives
+#   6.8e-3 (bf16) and 1.1e-2 (int8) of the largest logit; 3e-2 is about four
+#   ulps of it.
+PROGRAM_RTOL = 3e-2
+
+HD = 128
+# Peaks of one H100 SXM (NVIDIA's data sheet, dense), for the bounds.
+H100_BYTES_PER_S = 3.35e12
+H100_BF16_OPS_PER_S = 989e12
+
+
+def _require_cuda() -> None:
+    if not torch.cuda.is_available():
+        print("kernel_bench: no CUDA device; the kernel check and the decode benchmark run on the card only",
+              file=sys.stderr)
+        raise SystemExit(1)
+
+
+def _rand(gen, shape, scale=1.0, dtype=torch.bfloat16):
+    return (torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32) * scale).to(dtype)
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes the
+    function must move (inputs read once, outputs written once) over the
+    memory rate and its operations over the bf16 tensor-core rate (its
+    inputs' type); and which of the two it is."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def events_time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean time per call of ``fn()`` over eager launches, by CUDA events
+    (for calls that keep the card busy for milliseconds)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def graph_time_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn()``: ``iters`` calls captured in one CUDA
+    graph and replayed between CUDA events. A wrapper call costs the host
+    tens of microseconds (checks, allocations, the ctypes call), more than a
+    short kernel runs, so eager launches would time the host; the replay
+    times the card."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graph asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def kernel_device_us(fn, names, reps: int = 20) -> dict:
+    """Device time per call of each named CUDA kernel ``fn()`` launches,
+    from a ``torch.profiler`` trace of ``reps`` calls (the kernels' own
+    intervals, launch gaps excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        for name in names:
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name:
+                total[name] += e.time_range.elapsed_us() / reps
+    return total
+
+
+def sdpa(q, k, v, mask=None, is_causal: bool = False):
+    """One ``F.scaled_dot_product_attention`` call on (S, H, D) or (B, S, H,
+    D) tensors, GQA through ``enable_gqa``, an optional bool mask: the
+    yardstick of the attention kernels (timed only; the port never calls
+    it). Inputs go in as (B, H, S, D): the fused backends take 4-D only."""
+    q, k, v = (t.transpose(-3, -2) if t.dim() == 4 else t.transpose(0, 1)[None] for t in (q, k, v))
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=is_causal,
+                                                            enable_gqa=q.shape[1] != k.shape[1])
+
+
+def _log_times(log, name, t_k, t_p, t_l, nbytes, ops) -> None:
+    b, by = bound_ms(nbytes, ops)
+    lib = "none" if t_l is None else f"{t_l:.4f}"
+    log(f"  time  {name:58s} kernel {t_k:.4f} ms, plain {t_p:.4f}, library {lib}, bound {b:.4f} ({by})")
+
+
+def row_rel_err(out, ref) -> float:
+    """Largest (row, head) error over that row's largest |ref| (last axis);
+    rows that are 0 in both give 0."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    return (err / ref.float().abs().amax(-1).clamp(min=1e-30)).max().item()
+
+
+def rel_err(out, ref) -> float:
+    """Largest error over the largest |ref|."""
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+class _Rows:
+    """Runs check rows: each returns (error, bound); prints PASS/FAIL."""
+
+    def __init__(self, log):
+        self.log = log
+        self.failures: list[str] = []
+        self.count = 0
+
+    def run(self, name: str, fn) -> None:
+        self.count += 1
+        try:
+            err, bound = fn()
+            torch.cuda.synchronize()
+            ok = math.isfinite(err) and err <= bound
+            self.log(f"  {'PASS' if ok else 'FAIL'}  {name:58s} rel err {err:.3e} <= {bound:.0e}")
+        except Exception as exc:  # a launch or shape failure is a failed row
+            ok = False
+            self.log(f"  FAIL  {name:58s} {type(exc).__name__}: {str(exc)[:160]}")
+        if not ok:
+            self.failures.append(name)
+
+
+def _time_attention(log, name, q, k, v, kernel, plain) -> None:
+    """Kernel A's time at a regime shape beside its plain version, the causal
+    library call and the bound (causal pairs, every key live)."""
+    s, hq, _ = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * hq * s * 4  # q, k, v in; out, m, l out
+    _log_times(log, name, events_time_ms(kernel, 5), events_time_ms(plain, 2, warmup=1),
+               events_time_ms(lambda: sdpa(q, k, v, is_causal=True), 5), nbytes, 4 * hq * HD * s * (s + 1) / 2)
+
+
+def _check_attention(rows: _Rows, gen) -> None:
+    from .ops.attention import last_rows_importance
+    from .ops.kernels import bidir_attention as ba
+    from .ops.kernels import decode_attention as da
+    from .ops.kernels import flash_prefill as fp
+    from .ops.kernels import sink_prefill as sp
+
+    def qkv(s, hq, hk):
+        return _rand(gen, (s, hq, HD)), _rand(gen, (s, hk, HD)), _rand(gen, (s, hk, HD))
+
+    # The TPU kernel's dispatch regimes at Qwen2-7B head geometry; on the
+    # card kernel A covers all of them.
+    regimes = [
+        ("gmulti bq=512 (S<=4096)", 3456, 28, 4),
+        ("gmulti bq=1024 (4096<S<=8192)", 6656, 28, 4),
+        ("blocked-grouped MID (8192<S<=16384)", 11776, 28, 4),
+        ("per-qhead resident (g=1)", 3456, 4, 4),
+        ("blocked long (g=1, S>16384)", 18432, 2, 2),
+        ("blocked-grouped long (S>16384)", 18432, 28, 4),
+    ]
+    for name, s, hq, hk in regimes:
+        q, k, v = qkv(s, hq, hk)
+        kv = torch.rand((s,), generator=gen, device="cuda") > 0.3
+        kv[0] = True
+        for label, mask in (("", None), (" +key_valid", kv)):
+            rows.run(f"A {name}{label}", lambda q=q, k=k, v=v, m=mask: (
+                row_rel_err(fp.flash_attn_fwd(q, k, v, m)[0], fp.flash_attn_fwd_plain(q, k, v, m)[0]),
+                ATTN_ROW_RTOL))
+        _time_attention(rows.log, f"A {name}", q, k, v, lambda q=q, k=k, v=v: fp.flash_attn_fwd(q, k, v),
+                        lambda q=q, k=k, v=v: fp.flash_attn_fwd_plain(q, k, v))
+        del q, k, v
+
+    # The TPU package's plain grouped kernel, called directly with an
+    # all-valid mask: kernel A with an all-true key_valid.
+    q, k, v = qkv(3456, 28, 4)
+    ones = torch.ones((3456,), dtype=torch.bool, device="cuda")
+    rows.run("A grouped (direct, all-valid mask)", lambda: (
+        row_rel_err(fp.flash_attn_fwd(q, k, v, ones)[0], fp.flash_attn_fwd_plain(q, k, v)[0]), ATTN_ROW_RTOL))
+    _time_attention(rows.log, "A grouped (direct, all-valid mask)", q, k, v,
+                    lambda: fp.flash_attn_fwd(q, k, v, ones), lambda: fp.flash_attn_fwd_plain(q, k, v, ones))
+
+    # The importance epilogues (A + B), num 4, compacted and mask-only.
+    for name, s, hq, hk in (("gmulti (S<=8192)", 3456, 28, 4), ("per-qhead fused (g=1)", 3456, 4, 4),
+                            ("MID blkgrp", 11776, 28, 4)):
+        q, k, v = qkv(s, hq, hk)
+        vlen = s - 40
+        kv = torch.arange(s, device="cuda") < vlen
+        kv[100:140] = False
+        for label, mask in (("", None), (" +key_valid", kv)):
+            def pair(q=q, k=k, v=v, m=mask):
+                return fp.flash_causal_attention_importance(q, k, v, vlen, 4, key_valid=m)
+
+            rows.run(f"A+B imp {name}{label} [out]", lambda q=q, k=k, v=v, m=mask, pair=pair: (
+                row_rel_err(pair()[0][:vlen], fp.flash_attn_fwd_plain(q, k, v, m)[0][:vlen]), ATTN_ROW_RTOL))
+            rows.run(f"A+B imp {name}{label} [imp]", lambda q=q, k=k, m=mask, pair=pair: (
+                rel_err(pair()[1], last_rows_importance(q, k, 4, vlen, key_valid=m)), IMP_RTOL))
+        del q, k, v
+
+    q, k, v = qkv(3456, 28, 4)
+    rows.run("F sink (S 3456, init 8, window 1024)", lambda: (
+        row_rel_err(sp.sink_attn_fwd(q, k, v, 8, 1024), sp.sink_attn_fwd_plain(q, k, v, 8, 1024)), ATTN_ROW_RTOL))
+    del q, k, v
+
+    for b, n, h, d in ((4, 729, 16, 72), (2, 1025, 16, 64)):
+        q4, k4, v4 = (_rand(gen, (b, n, h, d)) for _ in range(3))
+        rows.run(f"E bidir ({b}, {n}, {h}, {d})", lambda q4=q4, k4=k4, v4=v4, d=d: (
+            row_rel_err(ba.flash_bidir_attention(q4, k4, v4), ba.bidir_attn_fwd_plain(q4, k4, v4, d ** -0.5)),
+            ATTN_ROW_RTOL))
+
+    qd, kp, vp = _rand(gen, (28, HD)), _rand(gen, (2048, 4, HD)), _rand(gen, (2048, 4, HD))
+    rows.run("G ragged decode (28/4 heads, S 2048, length 1700)", lambda: (
+        row_rel_err(da.ragged_decode_attention(qd, kp, vp, 1700), da.ragged_decode_attn_plain(qd, kp, vp, 1700)),
+        ATTN_ROW_RTOL))
+
+
+def _check_matvecs(rows: _Rows, gen) -> None:
+    from .ops.kernels import matvec_q8 as mv
+
+    kdim, n = 3584, 4608
+    x = _rand(gen, (1, kdim), 0.1)
+    w8 = torch.randint(-127, 128, (kdim, n), generator=gen, device="cuda", dtype=torch.int8)
+    sc = torch.rand((n,), generator=gen, device="cuda") * 0.01 + 0.005
+    rows.run("matvec_q8 1x3584 . 3584x4608 (C, one layer)", lambda: (
+        rel_err(mv.matvec_q8(x, w8, sc), mv.gemv_stacked_plain(x, [w8[None]], 0)[0] * sc), GEMV_RTOL))
+    wbf = (w8.to(torch.bfloat16) * sc).to(torch.bfloat16)
+    rows.run("matvec_bf16 1x3584 . 3584x4608 (C, one layer)", lambda: (
+        rel_err(mv.matvec_bf16(x, wbf), mv.gemv_stacked_plain(x, [wbf[None]], 0)[0]), GEMV_RTOL))
+    # Times of one (L2-resident) weight, from CUDA-graph replays.
+    nbytes = kdim * 2 + n * 4  # the row in, the fp32 result out
+    _log_times(rows.log, "matvec_q8 1x3584 . 3584x4608 (C, one layer)",
+               graph_time_ms(lambda: mv.matvec_q8(x, w8, sc), 20),
+               graph_time_ms(lambda: mv.gemv_stacked_plain(x, [w8[None]], 0)[0] * sc, 20), None,
+               nbytes + kdim * n + n * 4, 2 * kdim * n)
+    _log_times(rows.log, "matvec_bf16 1x3584 . 3584x4608 (C, one layer)",
+               graph_time_ms(lambda: mv.matvec_bf16(x, wbf), 20),
+               graph_time_ms(lambda: mv.gemv_stacked_plain(x, [wbf[None]], 0)[0], 20),
+               graph_time_ms(lambda: torch.matmul(x, wbf), 20), nbytes + kdim * n * 2, 2 * kdim * n)
+    ws = torch.stack([w8, -w8])
+    rows.run("matvec stacked l=1", lambda: (
+        rel_err(mv.matvec_stacked(x, ws, 1), mv.gemv_stacked_plain(x, [ws], 1)[0]), GEMV_RTOL))
+    xb = _rand(gen, (4, kdim), 0.1)
+    rows.run("matvec stacked rows=4", lambda: (
+        rel_err(mv.matvec_stacked(xb, ws, 0), mv.gemv_stacked_plain(xb, [ws], 0)[0]), GEMV_RTOL))
+    del w8, wbf, ws
+
+    # The fused decode kernels at Qwen2-7B shapes.
+    def q8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    wq, wk, wv = q8((2, 3584, 3584)), q8((2, 3584, 512)), q8((2, 3584, 512))
+    for i, part in ((0, "q"), (2, "v")):
+        rows.run(f"matvec qkv fused int8 l=1 [{part}]", lambda i=i: (
+            rel_err(mv.matvec_stacked_qkv(x, wq, wk, wv, 1)[i], mv.gemv_stacked_plain(x, [wq, wk, wv], 1)[i]),
+            GEMV_RTOL))
+    del wq, wk, wv
+    wg, wu = q8((2, 3584, 18944)), q8((2, 3584, 18944))
+    sg = torch.rand((2, 18944), generator=gen, device="cuda") * 0.01 + 0.005
+    su = torch.rand((2, 18944), generator=gen, device="cuda") * 0.01 + 0.005
+    rows.run("matvec gateup fused int8 l=1", lambda: (
+        rel_err(mv.matvec_stacked_gateup(x, wg, wu, sg, su, 1), mv.gemv_gateup_plain(x, wg, wu, sg, su, 1)),
+        GEMV_RTOL))
+    wgb, wub = (wg.to(torch.bfloat16) * 0.01), (wu.to(torch.bfloat16) * 0.01)
+    rows.run("matvec gateup fused bf16 l=0", lambda: (
+        rel_err(mv.matvec_stacked_gateup(x, wgb, wub, None, None, 0), mv.gemv_gateup_plain(x, wgb, wub, None, None, 0)),
+        GEMV_RTOL))
+
+
+def _check_programs(rows: _Rows, gen) -> None:
+    from .config import qwen2_7b_config
+    from .models import qwen2
+    from .ops.quant import quantize_params_int8
+
+    cfg = qwen2_7b_config(vocab_size=8192, num_layers=2)
+    hk, d = cfg.num_kv_heads, cfg.hidden_size
+
+    def pools(*lead):
+        return _rand(gen, (*lead, 512, hk, HD), 0.1), _rand(gen, (*lead, 512, hk, HD), 0.1)
+
+    def step(prm, emb, kp, vp, lens, impl):
+        return qwen2.decode_step(prm, emb, 400, kp.clone(), vp.clone(), lens, cfg, attn_impl=impl)[0]
+
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(3))
+    for tag in ("bf16", "int8"):
+        if tag == "int8":
+            params = quantize_params_int8(params)  # in place: the bf16 rows ran first
+        emb = _rand(gen, (d,), 0.1)
+        kp, vp = pools(2)
+        lens = [400, 380]
+        for impl in ("ragged", "flash"):
+            rows.run(f"decode_step {impl} == einsum, {tag} [logits]",
+                     lambda prm=params, emb=emb, kp=kp, vp=vp, impl=impl: (
+                         rel_err(step(prm, emb, kp, vp, lens, impl), step(prm, emb, kp, vp, lens, "einsum")),
+                         PROGRAM_RTOL))
+        embs = _rand(gen, (3, d), 0.1)
+        kpb, vpb = pools(2, 3)
+        lensb = [[300, 260, 200], [280, 240, 190]]
+        posb = [300, 260, 200]
+
+        def batch(impl, prm=params, embs=embs, kpb=kpb, vpb=vpb):
+            return qwen2.decode_step_batch(prm, embs, posb, kpb.clone(), vpb.clone(), lensb, 440, 2, cfg,
+                                           attn_impl=impl)[0]
+
+        rows.run(f"decode_step_batch flash == einsum, {tag} [logits]", lambda batch=batch: (
+            rel_err(batch("flash"), batch("einsum")), PROGRAM_RTOL))
+
+    # Speculative verify: the K-row program against K sequential decode
+    # steps fed the same rows, and the batched program against per-sequence
+    # solo programs. Fresh weights: the int8 rows consumed the bf16 ones.
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(4))
+    kq = 4
+    rows_emb = _rand(gen, (kq, d), 0.1)
+    kp0, vp0 = pools(2)
+    lens0 = [400, 380]
+    for impl in ("flash", "einsum"):
+        def sequential(impl=impl):
+            kp, vp, lens, out = kp0.clone(), vp0.clone(), lens0, []
+            for i in range(kq):
+                lg, kp, vp, lens = qwen2.decode_step(params, rows_emb[i], 400 + i, kp, vp, lens, cfg, attn_impl=impl)
+                out.append(lg)
+            return torch.stack(out)
+
+        rows.run(f"verify_step K=4 == sequential decode, {impl} [logits]", lambda impl=impl, seq=sequential: (
+            rel_err(qwen2.verify_step(params, rows_emb, [400 + i for i in range(kq)], kp0.clone(), vp0.clone(),
+                                      lens0, cfg, attn_impl=impl)[0], seq()), PROGRAM_RTOL))
+    bsz = 3
+    embsk = _rand(gen, (bsz, kq, d), 0.1)
+    kpbk, vpbk = pools(2, bsz)
+    lensbk = [[300, 260, 200], [280, 240, 190]]
+    posbk = [[lensbk[0][b] + i for i in range(kq)] for b in range(bsz)]
+
+    def solo_rows():
+        return torch.stack([qwen2.verify_step(params, embsk[b], posbk[b], kpbk[:, b].clone(), vpbk[:, b].clone(),
+                                              [lensbk[0][b], lensbk[1][b]], cfg)[0] for b in range(bsz)])
+
+    rows.run("verify_step_batch B=3 == per-seq solo [logits]", lambda: (
+        rel_err(qwen2.verify_step_batch(params, embsk, posbk, kpbk.clone(), vpbk.clone(), lensbk,
+                                        torch.zeros((bsz, 512), dtype=torch.bool, device="cuda"), 440, 0, cfg)[0],
+                solo_rows()), PROGRAM_RTOL))
+
+
+def check_kernels(log=print) -> int:
+    """Run every check row on the card; returns the number of failures."""
+    _require_cuda()
+    rows = _Rows(log)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for part in (_check_attention, _check_matvecs, _check_programs):
+        part(rows, gen)
+        torch.cuda.empty_cache()
+    log(f"\n{len(rows.failures)} failures of {rows.count} rows" + (f": {rows.failures}" if rows.failures else ""))
+    return len(rows.failures)
+
+
+# ---------------------------------------------------------------------------
+# --what decodestep
+
+
+def device_launches(fn) -> int:
+    """CUDA kernels and memory operations ``fn()`` puts on the card, counted
+    from a ``torch.profiler`` trace (0 where the profiler sees no device)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def weight_stream_bytes(params: dict) -> int:
+    """Bytes one decode step must read: every layer tensor, the final norm
+    and the LM head (the embedding table contributes one row)."""
+    def nbytes(t):
+        return sum(nbytes(v) for v in t.values()) if isinstance(t, dict) else t.numel() * t.element_size()
+
+    head = params.get("lm_head", params["embed"])
+    return nbytes(params["layers"]) + nbytes(params["final_norm"]) + nbytes(head)
+
+
+def decode_loop(params, cfg, k_pool, v_pool, lens, pos0: int, steps: int, attn_impl: str, tail_split=None,
+                tok0: int = 17):
+    """``steps`` greedy decode steps, tokens kept on the card; the pools are
+    written in place. Returns the last token (a device scalar)."""
+    from .models import qwen2
+
+    tok = torch.tensor(tok0, device=k_pool.device)
+    for i in range(steps):
+        logits, k_pool, v_pool, lens = qwen2.decode_step(params, qwen2.embed(params, tok), pos0 + i, k_pool, v_pool,
+                                                         lens, cfg, attn_impl=attn_impl, tail_split=tail_split)
+        tok = torch.argmax(logits)
+    return tok
+
+
+def _main_prompt_prefill(cfg, log):
+    """Random Qwen2-7B weights (bf16, seed 0) and the FrameFusion fused
+    prefill of the 64-frame prompt (cost 0.3, S_th 0.6, r_min 0.1)."""
+    from .interface import FrameFusionModel, apply_framefusion
+    from .models import qwen2
+    from .models.adapters.common import build_video_prompt
+
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    h, pt, img_start, n_img = build_video_prompt(np.random.default_rng(0), cfg.hidden_size)
+    model = apply_framefusion(FrameFusionModel(family="llava_video", cfg=cfg, params=params), 0.3, 0.6, 0.1)
+    res = model.engine().prefill(torch.from_numpy(h).to("cuda", torch.bfloat16), pt, np.arange(len(pt)), 182,
+                                 img_start, n_img)
+    log(f"  FrameFusion prefill of the {len(pt)}-token prompt: {res.valid_len} tokens kept")
+    return params, res
+
+
+def bench_decodestep(params=None, cfg=None, prefill=None, steps: int = 32, log=print) -> dict:
+    """ms/step of ``decode_step`` per (geometry, attn_impl, split), the
+    weight-stream floor and the CUDA launches per step.
+
+    ``params`` (int8 weight-only), ``cfg`` and ``prefill`` (a FrameFusion
+    ``PrefillResult`` of the 64-frame prompt) may come from the caller;
+    without them the function builds random Qwen2-7B weights, runs the
+    prefill and quantizes. Returns {"floor_ms", "rows": [{geometry, impl,
+    split, ms_per_step, launches_per_step}]}."""
+    _require_cuda()
+    from .config import FrameFusionConfig, qwen2_7b_config
+    from .ops.quant import quantize_params_int8
+    from .runtime.engine import CompressionEngine, best_tail_split
+
+    if params is None:
+        cfg = qwen2_7b_config()
+        params, prefill = _main_prompt_prefill(cfg, log)
+        params = quantize_params_int8(params)
+    floor_ms = weight_stream_bytes(params) / H100_BYTES_PER_S * 1e3
+    log(f"  weights read per step: {weight_stream_bytes(params) / 2**30:.2f} GiB -> weight-stream floor "
+        f"{floor_ms:.3f} ms/step at 3.35 TB/s")
+
+    eng = CompressionEngine(params, cfg, FrameFusionConfig())
+    k_real, v_real, lens_real = eng.make_decode_state(prefill, steps + 4)
+    log(f"  prefill per-layer cache lengths: {lens_real}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def random_pools(s_pool):
+        shape = (cfg.num_layers, s_pool, cfg.num_kv_heads, cfg.head_dim_)
+        return _rand(gen, shape, 0.1), _rand(gen, shape, 0.1)
+
+    # The JAX bench's stand-in for the 64-frame geometry: two phase layers
+    # with every prompt key, the rest at the compressed length.
+    jax_lens = [11697] * 2 + [3292] * (cfg.num_layers - 2)
+    geoms = [("uniform S=3328", *random_pools(3328), [3328 - steps - 4] * cfg.num_layers, 3328 - steps - 4),
+             (f"prefill S_pool={int(k_real.shape[1])}", k_real, v_real, lens_real, prefill.decode_pos_base),
+             ("JAX-bench S_pool=11776", *random_pools(11776), jax_lens, 11697)]
+    impls = ("einsum", "flash", "ragged")
+    out = {"floor_ms": floor_ms, "rows": []}
+    for gname, kp, vp, lens, pos0 in geoms:
+        split = best_tail_split(lens, int(kp.shape[1]), steps + 4, 128)
+        for ts in ([None, split] if split is not None else [None]):
+            # In turns (einsum, flash, ragged, ragged, flash, einsum): the
+            # host-bound loop drifts between readings.
+            readings = {impl: [] for impl in impls}
+            for impl in impls + impls[::-1]:
+                decode_loop(params, cfg, kp, vp, lens, pos0, 2, impl, ts)  # warm-up
+                torch.cuda.synchronize()
+                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                decode_loop(params, cfg, kp, vp, lens, pos0, steps, impl, ts)
+                stop.record()
+                torch.cuda.synchronize()
+                readings[impl].append(start.elapsed_time(stop) / steps)
+            for impl in impls:
+                ms = sum(readings[impl]) / len(readings[impl])
+                launches = device_launches(lambda: decode_loop(params, cfg, kp, vp, lens, pos0, 1, impl, ts))
+                out["rows"].append(dict(geometry=gname, impl=impl, split=ts, ms_per_step=ms,
+                                        readings=readings[impl], launches_per_step=launches))
+                log(f"  decode_step[{impl:6s}] {gname:22s} split={str(ts):12s}: {ms:8.3f} ms/step "
+                    f"({', '.join(f'{r:.3f}' for r in readings[impl])}; floor {floor_ms:.3f}), "
+                    f"{launches} launches/step")
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--check", action="store_true", help="kernel check on the card")
+    ap.add_argument("--what", choices=["decodestep"], help="benchmark to run")
+    args = ap.parse_args(argv)
+    if not args.check and args.what is None:
+        ap.error("give --check or --what decodestep")
+    _require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
+    failures = 0
+    if args.check:
+        t0 = time.perf_counter()
+        failures = check_kernels()
+        print(f"check: {time.perf_counter() - t0:.1f} s")
+    if args.what == "decodestep":
+        bench_decodestep()
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,22 +13,42 @@ embeddings, SwiGLU MLP, optional tied embeddings.
 ``attn_impl`` selects the prefill attention: ``"einsum"`` is the plain
 reference; ``"flash"`` goes through the hand-written kernels
 (ops/kernels/flash_prefill.py), whose wrappers run their plain versions for
-CPU tensors. Decode with ``"flash"`` streams every projection through the
-gemv kernels (ops/kernels/matvec_q8.py); decode attention is the plain
-masked einsum in both cases, as in the JAX engine.
+CPU tensors. The decode-side programs (``decode_step``, ``verify_step`` and
+their batched forms) map the JAX package's values so:
+
+=============  ==============  ===============================================
+JAX            port            what runs
+=============  ==============  ===============================================
+``"jax"``      ``"einsum"``    plain projections, plain masked attention
+``"mv-jax"``   ``"flash"``     projections streamed through the gemv kernels
+                               C/D (ops/kernels/matvec_q8.py), plain masked
+                               attention; the engines' decode, as in JAX
+``"pallas"``   ``"ragged"``    C/D plus the ragged decode-attention kernel G
+                               (ops/kernels/decode_attention.py) on the same
+                               pool view; ``decode_step`` only
+=============  ==============  ===============================================
+
+In ``decode_step_batch`` JAX's ``"pallas"`` is the port's ``"flash"`` (C/D
+with B rows; the attention stays plain torch, as it is XLA in JAX). The
+JAX microbenchmark knob ``"stub"`` and the ``FF_VERIFY_MV`` switch are not
+ported: ``verify_step``'s ``attn_impl`` takes the switch's place.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from ..config import LLMConfig
-from ..ops.attention import causal_attention_einsum, decode_attention, last_rows_importance
+from ..ops.attention import causal_attention_einsum, decode_attention, last_rows_importance, verify_attention
 from ..ops.kernels import flash_prefill, matvec_q8
+from ..ops.kernels.decode_attention import ragged_decode_attention
 from ..ops.rope import apply_rope, rope_cos_sin
 
-ATTN_IMPLS = ("einsum", "flash")
+ATTN_IMPLS = ("einsum", "flash")  # prefill, the engines, verify and batched decode
+DECODE_ATTN_IMPLS = ATTN_IMPLS + ("ragged",)  # decode_step
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +301,42 @@ def _pool_view(pool: torch.Tensor, l: int, s_view: int) -> torch.Tensor:
     return pool[l, :s_view]
 
 
+def _index_tensor(x, device) -> torch.Tensor:
+    """Integer positions or lengths (tensor, array or nested list) as int64 on ``device``."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    return t.to(device=device, dtype=torch.int64)
+
+
+def _check_impl(attn_impl: str, allowed) -> None:
+    if attn_impl not in allowed:
+        raise ValueError(f"attn_impl must be one of {allowed}, got {attn_impl!r}")
+
+
+def _rows_qkv(layers: dict, lp: dict, x, l: int, cfg: LLMConfig, use_mv: bool):
+    """q, k, v of the rows of ``x`` (R, D) at layer ``l``, each (R, H, hd);
+    ``use_mv`` streams the projections from the stacks (kernel C)."""
+    if not use_mv:
+        return _project_qkv(lp, x, cfg)
+    r, hd = x.shape[0], cfg.head_dim_
+    q, k, v = mv_stacked_qkv(x, layers["wq"], layers["wk"], layers["wv"], l)
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    return (q.reshape(r, cfg.num_heads, hd), k.reshape(r, cfg.num_kv_heads, hd),
+            v.reshape(r, cfg.num_kv_heads, hd))
+
+
+def _rows_out_mlp(layers: dict, lp: dict, h, attn, l: int, cfg: LLMConfig, use_mv: bool):
+    """``h + attn @ wo``, then the MLP block, for the rows of ``h`` (R, D);
+    ``attn`` is (R, Hq * hd). ``use_mv`` streams every matvec (kernels C, D)."""
+    if use_mv:
+        h = h + mv_stacked(attn.to(h.dtype), layers["wo"], l)
+        x2 = rmsnorm(h, lp["ln2"], cfg.rms_norm_eps)
+        gated = mv_stacked_gateup(x2, layers["w_gate"], layers["w_up"], l)
+        return h + mv_stacked(gated.to(h.dtype), layers["w_down"], l)
+    h = h + mm(attn.to(h.dtype), lp["wo"])
+    return layer_mlp(lp, h, cfg)
+
+
 def decode_step(params: dict, token_embed, position_id: int, k_pool, v_pool, cache_lens,
                 cfg: LLMConfig, attn_impl: str = "einsum", tail_split=None):
     """One decode step against a padded per-layer cache pool.
@@ -292,17 +348,19 @@ def decode_step(params: dict, token_embed, position_id: int, k_pool, v_pool, cac
             version returns new arrays; here the pools are owned by the
             decode loop, so an in-place row write saves a pool copy per step).
         cache_lens: per-layer valid entries excluding this token (ints).
+        attn_impl: one of ``DECODE_ATTN_IMPLS`` (module docstring).
         tail_split: optional ``(P, tail_s)`` — layers >= P attend only the
             pool's first ``tail_s`` rows.
 
     Returns:
         (logits (V,) fp32, k_pool, v_pool, cache_lens + 1).
     """
+    _check_impl(attn_impl, DECODE_ATTN_IMPLS)
     cos, sin = positions_cos_sin(torch.tensor([position_id], device=token_embed.device), cfg)
     h = token_embed[None, :]
-    use_mv = attn_impl == "flash"
+    use_mv = attn_impl != "einsum"
+    attend = ragged_decode_attention if attn_impl == "ragged" else decode_attention
     layers = params["layers"]
-    hd = cfg.head_dim_
     s_full = k_pool.shape[1]
     if tail_split is not None and tail_split[1] >= s_full:
         tail_split = None
@@ -310,27 +368,278 @@ def decode_step(params: dict, token_embed, position_id: int, k_pool, v_pool, cac
         s_view = tail_split[1] if tail_split is not None and l >= tail_split[0] else s_full
         lp = layer_slice(layers, l)
         x = rmsnorm(h, lp["ln1"], cfg.rms_norm_eps)
-        if use_mv:
-            q, k, v = mv_stacked_qkv(x, layers["wq"], layers["wk"], layers["wv"], l)
-            if cfg.qkv_bias:
-                q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-            q = q.reshape(1, cfg.num_heads, hd)
-            k = k.reshape(1, cfg.num_kv_heads, hd)
-            v = v.reshape(1, cfg.num_kv_heads, hd)
-        else:
-            q, k, v = _project_qkv(lp, x, cfg)
+        q, k, v = _rows_qkv(layers, lp, x, l, cfg, use_mv)
         q, k = apply_rope(q, k, cos, sin)
         length = int(cache_lens[l])
         k_pool[l, length] = k[0].to(k_pool.dtype)
         v_pool[l, length] = v[0].to(v_pool.dtype)
-        attn = decode_attention(q[0], _pool_view(k_pool, l, s_view), _pool_view(v_pool, l, s_view), length + 1)
-        if use_mv:
-            h = h + mv_stacked(attn.reshape(1, -1), layers["wo"], l)
-            x2 = rmsnorm(h, lp["ln2"], cfg.rms_norm_eps)
-            gated = mv_stacked_gateup(x2, layers["w_gate"], layers["w_up"], l)
-            h = h + mv_stacked(gated.to(h.dtype), layers["w_down"], l)
-        else:
-            h = h + mm(attn.reshape(1, -1), lp["wo"])
-            h = layer_mlp(lp, h, cfg)
+        attn = attend(q[0], _pool_view(k_pool, l, s_view), _pool_view(v_pool, l, s_view), length + 1)
+        h = _rows_out_mlp(layers, lp, h, attn.reshape(1, -1), l, cfg, use_mv)
     logits = final_logits(params, h, cfg)[0]
     return logits, k_pool, v_pool, [int(n) + 1 for n in cache_lens]
+
+
+def verify_step(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_lens, cfg: LLMConfig,
+                attn_impl: str = "flash", tail_split=None):
+    """Speculative-verify step: K candidate rows through the stack in one
+    weight pass.
+
+    Row 0 is the last committed token, rows 1..K-1 draft continuations. All
+    K rows' K/V are written IN PLACE at each layer's own offset ``[len,
+    len + K)`` (the caller rolls ``cache_lens`` forward by accepted + 1, so
+    rejected rows are dead padding the next verify overwrites); row i
+    attends the prefix plus rows 0..i (``verify_attention``).
+
+    Args:
+        token_embeds: (K, D). position_ids: (K,) rotary positions.
+        k_pool, v_pool: (L, S_pad, Hk, hd), with >= K rows of headroom past
+            every layer's length (inside ``tail_s`` for tail layers).
+        cache_lens: per-layer valid entries excluding these rows.
+        attn_impl: "flash" streams the projections through kernels C/D (the
+            JAX package's default on the TPU); "einsum" is the plain path
+            (JAX's ``FF_VERIFY_MV=0``).
+        tail_split: optional ``(P, tail_s)`` as in :func:`decode_step`.
+
+    Returns:
+        (logits (K, V) fp32, k_pool, v_pool) — logits[i] scores the token
+        after row i, as greedy decode would with rows 0..i committed.
+    """
+    _check_impl(attn_impl, ATTN_IMPLS)
+    kq = token_embeds.shape[0]
+    cos, sin = positions_cos_sin(_index_tensor(position_ids, token_embeds.device).reshape(kq), cfg)
+    h = token_embeds
+    use_mv = attn_impl == "flash"
+    layers = params["layers"]
+    s_full = k_pool.shape[1]
+    if tail_split is not None and tail_split[1] >= s_full:
+        tail_split = None
+    for l in range(cfg.num_layers):
+        s_view = tail_split[1] if tail_split is not None and l >= tail_split[0] else s_full
+        lp = layer_slice(layers, l)
+        x = rmsnorm(h, lp["ln1"], cfg.rms_norm_eps)
+        q, k, v = _rows_qkv(layers, lp, x, l, cfg, use_mv)
+        q, k = apply_rope(q, k, cos, sin)
+        length = int(cache_lens[l])
+        k_pool[l, length:length + kq] = k.to(k_pool.dtype)
+        v_pool[l, length:length + kq] = v.to(v_pool.dtype)
+        attn = verify_attention(q, _pool_view(k_pool, l, s_view), _pool_view(v_pool, l, s_view), length)
+        h = _rows_out_mlp(layers, lp, h, attn.reshape(kq, -1), l, cfg, use_mv)
+    return final_logits(params, h, cfg), k_pool, v_pool
+
+
+# Masked pool rows in the batched programs (the JAX package's value).
+_BATCH_MASKED = -1e30
+
+
+def _normalize_batch_split(tail_split, n_layers: int, s_pool: int):
+    """A ``(P, tail_s, region_start)`` split that would not narrow the pool
+    read (``tail_s >= region_start``) or leaves no layer on one side becomes
+    None (``engine.best_tail_split_batch`` never emits one; this guards
+    hand-built splits)."""
+    if tail_split is None:
+        return None
+    p, tail_s, region_start = tail_split
+    if region_start > s_pool:
+        raise ValueError(f"tail_split {tail_split}: region start past the pool's {s_pool} rows")
+    if not 0 < p < n_layers or tail_s >= region_start:
+        return None
+    return tail_split
+
+
+def _attend_segments(qf, segments, s_cur, cur_pv, score_eq: str, pv_eq: str, scale: float):
+    """fp32 softmax attention over masked pool segments plus the current rows.
+
+    ``segments`` holds ``(k, v, mask)`` with k, v (B, S', Hk, hd) and mask
+    (B, S') bool; ``s_cur`` are the current rows' scores (masked) and
+    ``cur_pv(p_cur)`` their P.V term. One running max over every segment,
+    sums and P.V terms added in segment order, then the current rows', as
+    the JAX package's two- and three-way merges do."""
+    scores = []
+    for k_seg, _, mask in segments:
+        sc = torch.einsum(score_eq, qf, k_seg.to(torch.float32)) * scale
+        mask = mask.reshape(mask.shape[0], *([1] * (sc.ndim - 2)), mask.shape[-1])
+        scores.append(sc.masked_fill(~mask, _BATCH_MASKED))
+    m = s_cur.amax(dim=-1, keepdim=True)
+    for sc in scores:
+        m = torch.maximum(sc.amax(dim=-1, keepdim=True), m)
+    denom, out = 0.0, 0.0
+    for sc, (_, v_seg, _) in zip(scores, segments):
+        p = torch.exp(sc - m)
+        denom = denom + p.sum(dim=-1, keepdim=True)
+        out = out + torch.einsum(pv_eq, p, v_seg.to(torch.float32))
+    p_cur = torch.exp(s_cur - m)
+    return (out + cur_pv(p_cur)) / (denom + p_cur.sum(dim=-1, keepdim=True))
+
+
+def decode_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_lens, write_pos: int,
+                      step: int, cfg: LLMConfig, attn_impl: str = "einsum", tail_split=None):
+    """One decode step for a batch of sequences at a common write offset.
+
+    Every (layer, sequence) writes its new K/V at ``write_pos + step`` (the
+    JAX package's scatter-free layout); attention masks the two-interval
+    valid set ``[0, cache_lens[l, b]) ∪ [write_pos, write_pos + step)`` and
+    takes the current token as an extra column, so the pools are read-only
+    through the layer loop and written once, IN PLACE, at the end.
+
+    Args:
+        token_embeds: (B, D). position_ids: (B,).
+        k_pool, v_pool: (L, B, S_pool, Hk, hd). cache_lens: (L, B) prefix
+            lengths. write_pos: start of the decode region. step: 0-based
+            decode step.
+        attn_impl: "einsum" (JAX "jax") or "flash" (the projections through
+            kernels C/D for all B rows; JAX "pallas"). The attention is plain
+            torch either way, as it is XLA in JAX.
+        tail_split: optional ``(P, tail_s, region_start)`` — layers >= P
+            read only rows ``[0, tail_s) ∪ [region_start, S_pool)``, merged
+            with a 3-way online softmax; the caller guarantees those layers'
+            prefixes stay below ``tail_s`` and ``tail_s <= region_start <=
+            write_pos``.
+
+    Returns:
+        (logits (B, V) fp32, k_pool, v_pool).
+    """
+    _check_impl(attn_impl, ATTN_IMPLS)
+    dev = token_embeds.device
+    b = token_embeds.shape[0]
+    n_l, s_pool = k_pool.shape[0], k_pool.shape[2]
+    hk, hd = cfg.num_kv_heads, cfg.head_dim_
+    g = cfg.num_heads // hk
+    write_pos, step = int(write_pos), int(step)
+    cos, sin = positions_cos_sin(_index_tensor(position_ids, dev).reshape(b), cfg)
+    lens = _index_tensor(cache_lens, dev)
+    pos_iota = torch.arange(s_pool, device=dev)
+    in_decode = (pos_iota >= write_pos) & (pos_iota < write_pos + step)
+    scale = 1.0 / math.sqrt(hd)
+    use_mv = attn_impl == "flash"
+    layers = params["layers"]
+    tail_split = _normalize_batch_split(tail_split, n_l, s_pool)
+    k_new = torch.empty((n_l, b, hk, hd), dtype=k_pool.dtype, device=dev)
+    v_new = torch.empty_like(k_new)
+    h = token_embeds
+    for l in range(n_l):
+        lp = layer_slice(layers, l)
+        x = rmsnorm(h, lp["ln1"], cfg.rms_norm_eps)
+        q, k, v = _rows_qkv(layers, lp, x, l, cfg, use_mv)
+        q, k = apply_rope(q, k, cos, sin)
+        qf = q.reshape(b, hk, g, hd).to(torch.float32)
+        vf_cur = v.to(torch.float32).reshape(b, hk, 1, hd)
+        s_cur = (qf * k.to(torch.float32).reshape(b, hk, 1, hd)).sum(dim=-1, keepdim=True) * scale
+        prefix = pos_iota[None, :] < lens[l][:, None]  # (B, S_pool)
+        if tail_split is None or l < tail_split[0]:
+            segments = [(k_pool[l], v_pool[l], prefix | in_decode[None, :])]
+        else:
+            tail_s, rs = tail_split[1], tail_split[2]
+            segments = [(k_pool[l, :, :tail_s], v_pool[l, :, :tail_s], prefix[:, :tail_s]),
+                        (k_pool[l, :, rs:], v_pool[l, :, rs:], in_decode[None, rs:].expand(b, -1))]
+        out = _attend_segments(qf, segments, s_cur, lambda p: p * vf_cur, "bhgd,bshd->bhgs",
+                               "bhgs,bshd->bhgd", scale)
+        h = _rows_out_mlp(layers, lp, h, out.reshape(b, -1), l, cfg, use_mv)
+        k_new[l] = k.to(k_pool.dtype)
+        v_new[l] = v.to(v_pool.dtype)
+    k_pool[:, :, write_pos + step] = k_new
+    v_pool[:, :, write_pos + step] = v_new
+    return final_logits(params, h, cfg), k_pool, v_pool
+
+
+def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_lens, decode_mask,
+                      write_pos: int, step: int, cfg: LLMConfig, attn_impl: str = "flash", tail_split=None,
+                      k_tail=None, v_tail=None, phys=None):
+    """Speculative verify for a batch: (B, K) candidate rows in one weight
+    pass — :func:`verify_step` with :func:`decode_step_batch`'s cache layout.
+
+    Each macro step writes every sequence's K rows at the common offset
+    ``write_pos + step * K``, IN PLACE after the layer loop; ``decode_mask``
+    marks only committed decode-region rows, so rows a sequence rejects stay
+    invisible.
+
+    Args:
+        token_embeds: (B, K, D), row 0 each sequence's last committed token.
+        position_ids: (B, K).
+        k_pool, v_pool: (L, B, S_pool, Hk, hd). cache_lens: (L, B) prefix
+            lengths. decode_mask: (B, S_pool) bool, committed decode rows.
+        write_pos: start of the decode region. step: 0-based macro step.
+        attn_impl: "flash" streams the projections through kernels C/D when
+            B * K <= 64 rows; "einsum" is the plain path.
+        tail_split: optional ``(P, tail_s, region_start)`` as in
+            :func:`decode_step_batch`.
+        k_tail, v_tail, phys: physically split tail pools ``(L - P, B,
+            S_tail, Hk, hd)`` with ``phys = (P, tail_rs, rs)``: ``k_pool`` /
+            ``v_pool`` hold only layers < P; tail rows ``[0, tail_rs)``
+            mirror the prefix region and ``[tail_rs, S_tail)`` the decode
+            region ``[rs, S_pool)``. ``decode_mask``, ``write_pos`` and
+            ``step`` stay in head-pool coordinates. ``phys`` replaces
+            ``tail_split``.
+
+    Returns:
+        (logits (B, K, V) fp32, k_pool, v_pool, k_tail, v_tail).
+    """
+    _check_impl(attn_impl, ATTN_IMPLS)
+    dev = token_embeds.device
+    b, kq, _ = token_embeds.shape
+    s_pool = k_pool.shape[2]
+    hk, hd = cfg.num_kv_heads, cfg.head_dim_
+    g = cfg.num_heads // hk
+    n_l = cfg.num_layers
+    cos, sin = positions_cos_sin(_index_tensor(position_ids, dev).reshape(b * kq), cfg)
+    lens = _index_tensor(cache_lens, dev)
+    decode_mask = decode_mask.to(dev)
+    pos_iota = torch.arange(s_pool, device=dev)
+    tril = torch.tril(torch.ones((kq, kq), dtype=torch.bool, device=dev))
+    scale = 1.0 / math.sqrt(hd)
+    use_mv = attn_impl == "flash" and b * kq <= matvec_q8.MAX_ROWS
+    layers = params["layers"]
+    if phys is not None:
+        p_split, tail_rs, rs = phys
+        if k_tail is None or k_pool.shape[0] != p_split or k_tail.shape[2] - tail_rs != s_pool - rs:
+            raise ValueError(f"phys={phys}: head pool {tuple(k_pool.shape)} and tail pool "
+                             f"{None if k_tail is None else tuple(k_tail.shape)} do not match")
+    else:
+        tail_split = _normalize_batch_split(tail_split, n_l, s_pool)
+    k_new = torch.empty((n_l, b, kq, hk, hd), dtype=k_pool.dtype, device=dev)
+    v_new = torch.empty_like(k_new)
+    h = token_embeds
+    for l in range(n_l):
+        if phys is not None and l >= p_split:
+            k_l, v_l, seg = k_tail[l - p_split], v_tail[l - p_split], (tail_rs, tail_rs, rs)
+        else:
+            seg = None
+            if tail_split is not None and l >= tail_split[0]:
+                seg = (tail_split[1], tail_split[2], tail_split[2])
+            k_l, v_l = k_pool[l], v_pool[l]
+        lp = layer_slice(layers, l)
+        x = rmsnorm(h, lp["ln1"], cfg.rms_norm_eps)
+        q, k, v = _rows_qkv(layers, lp, x.reshape(b * kq, -1), l, cfg, use_mv)
+        q, k = apply_rope(q, k, cos, sin)
+        k = k.reshape(b, kq, hk, hd)
+        v = v.reshape(b, kq, hk, hd)
+        qf = q.reshape(b, kq, hk, g, hd).to(torch.float32)
+        vf_cur = v.to(torch.float32)
+        s_cur = torch.einsum("bnhgd,bmhd->bhgnm", qf, k.to(torch.float32)) * scale
+        s_cur = s_cur.masked_fill(~tril, _BATCH_MASKED)
+        prefix = pos_iota[None, :] < lens[l][:, None]  # (B, S_pool)
+        if seg is None:
+            segments = [(k_l, v_l, prefix | decode_mask)]
+        else:
+            # Ragged prefix rows [0, tail_s) and the decode region from
+            # pool_rs (this pool's coordinates; decode_mask's from mask_rs).
+            tail_s, pool_rs, mask_rs = seg
+            segments = [(k_l[:, :tail_s], v_l[:, :tail_s], prefix[:, :tail_s] | decode_mask[:, :tail_s]),
+                        (k_l[:, pool_rs:], v_l[:, pool_rs:], decode_mask[:, mask_rs:])]
+        out = _attend_segments(qf, segments, s_cur, lambda p: torch.einsum("bhgnm,bmhd->bhgnd", p, vf_cur),
+                               "bnhgd,bshd->bhgns", "bhgns,bshd->bhgnd", scale)
+        out = out.permute(0, 3, 1, 2, 4).reshape(b * kq, hk * g * hd)
+        h = _rows_out_mlp(layers, lp, h.reshape(b * kq, -1), out, l, cfg, use_mv).reshape(b, kq, -1)
+        k_new[l] = k.to(k_pool.dtype)
+        v_new[l] = v.to(v_pool.dtype)
+    base = int(write_pos) + int(step) * kq
+    if phys is not None:
+        k_pool[:, :, base:base + kq] = k_new[:p_split]
+        v_pool[:, :, base:base + kq] = v_new[:p_split]
+        tbase = base - rs + tail_rs
+        k_tail[:, :, tbase:tbase + kq] = k_new[p_split:]
+        v_tail[:, :, tbase:tbase + kq] = v_new[p_split:]
+    else:
+        k_pool[:, :, base:base + kq] = k_new
+        v_pool[:, :, base:base + kq] = v_new
+    logits = final_logits(params, h.reshape(b * kq, -1), cfg).reshape(b, kq, -1)
+    return logits, k_pool, v_pool, k_tail, v_tail

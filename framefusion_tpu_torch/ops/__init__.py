@@ -1,4 +1,4 @@
-from .attention import causal_attention_einsum, decode_attention, last_rows_importance
+from .attention import causal_attention_einsum, decode_attention, last_rows_importance, verify_attention
 from .rope import apply_rope, rope_cos_sin
 from .sampling import SamplerConfig, sample_token
 
@@ -6,6 +6,7 @@ __all__ = [
     "causal_attention_einsum",
     "decode_attention",
     "last_rows_importance",
+    "verify_attention",
     "apply_rope",
     "rope_cos_sin",
     "SamplerConfig",

@@ -1,4 +1,4 @@
-"""Plain attention ops: causal prefill, last-rows importance, decode.
+"""Plain attention ops: causal prefill, last-rows importance, decode, verify.
 
 Port of ``framefusion_tpu.ops.attention``. These are the reference paths
 (full score materialisation, fp32); the hand-written CUDA prefill kernels
@@ -114,3 +114,32 @@ def decode_attention(q, k_cache, v_cache, cache_len: int) -> torch.Tensor:
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("hgk,hkd->hgd", probs, vf)
     return out.reshape(hq, d).to(q.dtype)
+
+
+def verify_attention(q, k_cache, v_cache, base_len: int) -> torch.Tensor:
+    """Multi-row decode attention for speculative verification.
+
+    The caller has written the K rows' keys/values at positions
+    ``base_len .. base_len + K - 1``; row ``i`` attends the prefix plus rows
+    ``0..i``. Row 0 is the same masked fp32 softmax as
+    :func:`decode_attention`, so a verify step with no accepted drafts
+    reproduces the decode step.
+
+    Args:
+        q: (K, Hq, D); k_cache, v_cache: (S_pad, Hk, D); base_len: valid
+            entries before these K rows.
+    Returns:
+        (K, Hq, D) in q's dtype.
+    """
+    s_pad, hk, d = k_cache.shape
+    kq, hq = q.shape[0], q.shape[1]
+    qf = q.reshape(kq, hk, hq // hk, d).to(torch.float32)
+    kf = k_cache.permute(1, 0, 2).to(torch.float32)
+    vf = v_cache.permute(1, 0, 2).to(torch.float32)
+    scores = torch.einsum("nhgd,hkd->nhgk", qf, kf) / math.sqrt(d)
+    horizon = base_len + 1 + torch.arange(kq, device=q.device)
+    mask = torch.arange(s_pad, device=q.device)[None, :] < horizon[:, None]
+    scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("nhgk,hkd->nhgd", probs, vf)
+    return out.reshape(kq, hq, d).to(q.dtype)

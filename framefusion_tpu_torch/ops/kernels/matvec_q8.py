@@ -10,6 +10,9 @@ it):
   keep the JAX entry points.
 * ``gemv_gateup`` (kernel D) — ``silu(x@Wg*sg) * (x@Wu*su)`` over the two
   MLP stacks (``matvec_stacked_gateup``).
+* ``matvec_q8`` / ``matvec_bf16`` keep the JAX entry points of the plain
+  (K, N) matvec (``_matvec``): kernel C with the weight viewed as a one-layer
+  stack, so no kernel of their own.
 
 Like the TPU kernels, the activation row is rounded to bf16 and the weights
 are read as bf16 or int8 (a float weight stack is rounded to bf16 by the
@@ -165,3 +168,21 @@ def matvec_stacked_qkv(x, wq_stack, wk_stack, wv_stack, layer: int):
 def matvec_stacked_gateup(x, wg_stack, wu_stack, sg, su, layer: int):
     """silu(x @ wg * sg) * (x @ wu * su) in one launch -> (B, N) fp32."""
     return gemv_gateup(x, wg_stack, wu_stack, sg, su, layer)
+
+
+def _one_layer(name, w):
+    if w.ndim != 2:
+        raise ValueError(f"{name}: w must be (K, N), got {tuple(w.shape)}")
+    return w[None]
+
+
+def matvec_q8(x, w8, scale):
+    """(B, K) bf16 @ (K, N) int8 -> (B, N) fp32, times the per-column fp32
+    ``scale`` (N,); on the card N must be a multiple of 16."""
+    return matvec_stacked(x, _one_layer("matvec_q8", w8), 0) * scale
+
+
+def matvec_bf16(x, w):
+    """(B, K) bf16 @ (K, N) bf16 -> (B, N) fp32; on the card N must be a
+    multiple of 8."""
+    return matvec_stacked(x, _one_layer("matvec_bf16", w), 0)

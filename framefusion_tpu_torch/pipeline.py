@@ -61,7 +61,9 @@ class TextPipeline:
         The tokenizer loads from the same directory through
         transformers.AutoTokenizer (local files) unless one is passed; S_th
         defaults to the family's value (interface.FAMILIES). ``quantize="int8"``
-        quantizes the decoder weights on the host during import."""
+        quantizes the decoder weights on the host during import.
+        ``device=None`` puts the model on the card and raises without one;
+        ``device="cpu"`` asks for the CPU."""
         from .interface import FAMILIES, apply_framefusion
         from .weights import load_checkpoint
 

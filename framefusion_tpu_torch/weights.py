@@ -73,6 +73,18 @@ def _stack_layer_weight(name: str, stacked: torch.Tensor, cfg: LLMConfig, quanti
     return stacked.to(device=device, dtype=cfg.dtype)
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the card when it is None. Without a CUDA device, None
+    raises: the CPU runs only the kernels' plain versions, so it is taken
+    only when asked for (``device="cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: the model loads onto the card by default; pass device="cpu" '
+                           "to load it onto the CPU (plain versions of the kernels)")
+    return torch.device("cuda")
+
+
 def params_from_state_dict(state_dict, cfg: LLMConfig, prefix: str = "model.", quantize=None,
                            device=None) -> dict:
     """The stacked-parameter dict from an HF Qwen2-style state dict.
@@ -83,10 +95,12 @@ def params_from_state_dict(state_dict, cfg: LLMConfig, prefix: str = "model.", q
             (``"model."`` for LLaVA-Video).
         quantize: ``"int8"`` quantizes the decoder matmul weights on the
             host during import.
-        device: where the params go (the CPU by default).
+        device: where the params go: the card when None (which raises
+            without one); ``"cpu"`` for the CPU.
     """
     if quantize not in (None, "int8"):
         raise ValueError(f"unknown quantize={quantize!r} (None or 'int8')")
+    device = resolve_device(device)
     layer_re = re.compile(re.escape(prefix) + r"layers\.(\d+)\.(.+)")
     per_layer: dict[str, dict[int, torch.Tensor]] = {}
     for name, tensor in state_dict.items():
@@ -206,9 +220,12 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
     ``quantize="int8"``: decoder matmul weights are quantized on the host
     during import, so the device never holds the bf16 originals. The vision
     tower, embeddings, norms and lm_head keep ``dtype``; the projector is
-    fp32, as in the JAX loader.
+    fp32, as in the JAX loader. ``device=None`` loads onto the card and
+    raises without one; ``device="cpu"`` asks for the CPU.
     """
     from .interface import FAMILIES, FrameFusionModel
+
+    device = resolve_device(device)
 
     with open(os.path.join(checkpoint_dir, "config.json")) as f:
         cfg_dict = json.load(f)

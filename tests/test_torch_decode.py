@@ -1,0 +1,401 @@
+"""The port's decode side vs the JAX package: kernel G, the decode-step
+variants, the batched and speculative-verify programs, the plain matvec
+entry points, the loaders' device default, and the counterpart table.
+
+Inputs are drawn with numpy from seeds and go through the JAX function and
+its port; JAX weights carry over with ``params_from_numpy``. Tolerances:
+
+* fp32 attention (kernel G's plain version against the Pallas kernel in
+  interpret mode, ``verify_attention``) agrees to 1e-5: the same fp32 math
+  summed in other orders, at O(1) magnitudes.
+* Whole programs in fp32 (plain projections on both sides) agree to 1e-4
+  of the largest logit, through several layers (as tests/test_torch_qwen2.py
+  holds ``decode_step``); where both sides stream the projections through
+  the matvec kernels, which round activations and weights to bf16, to 2e-3.
+* The port against itself (a K-row program against K one-row programs, a
+  batched program against solo ones) agrees to 1e-4: the same fp32 math
+  over other shapes.
+* The plain matvecs round to bf16 and sum in fp32 on both sides: 1e-5 of
+  the output's largest magnitude.
+"""
+
+import ast
+import importlib
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from checkpoint_fixtures import write_fixture
+from framefusion_tpu.config import tiny_llm_config as jax_tiny
+from framefusion_tpu.models import qwen2 as jq
+from framefusion_tpu.ops.attention import verify_attention as jax_verify_attention
+from framefusion_tpu.ops.kernels import matvec_q8 as jmv
+from framefusion_tpu.ops.kernels.decode_attention import ragged_decode_attention as jax_ragged
+from framefusion_tpu.ops.quant import quantize_params_int8 as jax_quantize
+from framefusion_tpu_torch import weights
+from framefusion_tpu_torch.config import tiny_llm_config
+from framefusion_tpu_torch.models import qwen2 as tq
+from framefusion_tpu_torch.ops import kernels as registry
+from framefusion_tpu_torch.ops.attention import verify_attention
+from framefusion_tpu_torch.ops.kernels import decode_attention as tda
+from framefusion_tpu_torch.ops.kernels import matvec_q8 as tmv
+from framefusion_tpu_torch.pipeline import TextPipeline
+
+ATTN_TOL = 1e-5
+TOL = 1e-4
+BF16_TOL = 2e-3
+MV_RTOL = 1e-5
+REPO = Path(__file__).resolve().parent.parent
+
+
+def assert_rel(got, ref, tol):
+    ref = np.asarray(ref, np.float32)
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=tol * float(np.abs(ref).max()))
+
+
+# -- kernel G's plain version ------------------------------------------------
+
+
+@pytest.mark.parametrize("s", [256, 200])  # 200: a pool that is not a multiple of the 128-key block
+@pytest.mark.parametrize("g", [1, 2, 7])
+@pytest.mark.parametrize("length", [1, 100, 128, 129, "S"])
+def test_ragged_decode_matches_pallas(s, g, length):
+    length = s if length == "S" else length
+    hk, d = 2, 128
+    rng = np.random.default_rng(s + 10 * g)
+    q = rng.standard_normal((hk * g, d)).astype(np.float32)
+    k = rng.standard_normal((s, hk, d)).astype(np.float32)
+    v = rng.standard_normal((s, hk, d)).astype(np.float32)
+    got = tda.ragged_decode_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), length)
+    ref = jax_ragged(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(length), block_k=128, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATTN_TOL, rtol=ATTN_TOL)
+    assert torch.equal(got, tda.ragged_decode_attn_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                                         torch.from_numpy(v), length))
+
+
+def test_ragged_decode_wrapper_validates():
+    q, kc = torch.zeros(4, 128), torch.zeros(16, 2, 128)
+    for bad_len in (0, 17):
+        with pytest.raises(ValueError, match="cache_len"):
+            tda.ragged_decode_attn(q, kc, kc, bad_len)
+    with pytest.raises(ValueError, match="incompatible"):
+        tda.ragged_decode_attn(torch.zeros(3, 128), kc, kc, 4)
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        tda.ragged_decode_attn(q.to("meta"), kc.to("meta"), kc.to("meta"), 4)
+    launches = tda.ragged_decode_attn.launches
+    tda.ragged_decode_attn(q, kc, kc, 4)
+    assert tda.ragged_decode_attn.launches == launches  # the plain version on the CPU launches nothing
+
+
+@pytest.mark.parametrize("length,hk", [(1, 4), (64, 4), (11698, 4), (3293, 4), (100, 1)])
+def test_ragged_decode_split_plan_covers_the_length(length, hk):
+    keys, n_split = tda.split_plan(length, hk)
+    assert keys % tda.TILE_KEYS == 0 and (n_split - 1) * keys < length <= n_split * keys
+    assert n_split * hk <= tda.TARGET_CTAS or keys == tda.TILE_KEYS
+
+
+def test_verify_attention_matches_jax():
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((4, 6, 32)).astype(np.float32)
+    k = rng.standard_normal((40, 2, 32)).astype(np.float32)
+    v = rng.standard_normal((40, 2, 32)).astype(np.float32)
+    got = verify_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 30)
+    ref = jax_verify_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(30))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATTN_TOL, rtol=ATTN_TOL)
+
+
+# -- the decode-side programs --------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = jax_tiny(num_layers=3)
+    tcfg = tiny_llm_config(num_layers=3)
+    jp = jq.init_params(jcfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    for name in ("bq", "bk", "bv"):  # non-zero biases exercise the bias path
+        jp["layers"][name] = jnp.asarray(rng.standard_normal(jp["layers"][name].shape) * 0.02, jnp.float32)
+    jq8 = jax_quantize(jax.tree.map(jnp.copy, jp))
+    return {False: (jp, tq.params_from_numpy(jax.device_get(jp))),
+            True: (jq8, tq.params_from_numpy(jax.device_get(jq8)))}, jcfg, tcfg
+
+
+def _pools(rng, *lead, s=64, hk=2, hd=32):
+    return tuple((rng.standard_normal((*lead, s, hk, hd)) * 0.5).astype(np.float32) for _ in range(2))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_step_ragged_matches_jax(models, quantized):
+    """Port "ragged" against JAX "mv-jax" (JAX's "pallas" launches its kernel
+    without interpret mode, which the CPU cannot run); on the CPU "ragged"
+    is "flash" exactly (kernel G's wrapper takes the plain version)."""
+    trees, jcfg, tcfg = models
+    jp, tp = trees[quantized]
+    rng = np.random.default_rng(4)
+    k_pool, v_pool = _pools(rng, jcfg.num_layers)
+    lens = [50, 20, 20]
+    emb = (rng.standard_normal(jcfg.hidden_size) * 0.05).astype(np.float32)
+    lj, kpj, vpj, _ = jq.decode_step(jp, jnp.asarray(emb), jnp.int32(51), jnp.asarray(k_pool), jnp.asarray(v_pool),
+                                     jnp.asarray(lens, jnp.int32), jcfg, attn_impl="mv-jax", tail_split=(1, 32))
+    outs = {}
+    for impl in ("ragged", "flash"):
+        outs[impl] = tq.decode_step(tp, torch.from_numpy(emb), 51, torch.from_numpy(k_pool.copy()),
+                                    torch.from_numpy(v_pool.copy()), lens, tcfg, attn_impl=impl, tail_split=(1, 32))
+    lt, kpt, vpt, new_lens = outs["ragged"]
+    assert new_lens == [51, 21, 21]
+    assert_rel(lt, lj, BF16_TOL)
+    np.testing.assert_allclose(kpt.numpy(), np.asarray(kpj), atol=BF16_TOL, rtol=BF16_TOL)
+    np.testing.assert_allclose(vpt.numpy(), np.asarray(vpj), atol=BF16_TOL, rtol=BF16_TOL)
+    for a, b in zip(outs["ragged"][:3], outs["flash"][:3]):
+        assert torch.equal(a, b)
+
+
+def test_decode_step_rejects_unknown_impl(models):
+    trees, _, tcfg = models
+    with pytest.raises(ValueError, match="attn_impl"):
+        tq.decode_step(trees[False][1], torch.zeros(tcfg.hidden_size), 0, torch.zeros(3, 8, 2, 32),
+                       torch.zeros(3, 8, 2, 32), [0, 0, 0], tcfg, attn_impl="pallas")
+
+
+BATCH_LENS = [[30, 25, 20], [20, 18, 10], [22, 12, 15]]
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("split", [None, (1, 32, 40)])
+@pytest.mark.parametrize("impl", ["einsum", "flash"])
+def test_decode_step_batch_matches_jax(models, quantized, split, impl):
+    trees, jcfg, tcfg = models
+    jp, tp = trees[quantized]
+    rng = np.random.default_rng(5)
+    k_pool, v_pool = _pools(rng, jcfg.num_layers, 3)
+    embs = (rng.standard_normal((3, jcfg.hidden_size)) * 0.05).astype(np.float32)
+    pos = np.array([42, 37, 31], np.int32)
+    j_impl = {"einsum": "jax", "flash": "pallas"}[impl]
+    lj, kpj, vpj = jq.decode_step_batch(jp, jnp.asarray(embs), jnp.asarray(pos), jnp.asarray(k_pool),
+                                        jnp.asarray(v_pool), jnp.asarray(BATCH_LENS, jnp.int32), jnp.int32(40),
+                                        jnp.int32(2), jcfg, attn_impl=j_impl, tail_split=split)
+    lt, kpt, vpt = tq.decode_step_batch(tp, torch.from_numpy(embs), pos, torch.from_numpy(k_pool.copy()),
+                                        torch.from_numpy(v_pool.copy()), BATCH_LENS, 40, 2, tcfg, attn_impl=impl,
+                                        tail_split=split)
+    tol = TOL if impl == "einsum" else BF16_TOL
+    assert_rel(lt, lj, tol)
+    np.testing.assert_allclose(kpt.numpy(), np.asarray(kpj), atol=tol, rtol=tol)
+    np.testing.assert_allclose(vpt.numpy(), np.asarray(vpj), atol=tol, rtol=tol)
+
+
+def test_decode_step_batch_split_equals_full_read(models):
+    """The two-segment read is the same math as the full padded read."""
+    trees, _, tcfg = models
+    tp = trees[False][1]
+    rng = np.random.default_rng(6)
+    k_pool, v_pool = _pools(rng, tcfg.num_layers, 3)
+    embs = torch.from_numpy((rng.standard_normal((3, tcfg.hidden_size)) * 0.05).astype(np.float32))
+    out = [tq.decode_step_batch(tp, embs, [42, 37, 31], torch.from_numpy(k_pool.copy()),
+                                torch.from_numpy(v_pool.copy()), BATCH_LENS, 40, 3, tcfg, tail_split=split)[0]
+           for split in (None, (1, 32, 40), (1, 40, 40))]  # the last one narrows nothing: no split
+    assert_rel(out[1], out[0].numpy(), TOL)
+    assert torch.equal(out[2], out[0])
+
+
+@pytest.fixture
+def verify_mv(monkeypatch):
+    """Point the JAX verify programs at the streamed matvecs (interpret mode
+    on the CPU), as the port's "flash" does."""
+    def set_impl(impl):
+        monkeypatch.setenv("FF_VERIFY_MV", "1" if impl == "flash" else "0")
+    return set_impl
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("impl", ["einsum", "flash"])
+def test_verify_step_matches_jax(models, verify_mv, quantized, impl):
+    trees, jcfg, tcfg = models
+    jp, tp = trees[quantized]
+    verify_mv(impl)
+    rng = np.random.default_rng(7)
+    k_pool, v_pool = _pools(rng, jcfg.num_layers)
+    lens = [40, 20, 18]
+    rows = (rng.standard_normal((4, jcfg.hidden_size)) * 0.05).astype(np.float32)
+    pos = np.arange(40, 44, dtype=np.int32)
+    lj, kpj, _ = jq.verify_step(jp, jnp.asarray(rows), jnp.asarray(pos), jnp.asarray(k_pool), jnp.asarray(v_pool),
+                                jnp.asarray(lens, jnp.int32), jcfg, tail_split=(1, 32))
+    lt, kpt, _ = tq.verify_step(tp, torch.from_numpy(rows), pos, torch.from_numpy(k_pool.copy()),
+                                torch.from_numpy(v_pool.copy()), lens, tcfg, attn_impl=impl, tail_split=(1, 32))
+    tol = TOL if impl == "einsum" else BF16_TOL
+    assert lt.shape == (4, tcfg.vocab_size)
+    assert_rel(lt, lj, tol)
+    np.testing.assert_allclose(kpt.numpy(), np.asarray(kpj), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("impl", ["einsum", "flash"])
+def test_verify_step_equals_sequential_decode(models, impl):
+    """Row i of the K-row program is the decode step after rows 0..i."""
+    trees, _, tcfg = models
+    tp = trees[False][1]
+    rng = np.random.default_rng(8)
+    k_pool, v_pool = _pools(rng, tcfg.num_layers)
+    lens = [40, 20, 18]
+    rows = torch.from_numpy((rng.standard_normal((4, tcfg.hidden_size)) * 0.05).astype(np.float32))
+    lv, kv, _ = tq.verify_step(tp, rows, [40, 41, 42, 43], torch.from_numpy(k_pool.copy()),
+                               torch.from_numpy(v_pool.copy()), lens, tcfg, attn_impl=impl)
+    kp, vp, ln, seq = torch.from_numpy(k_pool.copy()), torch.from_numpy(v_pool.copy()), lens, []
+    for i in range(4):
+        lg, kp, vp, ln = tq.decode_step(tp, rows[i], 40 + i, kp, vp, ln, tcfg, attn_impl=impl)
+        seq.append(lg)
+    # "flash" rounds each matvec's input row to bf16: an fp32 last-bit
+    # difference between the 4-row and 1-row products can flip a rounding.
+    tol = TOL if impl == "einsum" else BF16_TOL
+    assert_rel(lv, torch.stack(seq).numpy(), tol)
+    np.testing.assert_allclose(kv.numpy(), kp.numpy(), atol=tol, rtol=tol)
+
+
+def _batch_verify_inputs(seed, cfg):
+    rng = np.random.default_rng(seed)
+    k_pool, v_pool = _pools(rng, cfg.num_layers, 3)
+    embs = (rng.standard_normal((3, 4, cfg.hidden_size)) * 0.05).astype(np.float32)
+    pos = (np.array(BATCH_LENS[0])[:, None] + np.arange(4)[None]).astype(np.int32)
+    mask = np.zeros((3, 64), bool)
+    mask[:, 40:42] = True  # two committed decode rows from earlier steps
+    return k_pool, v_pool, embs, pos, mask
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("split", [None, (1, 32, 40), "phys"])
+@pytest.mark.parametrize("impl", ["einsum", "flash"])
+def test_verify_step_batch_matches_jax(models, verify_mv, quantized, split, impl):
+    trees, jcfg, tcfg = models
+    jp, tp = trees[quantized]
+    verify_mv(impl)
+    k_pool, v_pool, embs, pos, mask = _batch_verify_inputs(9, tcfg)
+    kw_j, kw_t = {}, {}
+    if split == "phys":
+        # Layers >= 1 in a tail pool: prefix rows [0, 32) and the decode
+        # region [40, 64) of the head pool at [32, 56).
+        k_tail = np.concatenate([k_pool[1:, :, :32], k_pool[1:, :, 40:]], axis=2)
+        v_tail = np.concatenate([v_pool[1:, :, :32], v_pool[1:, :, 40:]], axis=2)
+        k_pool, v_pool = k_pool[:1], v_pool[:1]
+        kw_j = dict(k_tail=jnp.asarray(k_tail), v_tail=jnp.asarray(v_tail), phys=(1, 32, 40))
+        kw_t = dict(k_tail=torch.from_numpy(k_tail.copy()), v_tail=torch.from_numpy(v_tail.copy()), phys=(1, 32, 40))
+    else:
+        kw_j = kw_t = dict(tail_split=split)
+    lj, kpj, _, ktj, _ = jq.verify_step_batch(
+        jp, jnp.asarray(embs), jnp.asarray(pos), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(BATCH_LENS, jnp.int32), jnp.asarray(mask), jnp.int32(40), jnp.int32(1), jcfg, **kw_j)
+    lt, kpt, _, ktt, _ = tq.verify_step_batch(
+        tp, torch.from_numpy(embs), pos, torch.from_numpy(k_pool.copy()), torch.from_numpy(v_pool.copy()),
+        BATCH_LENS, torch.from_numpy(mask), 40, 1, tcfg, attn_impl=impl, **kw_t)
+    tol = TOL if impl == "einsum" else BF16_TOL
+    assert lt.shape == (3, 4, tcfg.vocab_size)
+    assert_rel(lt, lj, tol)
+    np.testing.assert_allclose(kpt.numpy(), np.asarray(kpj), atol=tol, rtol=tol)
+    if split == "phys":
+        np.testing.assert_allclose(ktt.numpy(), np.asarray(ktj), atol=tol, rtol=tol)
+
+
+def test_verify_step_batch_equals_solo(models):
+    """With no committed decode rows, each sequence of the batched program is
+    the solo K-row program on its own cache."""
+    trees, _, tcfg = models
+    tp = trees[False][1]
+    k_pool, v_pool, embs, pos, _ = _batch_verify_inputs(10, tcfg)
+    lb = tq.verify_step_batch(tp, torch.from_numpy(embs), pos, torch.from_numpy(k_pool.copy()),
+                              torch.from_numpy(v_pool.copy()), BATCH_LENS, torch.zeros((3, 64), dtype=torch.bool),
+                              40, 0, tcfg, attn_impl="einsum")[0]
+    for b in range(3):
+        solo = tq.verify_step(tp, torch.from_numpy(embs[b]), pos[b], torch.from_numpy(k_pool[:, b].copy()),
+                              torch.from_numpy(v_pool[:, b].copy()), [row[b] for row in BATCH_LENS], tcfg,
+                              attn_impl="einsum")[0]
+        assert_rel(lb[b], solo.numpy(), TOL)
+
+
+# -- matvec_q8 / matvec_bf16 ---------------------------------------------------
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_plain_matvecs_match_pallas(rows):
+    rng = np.random.default_rng(60 + rows)
+    k, n = 512, 384
+    x = jnp.asarray(rng.standard_normal((rows, k)) * 0.1, jnp.bfloat16)
+    w8 = jnp.asarray(rng.integers(-127, 128, (k, n)), jnp.int8)
+    sc = jnp.asarray(rng.random(n).astype(np.float32) * 0.01 + 0.005)
+    wbf = jnp.asarray(rng.standard_normal((k, n)) * 0.1, jnp.bfloat16)
+    xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    got = tmv.matvec_q8(xt, torch.from_numpy(np.array(w8)), torch.from_numpy(np.array(sc)))
+    assert_rel(got, jmv.matvec_q8(x, w8, sc, interpret=True), MV_RTOL)
+    got = tmv.matvec_bf16(xt, torch.from_numpy(np.asarray(wbf, np.float32)).to(torch.bfloat16))
+    assert_rel(got, jmv.matvec_bf16(x, wbf, interpret=True), MV_RTOL)
+    with pytest.raises(ValueError, match=r"\(K, N\)"):
+        tmv.matvec_bf16(xt, torch.zeros(2, k, n))
+
+
+# -- the loaders put the model on the card by default -------------------------
+
+
+def test_loaders_default_to_the_card(tmp_path, monkeypatch):
+    path = write_fixture(tmp_path, "llava_video")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        weights.load_checkpoint(path)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TextPipeline.from_checkpoint(path, tokenizer=object())
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        weights.params_from_state_dict({}, tiny_llm_config())
+    model = weights.load_checkpoint(path, device="cpu")
+    assert model.params["embed"].device.type == "cpu" and model.vision["params"]["patch_kernel"].device.type == "cpu"
+
+
+# -- every TPU kernel has its counterpart ------------------------------------------
+
+
+def _pallas_functions():
+    """(file:line, name) of every top-level function in the JAX kernel files
+    that reaches ``pl.pallas_call``, directly or through a function of its file."""
+    found = []
+    for path in sorted((REPO / "framefusion_tpu" / "ops" / "kernels").glob("*.py")):
+        funcs = {n.name: n for n in ast.parse(path.read_text()).body if isinstance(n, ast.FunctionDef)}
+        direct, calls = set(), {}
+        for name, fn in funcs.items():
+            calls[name] = set()
+            for node in ast.walk(fn):
+                if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) \
+                        and node.func.attr == "pallas_call":
+                    direct.add(name)
+                if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and node.func.id in funcs:
+                    calls[name].add(node.func.id)
+        reach, grew = set(direct), True
+        while grew:
+            grew = False
+            for name, callees in calls.items():
+                if name not in reach and callees & reach:
+                    reach.add(name)
+                    grew = True
+        rel = path.relative_to(REPO).as_posix()
+        found += [(f"{rel}:{funcs[n].lineno}", n) for n in reach]
+    return found
+
+
+def test_every_pallas_kernel_has_a_port_counterpart():
+    found = _pallas_functions()
+    assert len(found) >= 15
+    for key, name in found:
+        assert key in registry.COUNTERPARTS, f"{key} ({name}) has no counterpart in ops/kernels/__init__.py"
+        assert registry.COUNTERPARTS[key][0] == name, key
+
+
+def test_counterpart_table_points_at_real_code():
+    for key, (name, kernel) in registry.COUNTERPARTS.items():
+        path, line = key.rsplit(":", 1)
+        defs = {n.lineno: n.name for n in ast.parse((REPO / path).read_text()).body if isinstance(n, ast.FunctionDef)}
+        assert defs.get(int(line)) == name, key
+        assert kernel in registry.KERNELS, key
+    for kernel, (module, source) in registry.KERNELS.items():
+        assert (REPO / source).exists(), source
+        wrapper = getattr(importlib.import_module(f"framefusion_tpu_torch.ops.kernels.{module}"), kernel)
+        assert isinstance(wrapper.launches, int), kernel
+        assert registry.replaces(kernel), kernel
+    assert registry.replaces("ragged_decode_attn") == ["framefusion_tpu/ops/kernels/decode_attention.py:79"]

@@ -25,6 +25,7 @@ from framefusion_tpu.ops.kernels import flash_prefill as jfp
 from framefusion_tpu.ops.kernels import matvec_q8 as jmv
 from framefusion_tpu_torch import _build
 from framefusion_tpu_torch.ops.attention import capture_rows
+from framefusion_tpu_torch.ops.kernels import decode_attention as tda
 from framefusion_tpu_torch.ops.kernels import flash_prefill as tfp
 from framefusion_tpu_torch.ops.kernels import matvec_q8 as tmv
 from framefusion_tpu_torch.ops.kernels import sink_prefill as tsp
@@ -268,3 +269,46 @@ def test_cuda_sink_kernel_matches_plain(cuda, s, hq, hk, init_num, window):
     for ref in refs:  # per (row, head), relative to the row's largest output, as for kernel A
         err = (out.float() - ref.float()).abs().amax(-1)
         assert (err <= 2e-2 * ref.float().abs().amax(-1)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length,s_view,hq,hk", [
+    (11698, 11776, 28, 4),  # the phase layers of the 64-frame decode pool
+    (3293, 3328, 28, 4),  # a tail layer's view
+    (1, 512, 28, 4),  # one key
+    (512, 512, 28, 4),  # every row of the view
+    (65, 200, 28, 4),  # a length off the 64-key tile
+    (517, 600, 4, 4),  # G = 1
+    (777, 800, 16, 1),  # G = 16, the most the kernel takes
+])
+def test_cuda_ragged_decode_kernel_matches_plain(cuda, length, s_view, hq, hk):
+    gen = torch.Generator(device=cuda).manual_seed(length)
+    q = torch.randn((hq, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    pool = torch.randn((2, s_view, hk, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    launches = tda.ragged_decode_attn.launches
+    out = tda.ragged_decode_attention(q, pool[0], pool[1], length)
+    assert tda.ragged_decode_attn.launches == launches + 1
+    ref = tda.ragged_decode_attn_plain(q, pool[0], pool[1], length)
+    # per head, relative to that head's largest output: fp32 sums in other
+    # orders, both rounded to bf16 once
+    err = (out.float() - ref.float()).abs().amax(-1)
+    assert (err <= 2e-2 * ref.float().abs().amax(-1)).all()
+    with pytest.raises(TypeError):
+        tda.ragged_decode_attn(q.float(), pool[0], pool[1], length)
+    with pytest.raises(ValueError, match="contiguous"):
+        tda.ragged_decode_attn(q, pool[0].repeat(1, 2, 1)[:, :hk], pool[1], length)  # a strided head slice
+
+
+@pytest.mark.gpu
+def test_cuda_plain_matvec_entry_points_match_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 1024), generator=gen, device=cuda).to(torch.bfloat16)
+    w8 = (torch.randn((1024, 768), generator=gen, device=cuda) * 40).clamp(-127, 127).to(torch.int8)
+    sc = torch.rand((768,), generator=gen, device=cuda)
+    got, ref = tmv.matvec_q8(x, w8, sc), tmv.gemv_stacked_plain(x, [w8[None]], 0)[0] * sc
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    wb = torch.randn((1024, 768), generator=gen, device=cuda).to(torch.bfloat16)
+    got, ref = tmv.matvec_bf16(x, wb), tmv.gemv_stacked_plain(x, [wb[None]], 0)[0]
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tmv.matvec_q8(x, w8[:, :760].contiguous(), sc[:760])

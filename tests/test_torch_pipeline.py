@@ -136,7 +136,7 @@ def test_from_checkpoint_matches_jax(tmp_path):
 
     path = write_fixture(tmp_path, "llava_video")
     jpipe = JaxPipeline.from_checkpoint(path, cost=0.8, dtype=jnp.float32)
-    tpipe = TextPipeline.from_checkpoint(path, cost=0.8, dtype=torch.float32)
+    tpipe = TextPipeline.from_checkpoint(path, cost=0.8, dtype=torch.float32, device="cpu")
     for pipe in (jpipe, tpipe):
         pipe.model.ff = pipe.model.ff.replace(schedule_num_layers=pipe.model.cfg.num_layers)
     assert tpipe.model.family == "llava_video" and tpipe.vit_params is not None

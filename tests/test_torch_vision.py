@@ -191,7 +191,7 @@ def test_load_checkpoint_matches_jax(tmp_path, quantize):
     JAX keeps fp32: the checkpoint stores bf16, so the values are equal."""
     path = write_fixture(tmp_path, "llava_video")
     ref = jax_load_checkpoint(path, dtype=jnp.bfloat16, quantize=quantize)
-    got = load_checkpoint(path, dtype=torch.bfloat16, quantize=quantize)
+    got = load_checkpoint(path, dtype=torch.bfloat16, quantize=quantize, device="cpu")
     assert got.family == ref.family == "llava_video" and got.cfg.num_layers == ref.cfg.num_layers
     trees = {"llm": (got.params, ref.params), "tower": (got.vision["params"], ref.vision["params"]),
              "projector": (got.vision["projector"], ref.vision["projector"])}
@@ -214,7 +214,7 @@ def test_other_families_are_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         llm_config_from_hf({"architectures": ["Qwen2VLForConditionalGeneration"]})
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        load_checkpoint(write_fixture(tmp_path, "nvila"))
+        load_checkpoint(write_fixture(tmp_path, "nvila"), device="cpu")
     assert interface.get_token_type("llava_video") is tlv
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         interface.get_token_type("internvl")
