@@ -163,6 +163,8 @@ def phase_device(chk: Checks) -> None:
     log(f"kernel build: {seconds:.1f} s -> {lib_path.name}")
     for name, usage in ptxas_usage(lib_path.with_suffix(".log").read_text()):
         log(f"  ptxas: {name}: {usage}")
+        if name.startswith(("bidir_attn_kernel", "decode_attn_kernel")):  # the kernels redesigned for Hopper
+            chk.expect("0 bytes spill stores, 0 bytes spill loads" in usage, f"{name}: no register spills")
     _build.load_library()
 
 
@@ -415,8 +417,9 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
         if hd == 72:
             t_l = cuda_time_ms(lambda: sdpa(q, k, v), iters=20)
             t_b = _bound(kernels["bidir_attn_fwd"], 4 * b * n * h * hd * 2, 4 * b * h * n * n * hd)
-            log(f"  {tag}: bound {t_b:.4f} ms ({kernels['bidir_attn_fwd']['bound_by']}), "
-                f"scaled_dot_product_attention {t_l:.4f} ms")
+            log(f"  {tag}: bound {t_b:.4f} ms ({kernels['bidir_attn_fwd']['bound_by']}), kernel at "
+                f"{t_b / t_k:.3f} of it; scaled_dot_product_attention {t_l:.4f} ms, kernel / library "
+                f"{t_k / t_l:.3f}")
             kernels["bidir_attn_fwd"].update(ms=t_k, plain_ms=t_p, library_ms=t_l)
         del q, k, v, out, ref
 
@@ -499,17 +502,17 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
             # The yardstick attends the live rows as a view: no mask, so
             # the library may take its fused decode path.
             t_l = graph_time_ms(lambda: sdpa(q[None], *(t[:length] for t in kv_view())), iters=20)
-            parts = kernel_device_us(lambda: da.ragged_decode_attn(q, *kv_view(), length),
-                                     ("decode_split_kernel", "decode_combine_kernel"))
-            log(f"  {tag}: profiler, per call: split pass {parts['decode_split_kernel']:.2f} us, combine "
-                f"{parts['decode_combine_kernel']:.2f} us")
+            parts = kernel_device_us(lambda: da.ragged_decode_attn(q, *kv_view(), length), ("decode_attn_kernel",))
+            log(f"  {tag}: profiler, per call: decode_attn_kernel (splits and their merge, one launch) "
+                f"{parts['decode_attn_kernel']:.2f} us")
             entry = {} if length != 11698 else kernels["ragged_decode_attn"]
             t_b = _bound(entry, 2 * length * hk_ * d * 2 + 2 * hq_ * d * 2, 4 * hq_ * d * length)
             gbs = 2 * length * hk_ * d * 2 / (t_k * 1e-3) / 1e9
             log(f"  {tag}: kernel {t_k * 1e3:.2f} us ({gbs:.0f} GB/s of live K/V; eager launches {t_eager * 1e3:.2f} "
                 f"us per call), plain {t_p * 1e3:.2f} us, scaled_dot_product_attention on the live rows (GQA) "
-                f"{t_l * 1e3:.2f} us, bound {t_b * 1e3:.2f} us ({entry['bound_by']}); split plan (keys per CTA, "
-                f"splits) {da.split_plan(length, hk_)}")
+                f"{t_l * 1e3:.2f} us (kernel / library {t_k / t_l:.3f}), bound {t_b * 1e3:.2f} us "
+                f"({entry['bound_by']}; kernel at {t_b / t_k:.3f} of it); split plan (keys per CTA, splits) "
+                f"{da.split_plan(length, hk_, torch.cuda.get_device_properties(0).multi_processor_count)}")
             if length == 11698:
                 kernels["ragged_decode_attn"].update(ms=t_k, plain_ms=t_p, library_ms=t_l)
         del kpool, vpool, q, out, ref

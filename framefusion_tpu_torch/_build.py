@@ -3,7 +3,8 @@
 ``nvcc`` compiles every ``csrc/*.cu`` at first use, one process per source,
 all started together, and links the objects into one shared library with a
 plain C interface in ``_build/`` beside this file (listed in
-``.gitignore``). The library's name carries a hash of the sources and flags,
+``.gitignore``). The library's name carries a hash of the sources, the
+headers they include (``csrc/*.cuh``) and the flags,
 so an edited source rebuilds and an unchanged one loads at once. The library
 is loaded with ``ctypes``; ``ENTRY_POINTS`` declares the argument types of
 the kernels' entry points.
@@ -45,9 +46,9 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Path of the library for the current sources and flags."""
+    """Path of the library for the current sources, headers and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libff_kernels_{h.hexdigest()[:16]}.so"
@@ -99,7 +100,7 @@ ENTRY_POINTS = {
     "ff_gemv_max_kchunk": [],
     "ff_bidir_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "ff_sink_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "ff_ragged_decode_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "ff_ragged_decode_attn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "ff_ragged_decode_max_group": [],
 }
 

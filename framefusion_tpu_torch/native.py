@@ -1,8 +1,8 @@
 """Build-on-demand ctypes bindings for the native frame preprocessing.
 
-The C++ source is the JAX package's ``framefusion_tpu/native/prep.cpp``,
-used as it is and read by path: importing ``framefusion_tpu.native`` would
-import jax through that package's ``__init__``. ``load()`` compiles it with
+The C++ source is the port's own ``csrc/prep.cpp``, a byte-for-byte copy of
+the JAX package's ``native/prep.cpp`` (that package imports jax through its
+``__init__``, and the port reads none of its files). ``load()`` compiles it with
 the system g++ the first time, into ``_build/libffprep-<hash>.so`` beside
 this file (keyed on the source hash, so an edited source rebuilds), and
 returns the loaded library, or ``None`` when no toolchain is available and
@@ -23,7 +23,7 @@ from typing import Optional
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent.parent / "framefusion_tpu" / "native" / "prep.cpp"
+SRC = Path(__file__).resolve().parent / "csrc" / "prep.cpp"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _RESAMPLE = {"bilinear": 0, "bicubic": 1}
 

@@ -3,11 +3,11 @@ version, and the JAX package's entry point.
 
 Counterpart of ``framefusion_tpu/ops/kernels/bidir_attention.py``. The TPU
 kernel padded N and the head dim to 128 in device memory and held a whole
-(N, N) fp32 score tile in VMEM; on the card K/V stream through shared memory
-with an online softmax, the keys past N are masked in the kernel and the
-head dim is zero-filled to a multiple of 16 in shared memory only
-(``csrc/bidir_attention.cu``, whose header says what bounds the kernel and
-how the design meets it).
+(N, N) fp32 score tile in VMEM; on the card K/V stream through a cp.async
+ring in shared memory into ``wgmma`` products with an online softmax, the
+keys past N are masked in the kernel and the head dim is zero-filled to a
+multiple of 16 in shared memory only, for Q K^T (``csrc/bidir_attention.cu``,
+whose header says what bounds the kernel and how the design meets it).
 
 ``bidir_attn_fwd`` runs its plain PyTorch version when the tensors lie on
 the CPU and launches the kernel when they lie on a CUDA device; anything
@@ -48,7 +48,8 @@ def bidir_attn_fwd(q, k, v, scale: float):
     Args:
         q, k, v: (B, N, H, hd), bf16 and contiguous on the card; hd a
             multiple of 8 up to 128, any N.
-        scale: the softmax scale (1/sqrt(hd) for the towers).
+        scale: the softmax scale (1/sqrt(hd) for the towers); the kernel
+            takes a positive one.
     Returns:
         (B, N, H, hd) in q's dtype.
     """

@@ -7,22 +7,25 @@ of its layer's (S_view, Hk, D) view, the current token included.
 
 * ``ragged_decode_attn`` (kernel G, ``csrc/decode_attention.cu``, whose
   header says what bounds it and how the design meets that) — split-K flash
-  decoding: (n_split, Hk) CTAs over 64-key tiles below ``cache_len`` only,
-  then a fixed-order combine of the splits.
+  decoding in one launch: about one wave of (n_split, Hk) CTAs over 64-key
+  tiles below ``cache_len`` only, tensor-core scores and P.V, and the last
+  CTA of each KV head merges the splits in split order.
 * ``ragged_decode_attn_plain`` — the masked fp32 einsum of
   ``ops.attention.decode_attention`` over the whole view.
 
 The wrapper runs the plain version when the tensors lie on the CPU and
 launches the kernel when they lie on a CUDA device; anything else raises.
-``ragged_decode_attn.launches`` counts kernel launches (the split pass and
-its combine count as one). ``cache_len`` is a host int, as kernel C's layer
-index is.
+``ragged_decode_attn.launches`` counts kernel launches. ``cache_len`` is a
+host int, as kernel C's layer index is. The kernel's arrival counters are one
+zeroed buffer per (device, stream): the kernel leaves them at zero, and calls
+on one stream never overlap.
 
 ``ragged_decode_attention`` keeps the JAX package's entry point.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -31,9 +34,11 @@ from ..attention import decode_attention
 from .flash_prefill import HEAD_DIM, _check_cuda, _device_route
 
 TILE_KEYS = 64
-# Target CTAs per launch (about four per SM of an H100's 132; on the card,
-# 264 and 1,056 timed within 10% of it at the 64-frame decode lengths).
-TARGET_CTAS = 528
+# One wave: a CTA per SM (an H100 SXM has 132; the wrapper reads the card's
+# own count). A CTA holds a 139 KB ring of K/V tiles, so one fits an SM.
+SM_COUNT = 132
+MAX_SPLIT = 256  # key ranges a launch may split into (the kernel's kMaxSplit)
+_COUNTERS: dict = {}
 
 
 def _check_inputs(q, k_cache, v_cache, cache_len: int) -> None:
@@ -49,13 +54,28 @@ def _check_inputs(q, k_cache, v_cache, cache_len: int) -> None:
         raise ValueError("inputs on several devices")
 
 
-def split_plan(cache_len: int, hk: int) -> tuple[int, int]:
-    """(keys_per_split, n_split): whole 64-key tiles per CTA so that about
-    ``TARGET_CTAS`` CTAs cover the live keys; no CTA starts past the length."""
+def split_plan(cache_len: int, hk: int, sm_count: int = SM_COUNT) -> tuple[int, int]:
+    """(keys_per_split, n_split): whole 64-key tiles per CTA, as few as let
+    at most one wave of ``n_split * hk <= sm_count`` CTAs cover the live
+    keys; no CTA starts past the length."""
     tiles = -(-cache_len // TILE_KEYS)
-    want = max(1, TARGET_CTAS // hk)
+    want = min(MAX_SPLIT, max(1, sm_count // hk))
     keys_per_split = -(-tiles // want) * TILE_KEYS
     return keys_per_split, -(-cache_len // keys_per_split)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _counters(device, hk: int):
+    """The (device, stream)'s zeroed arrival counters, at least ``hk`` of them."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < hk:
+        buf = _COUNTERS[key] = torch.zeros(max(hk, 64), dtype=torch.int32, device=device)
+    return buf
 
 
 def ragged_decode_attn_plain(q, k_cache, v_cache, cache_len: int):
@@ -90,14 +110,14 @@ def ragged_decode_attn(q, k_cache, v_cache, cache_len: int):
     if hq // hk > lib.ff_ragged_decode_max_group():
         raise ValueError(f"ragged_decode_attn: {hq // hk} query heads per KV head exceed the kernel's "
                          f"{lib.ff_ragged_decode_max_group()}")
-    keys_per_split, n_split = split_plan(cache_len, hk)
+    keys_per_split, n_split = split_plan(cache_len, hk, _sm_count(q.device.index))
     out = torch.empty_like(q)
     ws_acc = torch.empty((n_split, hq, d), dtype=torch.float32, device=q.device)
     ws_ml = torch.empty((n_split, hq, 2), dtype=torch.float32, device=q.device)
     status = lib.ff_ragged_decode_attn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), ws_acc.data_ptr(),
-        ws_ml.data_ptr(), cache_len, hq, hk, keys_per_split, n_split, 1.0 / math.sqrt(d),
-        _build.stream_ptr(q.device),
+        ws_ml.data_ptr(), _counters(q.device, hk).data_ptr(), cache_len, hq, hk, keys_per_split, n_split,
+        1.0 / math.sqrt(d), _build.stream_ptr(q.device),
     )
     _build.check(status, "ragged_decode_attn")
     ragged_decode_attn.launches += 1

@@ -6,8 +6,9 @@ Resize semantics are PIL's, which the HF processors assume: separable
 convolution with the filter support scaled by the downscale factor (always
 antialiased), half-pixel centers, weights normalized per output pixel;
 uint8 inputs are converted once to float32 and resized in float. The hot
-loops also have a native C++ implementation (``native.py`` builds the JAX
-package's ``native/prep.cpp``), with this NumPy path as its twin.
+loops also have a native C++ implementation (``native.py`` builds the port's
+``csrc/prep.cpp``, a copy of the JAX package's), with this NumPy path as its
+twin.
 
 Normalization constants per family follow the upstream processors: CLIP
 stats for Qwen2-VL, ImageNet for InternVL, 0.5/0.5 for the SigLIP-fronted

@@ -21,6 +21,7 @@ its port; JAX weights carry over with ``params_from_numpy``. Tolerances:
 
 import ast
 import importlib
+import math
 from pathlib import Path
 
 import jax
@@ -92,11 +93,59 @@ def test_ragged_decode_wrapper_validates():
     assert tda.ragged_decode_attn.launches == launches  # the plain version on the CPU launches nothing
 
 
-@pytest.mark.parametrize("length,hk", [(1, 4), (64, 4), (11698, 4), (3293, 4), (100, 1)])
+@pytest.mark.parametrize("hk", [4, 1])
+@pytest.mark.parametrize("length", [1, 64, 65, 3293, 11698, 32768])
 def test_ragged_decode_split_plan_covers_the_length(length, hk):
     keys, n_split = tda.split_plan(length, hk)
+    # whole 64-key tiles, no CTA past the length, at most one wave of CTAs
     assert keys % tda.TILE_KEYS == 0 and (n_split - 1) * keys < length <= n_split * keys
-    assert n_split * hk <= tda.TARGET_CTAS or keys == tda.TILE_KEYS
+    assert n_split * hk <= tda.SM_COUNT and 1 <= n_split <= tda.MAX_SPLIT
+    # as few tiles a CTA as that allows: one tile fewer would take more than a wave
+    tiles, per_cta = -(-length // tda.TILE_KEYS), keys // tda.TILE_KEYS
+    assert per_cta == 1 or -(-tiles // (per_cta - 1)) * hk > tda.SM_COUNT
+
+
+def _split_k(q, k, v, cache_len: int):
+    """Kernel G's algebra in fp32: per split of the wrapper's plan, each of
+    the four warps' 16-key slices of every 64-key tile keeps (m, l, acc)
+    in log2 units; the CTA merges its warps in warp order, then the splits
+    merge in split order."""
+    hq, d = q.shape
+    g = hq // k.shape[1]
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    keys_per_split, n_split = tda.split_plan(cache_len, k.shape[1])
+    kx, vx = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)  # (S, Hq, D)
+
+    def merge(parts):
+        m = torch.stack([p[0] for p in parts]).amax(0)
+        w = [torch.exp2(p[0] - m) for p in parts]
+        return m, sum(p[1] * wi for p, wi in zip(parts, w)), sum(p[2] * wi[:, None] for p, wi in zip(parts, w))
+
+    splits = []
+    for s in range(n_split):
+        lo, hi = s * keys_per_split, min(cache_len, (s + 1) * keys_per_split)
+        warps = []
+        for w in range(4):
+            idx = torch.tensor([n + w * 16 + j for n in range(lo, hi, tda.TILE_KEYS) for j in range(16)
+                                if n + w * 16 + j < hi], dtype=torch.long)
+            if idx.numel() == 0:  # a slice past the length: weight 0 in the merge
+                warps.append((torch.full((hq,), -math.inf), torch.zeros(hq), torch.zeros(hq, d)))
+                continue
+            sc = torch.einsum("hd,nhd->hn", q, kx[idx]) * scale_log2
+            m = sc.amax(-1)
+            p = torch.exp2(sc - m[:, None])
+            warps.append((m, p.sum(-1), torch.einsum("hn,nhd->hd", p, vx[idx])))
+        splits.append(merge(warps))
+    _, l, acc = merge(splits)
+    return acc / l[:, None]
+
+
+@pytest.mark.parametrize("length,hk,g", [(1, 4, 7), (65, 2, 8), (777, 1, 16), (3293, 4, 7), (11698, 4, 7)])
+def test_ragged_decode_split_k_algebra_matches_plain(length, hk, g):
+    rng = np.random.default_rng(length)
+    q = torch.from_numpy(rng.standard_normal((hk * g, 128)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((length + 37, hk, 128)).astype(np.float32)) for _ in range(2))
+    assert_rel(_split_k(q, k, v, length), tda.ragged_decode_attn_plain(q, k, v, length).numpy(), ATTN_TOL)
 
 
 def test_verify_attention_matches_jax():

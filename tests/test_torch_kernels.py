@@ -280,6 +280,8 @@ def test_cuda_sink_kernel_matches_plain(cuda, s, hq, hk, init_num, window):
     (65, 200, 28, 4),  # a length off the 64-key tile
     (517, 600, 4, 4),  # G = 1
     (777, 800, 16, 1),  # G = 16, the most the kernel takes
+    (1000, 1024, 16, 2),  # G = 8
+    (3000, 3072, 8, 4),  # G = 2
 ])
 def test_cuda_ragged_decode_kernel_matches_plain(cuda, length, s_view, hq, hk):
     gen = torch.Generator(device=cuda).manual_seed(length)
@@ -297,6 +299,35 @@ def test_cuda_ragged_decode_kernel_matches_plain(cuda, length, s_view, hq, hk):
         tda.ragged_decode_attn(q.float(), pool[0], pool[1], length)
     with pytest.raises(ValueError, match="contiguous"):
         tda.ragged_decode_attn(q, pool[0].repeat(1, 2, 1)[:, :hk], pool[1], length)  # a strided head slice
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [5555, 1])  # split over many CTAs, and one CTA
+def test_cuda_ragged_decode_is_repeatable(cuda, length):
+    """Two calls give the same bits, and so do replays of a captured call:
+    the last CTA of each KV head merges the splits in split order, whichever
+    arrives last, and leaves the arrival counters at zero."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((28, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    pool = torch.randn((2, 6000, 4, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    first = tda.ragged_decode_attn(q, pool[0], pool[1], length)
+    assert torch.equal(tda.ragged_decode_attn(q, pool[0], pool[1], length), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tda.ragged_decode_attn(q, pool[0], pool[1], length)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tda.ragged_decode_attn(q, pool[0], pool[1], length)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    assert torch.equal(tda.ragged_decode_attn(q, pool[0], pool[1], length), first)
+    torch.cuda.synchronize()
+    assert all(int(buf.abs().sum()) == 0 for buf in tda._COUNTERS.values())
 
 
 @pytest.mark.gpu

@@ -19,6 +19,8 @@ The ``gpu``-marked test holds kernel E against its plain version on a card
 (``python -m pytest -m gpu tests/test_torch_vision.py`` there); here it skips.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,9 +171,14 @@ def test_smart_resize_matches_jax(hw):
 
 
 def test_native_build_lands_in_the_port(monkeypatch, tmp_path):
+    import framefusion_tpu_torch
     from framefusion_tpu_torch import native
 
-    assert native.SRC.is_file() and native.SRC.parts[-3:] == ("framefusion_tpu", "native", "prep.cpp")
+    port_root = Path(framefusion_tpu_torch.__file__).resolve().parent
+    assert native.SRC.is_file() and native.SRC.resolve().is_relative_to(port_root)
+    # the port builds its own copy of the JAX package's source, byte for byte
+    jax_src = Path(jpp.__file__).resolve().parent / "native" / "prep.cpp"
+    assert native.SRC.read_bytes() == jax_src.read_bytes()
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
     assert native._build().parent == tmp_path
 
@@ -233,7 +240,13 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,n,h,hd", [(4, 729, 16, 72), (3, 1025, 16, 64), (2, 333, 16, 80)])
+@pytest.mark.parametrize("b,n,h,hd", [
+    (4, 729, 16, 72), (3, 1025, 16, 64), (2, 333, 16, 80),
+    (3, 17, 4, 72),  # fewer keys than one 64-key tile
+    (2, 129, 4, 72),  # one row past a 128-row query block
+    (2, 200, 4, 8), (2, 333, 4, 24), (1, 257, 4, 120), (1, 300, 2, 128),  # head dims at the edges
+    (70, 40, 16, 64),  # B * H = 1,120 CTA rows
+])
 def test_cuda_bidir_kernel_matches_plain(cuda, b, n, h, hd):
     gen = torch.Generator(device=cuda).manual_seed(hd)
     q, k, v = (torch.randn((b, n, h, hd), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(3))
