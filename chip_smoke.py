@@ -130,6 +130,17 @@ LOGIT_RTOL = 6e-2
 #   above, so LOGIT_RTOL holds them too.
 
 
+# Kernel A's regimes on the main path (phase 4, which counts their
+# launches): the lengths it is launched at, and whether a key_valid mask
+# comes with them. The phase layers pass one; the fused prefill's tail
+# (qwen2.run_layers, its bucket of 3,328) and the dense prefill (the whole
+# 11,697-token prompt) do not.
+REGIMES_A = {6528: "phase layers: S 6,528, key_valid with 45% dead keys",
+             3328: "fused prefill's tail: S 3,328, no mask",
+             11697: "dense prefill: S 11,697, no mask"}
+# Kernel C's shapes on the decode path: (K, the stacks' widths) -> name.
+SHAPES_C = {(3584, (3584, 512, 512)): "qkv", (3584, (3584,)): "wo", (18944, (3584,)): "w_down"}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -161,10 +172,20 @@ def phase_device(chk: Checks) -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     lib_path, seconds = _build.build()
     log(f"kernel build: {seconds:.1f} s -> {lib_path.name}")
-    for name, usage in ptxas_usage(lib_path.with_suffix(".log").read_text()):
+    build_log = lib_path.with_suffix(".log").read_text()
+    for name, usage in ptxas_usage(build_log):
         log(f"  ptxas: {name}: {usage}")
-        if name.startswith(("bidir_attn_kernel", "decode_attn_kernel")):  # the kernels redesigned for Hopper
+        if name.startswith(("bidir_attn_kernel", "decode_attn_kernel", "flash_attn_fwd_kernel", "gemv_kernel")):
+            # the kernels redesigned for Hopper
             chk.expect("0 bytes spill stores, 0 bytes spill loads" in usage, f"{name}: no register spills")
+    # ptxas's advisories that a kernel's wgmma instructions run one after
+    # another (a branch or a register copy inside a wgmma pipeline stage):
+    # kernel A must have none; any other kernel's are reported.
+    serialised = sorted({_kernel_name(m.group(1)) for m in
+                         re.finditer(r"wgmma\.mma_async instructions are serialized.*?function '(\w+)'", build_log)})
+    log(f"  ptxas: wgmma serialised in: {serialised or 'no kernel'}")
+    chk.expect(not any(n.startswith("flash_attn_fwd_kernel") for n in serialised),
+               "flash_attn_fwd_kernel: no serialised wgmma")
     _build.load_library()
 
 
@@ -234,9 +255,10 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     hq, hk, d = 28, 4, 128
 
-    # -- kernel A (and the statistics kernel B reads) --------------------
+    # -- kernel A (and the statistics kernel B reads) at the main path's
+    # regimes (REGIMES_A) ---------------------------------------------------
     cases = {}
-    for s, dead in ((11776, 0.0), (6528, 0.45)):
+    for s, dead in ((11697, 0.0), (6528, 0.45), (3328, 0.0)):
         q, k, v = _rand(gen, (s, hq, d)), _rand(gen, (s, hk, d)), _rand(gen, (s, hk, d))
         kv = None
         if dead:
@@ -264,21 +286,29 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
                        f"{tag}: rows with every key masked give 0")
         t_k = cuda_time_ms(lambda: fp.flash_attn_fwd(q, k, v, kv), iters=10)
         t_p = cuda_time_ms(lambda: fp.flash_attn_fwd_plain(q, k, v, kv), iters=2, warmup=1)
-        log(f"  {tag}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
         cases[s] = (q, k, kv, m, l)
         _max_err(kernels["flash_attn_fwd"], err)
-        if s == 6528:
-            # The data decides the work: the (row, key) pairs below the
-            # diagonal whose key is live.
-            pairs = float(torch.cumsum(kv.to(torch.int64), 0).sum())
-            t_b = _bound(kernels["flash_attn_fwd"], (2 * s * hq * d + 2 * s * hk * d) * 2 + s + 2 * hq * s * 4,
-                         4 * hq * d * pairs)
+        # The data decides the work: the (row, key) pairs at or below the
+        # diagonal whose key is live.
+        pairs = float(torch.cumsum(kv.to(torch.int64), 0).sum()) if dead else s * (s + 1) / 2
+        regime = {"regime": REGIMES_A[s], "launches": None}
+        t_b = _bound(regime, (2 * s * hq * d + 2 * s * hk * d) * 2 + (s if dead else 0) + 2 * hq * s * 4,
+                     4 * hq * d * pairs)
+        if dead:
             mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device="cuda")) & kv[None, :]
             t_l = cuda_time_ms(lambda: sdpa(q, k, v, mask), iters=2, warmup=1)
             del mask
-            log(f"  {tag}: bound {t_b:.3f} ms ({kernels['flash_attn_fwd']['bound_by']}), "
-                f"scaled_dot_product_attention (GQA, bool mask) {t_l:.3f} ms")
-            kernels["flash_attn_fwd"].update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+        else:
+            t_l = cuda_time_ms(lambda: sdpa(q, k, v, is_causal=True), iters=10)
+        log(f"  {tag}: kernel {t_k:.4f} ms ({4 * hq * d * pairs / (t_k * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{t_b / t_k:.3f} of the bound {t_b:.4f} ms, {regime['bound_by']}), plain {t_p:.3f} ms, "
+            f"scaled_dot_product_attention ({'GQA, bool mask' if dead else 'GQA, causal'}) {t_l:.4f} ms, "
+            f"kernel / library {t_k / t_l:.3f}")
+        regime.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+        kernels["flash_attn_fwd"]["regimes"].append(regime)
+        if s == 6528:  # the phase layers' regime heads the entry, as in earlier runs
+            kernels["flash_attn_fwd"].update({f: regime[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                                     "bound_by")})
 
     # -- kernel B -------------------------------------------------------
     q, k, kv, m, l = cases[6528]
@@ -361,9 +391,9 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
             t_p = graph_time_ms(run_p, iters=10)
             gbs = per_layer / (t_k * 1e-3) / 1e9
             n_out = sum(ns) // (2 if name == "gateup" else 1)
-            entry = kernels[key] if wdtype == "bf16" and name in ("qkv", "gateup") else {}
-            t_b = _bound(entry, per_layer + sum(ns) * 4 * (wdtype == "int8") + kdim * 2 + n_out * 4,
-                         2 * kdim * sum(ns))
+            entry = {"shape": f"{name} {wdtype}", "launches": None}
+            t_b = _bound(entry, per_layer + sum(ns) * 4 * (wdtype == "int8" and name == "gateup") + kdim * 2
+                         + n_out * 4, 2 * kdim * sum(ns))
             t_l = None
             if wdtype == "bf16" and name != "gateup":
                 # Yardstick: one torch.matmul against the stacks side by
@@ -372,13 +402,17 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
                 w_cat = torch.cat(stacks, dim=2) if len(stacks) > 1 else stacks[0]
                 t_l = graph_time_ms(lambda: torch.matmul(x, w_cat[next_layer()]), iters=20)
                 del w_cat
-            log(f"  {key} {name} {wdtype}: kernel {t_k:.4f} ms ({gbs:.0f} GB/s of weights), plain {t_p:.4f} ms, "
-                f"torch.matmul {'none' if t_l is None else f'{t_l:.4f} ms'}, bound {t_b:.4f} ms ({entry['bound_by']})")
+            log(f"  {key} {name} {wdtype}: kernel {t_k:.4f} ms ({gbs:.0f} GB/s of weights, {t_b / t_k:.3f} of the "
+                f"bound {t_b:.4f} ms, {entry['bound_by']}), plain {t_p:.4f} ms, torch.matmul "
+                f"{'none' if t_l is None else f'{t_l:.4f} ms (kernel / library {t_k / t_l:.3f})'}")
             _max_err(kernels[key], err)
-            if entry:
-                entry.update(ms=t_k, plain_ms=t_p)
+            entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+            if key == "gemv_stacked":
+                kernels[key]["shapes"].append(entry)
+            if wdtype == "bf16" and name in ("qkv", "gateup"):  # bf16 qkv heads C's entry, as in earlier runs
+                kernels[key].update({f: entry[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")})
                 if t_l is not None:
-                    entry["library_ms"] = t_l
+                    kernels[key]["library_ms"] = t_l
             del stacks, scales
 
     # matvec_q8 / matvec_bf16 (the JAX package's plain (K, N) matvec): kernel
@@ -588,6 +622,52 @@ def _set_launches(entry: dict, n: int) -> None:
     entry.update(launches=n, main_path_launches=n)
 
 
+class CallLog:
+    """While active, records a key of every call of the entry points
+    ``keys`` names in ``module`` (the functions the model calls, which reach
+    the kernel's wrapper; the wrapper and its launch count are untouched),
+    to split a kernel's launches by regime."""
+
+    def __init__(self, module, keys: dict):
+        self.module, self.key_of, self.keys, self.real = module, keys, [], {}
+
+    def __enter__(self):
+        for name, key in self.key_of.items():
+            real = self.real[name] = getattr(self.module, name)
+
+            def recorded(*args, _real=real, _key=key, **kwargs):
+                self.keys.append(_key(*args, **kwargs))
+                return _real(*args, **kwargs)
+
+            setattr(self.module, name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.module, name, real)
+
+    def counts(self) -> dict:
+        out: dict = {}
+        for k in self.keys:
+            out[k] = out.get(k, 0) + 1
+        return out
+
+
+def _a_log(fp):
+    """Kernel A's calls from the model, by (S, whether a key_valid mask came)."""
+    return CallLog(fp, {
+        "flash_causal_attention": lambda q, k, v, key_valid=None: (q.shape[0], key_valid is not None),
+        "flash_causal_attention_importance":
+            lambda q, k, v, valid_len, num, key_valid=None: (q.shape[0], key_valid is not None)})
+
+
+def _c_log(mv):
+    """Kernel C's calls from the model, by (K, the stacks' widths)."""
+    return CallLog(mv, {
+        "matvec_stacked": lambda x, w, layer: (x.shape[1], (w.shape[2],)),
+        "matvec_stacked_qkv": lambda x, wq, wk, wv, layer: (x.shape[1], (wq.shape[2], wk.shape[2], wv.shape[2]))})
+
+
 def phase_full(chk: Checks, kernels: dict, ctx: dict) -> None:
     from framefusion_tpu_torch.config import qwen2_7b_config
     from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
@@ -616,10 +696,24 @@ def phase_full(chk: Checks, kernels: dict, ctx: dict) -> None:
 
     for w in wrappers.values():
         w.launches = 0
-    toks, res = model.generate(inputs, max_new_tokens=8)
-    torch.cuda.synchronize()
+    with _a_log(fp) as a_log, _c_log(mv) as c_log:
+        toks, res = model.generate(inputs, max_new_tokens=8)
+        torch.cuda.synchronize()
     for name, w in wrappers.items():
         _set_launches(kernels[name], w.launches)
+    a_counts, c_counts = a_log.counts(), c_log.counts()
+    log(f"  fused: kernel A launches by (S, key_valid given): {a_counts}; kernel C by (K, widths): {c_counts}")
+    chk.expect(sum(a_counts.values()) == kernels["flash_attn_fwd"]["launches"]
+               and sum(c_counts.values()) == kernels["gemv_stacked"]["launches"],
+               "fused: every kernel A and C launch was recorded with its regime")
+    for regime in kernels["flash_attn_fwd"]["regimes"]:
+        if regime["regime"] != REGIMES_A[11697]:  # the phase layers take a mask, the tail does not
+            masked = regime["regime"] == REGIMES_A[6528]
+            regime["launches"] = sum(n for (_, m), n in a_counts.items() if m == masked)
+    for shape in kernels["gemv_stacked"]["shapes"]:
+        name, wdtype = shape["shape"].split()
+        if wdtype == "bf16":
+            shape["launches"] = sum(n for (kd, ns), n in c_counts.items() if SHAPES_C.get((kd, ns)) == name)
     for name in wrappers:
         chk.expect(kernels[name]["launches"] > 0, f"{name}: {kernels[name]['launches']} launches in the fused run")
 
@@ -643,7 +737,14 @@ def phase_full(chk: Checks, kernels: dict, ctx: dict) -> None:
     chk.expect(ev_p == ev and res_p.valid_len == res.valid_len, "planned: same events and final length as fused")
     chk.expect(bool(torch.isfinite(res_p.logits).all()), "planned: logits finite")
 
-    res_d = eng.dense_prefill(inputs.input_embeds, inputs.position_ids)
+    with _a_log(fp) as d_log:
+        res_d = eng.dense_prefill(inputs.input_embeds, inputs.position_ids)
+        torch.cuda.synchronize()
+    d_counts = d_log.counts()
+    log(f"  dense: kernel A launches by (S, key_valid given): {d_counts}")
+    for regime in kernels["flash_attn_fwd"]["regimes"]:
+        if regime["regime"] == REGIMES_A[11697]:
+            regime["launches"] = sum(n for (_, m), n in d_counts.items() if not m)
     toks_d = eng.generate(res_d, 8)
     log(f"  dense: tokens {toks_d}")
     chk.expect(bool(torch.isfinite(res_d.logits).all()), "dense: logits finite")
@@ -662,7 +763,15 @@ def phase_full(chk: Checks, kernels: dict, ctx: dict) -> None:
     params_q = quantize_params_int8(params)
     eng_q = CompressionEngine(params_q, cfg, eng.ff)
     launches = (mv.gemv_stacked.launches, mv.gemv_gateup.launches)
-    toks_q = eng_q.generate(res_p, 8)
+    with _c_log(mv) as q_log:
+        toks_q = eng_q.generate(res_p, 8)
+        torch.cuda.synchronize()
+    q_counts = q_log.counts()
+    log(f"  int8 decode: kernel C launches by (K, widths): {q_counts}")
+    for shape in kernels["gemv_stacked"]["shapes"]:
+        name, wdtype = shape["shape"].split()
+        if wdtype == "int8":
+            shape["launches"] = sum(n for (kd, ns), n in q_counts.items() if SHAPES_C.get((kd, ns)) == name)
     chk.expect(mv.gemv_stacked.launches > launches[0] and mv.gemv_gateup.launches > launches[1]
                and len(toks_q) == 8 and all(0 <= t < cfg.vocab_size for t in toks_q),
                f"int8 decode through the int8 gemv kernels: tokens {toks_q}")
@@ -1131,6 +1240,10 @@ def main() -> int:
         kernels[name] = dict(route="cuda", source=source, replaces=replaced if len(replaced) > 1 else replaced[0],
                              launches=None, main_path_launches=None, max_abs_err=None, ms=None, plain_ms=None,
                              bound_ms=None, bound_by=None, library_ms=None)
+    # Kernel A at each of its main-path regimes, kernel C at each decode
+    # shape (bf16 and int8): each with its own numbers and launches.
+    kernels["flash_attn_fwd"]["regimes"] = []
+    kernels["gemv_stacked"]["shapes"] = []
     no_library = {"attn_importance_rows", "gemv_gateup"}
     ctx: dict = {}
     phases = {"device": lambda: phase_device(chk), "kernels": lambda: phase_kernels(chk, kernels),
@@ -1154,6 +1267,9 @@ def main() -> int:
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     unmeasured = [f"{n}.{f}" for n, k in kernels.items() for f, v in k.items()
                   if v is None and not (f == "library_ms" and n in no_library)]
+    unmeasured += [f"{n}.{e.get('regime', e.get('shape'))}.{f}" for n in ("flash_attn_fwd", "gemv_stacked")
+                   for e in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"] for f, v in e.items()
+                   if v is None and not (f == "library_ms" and "int8" in str(e.get("shape")))]
     chk.expect(not unmeasured, f"every number of the kernels line was measured in this run (missing: {unmeasured})")
     if chk.failures:
         log("FAILED: " + "; ".join(chk.failures))

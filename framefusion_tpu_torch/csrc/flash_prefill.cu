@@ -1,23 +1,61 @@
 // Prefill attention kernels for Hopper (sm_90a), bound through a plain C
 // interface (ctypes). Two kernels:
 //
-// A. ff_flash_attn_fwd — causal GQA flash attention with an (S,) key-valid
-//    mask. Replaces the Pallas kernels of framefusion_tpu/ops/kernels/
-//    flash_prefill.py: flash_causal_attention (dispatcher), the per-q-head
-//    _flash_kernel, _flash_grouped_multi and _flash_blocked_grouped. The TPU
-//    needed three regimes because a head's K/V had to fit VMEM; here K/V
-//    stream through shared memory one 64-key tile at a time, so one kernel
-//    covers every S.
-//    Bound on the card: tensor-core math (S^2 * D * Hq operations over the
-//    causal half) once S is in the thousands. Design: one CTA per
-//    (64-query block, q-head), four warps of 16 rows each; bf16
-//    mma.sync.m16n8k16 for Q.K^T and P.V with fp32 accumulation; fp32 online
-//    softmax in registers; key tiles past the causal diagonal are never
-//    loaded, and a warp skips tiles that lie wholly past its own rows. GQA is
-//    indexing: q-head h reads KV head h / G (HF repeat_kv order), so the
-//    group's K/V tiles are shared through L2, not re-laid out.
-//    Rows with every key masked give 0 (m = -inf, l = 0). The kernel also
-//    writes each row's softmax max m and sum l (fp32, (Hq, S)) for kernel B.
+// A. ff_flash_attn_fwd — causal GQA flash attention with an optional (S,)
+//    key-valid mask, q (S, Hq, 128) and k, v (S, Hk, 128) bf16 read in
+//    place; q-head h reads KV head h / G (HF repeat_kv order). Also writes
+//    each row's softmax max m (natural-log units) and sum l, fp32 (Hq, S),
+//    for kernel B. Rows with every key masked give 0 (m = -inf, l = 0).
+//    Replaces the Pallas kernels of framefusion_tpu/ops/kernels/
+//    flash_prefill.py: _flash_kernel, _flash_blocked, _flash_blocked_grouped,
+//    _flash_grouped, _flash_grouped_multi, the attention of
+//    _flash_kernel_gm_imp and _flash_kernel_imp, and the dispatcher
+//    flash_causal_attention. The TPU needed those regimes because a head's
+//    K/V had to fit VMEM; here K/V stream through shared memory one 128-key
+//    tile at a time, so one kernel covers G in {1, 7}, every S and both
+//    mask cases.
+//
+//    Bound on the card: tensor-core operations, 4 * 128 * Hq per (row, live
+//    key at or before it): 1.0 ms at 989 TFLOP/s for the dense 11,776-token
+//    prefill, against 0.06 ms to read q, k, v once. So the kernel has to
+//    keep the tensor cores fed: wgmma for both products, tiles that land
+//    while the products run, and as little else (softmax, masks, waits) on
+//    the critical path as possible.
+//
+//    Design:
+//    * One CTA per (128 query rows, q-head): two consumer warpgroups of 64
+//      rows and a producer warpgroup, which hands its registers to the
+//      consumers (setmaxnreg: 40 a thread there, 232 here). The grid runs
+//      the q-heads of one query block side by side (blockIdx.x = head), so
+//      the G q-heads of a KV head read each K/V tile at about the same time
+//      and share it through L2; query blocks run last to first (the longest
+//      causal rows first, so the short ones fill the tail of the wave).
+//    * Loads: a 3-stage ring of 128-key K and V tiles (64 KB a stage) in
+//      dynamic shared memory, filled by TMA from the producer a tile ahead
+//      of the products, with a `full` (bytes landed) and an `empty` (both
+//      warpgroups done) mbarrier per stage. A 256-byte row of 128 dims
+//      lands as two 64-dim halves of 128-byte rows with the hardware's
+//      128-byte swizzle: wgmma's swizzled K-major layout for K and MN-major
+//      layout for V, read without bank conflicts; keys >= S are zero-filled
+//      by the TMA unit.
+//    * S = Q K^T: wgmma.m64n128k16, Q as the register A operand (loaded once
+//      per CTA), K from shared memory. O += P V: wgmma.m64n128k16, P as the
+//      bf16 register A operand (the score accumulator's layout is the A
+//      fragment's), V from shared memory (the transpose bit).
+//    * Ping-pong: a warpgroup's turn at the tensor cores issues P V of the
+//      previous tile and Q K^T of this one back to back under one wait; the
+//      two warpgroups take turns (named barriers), so one's softmax runs
+//      while the other's products do.
+//    * Softmax: online, fp32, in log2 units (one FFMA and one ex2 a score);
+//      m is stored back in natural-log units.
+//    * Causal: tiles past the block's diagonal are never loaded; only the
+//      tiles that reach past a warpgroup's first row run the per-element
+//      causal test.
+//    * key_valid: before the loop the CTA reads its tiles' validity once,
+//      as two 64-bit words a tile (ballots), into shared memory, and lists
+//      the tiles with a live key. Dead tiles are neither loaded nor
+//      multiplied; fully live tiles skip the mask math; the others test one
+//      bit a score.
 //
 // B. ff_attn_importance_rows — the prune's importance vector: for the <= num
 //    capture rows (the last live rows, -1 = absent), exp(q.k*scale - m)/l per
@@ -33,198 +71,376 @@
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma_rs.cuh"
+
 namespace {
 
-constexpr int kD = 128;             // head dim
-constexpr int kBM = 64;             // query rows per CTA (4 warps x 16)
-constexpr int kBN = 64;             // keys per K/V tile
-constexpr int kThreadsA = 128;
-constexpr int kRow = kD + 8;        // padded shared-memory row, in bf16 units
+constexpr int kD = 128;                      // head dim
+constexpr int kWGs = 2;                      // consumer warpgroups, 64 query rows each
+constexpr int kBM = 64 * kWGs;               // query rows per CTA
+constexpr int kBN = 128;                     // keys per K/V tile
+constexpr int kConsumers = 128 * kWGs;
+constexpr int kThreadsA = kConsumers + 128;  // and a producer warpgroup (one thread issues)
+constexpr int kStages = 3;
+constexpr int kHalfBytes = kBN * 128;        // one 64-dim half of a tile: kBN keys x 128 bytes
+constexpr int kTileBytes = 2 * kHalfBytes;   // a K or V tile
+constexpr int kStageBytes = 2 * kTileBytes;  // K then V
+constexpr int kRingBytes = kStages * kStageBytes;
+constexpr int kWords = kBN / 64;             // 64-bit validity words a tile
+constexpr int kMaxSmem = 232448;             // an H100 block's shared memory
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Dynamic shared memory for S keys: alignment slack (the 128-byte swizzle
+// wants 1024-byte aligned stages), the ring, the barriers and a slot for
+// the live-tile count, then per tile its validity word and list entry.
+size_t smem_bytes_a(int S) {
+  const size_t tiles = (static_cast<size_t>(S) + kBN - 1) / kBN;
+  return 1024 + kRingBytes + 16 * kStages + 8 + tiles * (8 * kWords + 4);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// One arrival that also expects `bytes` of copies to complete on the barrier.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int phase) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(phase)
+      : "memory");
+}
+// One kBN-key tile of KV head hk from an (S, Hk, 128) tensor into shared
+// memory as [half][key][64 dims], 128-byte swizzled; keys >= S arrive as zeros.
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, int key0, int hk, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(key0), "r"(0), "r"(hk)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Pin a register's value at this point of the program: wgmma reads and
+// writes registers asynchronously, which the compiler does not see.
+__device__ __forceinline__ void reg_fence(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+__device__ __forceinline__ void reg_fence(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
+
+// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1). K-major:
+// lbo unused (1), sbo = the stride between 8-row groups. MN-major: lbo = the
+// stride between 64-element halves along MN, sbo = between 8-row groups along K.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {  // MUFU.EX2; subnormal results flush to 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// c += a * b for one m16n8k16 bf16 tile, fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(kThreadsA)
-flash_attn_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                      const uint16_t* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                      uint16_t* __restrict__ out, float* __restrict__ m_out,
-                      float* __restrict__ l_out, int S, int Hq, int Hk, float scale) {
-  __shared__ __align__(16) uint16_t ks[kBN * kRow];
-  __shared__ __align__(16) uint16_t vs[kBN * kRow];
-  __shared__ uint8_t kval[kBN];
-
-  const int h = blockIdx.y;
-  const int hk = h / (Hq / Hk);
-  const int q0 = blockIdx.x * kBM;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread within the group
-  const int r0 = q0 + warp * 16 + g;
-  const int r1 = r0 + 8;
-  const int warp_last = q0 + warp * 16 + 15;
-
-  // Q fragments (A operand, row-major 16x16 per k-step), read once.
-  uint32_t qa[kD / 16][4];
+// One turn of a consumer warpgroup at the tensor cores: O += P V on tile
+// i - 1 (MN-major V: 16-key k-steps 2,048 bytes apart, the two 64-dim
+// halves kHalfBytes apart), then S = Q K^T on tile i (K-major K: 16-dim
+// k-steps 32 bytes apart inside a half's 128-byte rows; the first k-step
+// overwrites s). The warpgroups take turns (named barrier 1 + warpgroup),
+// so one's softmax runs while the other's products do. Which products a
+// turn has is a template argument, so no branch sits between wgmma's fence
+// and its wait (a branch there makes the compiler serialise them).
+template <bool kPV, bool kQK>
+__device__ __forceinline__ void turn(int i, int wg, uint32_t ring0, uint32_t empty0, float (&o)[kD / 2],
+                                     float (&s)[kBN / 2], uint32_t (&pa)[kBN / 16][4], uint32_t (&qa)[kD / 16][4]) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");  // my turn
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const int c = kk * 16 + t * 2;
-    const uint16_t* p0 = q + ((size_t)r0 * Hq + h) * kD + c;
-    const uint16_t* p1 = q + ((size_t)r1 * Hq + h) * kD + c;
-    qa[kk][0] = r0 < S ? *reinterpret_cast<const uint32_t*>(p0) : 0u;
-    qa[kk][1] = r1 < S ? *reinterpret_cast<const uint32_t*>(p1) : 0u;
-    qa[kk][2] = r0 < S ? *reinterpret_cast<const uint32_t*>(p0 + 8) : 0u;
-    qa[kk][3] = r1 < S ? *reinterpret_cast<const uint32_t*>(p1 + 8) : 0u;
+  for (int x = 0; x < kD / 2; ++x) reg_fence(o[x]);
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(pa[kk][e]);
+  wgmma_fence();
+  if constexpr (kPV) {
+    const uint32_t vs = ring0 + ((i - 1) % kStages) * kStageBytes + kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      WgmmaRS<kD, 1>::run(o, pa[kk], desc_sw128(vs + kk * 2048, kHalfBytes, 1024), 1);
+  }
+  if constexpr (kQK) {
+    const uint32_t ks = ring0 + (i % kStages) * kStageBytes;
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      WgmmaRS<kBN, 0>::run(s, qa[kk], desc_sw128(ks + (kk >> 2) * kHalfBytes + (kk & 3) * 32, 16, 1024), kk > 0);
+  }
+  if (kQK || wg < kWGs - 1)  // the next warpgroup's turn (none after the last)
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (wg + 1) % kWGs) : "memory");
+  wgmma_commit();
+  wgmma_wait0();
+#pragma unroll
+  for (int x = 0; x < kBN / 2; ++x) reg_fence(s[x]);
+#pragma unroll
+  for (int x = 0; x < kD / 2; ++x) reg_fence(o[x]);
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(pa[kk][e]);
+  if (kPV && (threadIdx.x & 127) == 0) mbar_arrive(empty0 + ((i - 1) % kStages) * 8);  // P V read its stage
+}
+
+__global__ void __launch_bounds__(kThreadsA, 1)
+flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                      const uint16_t* __restrict__ q, const uint8_t* __restrict__ key_valid,
+                      uint16_t* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+                      int S, int Hq, int Hk, float scale_log2) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw0 = smem_addr(smem_raw);
+  const uint32_t ring0 = (raw0 + 1023u) & ~1023u;
+  uint8_t* ring = smem_raw + (ring0 - raw0);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + kRingBytes);  // full[kStages], empty[kStages]
+  int* n_live_s = reinterpret_cast<int*>(bars + 2 * kStages);
+  uint64_t* tbits = bars + 2 * kStages + 1;  // a tile's validity bits, kWords words
+  int* tlist = reinterpret_cast<int*>(tbits + (S + kBN - 1) / kBN * kWords);  // the live tiles, in order
+  const uint32_t full0 = smem_addr(bars), empty0 = full0 + 8 * kStages;
+
+  const int h = blockIdx.x;
+  const int hk = h / (Hq / Hk);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // the last query block first
+  const int tid = threadIdx.x;
+  // The warp index broadcast from lane 0: uniform to the compiler, so the
+  // role branch below does not make the wgmma path look divergent (which
+  // would serialise the wgmma instructions).
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  const int n_all = (min(S, q0 + kBM) + kBN - 1) / kBN;  // tiles up to the diagonal
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full0 + st * 8, 1);
+      mbar_init(empty0 + st * 8, kWGs);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (key_valid != nullptr) {  // each tile's validity as 64-bit words, then the list of live tiles
+    for (int jw = warp; jw < n_all * kWords; jw += kThreadsA / 32) {
+      const int k0 = jw * 64 + lane;
+      const uint32_t lo = __ballot_sync(0xffffffffu, k0 < S && key_valid[k0]);
+      const uint32_t hi = __ballot_sync(0xffffffffu, k0 + 32 < S && key_valid[k0 + 32]);
+      if (lane == 0) tbits[jw] = lo | (static_cast<uint64_t>(hi) << 32);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int base = 0;
+      for (int j0 = 0; j0 < n_all; j0 += 32) {
+        const int j = j0 + lane;
+        bool live = false;
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) live = live || (j < n_all && tbits[j * kWords + w] != 0ull);
+        const uint32_t ballot = __ballot_sync(0xffffffffu, live);
+        if (live) tlist[base + __popc(ballot & ((1u << lane) - 1u))] = j;
+        base += __popc(ballot);
+      }
+      if (lane == 0) *n_live_s = base;
+    }
+  }
+  __syncthreads();  // the barriers are initialised and the tile list written
+  const int n_tiles = __shfl_sync(0xffffffffu, key_valid != nullptr ? *n_live_s : n_all, 0);
+
+  if (warp >= kConsumers / 32) {  // the producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");  // its registers go to the consumers
+    if (warp == kConsumers / 32 && lane == 0) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) mbar_wait(empty0 + st * 8, (i / kStages - 1) & 1);  // both warpgroups are done with it
+        const int key0 = (key_valid != nullptr ? tlist[i] : i) * kBN;
+        const uint32_t dst = ring0 + st * kStageBytes;
+        mbar_expect(full0 + st * 8, kStageBytes);
+        tma_tile(dst, &map_k, key0, hk, full0 + st * 8);
+        tma_tile(dst + kTileBytes, &map_v, key0, hk, full0 + st * 8);
+      }
+    }
+    return;
   }
 
-  float o[kD / 8][4];
-#pragma unroll
-  for (int i = 0; i < kD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m_i[2] = {-INFINITY, -INFINITY};
-  float l_i[2] = {0.f, 0.f};
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp >> 2;  // this thread's warpgroup
+  const int g = lane >> 2;  // fragment row group
+  const int tq = lane & 3;  // thread within the group
+  const int wrow0 = q0 + wg * 64;  // the warpgroup's first row
+  const int r0 = wrow0 + ((tid >> 5) & 3) * 16 + g;
+  const int r1 = r0 + 8;
 
-  const int n_end = min(S, q0 + kBM);  // causal: no key past the block's last row
-  for (int n0 = 0; n0 < n_end; n0 += kBN) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kBN * (kD / 8); idx += kThreadsA) {
-      const int row = idx >> 4;
-      const int chunk = idx & 15;
-      const int key = n0 + row;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (key < S) {
-        const size_t off = ((size_t)key * Hk + hk) * kD + chunk * 8;
-        kv4 = *reinterpret_cast<const uint4*>(k + off);
-        vv4 = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(&ks[row * kRow + chunk * 8]) = kv4;
-      *reinterpret_cast<uint4*>(&vs[row * kRow + chunk * 8]) = vv4;
+  // Q as the register A operand of each 16-dim k-step, zero past S.
+  uint32_t qa[kD / 16][4];
+  {
+    const uint16_t* q0p = q + (static_cast<size_t>(r0) * Hq + h) * kD;
+    const uint16_t* q1p = q + (static_cast<size_t>(r1) * Hq + h) * kD;
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const int c = kk * 16 + tq * 2;
+      qa[kk][0] = r0 < S ? *reinterpret_cast<const uint32_t*>(q0p + c) : 0u;
+      qa[kk][1] = r1 < S ? *reinterpret_cast<const uint32_t*>(q1p + c) : 0u;
+      qa[kk][2] = r0 < S ? *reinterpret_cast<const uint32_t*>(q0p + c + 8) : 0u;
+      qa[kk][3] = r1 < S ? *reinterpret_cast<const uint32_t*>(q1p + c + 8) : 0u;
     }
-    if (threadIdx.x < kBN) {
-      const int key = n0 + threadIdx.x;
-      kval[threadIdx.x] = (key < S && (key_valid == nullptr || key_valid[key])) ? 1 : 0;
-    }
-    __syncthreads();
-    if (n0 > warp_last) continue;  // every key of this tile is in this warp's future
+  }
 
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float sc[kBN / 8][4];
+  // Accumulator layout (m64nN): element 4 * j + e is row r0 (e < 2) or r1,
+  // column 8 * j + 2 * tq + (e & 1).
+  float o[kD / 2];
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+  float m_i[2] = {-INFINITY, -INFINITY};  // log2 units
+  float l_i[2] = {0.f, 0.f};              // this thread's share of the row sums
+  float s[kBN / 2];
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const uint16_t* kr = &ks[(nt * 8 + g) * kRow + kk * 16 + t * 2];
-        mma_16816(sc[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                  *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
+  for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+  uint32_t pa[kBN / 16][4];  // P in bf16: the A operand of each 16-key k-step
 
-    // Mask, scale, and the online-softmax update for rows r0 (e<2), r1 (e>=2).
-    float mx[2] = {-INFINITY, -INFINITY};
+  // Softmax of tile i's scores, in place: masks, the online max and sum,
+  // P into pa as bf16, and the rescale of o when a row max moved.
+  auto softmax = [&](int i) {
+    // Masks: the per-element test only where the tile reaches past this
+    // warpgroup's first row (causal) or has dead keys.
+    const int tile = key_valid != nullptr ? tlist[i] : i;
+    const int n0 = tile * kBN;
+    uint64_t mine[kWords];  // this thread's bits: word w's column 8 * j + 2 * tq + e at bit 8 * j + e
+    bool all_live = true;
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
+    for (int w = 0; w < kWords; ++w) {
+      const uint64_t bits = key_valid != nullptr ? tbits[tile * kWords + w] : ~0ull;
+      all_live = all_live && bits == ~0ull;
+      mine[w] = bits >> (2 * tq);
+    }
+    if (n0 + kBN - 1 > wrow0 || !all_live) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + t * 2 + (e & 1);
-        const int key = n0 + col;
-        const int row = e < 2 ? r0 : r1;
-        const bool ok = key <= row && kval[col];
-        const float s = ok ? sc[nt][e] * scale : -INFINITY;
-        sc[nt][e] = s;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s);
+      for (int x = 0; x < kBN / 2; ++x) {
+        const int col = (x >> 2) * 8 + (x & 1);  // minus 2 * tq
+        const int row = (x & 2) ? r1 : r0;
+        if (!((mine[col >> 6] >> (col & 63)) & 1ull) || n0 + col + 2 * tq > row) s[x] = -INFINITY;
       }
     }
-    float m_use[2], alpha[2], rs[2] = {0.f, 0.f};
+    // Online softmax of S in log2 units.
+    float mx[2] = {-INFINITY, -INFINITY};  // of the raw scores: scale > 0 keeps the order
+#pragma unroll
+    for (int x = 0; x < kBN / 2; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+    float m_use[2], alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_i[r], mx[r]);
+      const float m_new = fmaxf(m_i[r], mx[r] * scale_log2);
       m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[r] = expf(m_i[r] - m_use[r]);
+      alpha[r] = fast_exp2(m_i[r] - m_use[r]);
       m_i[r] = m_new;
+      l_i[r] *= alpha[r];
     }
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sc[nt][e] - m_use[e >> 1]);
-        sc[nt][e] = p;
-        rs[e >> 1] += p;
-      }
+    for (int x = 0; x < kBN / 2; x += 2) {
+      const int r = (x >> 1) & 1;
+      const float p0 = fast_exp2(fmaf(s[x], scale_log2, -m_use[r]));
+      const float p1 = fast_exp2(fmaf(s[x + 1], scale_log2, -m_use[r]));
+      l_i[r] += p0 + p1;
+      pa[x >> 3][(x >> 1) & 3] = pack_floats(p0, p1);
     }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a row max moved
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l_i[r] = l_i[r] * alpha[r] + rs[r];
+      for (int x = 0; x < kD / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
     }
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
+  };
 
-    // O += P V: P's accumulator fragments are reused as A operands (bf16).
-#pragma unroll
-    for (int kt = 0; kt < kBN / 16; ++kt) {
-      uint32_t pa[4];
-      pa[0] = pack_floats(sc[2 * kt][0], sc[2 * kt][1]);
-      pa[1] = pack_floats(sc[2 * kt][2], sc[2 * kt][3]);
-      pa[2] = pack_floats(sc[2 * kt + 1][0], sc[2 * kt + 1][1]);
-      pa[3] = pack_floats(sc[2 * kt + 1][2], sc[2 * kt + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        const uint16_t* vp = &vs[(kt * 16 + t * 2) * kRow + dt * 8 + g];
-        mma_16816(o[dt], pa, pack_raw(vp[0], vp[kRow]), pack_raw(vp[8 * kRow], vp[9 * kRow]));
-      }
+  if (wg == kWGs - 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");  // warpgroup 0 goes first
+  if (n_tiles > 0) {
+    mbar_wait(full0, 0);
+    turn<false, true>(0, wg, ring0, empty0, o, s, pa, qa);
+    softmax(0);
+    for (int i = 1; i < n_tiles; ++i) {
+      mbar_wait(full0 + (i % kStages) * 8, (i / kStages) & 1);  // the tile has landed
+      turn<true, true>(i, wg, ring0, empty0, o, s, pa, qa);
+      softmax(i);
     }
+    turn<true, false>(n_tiles, wg, ring0, empty0, o, s, pa, qa);  // P V of the last tile
+  } else {
+    turn<false, false>(0, wg, ring0, empty0, o, s, pa, qa);  // no live key: only the turn order
   }
 
-  const float inv0 = 1.f / fmaxf(l_i[0], 1e-30f);
-  const float inv1 = 1.f / fmaxf(l_i[1], 1e-30f);
+  float inv[2];
 #pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    const int c = dt * 8 + t * 2;
+  for (int r = 0; r < 2; ++r) {
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+    inv[r] = 1.f / fmaxf(l_i[r], 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    const int c = j * 8 + tq * 2;
     if (r0 < S)
-      *reinterpret_cast<uint32_t*>(out + ((size_t)r0 * Hq + h) * kD + c) =
-          pack_floats(o[dt][0] * inv0, o[dt][1] * inv0);
+      *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(r0) * Hq + h) * kD + c) =
+          pack_floats(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
     if (r1 < S)
-      *reinterpret_cast<uint32_t*>(out + ((size_t)r1 * Hq + h) * kD + c) =
-          pack_floats(o[dt][2] * inv1, o[dt][3] * inv1);
+      *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(r1) * Hq + h) * kD + c) =
+          pack_floats(o[4 * j + 2] * inv[1], o[4 * j + 3] * inv[1]);
   }
-  if (t == 0) {
+  if (tq == 0) {  // m back in natural-log units for kernel B
     if (r0 < S) {
-      m_out[(size_t)h * S + r0] = m_i[0];
-      l_out[(size_t)h * S + r0] = l_i[0];
+      m_out[static_cast<size_t>(h) * S + r0] = m_i[0] * kLn2;
+      l_out[static_cast<size_t>(h) * S + r0] = l_i[0];
     }
     if (r1 < S) {
-      m_out[(size_t)h * S + r1] = m_i[1];
-      l_out[(size_t)h * S + r1] = l_i[1];
+      m_out[static_cast<size_t>(h) * S + r1] = m_i[1] * kLn2;
+      l_out[static_cast<size_t>(h) * S + r1] = l_i[1];
     }
   }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The TMA map of an (S, Hk, 128) bf16 tensor as four dims, innermost first:
+// 64 dims of a half, keys (Hk * 256 bytes apart), halves (128 bytes apart),
+// KV heads (256 bytes apart); its box is one kBN-key tile of one KV head,
+// landing as [half][key][64 dims] with the 128-byte swizzle.
+int kv_map(CUtensorMap* map, const void* ptr, int S, int Hk) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S), 2, static_cast<cuuint64_t>(Hk)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(Hk) * kD * 2, 128, kD * 2};
+  const cuuint32_t box[4] = {64, kBN, 2, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 constexpr int kThreadsB = 256;
@@ -296,15 +512,33 @@ attn_importance_rows_kernel(const uint16_t* __restrict__ q, const uint16_t* __re
 
 }  // namespace
 
+// scale > 0 (1 / sqrt(128)). Returns cudaErrorInvalidValue for a shape the
+// kernel does not take (Hq not a multiple of Hk, or S beyond the tile list
+// that fits shared memory beside the ring).
 extern "C" int ff_flash_attn_fwd(const void* q, const void* k, const void* v, const void* key_valid,
                                  void* out, void* m_out, void* l_out, int S, int Hq, int Hk,
                                  float scale, void* stream) {
-  const dim3 grid((S + kBM - 1) / kBM, Hq);
-  flash_attn_fwd_kernel<<<grid, kThreadsA, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint8_t*>(key_valid),
-      static_cast<uint16_t*>(out), static_cast<float*>(m_out), static_cast<float*>(l_out),
-      S, Hq, Hk, scale);
+  if (S <= 0 || Hk <= 0 || Hq % Hk != 0 || !(scale > 0.f) || smem_bytes_a(S) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool smem_set[64] = {};  // the opt-in above 48 KB, once per device
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(flash_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set[dev] = true;
+  }
+  CUtensorMap map_k, map_v;
+  int status = kv_map(&map_k, k, S, Hk);
+  if (status == 0) status = kv_map(&map_v, v, S, Hk);
+  if (status != 0) return status;
+  const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x * log2(e))
+  const dim3 grid(Hq, (S + kBM - 1) / kBM);
+  flash_attn_fwd_kernel<<<grid, kThreadsA, smem_bytes_a(S), static_cast<cudaStream_t>(stream)>>>(
+      map_k, map_v, static_cast<const uint16_t*>(q), static_cast<const uint8_t*>(key_valid),
+      static_cast<uint16_t*>(out), static_cast<float*>(m_out), static_cast<float*>(l_out), S, Hq, Hk, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

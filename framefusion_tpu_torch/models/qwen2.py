@@ -46,6 +46,7 @@ from ..ops.attention import causal_attention_einsum, decode_attention, last_rows
 from ..ops.kernels import flash_prefill, matvec_q8
 from ..ops.kernels.decode_attention import ragged_decode_attention
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..weights import resolve_device
 
 ATTN_IMPLS = ("einsum", "flash")  # prefill, the engines, verify and batched decode
 DECODE_ATTN_IMPLS = ATTN_IMPLS + ("ragged",)  # decode_step
@@ -98,7 +99,10 @@ def params_from_numpy(tree, device=None):
     """The JAX package's param pytree (fetched as numpy with
     ``jax.device_get``) as this package's params: same keys and layouts,
     int8 pairs included. bf16 arrays stay bf16 (through an exact fp32
-    copy: torch reads no numpy bf16), other floats become fp32."""
+    copy: torch reads no numpy bf16), other floats become fp32. ``device``:
+    the card when None (which raises without one, as the loaders do);
+    ``"cpu"`` for the CPU."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     arr = np.asarray(tree)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ...ops.kernels.bidir_attention import flash_bidir_attention
-from ...weights import to_numpy
+from ...weights import resolve_device, to_numpy
 from ..qwen2 import layer_slice, mm, params_from_numpy  # noqa: F401  (the tower's pytree carries over alike)
 
 ATTN_IMPLS = ("einsum", "flash")
@@ -87,7 +87,10 @@ def init_params(cfg: ViTConfig, generator: torch.Generator, device=None) -> dict
 
 def params_from_hf(state_dict, cfg: ViTConfig, prefix: str = "vision_model.", device=None) -> dict:
     """HF ``SiglipVisionModel`` weights (also the layout inside LLaVA-Video
-    hub checkpoints under ``model.vision_tower.vision_tower.vision_model.``)."""
+    hub checkpoints under ``model.vision_tower.vision_tower.vision_model.``).
+    ``device``: the card when None (which raises without one); ``"cpu"``
+    for the CPU."""
+    device = resolve_device(device)
     sd = {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
 
     def tensor(a):

@@ -38,6 +38,11 @@ TILE_KEYS = 64
 # own count). A CTA holds a 139 KB ring of K/V tiles, so one fits an SM.
 SM_COUNT = 132
 MAX_SPLIT = 256  # key ranges a launch may split into (the kernel's kMaxSplit)
+# Arrival counters: one fixed, zeroed buffer per (device, stream), shared
+# by the kernels that merge their splits in the same launch (C and G). Each
+# kernel leaves its counters at zero and calls on one stream never overlap;
+# a fixed size keeps a captured graph's pointer valid.
+MAX_COUNTERS = 1 << 16
 _COUNTERS: dict = {}
 
 
@@ -69,12 +74,15 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _counters(device, hk: int):
-    """The (device, stream)'s zeroed arrival counters, at least ``hk`` of them."""
+def _counters(device, n: int):
+    """The (device, stream)'s zeroed arrival counters, of which a launch
+    uses the first ``n``."""
+    if n > MAX_COUNTERS:
+        raise ValueError(f"a launch needs {n} arrival counters, more than the {MAX_COUNTERS} kept")
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < hk:
-        buf = _COUNTERS[key] = torch.zeros(max(hk, 64), dtype=torch.int32, device=device)
+    if buf is None:
+        buf = _COUNTERS[key] = torch.zeros(MAX_COUNTERS, dtype=torch.int32, device=device)
     return buf
 
 

@@ -6,8 +6,10 @@ VMEM; on the card one kernel covers every S (``csrc/flash_prefill.cu``,
 whose header says what bounds each kernel and how the design meets it):
 
 * ``flash_attn_fwd`` (kernel A) — causal GQA flash attention with an (S,)
-  key-valid mask; also returns each row's softmax max ``m`` and sum ``l``
-  ((Hq, S) fp32). Rows whose keys are all masked give 0.
+  key-valid mask; also returns each row's softmax max ``m`` (natural-log
+  units) and sum ``l`` ((Hq, S) fp32). Rows whose keys are all masked give
+  0. On Hopper: ``wgmma`` for both products fed by a TMA ring of 128-key
+  tiles; dead 128-key tiles are skipped.
 * ``attn_importance_rows`` (kernel B) — the prune's importance vector from
   A's statistics, summed in a fixed order.
 
@@ -116,6 +118,8 @@ def flash_attn_fwd(q, k, v, key_valid=None):
     _check_cuda("flash_attn_fwd", q, k, v)
     if key_valid is not None and not key_valid.is_contiguous():
         raise ValueError("flash_attn_fwd: key_valid must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attn_fwd: CUDA kernel takes 16-byte aligned tensors (TMA reads k and v)")
     from ... import _build
 
     lib = _build.load_library()

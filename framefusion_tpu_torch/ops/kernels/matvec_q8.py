@@ -6,10 +6,13 @@ it):
 
 * ``gemv_stacked`` (kernel C) — (B <= 64, K) bf16 rows times layer ``l`` of
   one, two or three (L, K, N) weight stacks (bf16 or int8), fp32 out; the
-  caller applies int8 scales. ``matvec_stacked`` and ``matvec_stacked_qkv``
-  keep the JAX entry points.
+  caller applies int8 scales. One launch: K is split over CTAs by
+  ``split_plan`` and the last CTA of each column tile merges the partials
+  in a fixed order, behind arrival counters kept per (device, stream).
+  ``matvec_stacked`` and ``matvec_stacked_qkv`` keep the JAX entry points.
 * ``gemv_gateup`` (kernel D) — ``silu(x@Wg*sg) * (x@Wu*su)`` over the two
-  MLP stacks (``matvec_stacked_gateup``).
+  MLP stacks (``matvec_stacked_gateup``): the same pass, then an epilogue
+  launch that adds the partials.
 * ``matvec_q8`` / ``matvec_bf16`` keep the JAX entry points of the plain
   (K, N) matvec (``_matvec``): kernel C with the weight viewed as a one-layer
   stack, so no kernel of their own.
@@ -23,13 +26,23 @@ CUDA tensors; ``launches`` counts kernel launches.
 
 from __future__ import annotations
 
+from fractions import Fraction
+
 import torch
 
+from .decode_attention import SM_COUNT, _counters, _sm_count
 from .flash_prefill import _device_route
 
 MAX_ROWS = 64
-# Target CTAs per launch (about four per SM of an H100's 132).
-TARGET_CTAS = 528
+# The plan aims for one wave of CTAS_PER_SM CTAs an SM (an H100 SXM has
+# 132; the wrapper reads the card's own count): a CTA holds a 96 KB ring of
+# weight rows, so two fit an SM, and their rings keep far more than the
+# ~25 KB an SM needs in flight for 3.35 TB/s. One, three and four an SM
+# timed slower on the card at the decode shapes.
+CTAS_PER_SM = 2
+MAX_KCHUNK = 2048  # rows of x a CTA stages in shared memory (the kernel's kMaxKChunk)
+TILE_BYTES = 512  # bytes of each weight row a CTA reads (the kernel's kSeg)
+ROW_STEP = 8  # K-chunks are whole multiples of the CTA's eight warps
 
 
 def _check_stacks(name, x, stacks, layer):
@@ -49,8 +62,30 @@ def _plain_product(x, w, layer):
     return x.to(torch.bfloat16).to(torch.float32) @ w[layer].to(torch.bfloat16).to(torch.float32)
 
 
-def _kernel_plan(lib, x, stacks):
-    """Validate CUDA operands; return (wtype, per-stack vector width, chunks, kchunk)."""
+def column_tiles(ns, int8: bool) -> int:
+    """Column tiles of the stacks' widths ``ns``: a CTA reads ``TILE_BYTES``
+    of each weight row (256 bf16 or 512 int8 columns)."""
+    width = TILE_BYTES // (1 if int8 else 2)
+    return sum(-(-n // width) for n in ns)
+
+
+def split_plan(k: int, tiles: int, rows: int, sm_count: int = SM_COUNT) -> tuple[int, int]:
+    """(chunks, kchunk): K cut into ``chunks`` ranges of ``kchunk`` rows (a
+    multiple of ``ROW_STEP``, at most ``MAX_KCHUNK``). The fewest chunks are
+    as many as keep the ``tiles * chunks * rows`` CTAs within one wave of
+    ``CTAS_PER_SM`` an SM, or as ``MAX_KCHUNK`` forces; up to twice that, the
+    count with the fewest waves per chunk wins (each chunk's CTAs do 1 /
+    chunks of the work), so a plan that spills past a wave fills its last
+    one; ties go to fewer chunks."""
+    wave = sm_count * CTAS_PER_SM
+    fewest = max(1, wave // (tiles * rows), -(-k // MAX_KCHUNK))
+    chunks = min(range(fewest, 2 * fewest + 1), key=lambda c: (Fraction(-(-tiles * c * rows // wave), c), c))
+    kchunk = -(-(-(-k // chunks)) // ROW_STEP) * ROW_STEP
+    return -(-k // kchunk), kchunk
+
+
+def _kernel_plan(x, stacks):
+    """Validate CUDA operands; return (wtype, column tiles, chunks, kchunk)."""
     dtype = stacks[0].dtype
     if any(w.dtype != dtype for w in stacks) or dtype not in (torch.bfloat16, torch.int8):
         raise TypeError(f"CUDA gemv takes bf16 or int8 weight stacks of one dtype, got {[w.dtype for w in stacks]}")
@@ -58,17 +93,14 @@ def _kernel_plan(lib, x, stacks):
         raise TypeError(f"CUDA gemv takes bf16 activations, got {x.dtype}")
     if not x.is_contiguous() or any(not w.is_contiguous() for w in stacks):
         raise ValueError("CUDA gemv takes contiguous tensors")
+    if any(w.data_ptr() % 16 for w in stacks):
+        raise ValueError("CUDA gemv takes 16-byte aligned weight stacks (16-byte loads)")
     vec = 16 if dtype == torch.int8 else 8
     if any(w.shape[2] % vec for w in stacks):
         raise ValueError(f"CUDA gemv needs every N to be a multiple of {vec}")
-    tiles = sum(-(-w.shape[2] // (32 * vec)) for w in stacks)
-    k = x.shape[1]
-    chunks = max(1, min(-(-TARGET_CTAS // (tiles * x.shape[0])), -(-k // 32)))
-    kchunk = -(-k // chunks)
-    kchunk = -(-kchunk // 8) * 8
-    kchunk = min(kchunk, lib.ff_gemv_max_kchunk())
-    chunks = -(-k // kchunk)
-    return (1 if dtype == torch.int8 else 0), chunks, kchunk
+    tiles = column_tiles([w.shape[2] for w in stacks], dtype == torch.int8)
+    chunks, kchunk = split_plan(x.shape[1], tiles, x.shape[0], _sm_count(x.device.index))
+    return (1 if dtype == torch.int8 else 0), tiles, chunks, kchunk
 
 
 def gemv_stacked_plain(x, stacks, layer: int):
@@ -86,17 +118,18 @@ def gemv_stacked(x, stacks, layer: int):
     from ... import _build
 
     lib = _build.load_library()
-    wtype, chunks, kchunk = _kernel_plan(lib, x, stacks)
+    wtype, tiles, chunks, kchunk = _kernel_plan(x, stacks)
     b, k = x.shape
+    counters = _counters(x.device, b * tiles)
     ns = [w.shape[2] for w in stacks]
     outs = [torch.empty((b, n), dtype=torch.float32, device=x.device) for n in ns]
-    ws = torch.empty((chunks, b, sum(ns)), dtype=torch.float32, device=x.device)
+    ws = torch.empty((chunks if chunks > 1 else 0, b, sum(ns)), dtype=torch.float32, device=x.device)
     pad = 3 - len(stacks)
     w_ptrs = [w.data_ptr() for w in stacks] + [None] * pad
     o_ptrs = [o.data_ptr() for o in outs] + [None] * pad
     status = lib.ff_gemv_stacked(
         x.data_ptr(), b, k, layer, wtype, *w_ptrs, *(ns + [0] * pad), *o_ptrs,
-        ws.data_ptr(), chunks, kchunk, _build.stream_ptr(x.device),
+        ws.data_ptr(), counters.data_ptr(), chunks, kchunk, _build.stream_ptr(x.device),
     )
     _build.check(status, "gemv_stacked")
     gemv_stacked.launches += 1
@@ -134,7 +167,7 @@ def gemv_gateup(x, wg, wu, sg, su, layer: int):
     from ... import _build
 
     lib = _build.load_library()
-    wtype, chunks, kchunk = _kernel_plan(lib, x, [wg, wu])
+    wtype, _, chunks, kchunk = _kernel_plan(x, [wg, wu])
     b, k = x.shape
     n = wg.shape[2]
     sg_l = sg[layer].contiguous() if sg is not None else None

@@ -50,7 +50,7 @@ TOL = 1e-4
 def stacks():
     jcfg = jax_tiny(num_layers=6)
     jp = jq.init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, tiny_llm_config(num_layers=6), jp, tq.params_from_numpy(jax.device_get(jp))
+    return jcfg, tiny_llm_config(num_layers=6), jp, tq.params_from_numpy(jax.device_get(jp), device="cpu")
 
 
 def prompt(n_frames: int, n_post: int = 3):

@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from checkpoint_fixtures import write_fixture
+from checkpoint_fixtures import _siglip_state, write_fixture
 from framefusion_tpu.config import tiny_llm_config as jax_tiny
 from framefusion_tpu.models import qwen2 as jq
 from framefusion_tpu.ops.attention import verify_attention as jax_verify_attention
@@ -40,6 +40,8 @@ from framefusion_tpu.ops.quant import quantize_params_int8 as jax_quantize
 from framefusion_tpu_torch import weights
 from framefusion_tpu_torch.config import tiny_llm_config
 from framefusion_tpu_torch.models import qwen2 as tq
+from framefusion_tpu_torch.models.vision import siglip as tsiglip
+from framefusion_tpu_torch.models.vision.siglip import tiny_vit_config
 from framefusion_tpu_torch.ops import kernels as registry
 from framefusion_tpu_torch.ops.attention import verify_attention
 from framefusion_tpu_torch.ops.kernels import decode_attention as tda
@@ -170,8 +172,8 @@ def models():
     for name in ("bq", "bk", "bv"):  # non-zero biases exercise the bias path
         jp["layers"][name] = jnp.asarray(rng.standard_normal(jp["layers"][name].shape) * 0.02, jnp.float32)
     jq8 = jax_quantize(jax.tree.map(jnp.copy, jp))
-    return {False: (jp, tq.params_from_numpy(jax.device_get(jp))),
-            True: (jq8, tq.params_from_numpy(jax.device_get(jq8)))}, jcfg, tcfg
+    return {False: (jp, tq.params_from_numpy(jax.device_get(jp), device="cpu")),
+            True: (jq8, tq.params_from_numpy(jax.device_get(jq8), device="cpu"))}, jcfg, tcfg
 
 
 def _pools(rng, *lead, s=64, hk=2, hd=32):
@@ -396,6 +398,24 @@ def test_loaders_default_to_the_card(tmp_path, monkeypatch):
         weights.params_from_state_dict({}, tiny_llm_config())
     model = weights.load_checkpoint(path, device="cpu")
     assert model.params["embed"].device.type == "cpu" and model.vision["params"]["patch_kernel"].device.type == "cpu"
+
+
+def test_converters_default_to_the_card(monkeypatch):
+    """The JAX-pytree and HF SigLIP converters take the loaders' rule: the
+    card when no device is given, which raises naming device="cpu" without
+    one; with device="cpu" they convert on the CPU."""
+    tree = {"layers": {"wq": np.ones((2, 4, 4), np.float32), "q8": np.ones((2, 3), np.int8)}}
+    sd = _siglip_state(np.random.default_rng(0), "vision_model.")
+    vcfg = tiny_vit_config()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tq.params_from_numpy(tree)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tsiglip.params_from_hf(sd, vcfg)
+    got = tq.params_from_numpy(tree, device="cpu")
+    assert got["layers"]["wq"].device.type == "cpu" and got["layers"]["q8"].dtype == torch.int8
+    vit = tsiglip.params_from_hf(sd, vcfg, device="cpu")
+    assert vit["layers"]["wq"].shape == (2, 64, 64) and vit["patch_kernel"].device.type == "cpu"
 
 
 # -- every TPU kernel has its counterpart ------------------------------------------

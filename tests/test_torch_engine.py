@@ -41,7 +41,7 @@ BASE = dict(cost=0.4, similarity_lower_bound=0.75, ratio_lower_bound=0.05, sched
 def stacks():
     jcfg = jax_tiny(num_layers=6)
     jp = jq.init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, tiny_llm_config(num_layers=6), jp, tq.params_from_numpy(jax.device_get(jp))
+    return jcfg, tiny_llm_config(num_layers=6), jp, tq.params_from_numpy(jax.device_get(jp), device="cpu")
 
 
 def events(res):

@@ -145,6 +145,40 @@ def test_matvec_gateup_matches_pallas(dtype):
         assert_mv_close(got, ref)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("k,ns", [(3584, [3584, 512, 512]), (3584, [3584]), (18944, [3584])])  # qkv, wo, w_down
+def test_gemv_split_plan_fills_one_wave(k, ns, int8):
+    """At the decode projections' shapes (B = 1) the plan covers K exactly
+    once, and its column tiles times K-chunks put at least one CTA on every
+    SM and stay within one wave of ``CTAS_PER_SM`` CTAs an SM."""
+    tiles = tmv.column_tiles(ns, int8)
+    chunks, kchunk = tmv.split_plan(k, tiles, 1)
+    assert chunks * kchunk >= k > (chunks - 1) * kchunk
+    assert kchunk % tmv.ROW_STEP == 0 and kchunk <= tmv.MAX_KCHUNK
+    assert tmv.SM_COUNT <= tiles * chunks <= tmv.SM_COUNT * tmv.CTAS_PER_SM
+
+
+@pytest.mark.parametrize("k,tiles,rows", [(8, 1, 1), (1003, 4, 3), (3584, 18, 64), (18944, 148, 1), (100000, 1, 1)])
+def test_gemv_split_plan_covers_k(k, tiles, rows):
+    """Any shape: whole K-chunks of at most ``MAX_KCHUNK`` rows cover K, the
+    last one not empty, and at most twice the fewest chunks that keep one
+    wave (or that ``MAX_KCHUNK`` forces)."""
+    chunks, kchunk = tmv.split_plan(k, tiles, rows)
+    assert chunks * kchunk >= k > (chunks - 1) * kchunk
+    assert 0 < kchunk <= tmv.MAX_KCHUNK and kchunk % tmv.ROW_STEP == 0
+    assert chunks <= 2 * max(1, tmv.SM_COUNT * tmv.CTAS_PER_SM // (tiles * rows), -(-k // tmv.MAX_KCHUNK))
+
+
+@pytest.mark.parametrize("int8,chunks", [(False, 3), (True, 3)])
+def test_gemv_split_plan_fills_its_last_wave(int8, chunks):
+    """Kernel D's gate-up pass (K 3,584, two stacks of 18,944) needs more
+    than one wave in bf16 (148 tiles, two K-chunks at the most rows a CTA
+    stages): three chunks fill two waves better than two chunks fill
+    1.12 (and int8's 74 tiles fit three chunks in one wave)."""
+    tiles = tmv.column_tiles([18944, 18944], int8)
+    assert tmv.split_plan(3584, tiles, 1)[0] == chunks
+
+
 def test_float_weights_are_read_as_bf16():
     """A float weight stack goes through the kernel's bf16 read, as in JAX."""
     rng = np.random.default_rng(5)
@@ -225,6 +259,62 @@ def test_cuda_attention_kernels_match_plain(cuda, s, masked, hq, hk):
         imp = tfp.attn_importance_rows(q, k, rows, m, l, kv)
         imp_p = tfp.attn_importance_rows_plain(q, k, rows, m, l, kv)
         assert (imp - imp_p).abs().max() <= 1e-4 * imp_p.abs().max()
+
+
+def _key_valid(s, gen, device):
+    """Random live keys (60%) with rows 0-2 seeing none, a wholly dead
+    128-key tile of kernel A (keys 128-255) and a wholly live one (keys
+    256-383)."""
+    kv = torch.rand((s,), generator=gen, device=device) > 0.4
+    kv[:3] = False
+    kv[128:256] = False
+    kv[256:384] = True
+    return kv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("hq,hk", [(4, 4), (28, 4)])  # G = 1 and 7
+@pytest.mark.parametrize("s", [1, 64, 129, 517])
+def test_cuda_flash_attn_matches_plain(cuda, s, hq, hk, masked):
+    """Kernel A against its plain version: outputs per (row, head) within a
+    few bf16 ulps of the row's largest (bf16 probabilities and outputs), the
+    fp32 row statistics within 1e-3, rows with every key masked 0 with
+    m = -inf and l = 0; and kernel B's importance from A's m (natural-log
+    units) and l against B's plain version from the plain m and l (fp32 sums
+    in other orders and ex2 against exp: 1e-3 of the largest importance)."""
+    gen = torch.Generator(device=cuda).manual_seed(s + hq)
+    q = torch.randn((s, hq, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((s, hk, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((s, hk, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    kv = _key_valid(s, gen, cuda) if masked else None
+    launches = tfp.flash_attn_fwd.launches
+    out, m, l = tfp.flash_attn_fwd(q, k, v, kv)
+    assert tfp.flash_attn_fwd.launches == launches + 1
+    out_p, m_p, l_p = tfp.flash_attn_fwd_plain(q, k, v, kv)
+    err = (out.float() - out_p.float()).abs().amax(-1)
+    assert (err <= 2e-2 * out_p.float().abs().amax(-1)).all()
+    fin = torch.isfinite(m_p)
+    assert torch.equal(torch.isfinite(m), fin)
+    assert ((m - m_p)[fin].abs() <= 1e-3).all() and ((l - l_p)[fin].abs() <= 1e-3 * l_p[fin]).all()
+    if masked:  # rows 0-2 see no live key
+        assert (out[:3] == 0).all() and (l[:, :3] == 0).all() and (m[:, :3] == float("-inf")).all()
+    rows = capture_rows(s, min(4, s), s, kv, device=cuda)
+    imp = tfp.attn_importance_rows(q, k, rows, m, l, kv)
+    imp_p = tfp.attn_importance_rows_plain(q, k, rows, m_p, l_p, kv)
+    assert (imp - imp_p).abs().max() <= 1e-3 * imp_p.abs().max()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attn_raises_on_what_it_does_not_take(cuda):
+    q = torch.zeros((64, 8, 128), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((64 * 2 * 128 + 1,), dtype=torch.bfloat16, device=cuda)[1:].view(64, 2, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfp.flash_attn_fwd(q, k, k)
+    with pytest.raises(TypeError):
+        tfp.flash_attn_fwd(q.float(), q.float()[:, :2], q.float()[:, :2])
+    with pytest.raises(ValueError, match="head_dim"):
+        tfp.flash_attn_fwd(q[..., :64], q[:, :2, :64], q[:, :2, :64])
 
 
 @pytest.mark.gpu
@@ -343,3 +433,59 @@ def test_cuda_plain_matvec_entry_points_match_plain(cuda):
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
     with pytest.raises(ValueError, match="multiple of 16"):
         tmv.matvec_q8(x, w8[:, :760].contiguous(), sc[:760])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("rows", [1, 3, 64])
+def test_cuda_gemv_edge_shapes_match_plain(cuda, dtype, rows):
+    """Kernel C with N off the column tile (784 = 3 x 256 + 16 bf16, 512 +
+    272 int8), K = 1003 off every K-chunk, and B = 1, 3 and 64 rows: fp32
+    sums in another order, 1e-4 of the largest output."""
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+
+    def stack(n):
+        w = torch.randn((2, 1003, n), generator=gen, device=cuda)
+        return (w * 40).clamp(-127, 127).to(torch.int8) if dtype == torch.int8 else w.to(torch.bfloat16)
+
+    x = torch.randn((rows, 1003), generator=gen, device=cuda).to(torch.bfloat16)
+    stacks = [stack(784), stack(16), stack(528)]
+    launches = tmv.gemv_stacked.launches
+    got = tmv.gemv_stacked(x, stacks, 1)
+    assert tmv.gemv_stacked.launches == launches + 1
+    for g, ref in zip(got, tmv.gemv_stacked_plain(x, stacks, 1)):
+        assert g.shape == ref.shape and (g - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_cuda_gemv_is_repeatable(cuda, dtype):
+    """Two calls give the same bits, and so do three replays of a captured
+    call: the last CTA of each column tile adds the K-chunks in chunk order,
+    whichever arrives last, and leaves the arrival counters at zero."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def stack(n):
+        w = torch.randn((2, 3584, n), generator=gen, device=cuda)
+        return (w * 40).clamp(-127, 127).to(torch.int8) if dtype == torch.int8 else w.to(torch.bfloat16)
+
+    x = torch.randn((1, 3584), generator=gen, device=cuda).to(torch.bfloat16)
+    stacks = [stack(3584), stack(512), stack(512)]
+    first = tmv.gemv_stacked(x, stacks, 1)
+    assert all(torch.equal(a, b) for a, b in zip(tmv.gemv_stacked(x, stacks, 1), first))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tmv.gemv_stacked(x, stacks, 1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = tmv.gemv_stacked(x, stacks, 1)
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, first))
+    torch.cuda.synchronize()
+    assert all(int(buf.abs().sum()) == 0 for buf in tda._COUNTERS.values())

@@ -51,11 +51,11 @@ def pipes():
     jm.ff = jm.ff.replace(schedule_num_layers=jcfg.num_layers)
     tcfg = tiny_llm_config(num_layers=4)
     tm = apply_framefusion(FrameFusionModel(family="llava_video", cfg=tcfg,
-                                            params=tq.params_from_numpy(jax.device_get(jp))), 0.5, 0.8, 0.05)
+                                            params=tq.params_from_numpy(jax.device_get(jp), device="cpu")), 0.5, 0.8, 0.05)
     tm.ff = tm.ff.replace(schedule_num_layers=tcfg.num_layers)
     jpipe = JaxPipeline(model=jm, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg, projector=proj)
-    tpipe = TextPipeline(model=tm, tokenizer=StubTokenizer(), vit_params=ts.params_from_numpy(jax.device_get(vit)),
-                         vit_cfg=ts.tiny_vit_config(), projector=tlf.params_from_numpy(jax.device_get(proj)))
+    tpipe = TextPipeline(model=tm, tokenizer=StubTokenizer(), vit_params=ts.params_from_numpy(jax.device_get(vit), device="cpu"),
+                         vit_cfg=ts.tiny_vit_config(), projector=tlf.params_from_numpy(jax.device_get(proj), device="cpu"))
     return jpipe, tpipe
 
 

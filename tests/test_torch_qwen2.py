@@ -32,7 +32,7 @@ def models():
     rng = np.random.default_rng(0)
     for name in ("bq", "bk", "bv"):
         jp["layers"][name] = jnp.asarray(rng.standard_normal(jp["layers"][name].shape) * 0.02, jnp.float32)
-    tp = tq.params_from_numpy(jax.device_get(jp))
+    tp = tq.params_from_numpy(jax.device_get(jp), device="cpu")
     return jcfg, tcfg, jp, tp
 
 
@@ -51,12 +51,12 @@ def test_init_params_layout_matches_jax(models):
 def test_params_from_numpy_carries_int8_pairs(models):
     jcfg, _, jp, _ = models
     jq8 = jax_quantize(jax.tree.map(jnp.copy, jp))
-    tp8 = tq.params_from_numpy(jax.device_get(jq8))
+    tp8 = tq.params_from_numpy(jax.device_get(jq8), device="cpu")
     for name in ("wq", "w_down"):
         assert tp8["layers"][name]["q8"].dtype == torch.int8
         np.testing.assert_array_equal(tp8["layers"][name]["q8"].numpy(), np.asarray(jq8["layers"][name]["q8"]))
         np.testing.assert_array_equal(tp8["layers"][name]["scale"].numpy(), np.asarray(jq8["layers"][name]["scale"]))
-    bf = tq.params_from_numpy({"w": np.asarray(jnp.ones((2, 2), jnp.bfloat16))})
+    bf = tq.params_from_numpy({"w": np.asarray(jnp.ones((2, 2), jnp.bfloat16))}, device="cpu")
     assert bf["w"].dtype == torch.bfloat16
 
 
@@ -88,7 +88,7 @@ def test_layer_blocks_match_jax(models, impl):
 def test_int8_mm_matches_jax(models):
     jcfg, _, jp, _ = models
     jq8 = jax_quantize(jax.tree.map(jnp.copy, jp))
-    tp8 = tq.params_from_numpy(jax.device_get(jq8))
+    tp8 = tq.params_from_numpy(jax.device_get(jq8), device="cpu")
     x = np.random.default_rng(2).standard_normal((5, jcfg.hidden_size)).astype(np.float32)
     w_j = jax.tree.map(lambda a: a[0], jq8["layers"]["wq"])
     w_t = {k: v[0] for k, v in tp8["layers"]["wq"].items()}
@@ -117,7 +117,7 @@ def test_decode_step_matches_jax(models, quantized):
     jcfg, tcfg, jp, tp = models
     if quantized:
         jp = jax_quantize(jax.tree.map(jnp.copy, jp))
-        tp = tq.params_from_numpy(jax.device_get(jp))
+        tp = tq.params_from_numpy(jax.device_get(jp), device="cpu")
     rng = np.random.default_rng(4)
     L, s_pool, hk, hd = jcfg.num_layers, 64, jcfg.num_kv_heads, jcfg.head_dim_
     k_pool = (rng.standard_normal((L, s_pool, hk, hd)) * 0.5).astype(np.float32)

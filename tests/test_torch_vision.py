@@ -57,7 +57,7 @@ def _normal(rng, *shape):
 def tower():
     cfg = js.tiny_vit_config()
     jp = js.init_params(cfg, jax.random.PRNGKey(1))
-    return cfg, ts.tiny_vit_config(), jp, ts.params_from_numpy(jax.device_get(jp))
+    return cfg, ts.tiny_vit_config(), jp, ts.params_from_numpy(jax.device_get(jp), device="cpu")
 
 
 @pytest.mark.parametrize("b,n,h,hd", [(2, 37, 4, 16), (1, 49, 2, 72), (2, 9, 4, 16), (1, 130, 2, 8)])
@@ -93,7 +93,7 @@ def test_siglip_encode_matches_jax(tower, feature_layer, port_impl, jax_impl):
 def test_int8_tower_matches_jax(tower, w8a8):
     jcfg, tcfg, jp, _ = tower
     qj = js.quantize_tower_int8(jax.tree.map(jnp.asarray, jp))
-    qt = ts.quantize_tower_int8(ts.params_from_numpy(jax.device_get(jp)))
+    qt = ts.quantize_tower_int8(ts.params_from_numpy(jax.device_get(jp), device="cpu"))
     for name in ts.QUANTIZED_TOWER_WEIGHTS:
         assert qt["layers"][name]["q8"].dtype == torch.int8
         np.testing.assert_array_equal(qt["layers"][name]["q8"].numpy(), np.asarray(qj["layers"][name]["q8"]))
@@ -121,7 +121,7 @@ def test_w8a8_mm_and_host_quantization_match_jax():
 def test_encode_video_matches_jax(tower):
     jcfg, tcfg, jp, tp = tower
     proj = jlf.init_projector(jax.random.PRNGKey(2), jcfg.hidden_size, 32)
-    tproj = tlf.params_from_numpy(jax.device_get(proj))
+    tproj = tlf.params_from_numpy(jax.device_get(proj), device="cpu")
     frames = _normal(np.random.default_rng(5), 5, 28, 28, 3)
     ref = np.asarray(jlf.encode_video(jp, jcfg, proj, jnp.asarray(frames), frame_batch=2, attn_impl="einsum"))
     got = tlf.encode_video(tp, tcfg, tproj, frames, frame_batch=2)
