@@ -175,17 +175,19 @@ def phase_device(chk: Checks) -> None:
     build_log = lib_path.with_suffix(".log").read_text()
     for name, usage in ptxas_usage(build_log):
         log(f"  ptxas: {name}: {usage}")
-        if name.startswith(("bidir_attn_kernel", "decode_attn_kernel", "flash_attn_fwd_kernel", "gemv_kernel")):
+        if name.startswith(("attn_importance_rows_kernel", "bidir_attn_kernel", "decode_attn_kernel",
+                            "flash_attn_fwd_kernel", "gemv_kernel", "sink_attn_fwd_kernel")):
             # the kernels redesigned for Hopper
             chk.expect("0 bytes spill stores, 0 bytes spill loads" in usage, f"{name}: no register spills")
     # ptxas's advisories that a kernel's wgmma instructions run one after
     # another (a branch or a register copy inside a wgmma pipeline stage):
-    # kernel A must have none; any other kernel's are reported.
+    # kernels A and F (one pipeline, csrc/flash_fwd.cuh) must have none; any
+    # other kernel's are reported.
     serialised = sorted({_kernel_name(m.group(1)) for m in
                          re.finditer(r"wgmma\.mma_async instructions are serialized.*?function '(\w+)'", build_log)})
     log(f"  ptxas: wgmma serialised in: {serialised or 'no kernel'}")
-    chk.expect(not any(n.startswith("flash_attn_fwd_kernel") for n in serialised),
-               "flash_attn_fwd_kernel: no serialised wgmma")
+    for kernel in ("flash_attn_fwd_kernel", "sink_attn_fwd_kernel"):
+        chk.expect(not any(n.startswith(kernel) for n in serialised), f"{kernel}: no serialised wgmma")
     _build.load_library()
 
 
@@ -339,8 +341,9 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
             seen = float(torch.cumsum(kv.to(torch.int64), 0)[rows].sum())  # live keys at or before each row
             t_b = _bound(kernels["attn_importance_rows"],
                          n * hq * d * 2 + s * hk * d * 2 + s + n * 8 + 2 * n * hq * 4 + s * 4, 2 * hq * d * seen)
-            log(f"  B {tag} S={s}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {t_b:.4f} ms "
-                f"({kernels['attn_importance_rows']['bound_by']}); no single PyTorch call computes it")
+            log(f"  B {tag} S={s}: kernel {t_k * 1e3:.2f} us ({t_b / t_k:.3f} of the bound {t_b * 1e3:.2f} us, "
+                f"{kernels['attn_importance_rows']['bound_by']}), plain {t_p:.3f} ms; no single PyTorch call "
+                f"computes it")
             kernels["attn_importance_rows"].update(ms=t_k, plain_ms=t_p)
     del cases, q, k, m, l
 
@@ -467,7 +470,11 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
             (333, hq, hk, 8, 1),  # the diagonal and the sinks only
             (301, 14, 2, 0, 50),  # no sink keys
             (517, hq, hk, 100, 30),  # init_num > window: sink and window tiles overlap
-            (190, hq, hk, 8, 4096)):  # window >= S: causal attention, as kernel A
+            (190, hq, hk, 8, 4096),  # window >= S: causal attention, as kernel A
+            (700, hq, hk, 8, 127), (700, hq, hk, 8, 128), (700, hq, hk, 8, 129),  # the 128-key tile's edges
+            (645, hq, hk, 128, 200), (645, hq, hk, 129, 200),  # sinks filling a tile, and one past it
+            (300, hq, hk, 400, 10),  # init_num >= S: causal attention
+            (1000, hq, hk, 8, 1000)):  # window == S off the tile: as kernel A
         q, k, v = _rand(gen, (s, hq_, d)), _rand(gen, (s, hk_, d)), _rand(gen, (s, hk_, d))
         out = sp.sink_attn_fwd(q, k, v, init_num, window)
         refs = {"plain": sp.sink_attn_fwd_plain(q, k, v, init_num, window)}
@@ -481,24 +488,25 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
             chk.expect(rel <= ATTN_ROW_RTOL, f"{tag} vs {name}: max_abs_err {err_rh.max().item():.3e}; per (row, "
                                              f"head) error / its largest output: max {rel:.3e} <= {ATTN_ROW_RTOL}")
         _max_err(kernels["sink_attn_fwd"], (out.float() - refs["plain"].float()).abs().max().item())
-        if s == 11697:
+        if s in (11697, 11776):  # the dense prompt's length (the kernels line's row) and the bucket's
             t_k = cuda_time_ms(lambda: sp.sink_attn_fwd(q, k, v, init_num, window), iters=10)
             t_p = cuda_time_ms(lambda: sp.sink_attn_fwd_plain(q, k, v, init_num, window), iters=2, warmup=1)
             t_a = cuda_time_ms(lambda: fp.flash_attn_fwd(q, k, v), iters=10)
             rows = np.arange(s)
             keys = np.minimum(rows + 1, window) + np.minimum(init_num, np.maximum(rows - window + 1, 0))
             tflops = 4 * hq_ * d * float(keys.sum()) / (t_k * 1e-3) / 1e12
-            log(f"  {tag}: kernel {t_k:.3f} ms ({tflops:.1f} TFLOP/s), plain {t_p:.3f} ms; kernel A (causal) at "
-                f"this S {t_a:.3f} ms, F / A {t_k / t_a:.3f}")
             pos = torch.arange(s, device="cuda")
             mask = (pos[None, :] <= pos[:, None]) & ((pos[None, :] < init_num) | (pos[None, :] > pos[:, None] - window))
             t_l = cuda_time_ms(lambda: sdpa(q, k, v, mask), iters=2, warmup=1)
             del mask
-            t_b = _bound(kernels["sink_attn_fwd"], (2 * s * hq_ * d + 2 * s * hk_ * d) * 2,
-                         4 * hq_ * d * float(keys.sum()))
-            log(f"  {tag}: bound {t_b:.3f} ms ({kernels['sink_attn_fwd']['bound_by']}), "
-                f"scaled_dot_product_attention (GQA, bool mask) {t_l:.3f} ms")
-            kernels["sink_attn_fwd"].update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+            entry = kernels["sink_attn_fwd"] if s == 11697 else {}
+            t_b = _bound(entry, (2 * s * hq_ * d + 2 * s * hk_ * d) * 2, 4 * hq_ * d * float(keys.sum()))
+            log(f"  {tag}: kernel {t_k:.4f} ms ({tflops:.1f} TFLOP/s, {t_b / t_k:.3f} of the bound {t_b:.4f} ms, "
+                f"{entry['bound_by']}), plain {t_p:.3f} ms; kernel A (causal) at this S {t_a:.4f} ms, F / A "
+                f"{t_k / t_a:.3f}; scaled_dot_product_attention (GQA, bool mask) {t_l:.3f} ms, kernel / library "
+                f"{t_k / t_l:.3f}")
+            if s == 11697:
+                kernels["sink_attn_fwd"].update(ms=t_k, plain_ms=t_p, library_ms=t_l)
         del q, k, v, out, refs
 
     # -- kernel G at the decode step's shapes: the phase layers' ~11,697 keys
@@ -1181,9 +1189,10 @@ def phase_baselines(chk: Checks, kernels: dict) -> None:
                                      f"largest output: max {rel:.3e} <= {ATTN_ROW_RTOL}")
     del h0, q, k, v, out, ref, err_rh
 
+    t_prefill = {}
     for name, m in methods.items():
         res, toks = results[name]
-        t_pre = cuda_time_ms(lambda: m.prefill(inputs), iters=3, warmup=1)
+        t_pre = t_prefill[name] = cuda_time_ms(lambda: m.prefill(inputs), iters=3, warmup=1)
         tel = res.telemetry
         reduction = tel.vision_token_reduction if tel is not None else 0.0
         log(f"  {name}: prefill {t_pre:.2f} ms (CUDA events, mean of 3), tokens kept {res.valid_len} of {len(pt)}, "
@@ -1191,6 +1200,8 @@ def phase_baselines(chk: Checks, kernels: dict) -> None:
         chk.expect(bool(torch.isfinite(res.logits).all()) and res.logits.shape == (cfg.vocab_size,)
                    and len(toks) == 8 and all(0 <= t < cfg.vocab_size for t in toks),
                    f"{name}: logits finite, 8 tokens in the vocabulary")
+    log("  prefill ms against dense's: " + ", ".join(f"{name} {t / t_prefill['dense']:.3f}"
+                                                       for name, t in t_prefill.items() if name != "dense"))
     t_gen = cuda_time_ms(lambda: methods["streamingllm_sink_decode"].engine().generate(
         results["streamingllm_sink_decode"][0], 8), iters=3, warmup=1)
     log(f"  sink-cache decode: generate(8) {t_gen:.2f} ms = {t_gen / 7:.2f} ms per decode step")

@@ -17,37 +17,10 @@
 //
 //    Bound on the card: tensor-core operations, 4 * 128 * Hq per (row, live
 //    key at or before it): 1.0 ms at 989 TFLOP/s for the dense 11,776-token
-//    prefill, against 0.06 ms to read q, k, v once. So the kernel has to
-//    keep the tensor cores fed: wgmma for both products, tiles that land
-//    while the products run, and as little else (softmax, masks, waits) on
-//    the critical path as possible.
-//
-//    Design:
-//    * One CTA per (128 query rows, q-head): two consumer warpgroups of 64
-//      rows and a producer warpgroup, which hands its registers to the
-//      consumers (setmaxnreg: 40 a thread there, 232 here). The grid runs
-//      the q-heads of one query block side by side (blockIdx.x = head), so
-//      the G q-heads of a KV head read each K/V tile at about the same time
-//      and share it through L2; query blocks run last to first (the longest
-//      causal rows first, so the short ones fill the tail of the wave).
-//    * Loads: a 3-stage ring of 128-key K and V tiles (64 KB a stage) in
-//      dynamic shared memory, filled by TMA from the producer a tile ahead
-//      of the products, with a `full` (bytes landed) and an `empty` (both
-//      warpgroups done) mbarrier per stage. A 256-byte row of 128 dims
-//      lands as two 64-dim halves of 128-byte rows with the hardware's
-//      128-byte swizzle: wgmma's swizzled K-major layout for K and MN-major
-//      layout for V, read without bank conflicts; keys >= S are zero-filled
-//      by the TMA unit.
-//    * S = Q K^T: wgmma.m64n128k16, Q as the register A operand (loaded once
-//      per CTA), K from shared memory. O += P V: wgmma.m64n128k16, P as the
-//      bf16 register A operand (the score accumulator's layout is the A
-//      fragment's), V from shared memory (the transpose bit).
-//    * Ping-pong: a warpgroup's turn at the tensor cores issues P V of the
-//      previous tile and Q K^T of this one back to back under one wait; the
-//      two warpgroups take turns (named barriers), so one's softmax runs
-//      while the other's products do.
-//    * Softmax: online, fp32, in log2 units (one FFMA and one ex2 a score);
-//      m is stored back in natural-log units.
+//    prefill, against 0.06 ms to read q, k, v once. The pipeline that keeps
+//    the tensor cores fed (TMA ring, wgmma, two warpgroups taking turns,
+//    softmax in log2 units) is flash_fwd.cuh's, shared with kernel F; this
+//    file gives it A's tile plan:
 //    * Causal: tiles past the block's diagonal are never loaded; only the
 //      tiles that reach past a warpgroup's first row run the per-element
 //      causal test.
@@ -65,266 +38,83 @@
 //    plain mid-regime fallback in flash_causal_attention_importance. The
 //    order is fixed because the prune's top-k reads this vector: run-to-run
 //    jitter would show up as flipped keep decisions.
-//    Bound on the card: reading K once (S * Hk * D * 2 bytes); the math is
-//    num * Hq * D per key. Design: one warp per key, each lane holds four
-//    dims of the key; the capture rows' q live in shared memory.
+//    Bound on the card: reading K once (S * Hk * D * 2 bytes, 2 us at S
+//    6,528); the math is 2 * num * Hq * D per key. So the kernel is a
+//    latency problem: every K byte in flight at once, and no dependent chain
+//    per key. Design: a CTA of four warps owns 32 keys (204 CTAs at S 6,528,
+//    one wave); warp w takes KV heads w, w + 4, ... For its head a warp loads
+//    the 32 keys straight into mma.sync B fragments (all loads issued before
+//    the first product) and computes the (capture rows x G heads, padded to
+//    16) x 32 score tile with mma.sync.m16n8k16, Q's capture rows as the A
+//    operand. The epilogue is one FFMA, one ex2 and one multiply a score
+//    (m in log2 units and 1 / l read once per (row, head) from shared
+//    memory); absent rows, keys past a row and dead keys add nothing. The
+//    order: each thread sums its rows (m16 tiles in order, then heads in
+//    order), a shuffle tree sums the 8 row groups, and the warps' sums are
+//    added in warp order through shared memory.
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "wgmma_rs.cuh"
+#include "flash_fwd.cuh"
 
 namespace {
 
-constexpr int kD = 128;                      // head dim
-constexpr int kWGs = 2;                      // consumer warpgroups, 64 query rows each
-constexpr int kBM = 64 * kWGs;               // query rows per CTA
-constexpr int kBN = 128;                     // keys per K/V tile
-constexpr int kConsumers = 128 * kWGs;
-constexpr int kThreadsA = kConsumers + 128;  // and a producer warpgroup (one thread issues)
-constexpr int kStages = 3;
-constexpr int kHalfBytes = kBN * 128;        // one 64-dim half of a tile: kBN keys x 128 bytes
-constexpr int kTileBytes = 2 * kHalfBytes;   // a K or V tile
-constexpr int kStageBytes = 2 * kTileBytes;  // K then V
-constexpr int kRingBytes = kStages * kStageBytes;
-constexpr int kWords = kBN / 64;             // 64-bit validity words a tile
-constexpr int kMaxSmem = 232448;             // an H100 block's shared memory
-constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kWords = kBN / 64;  // 64-bit validity words a tile
 
-// Dynamic shared memory for S keys: alignment slack (the 128-byte swizzle
-// wants 1024-byte aligned stages), the ring, the barriers and a slot for
-// the live-tile count, then per tile its validity word and list entry.
+// Dynamic shared memory of kernel A for S keys: the ring, a slot for the
+// live-tile count, then per tile its validity words and list entry.
 size_t smem_bytes_a(int S) {
   const size_t tiles = (static_cast<size_t>(S) + kBN - 1) / kBN;
-  return 1024 + kRingBytes + 16 * kStages + 8 + tiles * (8 * kWords + 4);
+  return kRingSmem + 8 + tiles * (8 * kWords + 4);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// Kernel A's tile plan: the tiles up to the block's diagonal or, with
+// key_valid, the ones among them with a live key (listed in shared memory).
+struct CausalValidPlan {
+  const uint8_t* key_valid;
+  const uint64_t* tbits;  // a tile's validity bits, kWords words
+  const int* tlist;       // the live tiles, in order
+  const int* n_live;
+  int n_all;              // tiles up to the diagonal
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-// One arrival that also expects `bytes` of copies to complete on the barrier.
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int phase) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(bar),
-      "r"(phase)
-      : "memory");
-}
-// One kBN-key tile of KV head hk from an (S, Hk, 128) tensor into shared
-// memory as [half][key][64 dims], 128-byte swizzled; keys >= S arrive as zeros.
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, int key0, int hk, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(key0), "r"(0), "r"(hk)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// Pin a register's value at this point of the program: wgmma reads and
-// writes registers asynchronously, which the compiler does not see.
-__device__ __forceinline__ void reg_fence(float& x) { asm volatile("" : "+f"(x)::"memory"); }
-__device__ __forceinline__ void reg_fence(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
-
-// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1). K-major:
-// lbo unused (1), sbo = the stride between 8-row groups. MN-major: lbo = the
-// stride between 64-element halves along MN, sbo = between 8-row groups along K.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {  // MUFU.EX2; subnormal results flush to 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// One turn of a consumer warpgroup at the tensor cores: O += P V on tile
-// i - 1 (MN-major V: 16-key k-steps 2,048 bytes apart, the two 64-dim
-// halves kHalfBytes apart), then S = Q K^T on tile i (K-major K: 16-dim
-// k-steps 32 bytes apart inside a half's 128-byte rows; the first k-step
-// overwrites s). The warpgroups take turns (named barrier 1 + warpgroup),
-// so one's softmax runs while the other's products do. Which products a
-// turn has is a template argument, so no branch sits between wgmma's fence
-// and its wait (a branch there makes the compiler serialise them).
-template <bool kPV, bool kQK>
-__device__ __forceinline__ void turn(int i, int wg, uint32_t ring0, uint32_t empty0, float (&o)[kD / 2],
-                                     float (&s)[kBN / 2], uint32_t (&pa)[kBN / 16][4], uint32_t (&qa)[kD / 16][4]) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");  // my turn
-#pragma unroll
-  for (int x = 0; x < kD / 2; ++x) reg_fence(o[x]);
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) reg_fence(pa[kk][e]);
-  wgmma_fence();
-  if constexpr (kPV) {
-    const uint32_t vs = ring0 + ((i - 1) % kStages) * kStageBytes + kTileBytes;
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-      WgmmaRS<kD, 1>::run(o, pa[kk], desc_sw128(vs + kk * 2048, kHalfBytes, 1024), 1);
-  }
-  if constexpr (kQK) {
-    const uint32_t ks = ring0 + (i % kStages) * kStageBytes;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      WgmmaRS<kBN, 0>::run(s, qa[kk], desc_sw128(ks + (kk >> 2) * kHalfBytes + (kk & 3) * 32, 16, 1024), kk > 0);
-  }
-  if (kQK || wg < kWGs - 1)  // the next warpgroup's turn (none after the last)
-    asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (wg + 1) % kWGs) : "memory");
-  wgmma_commit();
-  wgmma_wait0();
-#pragma unroll
-  for (int x = 0; x < kBN / 2; ++x) reg_fence(s[x]);
-#pragma unroll
-  for (int x = 0; x < kD / 2; ++x) reg_fence(o[x]);
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) reg_fence(pa[kk][e]);
-  if (kPV && (threadIdx.x & 127) == 0) mbar_arrive(empty0 + ((i - 1) % kStages) * 8);  // P V read its stage
-}
-
-__global__ void __launch_bounds__(kThreadsA, 1)
-flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
-                      const uint16_t* __restrict__ q, const uint8_t* __restrict__ key_valid,
-                      uint16_t* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
-                      int S, int Hq, int Hk, float scale_log2) {
-  extern __shared__ __align__(1024) uint8_t smem_raw[];
-  const uint32_t raw0 = smem_addr(smem_raw);
-  const uint32_t ring0 = (raw0 + 1023u) & ~1023u;
-  uint8_t* ring = smem_raw + (ring0 - raw0);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + kRingBytes);  // full[kStages], empty[kStages]
-  int* n_live_s = reinterpret_cast<int*>(bars + 2 * kStages);
-  uint64_t* tbits = bars + 2 * kStages + 1;  // a tile's validity bits, kWords words
-  int* tlist = reinterpret_cast<int*>(tbits + (S + kBN - 1) / kBN * kWords);  // the live tiles, in order
-  const uint32_t full0 = smem_addr(bars), empty0 = full0 + 8 * kStages;
-
-  const int h = blockIdx.x;
-  const int hk = h / (Hq / Hk);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // the last query block first
-  const int tid = threadIdx.x;
-  // The warp index broadcast from lane 0: uniform to the compiler, so the
-  // role branch below does not make the wgmma path look divergent (which
-  // would serialise the wgmma instructions).
-  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
-  const int n_all = (min(S, q0 + kBM) + kBN - 1) / kBN;  // tiles up to the diagonal
-
-  if (tid == 0) {
-#pragma unroll
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(full0 + st * 8, 1);
-      mbar_init(empty0 + st * 8, kWGs);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  if (key_valid != nullptr) {  // each tile's validity as 64-bit words, then the list of live tiles
-    for (int jw = warp; jw < n_all * kWords; jw += kThreadsA / 32) {
-      const int k0 = jw * 64 + lane;
-      const uint32_t lo = __ballot_sync(0xffffffffu, k0 < S && key_valid[k0]);
-      const uint32_t hi = __ballot_sync(0xffffffffu, k0 + 32 < S && key_valid[k0 + 32]);
-      if (lane == 0) tbits[jw] = lo | (static_cast<uint64_t>(hi) << 32);
-    }
-    __syncthreads();
-    if (warp == 0) {
-      int base = 0;
-      for (int j0 = 0; j0 < n_all; j0 += 32) {
-        const int j = j0 + lane;
-        bool live = false;
-#pragma unroll
-        for (int w = 0; w < kWords; ++w) live = live || (j < n_all && tbits[j * kWords + w] != 0ull);
-        const uint32_t ballot = __ballot_sync(0xffffffffu, live);
-        if (live) tlist[base + __popc(ballot & ((1u << lane) - 1u))] = j;
-        base += __popc(ballot);
+  __device__ CausalValidPlan(const uint8_t* key_valid_, uint8_t* scratch, int S, int q0, int warp, int lane)
+      : key_valid(key_valid_), n_all((min(S, q0 + kBM) + kBN - 1) / kBN) {
+    int* n_live_s = reinterpret_cast<int*>(scratch);
+    uint64_t* bits = reinterpret_cast<uint64_t*>(scratch) + 1;
+    int* list = reinterpret_cast<int*>(bits + (S + kBN - 1) / kBN * kWords);
+    tbits = bits;
+    tlist = list;
+    n_live = n_live_s;
+    if (key_valid != nullptr) {  // each tile's validity as 64-bit words, then the list of live tiles
+      for (int jw = warp; jw < n_all * kWords; jw += kFwdThreads / 32) {
+        const int k0 = jw * 64 + lane;
+        const uint32_t lo = __ballot_sync(0xffffffffu, k0 < S && key_valid[k0]);
+        const uint32_t hi = __ballot_sync(0xffffffffu, k0 + 32 < S && key_valid[k0 + 32]);
+        if (lane == 0) bits[jw] = lo | (static_cast<uint64_t>(hi) << 32);
       }
-      if (lane == 0) *n_live_s = base;
-    }
-  }
-  __syncthreads();  // the barriers are initialised and the tile list written
-  const int n_tiles = __shfl_sync(0xffffffffu, key_valid != nullptr ? *n_live_s : n_all, 0);
-
-  if (warp >= kConsumers / 32) {  // the producer warpgroup: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");  // its registers go to the consumers
-    if (warp == kConsumers / 32 && lane == 0) {
-      for (int i = 0; i < n_tiles; ++i) {
-        const int st = i % kStages;
-        if (i >= kStages) mbar_wait(empty0 + st * 8, (i / kStages - 1) & 1);  // both warpgroups are done with it
-        const int key0 = (key_valid != nullptr ? tlist[i] : i) * kBN;
-        const uint32_t dst = ring0 + st * kStageBytes;
-        mbar_expect(full0 + st * 8, kStageBytes);
-        tma_tile(dst, &map_k, key0, hk, full0 + st * 8);
-        tma_tile(dst + kTileBytes, &map_v, key0, hk, full0 + st * 8);
+      __syncthreads();
+      if (warp == 0) {
+        int base = 0;
+        for (int j0 = 0; j0 < n_all; j0 += 32) {
+          const int j = j0 + lane;
+          bool live = false;
+#pragma unroll
+          for (int w = 0; w < kWords; ++w) live = live || (j < n_all && bits[j * kWords + w] != 0ull);
+          const uint32_t ballot = __ballot_sync(0xffffffffu, live);
+          if (live) list[base + __popc(ballot & ((1u << lane) - 1u))] = j;
+          base += __popc(ballot);
+        }
+        if (lane == 0) *n_live_s = base;
       }
     }
-    return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-  const int wg = warp >> 2;  // this thread's warpgroup
-  const int g = lane >> 2;  // fragment row group
-  const int tq = lane & 3;  // thread within the group
-  const int wrow0 = q0 + wg * 64;  // the warpgroup's first row
-  const int r0 = wrow0 + ((tid >> 5) & 3) * 16 + g;
-  const int r1 = r0 + 8;
+  __device__ int n_tiles() const { return key_valid != nullptr ? *n_live : n_all; }
+  __device__ int tile(int i) const { return key_valid != nullptr ? tlist[i] : i; }
 
-  // Q as the register A operand of each 16-dim k-step, zero past S.
-  uint32_t qa[kD / 16][4];
-  {
-    const uint16_t* q0p = q + (static_cast<size_t>(r0) * Hq + h) * kD;
-    const uint16_t* q1p = q + (static_cast<size_t>(r1) * Hq + h) * kD;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      const int c = kk * 16 + tq * 2;
-      qa[kk][0] = r0 < S ? *reinterpret_cast<const uint32_t*>(q0p + c) : 0u;
-      qa[kk][1] = r1 < S ? *reinterpret_cast<const uint32_t*>(q1p + c) : 0u;
-      qa[kk][2] = r0 < S ? *reinterpret_cast<const uint32_t*>(q0p + c + 8) : 0u;
-      qa[kk][3] = r1 < S ? *reinterpret_cast<const uint32_t*>(q1p + c + 8) : 0u;
-    }
-  }
-
-  // Accumulator layout (m64nN): element 4 * j + e is row r0 (e < 2) or r1,
-  // column 8 * j + 2 * tq + (e & 1).
-  float o[kD / 2];
-#pragma unroll
-  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
-  float m_i[2] = {-INFINITY, -INFINITY};  // log2 units
-  float l_i[2] = {0.f, 0.f};              // this thread's share of the row sums
-  float s[kBN / 2];
-#pragma unroll
-  for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
-  uint32_t pa[kBN / 16][4];  // P in bf16: the A operand of each 16-key k-step
-
-  // Softmax of tile i's scores, in place: masks, the online max and sum,
-  // P into pa as bf16, and the rescale of o when a row max moved.
-  auto softmax = [&](int i) {
-    // Masks: the per-element test only where the tile reaches past this
-    // warpgroup's first row (causal) or has dead keys.
-    const int tile = key_valid != nullptr ? tlist[i] : i;
+  // The per-element test only where the tile reaches past the warpgroup's
+  // first row (causal) or has dead keys.
+  __device__ void mask(float (&s)[kBN / 2], int tile, int wrow0, int r0, int r1, int tq) const {
     const int n0 = tile * kBN;
     uint64_t mine[kWords];  // this thread's bits: word w's column 8 * j + 2 * tq + e at bit 8 * j + e
     bool all_live = true;
@@ -342,173 +132,152 @@ flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_co
         if (!((mine[col >> 6] >> (col & 63)) & 1ull) || n0 + col + 2 * tq > row) s[x] = -INFINITY;
       }
     }
-    // Online softmax of S in log2 units.
-    float mx[2] = {-INFINITY, -INFINITY};  // of the raw scores: scale > 0 keeps the order
-#pragma unroll
-    for (int x = 0; x < kBN / 2; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
-    float m_use[2], alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_i[r], mx[r] * scale_log2);
-      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[r] = fast_exp2(m_i[r] - m_use[r]);
-      m_i[r] = m_new;
-      l_i[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int x = 0; x < kBN / 2; x += 2) {
-      const int r = (x >> 1) & 1;
-      const float p0 = fast_exp2(fmaf(s[x], scale_log2, -m_use[r]));
-      const float p1 = fast_exp2(fmaf(s[x + 1], scale_log2, -m_use[r]));
-      l_i[r] += p0 + p1;
-      pa[x >> 3][(x >> 1) & 3] = pack_floats(p0, p1);
-    }
-    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a row max moved
-#pragma unroll
-      for (int x = 0; x < kD / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
-    }
-  };
+  }
+};
 
-  if (wg == kWGs - 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");  // warpgroup 0 goes first
-  if (n_tiles > 0) {
-    mbar_wait(full0, 0);
-    turn<false, true>(0, wg, ring0, empty0, o, s, pa, qa);
-    softmax(0);
-    for (int i = 1; i < n_tiles; ++i) {
-      mbar_wait(full0 + (i % kStages) * 8, (i / kStages) & 1);  // the tile has landed
-      turn<true, true>(i, wg, ring0, empty0, o, s, pa, qa);
-      softmax(i);
-    }
-    turn<true, false>(n_tiles, wg, ring0, empty0, o, s, pa, qa);  // P V of the last tile
-  } else {
-    turn<false, false>(0, wg, ring0, empty0, o, s, pa, qa);  // no live key: only the turn order
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-    inv[r] = 1.f / fmaxf(l_i[r], 1e-30f);
-  }
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
-    const int c = j * 8 + tq * 2;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(r0) * Hq + h) * kD + c) =
-          pack_floats(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(r1) * Hq + h) * kD + c) =
-          pack_floats(o[4 * j + 2] * inv[1], o[4 * j + 3] * inv[1]);
-  }
-  if (tq == 0) {  // m back in natural-log units for kernel B
-    if (r0 < S) {
-      m_out[static_cast<size_t>(h) * S + r0] = m_i[0] * kLn2;
-      l_out[static_cast<size_t>(h) * S + r0] = l_i[0];
-    }
-    if (r1 < S) {
-      m_out[static_cast<size_t>(h) * S + r1] = m_i[1] * kLn2;
-      l_out[static_cast<size_t>(h) * S + r1] = l_i[1];
-    }
-  }
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                      const uint16_t* __restrict__ q, const uint8_t* __restrict__ key_valid,
+                      uint16_t* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+                      int S, int Hq, int Hk, float scale_log2) {
+  attn_fwd_cta<true>(map_k, map_v, q, out, m_out, l_out, S, Hq, Hk, scale_log2,
+                     [=](uint8_t* scratch, int q0, int warp, int lane) {
+                       return CausalValidPlan(key_valid, scratch, S, q0, warp, lane);
+                     });
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+// -- kernel B ------------------------------------------------------------------
 
-// The TMA map of an (S, Hk, 128) bf16 tensor as four dims, innermost first:
-// 64 dims of a half, keys (Hk * 256 bytes apart), halves (128 bytes apart),
-// KV heads (256 bytes apart); its box is one kBN-key tile of one KV head,
-// landing as [half][key][64 dims] with the 128-byte swizzle.
-int kv_map(CUtensorMap* map, const void* ptr, int S, int Hk) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S), 2, static_cast<cuuint64_t>(Hk)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(Hk) * kD * 2, 128, kD * 2};
-  const cuuint32_t box[4] = {64, kBN, 2, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+constexpr int kKeysB = 32;                // keys per CTA
+constexpr int kWarpsB = 4;                // warp w takes KV heads w, w + kWarpsB, ...
+constexpr int kThreadsB = 32 * kWarpsB;
+constexpr int kTilesB = kKeysB / 8;       // m16n8 score tiles across the CTA's keys
+
+// c += a * b for one m16n8k16 bf16 tile, fp32 accumulate.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-constexpr int kThreadsB = 256;
-constexpr int kKeysPerWarpB = 8;
-constexpr int kKeysPerBlockB = (kThreadsB / 32) * kKeysPerWarpB;
-
-__device__ __forceinline__ float bf16_bits_to_float(uint16_t b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
+__device__ __forceinline__ uint32_t ld_u32(const uint16_t* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
 __global__ void __launch_bounds__(kThreadsB)
 attn_importance_rows_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                             const uint8_t* __restrict__ key_valid, const int64_t* __restrict__ rows,
                             const float* __restrict__ m, const float* __restrict__ l,
-                            float* __restrict__ imp, int S, int Hq, int Hk, int num, float scale) {
+                            float* __restrict__ imp, int S, int Hq, int Hk, int num, float scale_log2,
+                            float inv_norm) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* ms = reinterpret_cast<float*>(smem);        // (num, Hq)
-  float* ls = ms + num * Hq;                         // (num, Hq)
-  int* rs = reinterpret_cast<int*>(ls + num * Hq);   // (num,)
-  uint16_t* qs = reinterpret_cast<uint16_t*>(rs + ((num + 3) & ~3));  // (num, Hq, D)
+  int* pos_s = reinterpret_cast<int*>(smem);         // (num,) capture-row positions, -1 absent
+  float* ml2 = reinterpret_cast<float*>(pos_s + num);  // (num, Hq) m in log2 units
+  float* inv_l = ml2 + num * Hq;                     // (num, Hq) 1 / l
+  float* part = inv_l + num * Hq;                    // (kWarpsB, kKeysB) each warp's sums
 
-  for (int r = threadIdx.x; r < num; r += kThreadsB) rs[r] = static_cast<int>(rows[r]);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2;  // fragment row group (the B operand's key)
+  const int tq = lane & 3;  // thread within the group
+  const int G = Hq / Hk;
+  const int n_rows = num * G;  // capture (row, q-head) pairs of one KV head
+  const int j0 = blockIdx.x * kKeysB;
+
+  for (int r = tid; r < num; r += kThreadsB) pos_s[r] = static_cast<int>(rows[r]);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < num * Hq; idx += kThreadsB) {
-    const int r = idx / Hq, h = idx % Hq;
-    const int row = rs[r];
-    ms[idx] = row >= 0 ? m[(size_t)h * S + row] : 0.f;
-    ls[idx] = row >= 0 ? l[(size_t)h * S + row] : 1.f;
-  }
-  for (int idx = threadIdx.x; idx < num * Hq * kD; idx += kThreadsB) {
-    const int r = idx / (Hq * kD), rem = idx % (Hq * kD);
-    const int row = rs[r];
-    qs[idx] = row >= 0 ? q[(size_t)row * Hq * kD + rem] : 0;
+  for (int idx = tid; idx < num * Hq; idx += kThreadsB) {
+    const int row = pos_s[idx / Hq], h = idx % Hq;
+    ml2[idx] = row >= 0 ? m[static_cast<size_t>(h) * S + row] * kLog2e : 0.f;
+    inv_l[idx] = row >= 0 ? 1.f / l[static_cast<size_t>(h) * S + row] : 0.f;
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = Hq / Hk;
-  const float inv_norm = 1.f / static_cast<float>(Hq * num);
-  for (int i = 0; i < kKeysPerWarpB; ++i) {
-    const int j = blockIdx.x * kKeysPerBlockB + warp * kKeysPerWarpB + i;
-    if (j >= S) break;
-    const bool kv_ok = key_valid == nullptr || key_valid[j];
-    float acc = 0.f;
-    // Fixed summation order: kv head, capture row, head within the group.
-    for (int hk = 0; hk < Hk; ++hk) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(k + ((size_t)j * Hk + hk) * kD + lane * 4);
-      const float k0 = bf16_bits_to_float(raw.x & 0xffffu), k1 = bf16_bits_to_float(raw.x >> 16);
-      const float k2 = bf16_bits_to_float(raw.y & 0xffffu), k3 = bf16_bits_to_float(raw.y >> 16);
-      for (int r = 0; r < num; ++r) {
-        const int row = rs[r];
-        const bool take = kv_ok && row >= 0 && j <= row;
-        for (int gi = 0; gi < group; ++gi) {
-          const int h = hk * group + gi;
-          const uint16_t* qp = qs + ((size_t)r * Hq + h) * kD + lane * 4;
-          float s = bf16_bits_to_float(qp[0]) * k0;
-          s = fmaf(bf16_bits_to_float(qp[1]), k1, s);
-          s = fmaf(bf16_bits_to_float(qp[2]), k2, s);
-          s = fmaf(bf16_bits_to_float(qp[3]), k3, s);
+  // This thread's keys in the epilogue: j0 + 8 nt + 2 tq + e.
+  bool live[kTilesB][2];
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-          if (take) acc += expf(s * scale - ms[r * Hq + h]) / ls[r * Hq + h];
+  for (int nt = 0; nt < kTilesB; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = j0 + nt * 8 + 2 * tq + e;
+      live[nt][e] = j < S && (key_valid == nullptr || key_valid[j]);
+    }
+  float acc[kTilesB][2] = {};  // summed over this thread's rows: m16 tiles in order, heads in order
+
+  for (int hk = warp; hk < Hk; hk += kWarpsB) {
+    // K as the B operand of each 16-dim k-step: key j0 + 8 nt + g, dims
+    // 16 kk + 2 tq (+ 8), zero past S; every load issued before the products.
+    uint32_t kb[kTilesB][kD / 16][2];
+#pragma unroll
+    for (int nt = 0; nt < kTilesB; ++nt) {
+      const int j = j0 + nt * 8 + g;
+      const uint16_t* kp = k + (static_cast<size_t>(j < S ? j : 0) * Hk + hk) * kD + 2 * tq;
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        kb[nt][kk][0] = j < S ? ld_u32(kp + kk * 16) : 0u;
+        kb[nt][kk][1] = j < S ? ld_u32(kp + kk * 16 + 8) : 0u;
+      }
+    }
+    for (int mt = 0; mt * 16 < n_rows; ++mt) {
+      // Capture pair c = 16 mt + g (+ 8): row c / G's position, q-head hk G + c % G.
+      int pos[2];
+      float mrow[2], irow[2];
+      const uint16_t* qp[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = mt * 16 + g + 8 * half;
+        const int r = c / G, h = hk * G + c % G;
+        pos[half] = c < n_rows ? pos_s[r] : -1;
+        mrow[half] = pos[half] >= 0 ? ml2[r * Hq + h] : 0.f;
+        irow[half] = pos[half] >= 0 ? inv_l[r * Hq + h] : 0.f;
+        qp[half] = q + (static_cast<size_t>(pos[half] >= 0 ? pos[half] : 0) * Hq + h) * kD + 2 * tq;
+      }
+      uint32_t qa[kD / 16][4];  // the A operand: rows g and g + 8, dims 16 kk + 2 tq (+ 8)
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        qa[kk][0] = pos[0] >= 0 ? ld_u32(qp[0] + kk * 16) : 0u;
+        qa[kk][1] = pos[1] >= 0 ? ld_u32(qp[1] + kk * 16) : 0u;
+        qa[kk][2] = pos[0] >= 0 ? ld_u32(qp[0] + kk * 16 + 8) : 0u;
+        qa[kk][3] = pos[1] >= 0 ? ld_u32(qp[1] + kk * 16 + 8) : 0u;
+      }
+#pragma unroll
+      for (int nt = 0; nt < kTilesB; ++nt) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f};  // rows g (c[0], c[1]) and g + 8, keys 2 tq and 2 tq + 1
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) mma_16816(c, qa[kk], kb[nt][kk][0], kb[nt][kk][1]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + nt * 8 + 2 * tq + e;
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            if (live[nt][e] && j <= pos[half])
+              acc[nt][e] += fast_exp2(fmaf(c[2 * half + e], scale_log2, -mrow[half])) * irow[half];
         }
       }
     }
-    if (lane == 0) imp[j] = acc * inv_norm;
+  }
+  // The 8 row groups of a key, lanes 4, 8 and 16 apart: a fixed tree.
+#pragma unroll
+  for (int nt = 0; nt < kTilesB; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) acc[nt][e] += __shfl_xor_sync(0xffffffffu, acc[nt][e], off);
+  if (g == 0) {
+#pragma unroll
+    for (int nt = 0; nt < kTilesB; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) part[warp * kKeysB + nt * 8 + 2 * tq + e] = acc[nt][e];
+  }
+  __syncthreads();
+  if (tid < kKeysB && j0 + tid < S) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarpsB; ++w) sum += part[w * kKeysB + tid];
+    imp[j0 + tid] = sum * inv_norm;
   }
 }
+
+bool smem_set_a[64] = {};  // A's opt-in above 48 KB, per device
 
 }  // namespace
 
@@ -520,41 +289,32 @@ extern "C" int ff_flash_attn_fwd(const void* q, const void* k, const void* v, co
                                  float scale, void* stream) {
   if (S <= 0 || Hk <= 0 || Hq % Hk != 0 || !(scale > 0.f) || smem_bytes_a(S) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  static bool smem_set[64] = {};  // the opt-in above 48 KB, once per device
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set[dev] = true;
-  }
   CUtensorMap map_k, map_v;
-  int status = kv_map(&map_k, k, S, Hk);
-  if (status == 0) status = kv_map(&map_v, v, S, Hk);
+  const int status = attn_fwd_setup(reinterpret_cast<const void*>(flash_attn_fwd_kernel), smem_set_a, &map_k,
+                                    &map_v, k, v, S, Hk);
   if (status != 0) return status;
-  const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x * log2(e))
   const dim3 grid(Hq, (S + kBM - 1) / kBM);
-  flash_attn_fwd_kernel<<<grid, kThreadsA, smem_bytes_a(S), static_cast<cudaStream_t>(stream)>>>(
+  flash_attn_fwd_kernel<<<grid, kFwdThreads, smem_bytes_a(S), static_cast<cudaStream_t>(stream)>>>(
       map_k, map_v, static_cast<const uint16_t*>(q), static_cast<const uint8_t*>(key_valid),
-      static_cast<uint16_t*>(out), static_cast<float*>(m_out), static_cast<float*>(l_out), S, Hq, Hk, scale_log2);
+      static_cast<uint16_t*>(out), static_cast<float*>(m_out), static_cast<float*>(l_out), S, Hq, Hk,
+      scale * kLog2e);  // exp(x) = exp2(x * log2(e))
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ff_attn_importance_rows_smem(int Hq, int num) {
-  return num * Hq * 2 * 4 + ((num + 3) & ~3) * 4 + num * Hq * kD * 2;
+  return num * 4 + num * Hq * 2 * 4 + kWarpsB * kKeysB * 4;
 }
 
 extern "C" int ff_attn_importance_rows(const void* q, const void* k, const void* key_valid,
                                        const void* rows, const void* m, const void* l, void* imp,
                                        int S, int Hq, int Hk, int num, float scale, void* stream) {
-  const int smem = ff_attn_importance_rows_smem(Hq, num);
-  const dim3 grid((S + kKeysPerBlockB - 1) / kKeysPerBlockB);
-  attn_importance_rows_kernel<<<grid, kThreadsB, smem, static_cast<cudaStream_t>(stream)>>>(
+  if (S <= 0 || Hk <= 0 || Hq % Hk != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((S + kKeysB - 1) / kKeysB);
+  attn_importance_rows_kernel<<<grid, kThreadsB, ff_attn_importance_rows_smem(Hq, num),
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint8_t*>(key_valid), static_cast<const int64_t*>(rows),
       static_cast<const float*>(m), static_cast<const float*>(l), static_cast<float*>(imp),
-      S, Hq, Hk, num, scale);
+      S, Hq, Hk, num, scale * kLog2e, 1.f / static_cast<float>(Hq * num));
   return static_cast<int>(cudaGetLastError());
 }

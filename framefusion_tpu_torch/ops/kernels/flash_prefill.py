@@ -9,9 +9,11 @@ whose header says what bounds each kernel and how the design meets it):
   key-valid mask; also returns each row's softmax max ``m`` (natural-log
   units) and sum ``l`` ((Hq, S) fp32). Rows whose keys are all masked give
   0. On Hopper: ``wgmma`` for both products fed by a TMA ring of 128-key
-  tiles; dead 128-key tiles are skipped.
+  tiles (``csrc/flash_fwd.cuh``, shared with kernel F); dead 128-key tiles
+  are skipped.
 * ``attn_importance_rows`` (kernel B) — the prune's importance vector from
-  A's statistics, summed in a fixed order.
+  A's statistics: ``mma.sync`` score tiles of the capture rows against 32
+  keys a CTA, summed in a fixed order (bitwise repeatable).
 
 Each wrapper runs its plain PyTorch version when the tensors lie on the CPU
 and launches the kernel when they lie on a CUDA device; anything else

@@ -7,9 +7,9 @@ query itself included):
     {j : j <= i and (j < init_num or j > i - window)}
 
 * ``sink_attn_fwd`` (kernel F, ``csrc/sink_prefill.cu``, whose header says
-  what bounds it and how the design meets that) — visits only the sink and
-  window key tiles of each query tile: O(S * (init_num + window)) work, not
-  O(S^2).
+  what bounds it and how the design meets that) — kernel A's Hopper
+  pipeline (``csrc/flash_fwd.cuh``) over only the sink and window key tiles
+  of each query tile: O(S * (init_num + window)) work, not O(S^2).
 * ``sink_attn_fwd_plain`` — exact fp32 softmax, ``PLAIN_CHUNK`` query rows
   at a time against only the keys they can see.
 
@@ -69,8 +69,9 @@ def sink_attn_fwd(q, k, v, init_num: int, window: int):
     """Kernel F: sink + window GQA attention.
 
     Args:
-        q: (S, Hq, 128); k, v: (S, Hk, 128), bf16 and contiguous on the
-            card; init_num >= 0 sink keys; window >= 1 trailing keys.
+        q: (S, Hq, 128); k, v: (S, Hk, 128), bf16, contiguous and 16-byte
+            aligned on the card; init_num >= 0 sink keys; window >= 1
+            trailing keys.
     Returns:
         (S, Hq, 128) in q's dtype.
     """
@@ -82,6 +83,8 @@ def sink_attn_fwd(q, k, v, init_num: int, window: int):
     if d != HEAD_DIM:
         raise ValueError(f"sink_attn_fwd: CUDA kernel takes head_dim {HEAD_DIM}, got {d}")
     _check_cuda("sink_attn_fwd", q, k, v)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("sink_attn_fwd: CUDA kernel takes 16-byte aligned tensors (TMA reads k and v)")
     from ... import _build
 
     lib = _build.load_library()

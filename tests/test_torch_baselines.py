@@ -112,6 +112,15 @@ def _qkv(seed, s, hq, hk, d=128):
     (131, 4, 2, 8, 400),  # window >= S: plain causal attention
     (150, 4, 2, 8, 30),  # the window starts mid-tile
     (77, 4, 2, 0, 77),  # no sinks, window == S
+    # the edges of kernel F's 128-key tiles
+    (300, 4, 2, 8, 127),
+    (300, 4, 2, 8, 128),
+    (300, 4, 2, 8, 129),
+    (300, 4, 2, 0, 129),  # no sinks
+    (300, 4, 2, 128, 50),  # the sinks fill a tile exactly
+    (300, 4, 2, 129, 50),  # one sink key past a tile
+    (260, 4, 2, 300, 20),  # init_num >= S: causal attention
+    (520, 2, 2, 8, 129),  # G = 1, S off the tile
 ])
 def test_sink_attention_matches_jax(s, hq, hk, init_num, window):
     q, k, v = _qkv(s + init_num, s, hq, hk)
@@ -244,6 +253,26 @@ def test_sink_cache_decode_matches_jax(stacks, window_length, num_sink_tokens):
     assert len(toks) == 6
     again, logits = eng_t.sink_cache_decode(res_t, 6)
     assert again == toks and logits.shape == (stacks[1].vocab_size,) and int(torch.argmax(logits)) == toks[-1]
+
+
+def test_model_generate_takes_the_sink_cache_decode_like_jax_generate_greedy(stacks):
+    """The model's entry point (``FrameFusionModel.generate`` after
+    ``replace_forward``) decodes over the sink + window cache: its tokens are
+    JAX's ``BaselineEngine.generate_greedy`` (the JAX package's own
+    ``FrameFusionModel.generate`` decodes over the full cache instead), and
+    differ from the full-cache decode at this window."""
+    jcfg, tcfg, jp, tp = stacks
+    h, pt, pos, start, n_img = prompt(20, 4)
+    kwargs = dict(SINK, window_length=6, num_sink_tokens=2)
+    eng_j = JaxBaselineEngine(jp, jcfg, "streamingllm", kwargs, attn_impl="einsum")
+    ref = eng_j.generate_greedy(eng_j.prefill(h, pt, pos, 6, start, n_img), 8)
+    inputs = PrefillInputs(input_embeds=h, patch_type=pt, position_ids=pos, patch_num=6,
+                           image_token_start=start, image_token_length=n_img)
+    model = FrameFusionModel(family="llava_video", cfg=tcfg, params=tp)
+    toks, res = replace_forward(model, "streamingllm", **kwargs).generate(inputs, max_new_tokens=8)
+    assert res.mode == "streamingllm" and toks == ref and len(toks) == 8
+    full_cache = {k: v for k, v in SINK.items() if k != "sink_cache_decode"}
+    assert replace_forward(model, "streamingllm", **full_cache).generate(inputs, max_new_tokens=8)[0] != toks
 
 
 def test_sink_cache_decode_over_the_whole_cache_is_full_decode(stacks):

@@ -344,6 +344,16 @@ def test_cuda_gemv_kernels_match_plain(cuda, dtype):
     (301, 14, 2, 0, 50),  # no sink keys
     (517, 28, 4, 100, 30),  # init_num > window: sink and window tiles overlap
     (190, 28, 4, 8, 4096),  # window >= S: causal attention, as kernel A
+    # the edges of F's 128-key tiles and of its warpgroups' 64 rows
+    (700, 28, 4, 8, 127),
+    (700, 28, 4, 8, 128),
+    (700, 28, 4, 8, 129),
+    (700, 4, 4, 0, 129),  # G = 1, no sink keys
+    (645, 28, 4, 128, 200),  # the sinks fill tile 0 exactly
+    (645, 28, 4, 129, 200),  # one sink key in tile 1
+    (300, 28, 4, 400, 10),  # init_num >= S: causal attention
+    (1000, 28, 4, 8, 1000),  # window == S off the tile: causal attention, as kernel A
+    (11776, 28, 4, 8, 3501),  # the StreamingLLM prefill's bucket length
 ])
 def test_cuda_sink_kernel_matches_plain(cuda, s, hq, hk, init_num, window):
     gen = torch.Generator(device=cuda).manual_seed(s)
@@ -359,6 +369,62 @@ def test_cuda_sink_kernel_matches_plain(cuda, s, hq, hk, init_num, window):
     for ref in refs:  # per (row, head), relative to the row's largest output, as for kernel A
         err = (out.float() - ref.float()).abs().amax(-1)
         assert (err <= 2e-2 * ref.float().abs().amax(-1)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hk", [(28, 4), (4, 4), (16, 8)])  # G = 7, 1, and more KV heads than warps
+@pytest.mark.parametrize("rows", ["num=1", "num=4", "sentinel"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_importance_kernel_matches_plain(cuda, masked, rows, hq, hk):
+    """Kernel B at S off its 32-key tile, from kernel A's statistics: fp32
+    sums in another order (ex2 against exp), 1e-4 of the largest importance."""
+    s = 1000
+    gen = torch.Generator(device=cuda).manual_seed(hq + hk)
+    q = torch.randn((s, hq, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((s, hk, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    kv = _key_valid(s, gen, cuda) if masked else None
+    _, m, l = tfp.flash_attn_fwd(q, k, k, kv)
+    if rows == "sentinel":  # two absent rows, then the last two live rows
+        live = torch.nonzero(kv).flatten() if masked else torch.arange(s, device=cuda)
+        picked = torch.cat([torch.full((2,), -1, device=cuda), live[-2:]])
+    else:
+        picked = capture_rows(s, int(rows[-1]), s, kv, device=cuda)
+    launches = tfp.attn_importance_rows.launches
+    imp = tfp.attn_importance_rows(q, k, picked, m, l, kv)
+    assert tfp.attn_importance_rows.launches == launches + 1
+    imp_p = tfp.attn_importance_rows_plain(q, k, picked, m, l, kv)
+    assert imp.shape == (s,) and (imp - imp_p).abs().max() <= 1e-4 * imp_p.abs().max()
+    if masked:
+        assert (imp[~kv] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num", [1, 4])
+def test_cuda_importance_is_repeatable(cuda, num):
+    """Two calls give the same bits, and so do three replays of a captured
+    call: the sum over rows and heads has a fixed order (no atomics)."""
+    s, hq, hk = 6528, 28, 4
+    gen = torch.Generator(device=cuda).manual_seed(num)
+    q = torch.randn((s, hq, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((s, hk, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    kv = torch.rand((s,), generator=gen, device=cuda) > 0.45
+    _, m, l = tfp.flash_attn_fwd(q, k, k, kv)
+    rows = capture_rows(s, num, s, kv, device=cuda)
+    first = tfp.attn_importance_rows(q, k, rows, m, l, kv)
+    assert torch.equal(tfp.attn_importance_rows(q, k, rows, m, l, kv), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfp.attn_importance_rows(q, k, rows, m, l, kv)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tfp.attn_importance_rows(q, k, rows, m, l, kv)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
 
 
 @pytest.mark.gpu
