@@ -22,14 +22,21 @@ Phases, each printed as it runs; every run makes all of them:
              shapes, and decode_step / decode_step_batch / verify_step /
              verify_step_batch against each other), each row within its bound.
 3. cross   — a tiny bf16 model, its weights drawn with numpy from a seed,
-             through the compressed prefill and greedy decode twice: plain
-             versions on the CPU, kernels on the card. Events, cache lengths
-             and tokens must be equal, the tokens must vary, and the prefill
-             logits must agree within a stated bf16 bound.
+             through the compressed prefill (fused, planned and segmented)
+             and greedy decode twice: plain versions and the decode step
+             run eagerly on the CPU, kernels and the captured decode graph
+             on the card. Events, cache lengths and tokens must be equal,
+             generate_device and generate_stream must give generate's
+             tokens, the tokens must vary, and the prefill logits must agree
+             within a stated bf16 bound.
 4. full    — random Qwen2-7B weights (bf16 on the card) and the 64-frame
-             LLaVA-Video prompt: apply_framefusion + generate (fused), the
-             planned prefill + generate, and the dense prefill. Kernel launch
-             counts are read around the fused run.
+             LLaVA-Video prompt: apply_framefusion + generate (fused; the
+             decode is a CUDA graph of the step, captured in this run), the
+             planned prefill + generate, the segmented prefill and the dense
+             prefill, each timed. Kernel launch counts are read around the
+             fused run: the wrappers count eager launches (the decode graph's
+             warm-up step among them) and the calls recorded at its capture
+             apart, and the graph counts its replays and what they launch.
 4b. decode — the decode step with the ragged decode-attention kernel G on
              phase 4's int8 model and FrameFusion prefill: "ragged" against
              "flash" under teacher forcing (both fed the same token for 8
@@ -37,8 +44,20 @@ Phases, each printed as it runs; every run makes all of them:
              counted around the "ragged" steps, one per layer), then
              ``kernel_bench.bench_decodestep``: ms/step of "einsum", "flash"
              and "ragged" on a uniform pool and on the prefill's own caches,
-             with and without the tail split, the weight-stream floor and the
-             launches per step.
+             with and without the tail split, eager and as a captured graph,
+             the weight-stream floor and the launches per step.
+4c. graph  — the engine's decode graph on phase 4's int8 model and
+             FrameFusion prefill: its capture time and the launches it holds;
+             teacher-forced replays against eager "ragged" steps (logits within
+             the stated bound); generate_device / generate_stream(chunk=4)
+             against generate; generate(8) wall time, the earlier eager decode
+             against the graph; ms/step over 32 replays (two readings), the
+             plain-attention graph once, the floor, the device idle share and
+             the device time of C, D and G a step (torch.profiler); then kernel
+             G with its length read from the device against its plain
+             version: one captured launch per view the decode graphs launch
+             it on (and the 11,776-row view), replayed at the live lengths
+             the decodes reach and at the edges.
 5. cross_vision — a tiny SigLIP tower (head dim 72) and projector with the
              tiny LLM of phase 3, weights drawn with numpy, through
              TextPipeline.ask on uint8 frames: plain versions on the CPU,
@@ -72,8 +91,14 @@ Phases, each printed as it runs; every run makes all of them:
 The line before the last is a JSON object with one entry per kernel, built
 from ``framefusion_tpu_torch.ops.kernels`` (the TPU functions each stands
 for, its source): error, kernel / plain / library ms, bound_ms and what sets
-it, and the launches on its path (phase 4 for A-D, 6 for E, 8 for F, 4b for
-G); the last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+it, and the launches that ran on its path (phase 4 for A-D and G, 6 for
+E, 8 for F). For C, D and G, which the decode graph holds, ``launches`` is
+``eager_launches`` (the wrapper's count: the graph's warm-up step) plus
+``graph_launches`` (the replays' count times the launches the graph holds,
+both counted in this run), and ``captured_calls`` are the wrapper calls
+recorded at the capture, which ran only at the replays; G's
+``device_length_ms`` is its time with the length read from the device. The
+last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. The script never runs on the CPU: without a CUDA device
 it exits at once.
 """
@@ -127,7 +152,10 @@ LOGIT_RTOL = 6e-2
 # * Phase 4b holds "ragged" decode against "flash" at full width: the two
 #   differ only in where the attention rounds (kernel G's fp32 split-K sums
 #   against the plain fp32 einsum, both rounded to bf16), two bf16 runs as
-#   above, so LOGIT_RTOL holds them too.
+#   above, so LOGIT_RTOL holds them too. Phase 4c holds the captured graph
+#   against eager "ragged" steps to it as well: they differ in kernel G's
+#   split plan (planned for the view's rows, not the length), so in the
+#   order of its fp32 sums.
 
 
 # Kernel A's regimes on the main path (phase 4, which counts their
@@ -539,6 +567,10 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
                 return kpool[view[0]], vpool[view[0]]
 
             t_k = graph_time_ms(lambda: da.ragged_decode_attn(q, *kv_view(), length), iters=50)
+            # The captured decode's form: the length read from the device,
+            # the launch planned for the view's rows (S_view).
+            len_dev = torch.tensor(length, device="cuda")
+            t_dev = graph_time_ms(lambda: da.ragged_decode_attn(q, *kv_view(), len_dev), iters=50)
             t_eager = cuda_time_ms(lambda: da.ragged_decode_attn(q, *kv_view(), length), iters=50)
             t_p = graph_time_ms(lambda: da.ragged_decode_attn_plain(q, *kv_view(), length), iters=10)
             # The yardstick attends the live rows as a view: no mask, so
@@ -551,12 +583,14 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
             t_b = _bound(entry, 2 * length * hk_ * d * 2 + 2 * hq_ * d * 2, 4 * hq_ * d * length)
             gbs = 2 * length * hk_ * d * 2 / (t_k * 1e-3) / 1e9
             log(f"  {tag}: kernel {t_k * 1e3:.2f} us ({gbs:.0f} GB/s of live K/V; eager launches {t_eager * 1e3:.2f} "
-                f"us per call), plain {t_p * 1e3:.2f} us, scaled_dot_product_attention on the live rows (GQA) "
+                f"us per call; the length read from the device, planned for S_view {s_view}: {t_dev * 1e3:.2f} us, "
+                f"split plan {da.split_plan(s_view, hk_, torch.cuda.get_device_properties(0).multi_processor_count)}), "
+                f"plain {t_p * 1e3:.2f} us, scaled_dot_product_attention on the live rows (GQA) "
                 f"{t_l * 1e3:.2f} us (kernel / library {t_k / t_l:.3f}), bound {t_b * 1e3:.2f} us "
                 f"({entry['bound_by']}; kernel at {t_b / t_k:.3f} of it); split plan (keys per CTA, splits) "
                 f"{da.split_plan(length, hk_, torch.cuda.get_device_properties(0).multi_processor_count)}")
             if length == 11698:
-                kernels["ragged_decode_attn"].update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+                kernels["ragged_decode_attn"].update(ms=t_k, plain_ms=t_p, library_ms=t_l, device_length_ms=t_dev)
         del kpool, vpool, q, out, ref
 
 
@@ -575,15 +609,21 @@ def phase_cross(chk: Checks) -> None:
                                                  patch_num=8, n_pre=6, n_post=5)
     pos = np.arange(len(pt))
     results = {}
+    modes = ("fused", "planned", "segmented")
     for dev in ("cpu", "cuda"):
         params = _cast_floats(qwen2.params_from_numpy(tree, dev), cfg.dtype)
         eng = CompressionEngine(params, cfg, ff, attn_impl="flash")
-        for mode in ("fused", "planned"):
+        for mode in modes:
             res = eng.prefill(h, pt, pos, 8, img_start, n_img, mode=mode)
             toks = eng.generate(res, 8)
             results[(dev, mode)] = ([(e.layer, e.kind, e.tokens_removed) for e in res.telemetry.events],
                                     [c[2] for c in res.layer_caches], toks, res.mode, res.logits.float().cpu())
-    for mode in ("fused", "planned"):
+            # the decode graph's other entry points (replays on the card, its step eagerly on the CPU)
+            dev_toks = eng.generate_device(res, 8).tolist()
+            stream = list(eng.generate_stream(res, 8, chunk=4))
+            chk.expect(dev_toks == toks and stream == [toks[:1], toks[:5], toks],
+                       f"cross {mode} on {dev}: generate_device and generate_stream(chunk=4) give generate's tokens")
+    for mode in modes:
         cpu, gpu = results[("cpu", mode)], results[("cuda", mode)]
         rel = float((cpu[4] - gpu[4]).abs().max() / cpu[4].abs().max())
         log(f"  {mode}: cpu events {cpu[0]} tokens {cpu[2]}; cuda events {gpu[0]} tokens {gpu[2]} ({gpu[3]})")
@@ -630,6 +670,24 @@ def _set_launches(entry: dict, n: int) -> None:
     entry.update(launches=n, main_path_launches=n)
 
 
+def _zero_counts(wrappers: dict) -> None:
+    """Set the wrappers' counts and the decode graphs' replay counts to 0."""
+    from framefusion_tpu_torch.runtime.decode_graph import DecodeGraph
+
+    DecodeGraph.reset_counts()
+    for w in wrappers.values():
+        w.launches = w.captured = 0
+
+
+def _ran(wrappers: dict) -> dict:
+    """Kernel launches that ran on the card since ``_zero_counts``, by kernel:
+    the wrappers' own (eager) launches plus those the decode graphs' replays
+    ran (calls recorded while capturing ran only at the replays)."""
+    from framefusion_tpu_torch.runtime.decode_graph import DecodeGraph
+
+    return {name: w.launches + DecodeGraph.replayed[name] for name, w in wrappers.items()}
+
+
 class CallLog:
     """While active, records a key of every call of the entry points
     ``keys`` names in ``module`` (the functions the model calls, which reach
@@ -644,7 +702,7 @@ class CallLog:
             real = self.real[name] = getattr(self.module, name)
 
             def recorded(*args, _real=real, _key=key, **kwargs):
-                self.keys.append(_key(*args, **kwargs))
+                self.keys.append((_key(*args, **kwargs), torch.cuda.is_current_stream_capturing()))
                 return _real(*args, **kwargs)
 
             setattr(self.module, name, recorded)
@@ -654,10 +712,13 @@ class CallLog:
         for name, real in self.real.items():
             setattr(self.module, name, real)
 
-    def counts(self) -> dict:
+    def counts(self, replays: int = 0) -> dict:
+        """Launches that ran, by key: a call made eagerly once, a call
+        recorded into the one CUDA graph captured while the log was active
+        once for each of that graph's ``replays``."""
         out: dict = {}
-        for k in self.keys:
-            out[k] = out.get(k, 0) + 1
+        for k, captured in self.keys:
+            out[k] = out.get(k, 0) + (replays if captured else 1)
         return out
 
 
@@ -681,9 +742,11 @@ def phase_full(chk: Checks, kernels: dict, ctx: dict) -> None:
     from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
     from framefusion_tpu_torch.models import qwen2
     from framefusion_tpu_torch.models.adapters.common import PrefillInputs, build_video_prompt
+    from framefusion_tpu_torch.ops.kernels import decode_attention as da
     from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
     from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
     from framefusion_tpu_torch.ops.quant import quantize_params_int8
+    from framefusion_tpu_torch.runtime.decode_graph import DecodeGraph
     from framefusion_tpu_torch.runtime.engine import CompressionEngine
 
     cfg = qwen2_7b_config()
@@ -700,16 +763,26 @@ def phase_full(chk: Checks, kernels: dict, ctx: dict) -> None:
                            image_token_length=n_img)
     model = apply_framefusion(FrameFusionModel(family="llava_video", cfg=cfg, params=params), 0.3, 0.6, 0.1)
     wrappers = {"flash_attn_fwd": fp.flash_attn_fwd, "attn_importance_rows": fp.attn_importance_rows,
-                "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup}
+                "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup,
+                "ragged_decode_attn": da.ragged_decode_attn}
 
-    for w in wrappers.values():
-        w.launches = 0
+    _zero_counts(wrappers)
     with _a_log(fp) as a_log, _c_log(mv) as c_log:
         toks, res = model.generate(inputs, max_new_tokens=8)
         torch.cuda.synchronize()
+    # The decode is a CUDA graph captured in this run: the wrappers count the
+    # warm-up step's launches, and the calls recorded at the capture apart;
+    # the graph counts its replays and the launches they ran.
+    ran, replays = _ran(wrappers), DecodeGraph.replays
+    captured = {name: w.captured for name, w in wrappers.items() if w.captured}
     for name, w in wrappers.items():
-        _set_launches(kernels[name], w.launches)
-    a_counts, c_counts = a_log.counts(), c_log.counts()
+        _set_launches(kernels[name], ran[name])
+        if name in captured:
+            kernels[name].update(eager_launches=w.launches, graph_launches=DecodeGraph.replayed[name],
+                                 captured_calls=w.captured)
+    a_counts, c_counts = a_log.counts(replays), c_log.counts(replays)
+    log(f"  fused: kernel launches that ran {ran}: eager {({n: w.launches for n, w in wrappers.items()})}, "
+        f"{replays} decode-graph replays ran {dict(DecodeGraph.replayed)}; calls recorded at the capture {captured}")
     log(f"  fused: kernel A launches by (S, key_valid given): {a_counts}; kernel C by (K, widths): {c_counts}")
     chk.expect(sum(a_counts.values()) == kernels["flash_attn_fwd"]["launches"]
                and sum(c_counts.values()) == kernels["gemv_stacked"]["launches"],
@@ -724,6 +797,11 @@ def phase_full(chk: Checks, kernels: dict, ctx: dict) -> None:
             shape["launches"] = sum(n for (kd, ns), n in c_counts.items() if SHAPES_C.get((kd, ns)) == name)
     for name in wrappers:
         chk.expect(kernels[name]["launches"] > 0, f"{name}: {kernels[name]['launches']} launches in the fused run")
+    chk.expect(replays == 7 and captured == {"gemv_stacked": 3 * cfg.num_layers, "gemv_gateup": cfg.num_layers,
+                                             "ragged_decode_attn": cfg.num_layers}
+               and all(DecodeGraph.replayed[k] == replays * n for k, n in captured.items()),
+               f"fused: one decode graph, captured once with C, D and G once a layer ({captured}), replayed for "
+               f"the 7 tokens after the prefill's ({replays} replays)")
 
     ev = [(e.layer, e.kind, e.tokens_removed) for e in res.telemetry.events]
     log(f"  fused: events {ev}")
@@ -758,23 +836,34 @@ def phase_full(chk: Checks, kernels: dict, ctx: dict) -> None:
     chk.expect(bool(torch.isfinite(res_d.logits).all()), "dense: logits finite")
     del res_d
 
+    res_s = eng.prefill(*args, mode="segmented")
+    ev_s = [(e.layer, e.kind, e.tokens_removed) for e in res_s.telemetry.events]
+    log(f"  segmented: events {ev_s}, final length {res_s.valid_len}, buckets "
+        f"{[e.bucket for e in res_s.telemetry.events]} (the same events as fused: {ev_s == ev})")
+    chk.expect(bool(torch.isfinite(res_s.logits).all()) and res_s.valid_len < len(pt),
+               "segmented: logits finite, the prompt compressed")
+    del res_s
+
     t_dense = cuda_time_ms(lambda: eng.dense_prefill(inputs.input_embeds, inputs.position_ids), iters=3, warmup=1)
     t_fused = cuda_time_ms(lambda: eng.prefill(*args, mode="fused"), iters=3, warmup=1)
     t_plan = cuda_time_ms(lambda: eng.prefill(*args, mode="planned"), iters=3, warmup=1)
+    t_seg = cuda_time_ms(lambda: eng.prefill(*args, mode="segmented"), iters=3, warmup=1)
     t_gen = cuda_time_ms(lambda: eng.generate(res_p, 8), iters=3, warmup=1)
-    log(f"  prefill ms (CUDA events, mean of 3): dense {t_dense:.2f}, fused {t_fused:.2f}, planned {t_plan:.2f}")
-    log(f"  decode: generate(8) {t_gen:.2f} ms = {t_gen / 7:.2f} ms per decode step (7 steps after the prefill token)")
+    log(f"  prefill ms (CUDA events, mean of 3): dense {t_dense:.2f}, fused {t_fused:.2f}, planned {t_plan:.2f}, "
+        f"segmented {t_seg:.2f}")
+    log(f"  decode: generate(8) {t_gen:.2f} ms = {t_gen / 7:.2f} ms per decode step (7 graph replays after the "
+        f"prefill token, bf16)")
     log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # Weight-only int8 decode (the JAX bench's decode configuration): the
     # layer weights become int8 pairs in place, so this runs last.
     params_q = quantize_params_int8(params)
     eng_q = CompressionEngine(params_q, cfg, eng.ff)
-    launches = (mv.gemv_stacked.launches, mv.gemv_gateup.launches)
+    launches, replays = (mv.gemv_stacked.launches, mv.gemv_gateup.launches), DecodeGraph.replays
     with _c_log(mv) as q_log:
-        toks_q = eng_q.generate(res_p, 8)
+        toks_q = eng_q.generate(res_p, 8)  # a new engine: its own graph, captured here
         torch.cuda.synchronize()
-    q_counts = q_log.counts()
+    q_counts = q_log.counts(DecodeGraph.replays - replays)
     log(f"  int8 decode: kernel C launches by (K, widths): {q_counts}")
     for shape in kernels["gemv_stacked"]["shapes"]:
         name, wdtype = shape["shape"].split()
@@ -818,7 +907,6 @@ def phase_decode(chk: Checks, kernels: dict, ctx: dict) -> None:
         tok = torch.argmax(ref)
         toks.append(int(tok))
     torch.cuda.synchronize()
-    _set_launches(kernels["ragged_decode_attn"], da.ragged_decode_attn.launches)
     log(f"  teacher-forced tokens {toks}")
     chk.expect(finite, "decode: ragged logits finite at every step")
     chk.expect(worst <= LOGIT_RTOL, f"decode ragged vs flash, {n} teacher-forced int8 steps at full width: logits "
@@ -830,6 +918,173 @@ def phase_decode(chk: Checks, kernels: dict, ctx: dict) -> None:
     out = kernel_bench.bench_decodestep(params, cfg, res, log=log)
     chk.expect(all(math.isfinite(r["ms_per_step"]) and r["ms_per_step"] > 0 for r in out["rows"]),
                f"decodestep: {len(out['rows'])} timings measured")
+
+
+def phase_graph(chk: Checks, kernels: dict, ctx: dict) -> None:
+    """The decode as one captured CUDA graph of the step (the engine's
+    ``generate_device`` / ``generate`` / ``generate_stream``), on phase 4's
+    int8 model and FrameFusion prefill."""
+    from framefusion_tpu_torch import kernel_bench
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.ops.kernels import decode_attention as da
+    from framefusion_tpu_torch.ops.sampling import SamplerConfig
+    from framefusion_tpu_torch.runtime.decode_graph import DecodeGraph, capture_graph, slots_for
+
+    cfg, params, eng, res = ctx["cfg"], ctx["params_q"], ctx["eng_q"], ctx["res"]
+    n, steps = 8, 32
+    floor_ms = kernel_bench.weight_stream_bytes(params) / kernel_bench.H100_BYTES_PER_S * 1e3
+    eng._graphs.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = eng.decode_graph(res, n)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    log(f"  graph: pool {tuple(graph.k_pool.shape)}, tail split {graph.tail_split}, decode attention "
+        f"{graph.attn_impl!r}; warm-up step + capture {t_capture * 1e3:.1f} ms; kernel launches a captured step "
+        f"{graph.launches_per_step}")
+    chk.expect(graph.graph is not None and graph.launches_per_step.get("ragged_decode_attn") == cfg.num_layers,
+               "graph: the step was captured, with kernel G once a layer")
+    lens0 = [int(c[2]) for c in res.layer_caches]
+    views: dict = {}  # G's views in this phase's decode graphs -> the lengths it attends there
+
+    def note_views(g, n_steps):
+        """The (S_view -> live lengths) G attends over ``n_steps`` steps of ``g``."""
+        s_pool = int(g.k_pool.shape[1])
+        split = g.tail_split if g.tail_split is not None and g.tail_split[1] < s_pool else None
+        for l, n0 in enumerate(lens0):
+            s_view = split[1] if split is not None and l >= split[0] else s_pool
+            views.setdefault(s_view, set()).update({n0 + 1, n0 + n_steps})
+
+    note_views(graph, n - 1)
+
+    # Teacher forcing: graph replays against eager "ragged" steps (host-int
+    # form), both fed the eager step's greedy token.
+    k_pool, v_pool, lens = eng.make_decode_state(res, n)
+    eng.make_decode_state(res, n, pools=(graph.k_pool, graph.v_pool))
+    graph.start(lens, res.decode_pos_base, res.logits)
+    tok, worst, finite = torch.argmax(res.logits), 0.0, True
+    launches = da.ragged_decode_attn.launches
+    for step in range(n - 1):
+        logits, k_pool, v_pool, lens = qwen2.decode_step(params, qwen2.embed(params, tok), res.decode_pos_base + step,
+                                                         k_pool, v_pool, lens, cfg, attn_impl="ragged",
+                                                         tail_split=graph.tail_split)
+        graph.tok.copy_(tok)
+        graph.run(1)
+        finite = finite and bool(torch.isfinite(graph.logits).all())
+        worst = max(worst, float((graph.logits - logits).abs().max() / logits.abs().max()))
+        tok = torch.argmax(logits)
+    torch.cuda.synchronize()
+    chk.expect(finite and worst <= LOGIT_RTOL,
+               f"graph vs eager ragged, {n - 1} teacher-forced int8 steps at full width: logits differ by "
+               f"{worst:.3e} of their largest <= {LOGIT_RTOL}")
+    chk.expect(da.ragged_decode_attn.launches - launches == (n - 1) * cfg.num_layers,
+               "graph: replays call no wrapper (G's count moved by the eager steps only)")
+    del k_pool, v_pool
+
+    toks = eng.generate(res, n)
+    dev_toks = eng.generate_device(res, n).tolist()
+    stream = list(eng.generate_stream(res, n, chunk=4))
+    log(f"  graph: generate {toks}; generate_device {dev_toks}; generate_stream(chunk=4) {stream}")
+    chk.expect(dev_toks == toks and stream == [toks[:1], toks[:5], toks],
+               "graph: generate_device and generate_stream(chunk=4) give generate's tokens")
+    chk.expect(all(0 <= t < cfg.vocab_size for t in toks), "graph: tokens in the vocabulary")
+    # A sampled decode captures its own graph (top-k inverse CDF inside the step).
+    sampler = SamplerConfig(temperature=0.8, top_k=50)
+    sampled = [eng.generate(res, n, sampler=sampler, generator=torch.Generator().manual_seed(s)) for s in (0, 0)]
+    log(f"  graph: sampled (temperature 0.8, top-k 50, seed 0) {sampled[0]}")
+    chk.expect(sampled[0] == sampled[1] and all(0 <= t < cfg.vocab_size for t in sampled[0]),
+               "graph: a sampled decode is the generator's (one seed, one sequence)")
+
+    # generate(8) after the prefill, wall time: the eager decode of earlier
+    # PRs (kernel_bench.generate_eager) against the graph, in turns.
+    walls = {"eager": [], "graph": []}
+    for kind in ("eager", "graph", "graph", "eager"):
+        fn = (lambda: kernel_bench.generate_eager(eng, res, n)) if kind == "eager" else (lambda: eng.generate(res, n))
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        walls[kind].append((time.perf_counter() - t0) * 1e3)
+    log(f"  generate({n}) wall ms after the prefill: eager {walls['eager']}, graph {walls['graph']} "
+        f"(eager / graph {sum(walls['eager']) / sum(walls['graph']):.2f}x); eager (\"flash\") tokens "
+        f"{kernel_bench.generate_eager(eng, res, n)}")
+
+    # 32 replays between CUDA events, two readings; the plain-attention
+    # ("flash") graph once on the same geometry; the floor beside them.
+    g32 = eng.decode_graph(res, steps + 1)
+    note_views(g32, steps)
+    _, _, lens = eng.make_decode_state(res, steps + 1, pools=(g32.k_pool, g32.v_pool))
+    flash = DecodeGraph(params, cfg, int(g32.k_pool.shape[1]), attn_impl="flash", tail_split=g32.tail_split,
+                        sampler=SamplerConfig(), n_slots=slots_for(steps + 1))
+    flash.k_pool.copy_(g32.k_pool)
+    flash.v_pool.copy_(g32.v_pool)
+
+    def replay_ms(g) -> float:
+        g.start(lens, res.decode_pos_base, res.logits)
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.run(steps)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / steps
+
+    readings = [replay_ms(g32), replay_ms(g32)]
+    t_flash = replay_ms(flash)
+    g32.start(lens, res.decode_pos_base, res.logits)
+    prof = kernel_bench.device_profile(lambda: g32.run(8))
+    per_step = {k: v / 8 for k, v in sorted(prof["by_name"].items(), key=lambda kv: -kv[1])}
+
+    def part(name):
+        return sum(v for k, v in per_step.items() if name in k) / 1e3
+
+    log(f"  graph ragged: {sum(readings) / 2:.3f} ms/step over {steps} replays ({readings[0]:.3f}, {readings[1]:.3f}); "
+        f"graph flash (plain attention) {t_flash:.3f} ms/step; weight-stream floor {floor_ms:.3f} ms/step "
+        f"(ragged at {floor_ms / (sum(readings) / 2):.3f} of it)")
+    if prof["launches"]:
+        log(f"  graph ragged, profiler over 8 replays: device idle share {prof['idle_share']:.4f} of the "
+            f"{prof['window_us'] / 8e3:.3f} ms a step; {prof['launches'] / 8:.0f} device operations a step; device ms a "
+            f"step: C+D pass (gemv_kernel) {part('gemv_kernel'):.3f}, D epilogue {part('gateup_reduce'):.3f}, "
+            f"G {part('decode_attn_kernel'):.3f}, all {prof['busy_us'] / 8e3:.3f}")
+        log(f"  graph ragged, top device kernels a step (us): "
+            f"{ {k[:60]: round(v, 2) for k, v in list(per_step.items())[:8]} }")
+    chk.expect(prof["launches"] > 0, "graph: the profiler saw the replays' device operations")
+    chk.expect(all(math.isfinite(t) and t > 0 for t in readings + [t_flash]), "graph: replay times measured")
+    del flash, g32
+
+    # Kernel G with its length read from the device, held against its plain
+    # version on the views the decode graphs of this phase launch it on
+    # (the pool's rows for the phase layers, the tail split's for the rest),
+    # at the live lengths the decodes reach and at the edges, and on the
+    # JAX bench's 11,776-row view: per view one captured launch, planned
+    # for the view's rows, replayed at every length without recapture.
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    q = _rand(gen, (cfg.num_heads, cfg.head_dim_))
+    kv = _rand(gen, (2, 11776, cfg.num_kv_heads, cfg.head_dim_))
+    views.setdefault(11776, set()).update({3293, 11698})
+    length = torch.ones((), dtype=torch.int64, device="cuda")
+    worst, repeatable, held = 0.0, True, {}
+    for s_view, reached in sorted(views.items()):
+        lengths = sorted({1, 63, 64, 65, s_view} | reached)
+        g_graph = capture_graph(lambda: held.update(out=da.ragged_decode_attn(q, kv[0, :s_view], kv[1, :s_view],
+                                                                               length)), "cuda")
+        for n_keys in lengths:
+            length.fill_(n_keys)
+            g_graph.replay()
+            first = held["out"].clone()
+            g_graph.replay()
+            torch.cuda.synchronize()
+            repeatable = repeatable and torch.equal(held["out"], first)
+            ref = da.ragged_decode_attn_plain(q, kv[0, :s_view], kv[1, :s_view], n_keys)
+            err_h = (first.float() - ref.float()).abs().amax(-1)
+            worst = max(worst, float((err_h / ref.float().abs().amax(-1).clamp(min=1e-30)).max()))
+            _max_err(kernels["ragged_decode_attn"], float(err_h.max()))
+        log(f"  G with a device length, one graph on the {s_view}-row view replayed at {lengths}")
+        del g_graph
+    chk.expect(worst <= ATTN_ROW_RTOL and repeatable,
+               f"G with a device length on views {sorted(views)}: per head error / its largest output "
+               f"{worst:.3e} <= {ATTN_ROW_RTOL}; bits equal over two replays")
+    del held, kv
     ctx.clear()
 
 
@@ -983,11 +1238,10 @@ def phase_pixels(chk: Checks, kernels: dict) -> None:
 
     wrappers = {"flash_attn_fwd": fp.flash_attn_fwd, "attn_importance_rows": fp.attn_importance_rows,
                 "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup, "bidir_attn_fwd": ba.bidir_attn_fwd}
-    for w in wrappers.values():
-        w.launches = 0
+    _zero_counts(wrappers)
     answer = pipes["framefusion"].ask(QUESTION, frames=frames, max_new_tokens=8)
     torch.cuda.synchronize()
-    counts = {name: w.launches for name, w in wrappers.items()}
+    counts = _ran(wrappers)
     _set_launches(kernels["bidir_attn_fwd"], counts["bidir_attn_fwd"])
     log(f"  framefusion ask: launches {counts}")
     n_enc = (vcfg.num_layers - 1) * 4  # feature layer -2 runs 26 blocks, 4 batches of 16 frames
@@ -1153,8 +1407,7 @@ def phase_baselines(chk: Checks, kernels: dict) -> None:
     wrappers = {"flash_attn_fwd": fp.flash_attn_fwd, "attn_importance_rows": fp.attn_importance_rows,
                 "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup, "sink_attn_fwd": sp.sink_attn_fwd}
 
-    for w in wrappers.values():
-        w.launches = 0
+    _zero_counts(wrappers)
     results = {}
     for name, m in methods.items():
         f0 = sp.sink_attn_fwd.launches
@@ -1166,7 +1419,7 @@ def phase_baselines(chk: Checks, kernels: dict) -> None:
         toks = m.engine().generate(res, 8)
         results[name] = (res, toks)
     torch.cuda.synchronize()
-    counts = {name: w.launches for name, w in wrappers.items()}
+    counts = _ran(wrappers)
     _set_launches(kernels["sink_attn_fwd"], counts["sink_attn_fwd"])
     log(f"  launches over the eight methods' prefill + generate(8): {counts}")
     for name, n in counts.items():
@@ -1260,7 +1513,7 @@ def main() -> int:
     phases = {"device": lambda: phase_device(chk), "kernels": lambda: phase_kernels(chk, kernels),
               "kernel_check": lambda: phase_kernel_check(chk),
               "cross": lambda: phase_cross(chk), "full": lambda: phase_full(chk, kernels, ctx),
-              "decode": lambda: phase_decode(chk, kernels, ctx),
+              "decode": lambda: phase_decode(chk, kernels, ctx), "graph": lambda: phase_graph(chk, kernels, ctx),
               "cross_vision": lambda: phase_cross_vision(chk), "pixels": lambda: phase_pixels(chk, kernels),
               "cross_baselines": lambda: phase_cross_baselines(chk),
               "baselines": lambda: phase_baselines(chk, kernels)}

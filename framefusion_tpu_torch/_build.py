@@ -99,7 +99,7 @@ ENTRY_POINTS = {
     "ff_gemv_gateup": [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
     "ff_bidir_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "ff_sink_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "ff_ragged_decode_attn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "ff_ragged_decode_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "ff_ragged_decode_max_group": [],
 }
 

@@ -206,18 +206,19 @@ def _sink_attend(q, k_cache, v_cache, length: int, window_length: int, num_sink_
     return torch.einsum("hgk,hkd->hgd", probs, vf).reshape(hq, d).to(q.dtype)
 
 
-def _sink_cache_decode_loop(params, first_logits, k_pool, v_pool, cache_lens, pos_base: int, *,
-                            cfg: LLMConfig, n_steps: int, window_length: int, num_sink_tokens: int):
+def _sink_cache_decode_steps(params, first_logits, k_pool, v_pool, cache_lens, pos_base: int, *,
+                             cfg: LLMConfig, n_steps: int, window_length: int, num_sink_tokens: int):
     """Greedy decode in which each step attends only the ``num_sink_tokens``
     first cache entries and the trailing ``window_length - num_sink_tokens``
     (the reference swaps in ``SinkCache(window_length, num_sink_tokens)``).
     The cache is kept whole; the eviction is the attention mask, which is
-    what decides the outputs. The pools are updated in place. Returns the
-    (n_steps + 1,) token ids on the device and the logits that chose the
-    last of them."""
+    what decides the outputs. The pools are updated in place. Yields, token
+    by token (the first from ``first_logits``, then one a step), the token
+    id (a device scalar) and the logits that chose it; a step runs only when
+    the next token is asked for."""
     logits = first_logits
     tok = torch.argmax(logits)
-    toks = [tok]
+    yield tok, logits
     lens = [int(n) for n in cache_lens]
     for step in range(n_steps):
         cos, sin = qwen2.positions_cos_sin(torch.tensor([pos_base + step], device=first_logits.device), cfg)
@@ -234,14 +235,16 @@ def _sink_cache_decode_loop(params, first_logits, k_pool, v_pool, cache_lens, po
             h = qwen2.layer_mlp(lp, h, cfg)
         logits = qwen2.final_logits(params, h, cfg)[0]
         tok = torch.argmax(logits)
-        toks.append(tok)
+        yield tok, logits
         lens = [n + 1 for n in lens]
-    return torch.stack(toks), logits
 
 
 class BaselineEngine(CompressionEngine):
     """Prefill executor for one baseline method; decode is inherited, except
-    StreamingLLM's ``sink_cache_decode`` variant.
+    StreamingLLM's ``sink_cache_decode`` variant, which every decode entry
+    point (``generate``, ``generate_device``, ``generate_stream``) runs,
+    greedily: a sampled decode of it raises. JAX's ``generate_device`` and
+    ``generate_stream`` drop the variant and decode over the full cache.
 
     Two buckets, as in the JAX package: ``bucket`` (the constructor
     argument) sizes FastV's compaction; ``ff.bucket`` (``FrameFusionConfig``'s
@@ -255,28 +258,61 @@ class BaselineEngine(CompressionEngine):
         self.kwargs = kwargs
         self.bucket = bucket
 
-    def generate(self, result: PrefillResult, max_new_tokens: int, eos_token_id=None,
-                 sampler: Optional[SamplerConfig] = None, generator=None):
+    def _sink_decode(self, sampler) -> bool:
+        """Whether decode takes the sink-cache variant; raises for a sampled one."""
         if not (self.mode == "streamingllm" and self.kwargs.get("sink_cache_decode")):
-            return super().generate(result, max_new_tokens, eos_token_id=eos_token_id, sampler=sampler,
-                                    generator=generator)
+            return False
         if sampler is not None and sampler.temperature:
             raise NotImplementedError("sink_cache_decode decodes greedily only")
+        return True
+
+    def generate(self, result: PrefillResult, max_new_tokens: int, eos_token_id=None,
+                 sampler: Optional[SamplerConfig] = None, generator=None):
+        if not self._sink_decode(sampler):
+            return super().generate(result, max_new_tokens, eos_token_id=eos_token_id, sampler=sampler,
+                                    generator=generator)
         out, _ = self.sink_cache_decode(result, max_new_tokens)
         if eos_token_id is not None and eos_token_id in out:
             out = out[: out.index(eos_token_id) + 1]
         return out
 
-    def sink_cache_decode(self, result: PrefillResult, max_new_tokens: int):
-        """StreamingLLM's SinkCache greedy decode: (``max_new_tokens`` token
-        ids, the logits that chose the last one)."""
+    def generate_device(self, result: PrefillResult, max_new_tokens: int,
+                        sampler: Optional[SamplerConfig] = None, generator=None):
+        if not self._sink_decode(sampler):
+            return super().generate_device(result, max_new_tokens, sampler=sampler, generator=generator)
+        return torch.stack([tok for tok, _ in self._sink_steps(result, max_new_tokens)])
+
+    def generate_stream(self, result: PrefillResult, max_new_tokens: int, chunk: int = 4, eos_token_id=None,
+                        sampler: Optional[SamplerConfig] = None, generator=None):
+        if not self._sink_decode(sampler):
+            yield from super().generate_stream(result, max_new_tokens, chunk=chunk, eos_token_id=eos_token_id,
+                                               sampler=sampler, generator=generator)
+            return
+        # The same cumulative lists as the graph decode: the first token,
+        # then one read a chunk of steps.
+        steps = self._sink_steps(result, max_new_tokens)
+        out, sizes = [], [1] + [chunk] * -(-(max_new_tokens - 1) // chunk)
+        for size in sizes:
+            toks = [tok for _, (tok, _) in zip(range(size), steps)]
+            out += [int(t) for t in torch.stack(toks).tolist()]
+            if eos_token_id is not None and eos_token_id in out:
+                yield out[: out.index(eos_token_id) + 1]
+                return
+            yield list(out)
+
+    def _sink_steps(self, result: PrefillResult, max_new_tokens: int):
         window = self.kwargs.get("window_length", int(self.kwargs.get("length_rate", 0.3) * result.valid_len))
         sinks = self.kwargs.get("num_sink_tokens", self.kwargs.get("init_num", 8))
         k_pool, v_pool, lens = self.make_decode_state(result, max_new_tokens)
-        toks, logits = _sink_cache_decode_loop(self.params, result.logits, k_pool, v_pool, lens,
-                                               result.decode_pos_base, cfg=self.cfg, n_steps=max_new_tokens - 1,
-                                               window_length=window, num_sink_tokens=sinks)
-        return [int(t) for t in toks.tolist()], logits
+        return _sink_cache_decode_steps(self.params, result.logits, k_pool, v_pool, lens, result.decode_pos_base,
+                                        cfg=self.cfg, n_steps=max_new_tokens - 1, window_length=window,
+                                        num_sink_tokens=sinks)
+
+    def sink_cache_decode(self, result: PrefillResult, max_new_tokens: int):
+        """StreamingLLM's SinkCache greedy decode: (``max_new_tokens`` token
+        ids, the logits that chose the last one)."""
+        steps = list(self._sink_steps(result, max_new_tokens))
+        return [int(t) for t in torch.stack([tok for tok, _ in steps]).tolist()], steps[-1][1]
 
     def prefill(self, input_embeds, patch_type, position_ids, patch_num: int, image_token_start: int,
                 image_token_length: int, mode=None) -> PrefillResult:

@@ -3,7 +3,11 @@
 //
 // G. ff_ragged_decode_attn — one query token, q (Hq, 128) bf16, against the
 //    first `cache_len` keys of a cache view (S_view, Hk, 128) bf16 in the
-//    decode pool's natural layout; q-head h reads KV head h / G (G = Hq / Hk,
+//    decode pool's natural layout. The length is a host int, or an int64 the
+//    kernel reads from device memory when it starts (the decode step of a
+//    captured CUDA graph, which replays at a new length every step, as the
+//    TPU kernel reads its `len_ref` scalar); the launch is planned for the
+//    largest length it may see (`max_len`); q-head h reads KV head h / G (G = Hq / Hk,
 //    HF repeat_kv order). fp32 softmax with `scale`; the result is (Hq, 128)
 //    bf16. Replaces the Pallas kernel
 //    framefusion_tpu/ops/kernels/decode_attention.py (ragged_decode_attention,
@@ -21,8 +25,13 @@
 //    Design: split-K flash decoding in one launch.
 //    * Grid (n_split, Hk), about one CTA per SM: each CTA streams a
 //      contiguous range of whole 64-key tiles of one KV head (5-6 tiles at
-//      the 64-frame decode lengths). Only CTAs below cache_len are launched
-//      and rows past it are never fetched (cp.async zero-fills them).
+//      the 64-frame decode lengths). The plan covers `max_len` keys; rows
+//      past the live length are never fetched (cp.async zero-fills them),
+//      and a CTA whose range starts at or past it loads nothing, writes an
+//      empty partial (m = -inf, l = 0) and still arrives on the counter, so
+//      the merge below runs over the same splits in the same order at every
+//      length: bitwise repeatable, and safe to replay. A device length
+//      outside [1, max_len] writes NaN rows and reads no key.
 //    * A 4-stage cp.async.cg ring of K+V tiles (34 KB a stage): three tiles
 //      are in flight while one is used, well above the ~25-40 KB per SM that
 //      3.35 TB/s needs.
@@ -135,8 +144,8 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const uint16_t*
 __global__ void __launch_bounds__(kThreads, 1)
 decode_attn_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
                    __nv_bfloat16* __restrict__ out, float* __restrict__ ws_acc, float* __restrict__ ws_ml,
-                   unsigned int* __restrict__ counters, int cache_len, int Hq, int Hk, int keys_per_split,
-                   int n_split, float scale_log2) {
+                   unsigned int* __restrict__ counters, const long long* __restrict__ len_dev, int max_len, int Hq,
+                   int Hk, int keys_per_split, int n_split, float scale_log2) {
   extern __shared__ __align__(128) uint16_t ring[];  // [stage][K | V][key][kRow]
   __shared__ int is_last;
   __shared__ __align__(8) uint64_t bar;  // the split merge's bulk copies have landed
@@ -145,9 +154,20 @@ decode_attn_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ 
   const int split = blockIdx.x, hk = blockIdx.y, h0 = hk * G;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group, thread in group
+  int cache_len = max_len;
+  if (len_dev != nullptr) {
+    const long long len = *len_dev;  // every CTA reads the same value: all return here, or none
+    if (len < 1 || len > max_len) {
+      const __nv_bfloat16 nan = __float2bfloat16(__int_as_float(0x7fc00000));
+      if (split == 0)
+        for (int i = tid; i < G * kD; i += kThreads) out[static_cast<size_t>(h0) * kD + i] = nan;
+      return;
+    }
+    cache_len = static_cast<int>(len);
+  }
   const int k_begin = split * keys_per_split;
   const int k_end = min(cache_len, k_begin + keys_per_split);
-  const int n_tiles = (k_end - k_begin + kBN - 1) / kBN;
+  const int n_tiles = max(0, (k_end - k_begin + kBN - 1) / kBN);  // 0: a split past the live length
   const size_t key_stride = static_cast<size_t>(Hk) * kD;
   const uint16_t* kh = k + static_cast<size_t>(hk) * kD;
   const uint16_t* vh = v + static_cast<size_t>(hk) * kD;
@@ -308,14 +328,17 @@ decode_attn_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ 
     w_l[warp * kMaxG + g + 8] = l_r[1];
   }
   __syncthreads();
-  if (tid < kMaxG) {  // per row: the split's max M (warp 0 holds its first key: finite), the warps' weights, l
+  if (tid < kMaxG) {  // per row: the split's max M, the warps' weights, l
+    // M is finite when the split holds a live key (warp 0 holds its first);
+    // an empty split keeps M = -inf, and weights and l of 0.
     float m = w_m[tid];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) m = fmaxf(m, w_m[w * kMaxG + tid]);
+    const float m_ref = m == -INFINITY ? 0.f : m;
     float l = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float wt = exp2f(w_m[w * kMaxG + tid] - m);
+      const float wt = exp2f(w_m[w * kMaxG + tid] - m_ref);
       w_m[w * kMaxG + tid] = wt;
       l = fmaf(w_l[w * kMaxG + tid], wt, l);
     }
@@ -380,7 +403,7 @@ decode_attn_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ 
   for (int i = tid; i < n_split * G; i += kThreads)
     ml_s[i] = __ldcg(reinterpret_cast<const float2*>(&ws_ml[(static_cast<size_t>(i / G) * Hq + h0 + i % G) * 2]));
   __syncthreads();
-  for (int r = warp; r < G; r += kWarps) {
+  for (int r = warp; r < G; r += kWarps) {  // M is finite: split 0 holds key 0
     float m = -INFINITY;
     for (int s = lane; s < n_split; s += 32) m = fmaxf(m, ml_s[s * G + r].x);
 #pragma unroll
@@ -445,15 +468,18 @@ extern "C" int ff_ragged_decode_max_group() { return kMaxG; }
 
 // ws_acc: (n_split, Hq, 128) fp32, ws_ml: (n_split, Hq, 2) fp32 scratch;
 // counters: Hk uint32, zero, owned by the calling stream (left at zero);
-// n_split * keys_per_split >= cache_len > (n_split - 1) * keys_per_split,
-// keys_per_split a multiple of 64, n_split <= kMaxSplit.
+// len_dev: null (the length is max_len), or one int64 in device memory
+// holding the length, read when the kernel runs (values outside
+// [1, max_len] give NaN rows); n_split * keys_per_split >= max_len >
+// (n_split - 1) * keys_per_split, keys_per_split a multiple of 64,
+// n_split <= kMaxSplit.
 extern "C" int ff_ragged_decode_attn(const void* q, const void* k, const void* v, void* out, void* ws_acc,
-                                     void* ws_ml, void* counters, int cache_len, int Hq, int Hk,
+                                     void* ws_ml, void* counters, const void* len_dev, int max_len, int Hq, int Hk,
                                      int keys_per_split, int n_split, float scale, void* stream) {
-  if (Hk <= 0 || Hq % Hk != 0 || Hq / Hk > kMaxG || cache_len <= 0 || keys_per_split <= 0 ||
+  if (Hk <= 0 || Hq % Hk != 0 || Hq / Hk > kMaxG || max_len <= 0 || keys_per_split <= 0 ||
       keys_per_split % kBN != 0 || n_split <= 0 || n_split > kMaxSplit ||
-      static_cast<long long>(n_split - 1) * keys_per_split >= cache_len ||
-      static_cast<long long>(n_split) * keys_per_split < cache_len)
+      static_cast<long long>(n_split - 1) * keys_per_split >= max_len ||
+      static_cast<long long>(n_split) * keys_per_split < max_len)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -469,6 +495,7 @@ extern "C" int ff_ragged_decode_attn(const void* q, const void* k, const void* v
   decode_attn_kernel<<<dim3(n_split, Hk), kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k), static_cast<const uint16_t*>(v),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws_acc), static_cast<float*>(ws_ml),
-      static_cast<unsigned int*>(counters), cache_len, Hq, Hk, keys_per_split, n_split, scale_log2);
+      static_cast<unsigned int*>(counters), static_cast<const long long*>(len_dev), max_len, Hq, Hk, keys_per_split,
+      n_split, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,7 +23,10 @@ pools: a uniform one (S 3,328), the per-layer caches of a FrameFusion
 prefill of the 64-frame prompt, and the JAX bench's stand-in for it (two
 layers of 11,697 keys, the rest 3,292, S_pool 11,776), the last two with
 and without ``best_tail_split``; beside the times, the weight-stream floor
-and the CUDA launches per step (``torch.profiler``).
+and the CUDA launches per step (``torch.profiler``). The same pools also
+run as a captured CUDA graph of the step (``runtime/decode_graph.py``,
+rows ``graph-ragged``, the engine's decode, and ``graph-flash``): replays
+timed between CUDA events, with the kernel launches the graph holds.
 
 Both need a CUDA device and exit non-zero at once without one.
 """
@@ -106,16 +109,9 @@ def graph_time_ms(fn, iters: int) -> float:
     tens of microseconds (checks, allocations, the ctypes call), more than a
     short kernel runs, so eager launches would time the host; the replay
     times the card."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graph asks
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+    from .runtime.decode_graph import capture_graph
+
+    graph = capture_graph(lambda: [fn() for _ in range(iters)], torch.cuda.current_device(), warmup=fn)
     graph.replay()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -144,6 +140,37 @@ def kernel_device_us(fn, names, reps: int = 20) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name:
                 total[name] += e.time_range.elapsed_us() / reps
     return total
+
+
+def device_profile(fn) -> dict:
+    """One call of ``fn()`` under ``torch.profiler``: the device window
+    (first device operation's start to the last one's end), the time the
+    device was busy in it (the union of the operations' intervals), the
+    idle share of the window, the device operations (kernels, copies,
+    sets) and the device time by kernel name, in microseconds. Empty
+    counts where the profiler sees no device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    by_name: dict = {}
+    busy, cur_start, cur_end = 0.0, None, None
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        if cur_end is None or start > cur_end:
+            busy += 0.0 if cur_end is None else cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        busy += cur_end - cur_start
+    window = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    return dict(window_us=window, busy_us=busy, idle_share=(1.0 - busy / window) if window else None,
+                launches=len(spans), by_name=by_name)
 
 
 def sdpa(q, k, v, mask=None, is_causal: bool = False):
@@ -444,17 +471,49 @@ def weight_stream_bytes(params: dict) -> int:
 
 
 def decode_loop(params, cfg, k_pool, v_pool, lens, pos0: int, steps: int, attn_impl: str, tail_split=None,
-                tok0: int = 17):
-    """``steps`` greedy decode steps, tokens kept on the card; the pools are
-    written in place. Returns the last token (a device scalar)."""
+                tok0=17) -> list:
+    """``steps`` greedy eager decode steps from token ``tok0`` (an int or a
+    device scalar), host-int positions and lengths; the pools are written in
+    place. Returns the tokens, ``tok0`` first, as device scalars."""
     from .models import qwen2
 
-    tok = torch.tensor(tok0, device=k_pool.device)
+    toks = [torch.as_tensor(tok0, device=k_pool.device)]
     for i in range(steps):
-        logits, k_pool, v_pool, lens = qwen2.decode_step(params, qwen2.embed(params, tok), pos0 + i, k_pool, v_pool,
-                                                         lens, cfg, attn_impl=attn_impl, tail_split=tail_split)
-        tok = torch.argmax(logits)
-    return tok
+        logits, k_pool, v_pool, lens = qwen2.decode_step(params, qwen2.embed(params, toks[-1]), pos0 + i, k_pool,
+                                                         v_pool, lens, cfg, attn_impl=attn_impl, tail_split=tail_split)
+        toks.append(torch.argmax(logits))
+    return toks
+
+
+def generate_eager(engine, result, max_new_tokens: int) -> list:
+    """Greedy decode as the engine ran it before its decode became a CUDA
+    graph: ``decode_loop`` over the engine's pool, from the prefill's token,
+    with ``engine.attn_impl``'s decode ("flash": kernels C and D, plain
+    attention). Kept to time against the graph."""
+    from .runtime.engine import best_tail_split
+
+    k_pool, v_pool, lens = engine.make_decode_state(result, max_new_tokens)
+    split = best_tail_split(lens, int(k_pool.shape[1]), max_new_tokens, engine.ff.bucket)
+    toks = decode_loop(engine.params, engine.cfg, k_pool, v_pool, lens, result.decode_pos_base, max_new_tokens - 1,
+                       engine.attn_impl, split, tok0=torch.argmax(result.logits))
+    return [int(t) for t in torch.stack(toks).tolist()]
+
+
+def decode_graph_on(params, cfg, k_pool, v_pool, lens, pos0: int, steps: int, attn_impl: str, tail_split=None,
+                    tok0: int = 17):
+    """A greedy ``DecodeGraph`` over copies of the given pools, started at
+    ``tok0`` (as ``decode_loop`` starts), with room for ``steps`` steps."""
+    from .ops.sampling import SamplerConfig
+    from .runtime.decode_graph import DecodeGraph, slots_for
+
+    graph = DecodeGraph(params, cfg, int(k_pool.shape[1]), attn_impl=attn_impl, tail_split=tail_split,
+                        sampler=SamplerConfig(), n_slots=slots_for(steps + 1))
+    graph.k_pool.copy_(k_pool)
+    graph.v_pool.copy_(v_pool)
+    first = torch.zeros(cfg.vocab_size, dtype=torch.float32, device=k_pool.device)
+    first[tok0] = 1.0
+    graph.start(lens, pos0, first)
+    return graph, first
 
 
 def _main_prompt_prefill(cfg, log):
@@ -481,7 +540,8 @@ def bench_decodestep(params=None, cfg=None, prefill=None, steps: int = 32, log=p
     ``PrefillResult`` of the 64-frame prompt) may come from the caller;
     without them the function builds random Qwen2-7B weights, runs the
     prefill and quantizes. Returns {"floor_ms", "rows": [{geometry, impl,
-    split, ms_per_step, launches_per_step}]}."""
+    split, ms_per_step, launches_per_step}]}; the graph rows' impl is
+    "graph-ragged" or "graph-flash"."""
     _require_cuda()
     from .config import FrameFusionConfig, qwen2_7b_config
     from .ops.quant import quantize_params_int8
@@ -515,6 +575,35 @@ def bench_decodestep(params=None, cfg=None, prefill=None, steps: int = 32, log=p
     for gname, kp, vp, lens, pos0 in geoms:
         split = best_tail_split(lens, int(kp.shape[1]), steps + 4, 128)
         for ts in ([None, split] if split is not None else [None]):
+            # The step as a captured CUDA graph, "ragged" (kernel G, the
+            # engine's decode) and "flash" (plain attention), in turns.
+            graphs = {impl: decode_graph_on(params, cfg, kp, vp, lens, pos0, steps, impl, ts)
+                      for impl in ("ragged", "flash")}
+            readings = {impl: [] for impl in graphs}
+            for impl in ("ragged", "flash", "flash", "ragged"):
+                graph, first = graphs[impl]
+                graph.start(lens, pos0, first)
+                graph.run(1)  # warm
+                torch.cuda.synchronize()
+                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                graph.run(steps - 1)
+                stop.record()
+                torch.cuda.synchronize()
+                readings[impl].append(start.elapsed_time(stop) / (steps - 1))
+            for impl, (graph, first) in graphs.items():
+                ms = sum(readings[impl]) / len(readings[impl])
+                graph.start(lens, pos0, first)
+                launches = device_launches(lambda g=graph: g.run(1))
+                captured = sum(graph.launches_per_step.values())
+                out["rows"].append(dict(geometry=gname, impl=f"graph-{impl}", split=ts, ms_per_step=ms,
+                                        readings=readings[impl], launches_per_step=launches,
+                                        kernel_launches_captured=graph.launches_per_step))
+                log(f"  decode_step[graph-{impl}] {gname:22s} split={str(ts):12s}: {ms:8.3f} ms/step "
+                    f"({', '.join(f'{r:.3f}' for r in readings[impl])}; floor {floor_ms:.3f}), "
+                    f"{launches} launches/step; {captured} calls of the kernels' wrappers captured a step "
+                    f"({graph.launches_per_step})")
+            del graphs
             # In turns (einsum, flash, ragged, ragged, flash, einsum): the
             # host-bound loop drifts between readings.
             readings = {impl: [] for impl in impls}

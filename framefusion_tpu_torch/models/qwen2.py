@@ -251,6 +251,10 @@ def layer_mlp(lp: dict, h: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
 
 
 def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of ``input_ids``; a 0-d id gives one (D,) row, read
+    with ``index_select`` (indexing by a 0-d tensor reads it to the host)."""
+    if isinstance(input_ids, torch.Tensor) and input_ids.ndim == 0:
+        return params["embed"].index_select(0, input_ids.reshape(1))[0]
     return params["embed"][input_ids]
 
 
@@ -341,26 +345,37 @@ def _rows_out_mlp(layers: dict, lp: dict, h, attn, l: int, cfg: LLMConfig, use_m
     return layer_mlp(lp, h, cfg)
 
 
-def decode_step(params: dict, token_embed, position_id: int, k_pool, v_pool, cache_lens,
+def decode_step(params: dict, token_embed, position_id, k_pool, v_pool, cache_lens,
                 cfg: LLMConfig, attn_impl: str = "einsum", tail_split=None):
     """One decode step against a padded per-layer cache pool.
 
     Args:
         token_embed: (D,) current-token embedding.
-        position_id: rotary position (int).
+        position_id: rotary position: a host int, or an int64 scalar tensor
+            on the pools' device.
         k_pool, v_pool: (L, S_pad, Hk, hd), updated IN PLACE (the JAX
             version returns new arrays; here the pools are owned by the
             decode loop, so an in-place row write saves a pool copy per step).
-        cache_lens: per-layer valid entries excluding this token (ints).
+        cache_lens: per-layer valid entries excluding this token: host ints,
+            or an int32/int64 (L,) tensor on the pools' device. With device
+            tensors for both the step reads nothing back to the host (the
+            row write is an indexed copy, the attention takes its length
+            from the device), so it can be captured in a CUDA graph.
         attn_impl: one of ``DECODE_ATTN_IMPLS`` (module docstring).
         tail_split: optional ``(P, tail_s)`` — layers >= P attend only the
             pool's first ``tail_s`` rows.
 
     Returns:
-        (logits (V,) fp32, k_pool, v_pool, cache_lens + 1).
+        (logits (V,) fp32, k_pool, v_pool, cache_lens + 1): host ints, or an
+        int64 (L,) tensor on the device.
     """
     _check_impl(attn_impl, DECODE_ATTN_IMPLS)
-    cos, sin = positions_cos_sin(torch.tensor([position_id], device=token_embed.device), cfg)
+    on_device = isinstance(cache_lens, torch.Tensor)
+    if isinstance(position_id, torch.Tensor):
+        pos = position_id.reshape(1).to(torch.int64)
+    else:
+        pos = torch.tensor([position_id], device=token_embed.device)
+    cos, sin = positions_cos_sin(pos, cfg)
     h = token_embed[None, :]
     use_mv = attn_impl != "einsum"
     attend = ragged_decode_attention if attn_impl == "ragged" else decode_attention
@@ -368,19 +383,29 @@ def decode_step(params: dict, token_embed, position_id: int, k_pool, v_pool, cac
     s_full = k_pool.shape[1]
     if tail_split is not None and tail_split[1] >= s_full:
         tail_split = None
+    if on_device:
+        lens = cache_lens.to(torch.int64)
+        lens_after = lens + 1
     for l in range(cfg.num_layers):
         s_view = tail_split[1] if tail_split is not None and l >= tail_split[0] else s_full
         lp = layer_slice(layers, l)
         x = rmsnorm(h, lp["ln1"], cfg.rms_norm_eps)
         q, k, v = _rows_qkv(layers, lp, x, l, cfg, use_mv)
         q, k = apply_rope(q, k, cos, sin)
-        length = int(cache_lens[l])
-        k_pool[l, length] = k[0].to(k_pool.dtype)
-        v_pool[l, length] = v[0].to(v_pool.dtype)
-        attn = attend(q[0], _pool_view(k_pool, l, s_view), _pool_view(v_pool, l, s_view), length + 1)
+        if on_device:
+            k_pool[l].index_copy_(0, lens[l:l + 1], k.to(k_pool.dtype))
+            v_pool[l].index_copy_(0, lens[l:l + 1], v.to(v_pool.dtype))
+            length = lens_after[l]
+        else:
+            row = int(cache_lens[l])
+            k_pool[l, row] = k[0].to(k_pool.dtype)
+            v_pool[l, row] = v[0].to(v_pool.dtype)
+            length = row + 1
+        attn = attend(q[0], _pool_view(k_pool, l, s_view), _pool_view(v_pool, l, s_view), length)
         h = _rows_out_mlp(layers, lp, h, attn.reshape(1, -1), l, cfg, use_mv)
     logits = final_logits(params, h, cfg)[0]
-    return logits, k_pool, v_pool, [int(n) + 1 for n in cache_lens]
+    new_lens = lens_after if on_device else [int(n) + 1 for n in cache_lens]
+    return logits, k_pool, v_pool, new_lens
 
 
 def verify_step(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_lens, cfg: LLMConfig,

@@ -94,12 +94,14 @@ def last_rows_importance(q, k, num: int, valid_len, scale=None, key_valid=None) 
     return probs.sum(dim=2).mean(dim=(0, 1)) / num
 
 
-def decode_attention(q, k_cache, v_cache, cache_len: int) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     """Single-token decode attention against a padded cache.
 
     Args:
         q: (Hq, D); k_cache, v_cache: (S_pad, Hk, D); cache_len: valid
-            entries, the current token included.
+            entries, the current token included: an int, or a 0-d or
+            one-element integer tensor on q's device (the mask is then a
+            tensor compare, with no read to the host).
     Returns:
         (Hq, D) in q's dtype.
     """

@@ -11,6 +11,8 @@ PERF.md's kernel table follows them.
 
 from __future__ import annotations
 
+import importlib
+
 _TPU = "framefusion_tpu/ops/kernels"
 _CSRC = "framefusion_tpu_torch/csrc"
 
@@ -51,3 +53,14 @@ def replaces(kernel: str) -> list[str]:
     """``file:line`` of every TPU function ``kernel`` stands for, by file and line."""
     found = [k for k, (_, port) in COUNTERPARTS.items() if port == kernel]
     return sorted(found, key=lambda k: (k.rsplit(":", 1)[0], int(k.rsplit(":", 1)[1])))
+
+
+def wrapper(kernel: str):
+    """The Python wrapper that launches ``kernel`` (it carries ``launches``)."""
+    return getattr(importlib.import_module(f".{KERNELS[kernel][0]}", __name__), kernel)
+
+
+def captured_counts() -> dict:
+    """Each kernel's launches its wrapper recorded into CUDA graphs being
+    captured, by kernel name."""
+    return {name: wrapper(name).captured for name in KERNELS}

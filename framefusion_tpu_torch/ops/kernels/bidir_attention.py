@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from .flash_prefill import _check_cuda, _device_route
+from .flash_prefill import _check_cuda, _count_launch, _device_route
 
 MAX_HEAD_DIM = 128
 
@@ -70,11 +70,11 @@ def bidir_attn_fwd(q, k, v, scale: float):
     status = lib.ff_bidir_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                    b, n, h, hd, float(scale), _build.stream_ptr(q.device))
     _build.check(status, "bidir_attn_fwd")
-    bidir_attn_fwd.launches += 1
+    _count_launch(bidir_attn_fwd)
     return out
 
 
-bidir_attn_fwd.launches = 0
+bidir_attn_fwd.launches = bidir_attn_fwd.captured = 0
 
 
 def flash_bidir_attention(q, k, v, *, scale=None):

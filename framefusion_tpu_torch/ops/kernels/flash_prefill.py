@@ -17,7 +17,9 @@ whose header says what bounds each kernel and how the design meets it):
 
 Each wrapper runs its plain PyTorch version when the tensors lie on the CPU
 and launches the kernel when they lie on a CUDA device; anything else
-raises. ``launches`` on each wrapper counts kernel launches.
+raises. ``launches`` on each wrapper counts the kernel launches that run,
+``captured`` those recorded into a CUDA graph being captured
+(``_count_launch``).
 
 ``flash_causal_attention`` and ``flash_causal_attention_importance`` keep
 the JAX package's entry points: (S, H, D) tensors in, attention (and the
@@ -67,6 +69,17 @@ def _device_route(name, t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise RuntimeError(f"{name}: no kernel for device {t.device}")
+
+
+def _count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``wrapper.launches`` when
+    it runs now, in ``wrapper.captured`` when it is recorded into a CUDA
+    graph being captured (it then runs at each replay, which the graph's
+    owner counts: ``runtime.decode_graph.DecodeGraph.replayed``)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
 
 
 def flash_attn_fwd_plain(q, k, v, key_valid=None):
@@ -135,11 +148,11 @@ def flash_attn_fwd(q, k, v, key_valid=None):
         s, hq, k.shape[1], 1.0 / math.sqrt(d), _build.stream_ptr(q.device),
     )
     _build.check(status, "flash_attn_fwd")
-    flash_attn_fwd.launches += 1
+    _count_launch(flash_attn_fwd)
     return out, m, l
 
 
-flash_attn_fwd.launches = 0
+flash_attn_fwd.launches = flash_attn_fwd.captured = 0
 
 
 def attn_importance_rows_plain(q, k, rows, m, l, key_valid=None):
@@ -203,11 +216,11 @@ def attn_importance_rows(q, k, rows, m, l, key_valid=None):
         s, hq, k.shape[1], num, 1.0 / math.sqrt(d), _build.stream_ptr(q.device),
     )
     _build.check(status, "attn_importance_rows")
-    attn_importance_rows.launches += 1
+    _count_launch(attn_importance_rows)
     return imp
 
 
-attn_importance_rows.launches = 0
+attn_importance_rows.launches = attn_importance_rows.captured = 0
 
 
 def flash_causal_attention(q, k, v, key_valid=None):

@@ -31,7 +31,7 @@ from fractions import Fraction
 import torch
 
 from .decode_attention import SM_COUNT, _counters, _sm_count
-from .flash_prefill import _device_route
+from .flash_prefill import _count_launch, _device_route
 
 MAX_ROWS = 64
 # The plan aims for one wave of CTAS_PER_SM CTAs an SM (an H100 SXM has
@@ -132,11 +132,11 @@ def gemv_stacked(x, stacks, layer: int):
         ws.data_ptr(), counters.data_ptr(), chunks, kchunk, _build.stream_ptr(x.device),
     )
     _build.check(status, "gemv_stacked")
-    gemv_stacked.launches += 1
+    _count_launch(gemv_stacked)
     return outs
 
 
-gemv_stacked.launches = 0
+gemv_stacked.launches = gemv_stacked.captured = 0
 
 
 def gemv_gateup_plain(x, wg, wu, sg, su, layer: int):
@@ -181,11 +181,11 @@ def gemv_gateup(x, wg, wu, sg, su, layer: int):
         out.data_ptr(), ws.data_ptr(), chunks, kchunk, _build.stream_ptr(x.device),
     )
     _build.check(status, "gemv_gateup")
-    gemv_gateup.launches += 1
+    _count_launch(gemv_gateup)
     return out
 
 
-gemv_gateup.launches = 0
+gemv_gateup.launches = gemv_gateup.captured = 0
 
 
 def matvec_stacked(x, w_stack, layer: int):

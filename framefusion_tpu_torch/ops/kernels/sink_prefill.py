@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from .flash_prefill import HEAD_DIM, PLAIN_CHUNK, _check_attn_inputs, _check_cuda, _device_route
+from .flash_prefill import HEAD_DIM, PLAIN_CHUNK, _check_attn_inputs, _check_cuda, _count_launch, _device_route
 
 
 def _check_sink_args(init_num: int, window: int) -> None:
@@ -94,11 +94,11 @@ def sink_attn_fwd(q, k, v, init_num: int, window: int):
         s, hq, k.shape[1], int(init_num), int(window), 1.0 / math.sqrt(d), _build.stream_ptr(q.device),
     )
     _build.check(status, "sink_attn_fwd")
-    sink_attn_fwd.launches += 1
+    _count_launch(sink_attn_fwd)
     return out
 
 
-sink_attn_fwd.launches = 0
+sink_attn_fwd.launches = sink_attn_fwd.captured = 0
 
 
 def sink_flash_attention(q, k, v, init_num: int, window: int):

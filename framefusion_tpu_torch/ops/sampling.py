@@ -1,7 +1,13 @@
 """Token sampling: greedy, temperature, top-k, top-p (port of
-``framefusion_tpu.ops.sampling``). Random draws come from an explicit
-``torch.Generator``; they do not reproduce ``jax.random``'s bits, so tests
-compare greedy tokens exactly and sampled tokens by validity only."""
+``framefusion_tpu.ops.sampling``).
+
+A sampled token is drawn by inverse CDF from a uniform number in [0, 1)
+that the caller draws beforehand (``draw_uniforms``, one a token, from an
+explicit ``torch.Generator``), as the JAX decode loop splits one key a
+token before its scan: the step reads no generator and synchronises with
+nothing, so it can be captured in a CUDA graph. The draws do not reproduce
+``jax.random``'s bits, nor ``torch.multinomial``'s: tests compare greedy
+tokens exactly and sampled tokens by validity only."""
 
 from __future__ import annotations
 
@@ -18,20 +24,50 @@ class SamplerConfig:
     top_p: Optional[float] = None
 
 
-def sample_token(logits: torch.Tensor, cfg: SamplerConfig,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Sample one token id (int64 scalar tensor, on logits' device) from (V,) logits."""
-    if cfg.temperature == 0.0:
-        return torch.argmax(logits)
+def draw_uniforms(n: int, generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+    """``n`` fp32 uniforms in [0, 1) from ``generator`` (drawn on its
+    device), on ``device``."""
+    gen_device = generator.device if generator is not None else torch.device("cpu")
+    u = torch.rand(n, generator=generator, device=gen_device, dtype=torch.float32)
+    return u.to(device) if device is not None else u
+
+
+def filtered_probs(logits: torch.Tensor, cfg: SamplerConfig) -> torch.Tensor:
+    """(V,) fp32 probabilities after temperature, top-k and top-p: tokens
+    outside the kept set get exactly 0."""
     logits = logits.to(torch.float32) / cfg.temperature
+    neg_inf = torch.full_like(logits, float("-inf"))
     if cfg.top_k is not None:
         kth = torch.topk(logits, cfg.top_k).values[-1]
-        logits = torch.where(logits < kth, torch.full_like(logits, float("-inf")), logits)
+        logits = torch.where(logits < kth, neg_inf, logits)
     if cfg.top_p is not None:
         sorted_logits = torch.sort(logits, descending=True).values
         cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
         # smallest set with cumulative prob >= top_p; keep at least one token
         cutoff_idx = torch.clamp((cum < cfg.top_p).sum(), max=logits.shape[0] - 1)
-        logits = torch.where(logits < sorted_logits[cutoff_idx], torch.full_like(logits, float("-inf")), logits)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[0]
+        cutoff = sorted_logits.gather(0, cutoff_idx.reshape(1))
+        logits = torch.where(logits < cutoff, neg_inf, logits)
+    return torch.softmax(logits, dim=-1)
+
+
+def sample_token(logits: torch.Tensor, cfg: SamplerConfig, generator: Optional[torch.Generator] = None,
+                 u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One token id (int64 scalar tensor, on logits' device) from (V,) logits.
+
+    Greedy is the argmax. Otherwise the token is the first, in order of
+    falling probability, at which the cumulative probability passes
+    ``u * total``; ``u`` is a 0-d or one-element uniform in [0, 1) on
+    logits' device (drawn from ``generator`` when None). Only tokens of
+    positive probability can be chosen."""
+    if cfg.temperature == 0.0:
+        return torch.argmax(logits)
+    if u is None:
+        u = draw_uniforms(1, generator, logits.device)
+    probs = filtered_probs(logits, cfg)
+    p_sorted, idx_sorted = torch.sort(probs, descending=True)
+    cdf = torch.cumsum(p_sorted, dim=-1)
+    target = u.reshape(1).to(torch.float32) * cdf[-1:]
+    j = torch.searchsorted(cdf, target, right=True)
+    # the last positive probability bounds the pick against rounding in cdf
+    j = torch.minimum(j, (p_sorted > 0).sum().reshape(1) - 1)
+    return idx_sorted.gather(0, j)[0]

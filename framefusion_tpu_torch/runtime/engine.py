@@ -15,6 +15,12 @@ length and the remaining layers (the tail) run there.
   the compression-finishing layer's MLP deferred to the compacted tail. A
   plan that proves too tight, or a phase deeper than ``pool_layers``, falls
   back to fused (``mode == "planned_fallback_fused"``).
+* **Segmented** (``prefill(mode="segmented")``): no mask-only phase; every
+  merge or prune event compacts at once to the bucket of its survivors, so
+  each layer's attention runs unmasked at a shrinking bucket, and the merge
+  layer's MLP runs after its compaction. Its merge decisions are the JAX
+  segmented executor's Python-float arithmetic (``SegmentedEventState``),
+  not the fp32 twin the other executors share.
 
 Decisions — the threshold-or-budget branch of each merge, the finish flags,
 the fp32 cost schedule and the prune's banker's-rounded keep count — are
@@ -25,6 +31,12 @@ ran the phase as one device loop and packed its control state into one
 vector; on a directly attached GPU a scalar read costs microseconds, so the
 port decides on the host and reads one integer per merge event. The
 importance vector is computed only on the layer where the prune fires.
+
+Decode (``generate_device``, ``generate`` and ``generate_stream``) replays
+one captured CUDA graph of the decode step (runtime/decode_graph.py), the
+counterpart of the JAX engine's one-program ``lax.scan``; the graphs are
+cached by decode geometry, so a second prompt of the same geometry copies
+its caches into the graph's pools and replays.
 """
 
 from __future__ import annotations
@@ -49,10 +61,12 @@ from ..core import (
     descending_rank,
     mark_topk,
     order_by_patch,
+    prune_keep_mask,
     similarity_by_patch,
 )
 from ..models import qwen2
-from ..ops.sampling import SamplerConfig, sample_token
+from ..ops.sampling import SamplerConfig, draw_uniforms
+from .decode_graph import DecodeGraph, slots_for
 from .telemetry import CompressionEvent, PrefillTelemetry
 
 f32 = np.float32
@@ -175,6 +189,9 @@ class _PhaseState:
     fm: bool = False  # merging finished
     fp: bool = False  # pruning finished
     events: list = dataclasses.field(default_factory=list)
+    # Each event's similarity vector (zeros for the prune) when the engine's
+    # ``debug_similarities`` is on, else None.
+    sims: Optional[list] = None
 
     @property
     def done(self) -> bool:
@@ -198,6 +215,48 @@ def _merge_decision(st: _PhaseState, count: int, ff: FrameFusionConfig):
     return k_marked, kind, above, budget
 
 
+class SegmentedEventState:
+    """Merge/prune decisions of the segmented executor (JAX's class of the
+    same name). Its merge arithmetic is Python float, as JAX's segmented
+    executor's: ``count / frame_tok``, ``above < budget``, ``above <
+    ratio_lower_bound`` and ``int(budget * frame_tok)`` in float64, and the
+    float64 ratio is what the sparsity history records. The fused and
+    planned executors use the fp32 twin (``_merge_decision``); the two can
+    part on a near-tie. The prune's keep count is the fp32 one of both."""
+
+    def __init__(self, ff: FrameFusionConfig):
+        self.ff = ff
+        self.sparsity: list[float] = []
+        self.finish_merging = False
+        self.finish_pruning = False
+
+    @property
+    def done(self) -> bool:
+        return self.finish_merging and self.finish_pruning
+
+    def merge_decision(self, count: int, frame_tok: int):
+        """-> (k_marked, kind, above_ratio, budget); updates flags and history."""
+        budget = compute_pruning_ratio(self.sparsity, self.ff.cost, self.ff.schedule_num_layers)
+        above_ratio = int(count) / frame_tok
+        if above_ratio < budget:
+            k_marked, kind = int(count), "merge"
+            self.sparsity.append(above_ratio)
+            if above_ratio < self.ff.ratio_lower_bound:
+                self.finish_merging = True
+        else:
+            k_marked, kind = int(budget * frame_tok), "merge_capped"
+            self.finish_merging = self.finish_pruning = True
+        return k_marked, kind, above_ratio, budget
+
+    def prune_decision(self, image_token_length: int, orig_len: int, valid: int):
+        """-> (ratio, cur_img_len, k_keep, removed); sets finish_pruning."""
+        ratio = compute_pruning_ratio(self.sparsity, self.ff.cost, self.ff.schedule_num_layers)
+        cur_img_len = image_token_length - (orig_len - valid)
+        k_keep = _round_half_even(float(f32(cur_img_len) * (f32(1.0) - f32(ratio))))
+        self.finish_pruning = True
+        return ratio, cur_img_len, k_keep, cur_img_len - k_keep
+
+
 def _sim_count(h, pt, live, patch_num: int, s_th: float):
     """Patch-major order, similarities and the above-threshold count (host int)."""
     order, n_img = order_by_patch(pt, live, patch_num)
@@ -207,7 +266,10 @@ def _sim_count(h, pt, live, patch_num: int, s_th: float):
 
 
 class CompressionEngine:
-    """FrameFusion compressed prefill + greedy decode for a Qwen2-family stack."""
+    """FrameFusion compressed prefill + decode for a Qwen2-family stack."""
+
+    # Decode geometries whose graphs an engine keeps (each graph holds its own pools).
+    GRAPH_CACHE_SIZE = 2
 
     def __init__(self, params: dict, cfg: LLMConfig, ff: FrameFusionConfig, *,
                  attn_impl: str = "flash", pool_layers: int = 8):
@@ -220,8 +282,13 @@ class CompressionEngine:
         # Depth of the planned executor's phase: a phase that needs more
         # layers than this falls back to the fused executor.
         self.pool_layers = min(pool_layers, cfg.num_layers)
+        # Research introspection: the fused executor records each event's
+        # similarity vector in telemetry.similarities (the reference's
+        # ``model.similarities``).
+        self.debug_similarities = False
         self.plan_history = PlanHistory()
         self.device = params["embed"].device
+        self._graphs: "OrderedDict[tuple, list[DecodeGraph]]" = OrderedDict()
 
     # -- inputs ------------------------------------------------------------
 
@@ -274,6 +341,8 @@ class CompressionEngine:
             return None
         merged, keep = apply_merge(h, mark_topk(sim, k_marked), order)
         out, _ = compact_tokens(keep & live, new_len, new_valid, {"h": merged, "pos": pos, "patch_type": pt})
+        if st.sims is not None:
+            st.sims.append(sim)
         st.n_live, st.frame_tok = new_valid, st.frame_tok - k_marked
         st.events.append(CompressionEvent(layer=-1, kind=kind, tokens_removed=k_marked,
                                           tokens_after=new_valid, above_ratio=above,
@@ -297,6 +366,8 @@ class CompressionEngine:
             sim, order, count = _sim_count(h_cur, pt, live, patch_num, s_th)
             k_marked, kind, above, budget = _merge_decision(st, count, ff)
             merged, keep = apply_merge(h_cur, mark_topk(sim, k_marked), order)
+            if st.sims is not None:
+                st.sims.append(sim)
             st.n_live -= k_marked
             st.frame_tok -= k_marked
             st.events.append(CompressionEvent(layer=layer, kind=kind, tokens_removed=k_marked,
@@ -334,6 +405,8 @@ class CompressionEngine:
                 st.fp = True
                 st.events.append(CompressionEvent(layer=layer, kind="prune", tokens_removed=removed,
                                                   tokens_after=st.n_live, budget=ratio, bucket=bucket))
+                if st.sims is not None:  # no similarity: a zero row keeps the list aligned with the events
+                    st.sims.append(torch.zeros(bucket, dtype=torch.float32, device=h.device))
                 h = h_mid
             if defer_final_mlp and st.done:
                 pending = layer
@@ -393,8 +466,8 @@ class CompressionEngine:
             patch_num: spatial patches per frame.
             image_token_start / image_token_length: the image span.
             mode: "fused", "planned", "measured", "auto" (planned from
-                PlanHistory once the geometry has been seen, else measured)
-                or "dense".
+                PlanHistory once the geometry has been seen, else measured),
+                "segmented" (a compaction at every event) or "dense".
         """
         args = (input_embeds, patch_type, position_ids, patch_num, image_token_start, image_token_length)
         if mode == "auto":
@@ -412,6 +485,8 @@ class CompressionEngine:
             return self._prefill_fused(*args)
         if mode == "planned":
             return self.prefill_planned(*args)
+        if mode == "segmented":
+            return self._prefill_segmented(*args)
         raise ValueError(f"unknown prefill mode: {mode!r}")
 
     def prefill_measured(self, input_embeds, patch_type, position_ids, patch_num: int,
@@ -441,7 +516,7 @@ class CompressionEngine:
         h, pt, pos, orig_len = self._prep_inputs(input_embeds, patch_type, position_ids)
         telemetry = PrefillTelemetry(original_length=orig_len, image_token_length=image_token_length)
         frame_tok0 = self._frame_tokens(patch_type)
-        st = _PhaseState(n_live=orig_len, frame_tok=frame_tok0)
+        st = _PhaseState(n_live=orig_len, frame_tok=frame_tok0, sims=[] if self.debug_similarities else None)
         include_pre = True
         if frame_tok0 > 0 and patch_num > 0:
             # The layer-0 merge is usually the largest single shrink: compact
@@ -456,6 +531,7 @@ class CompressionEngine:
         s_small = bucket_length(st.n_live, ff.bucket)
         out, _ = compact_tokens(live, s_small, st.n_live, {"h": h, "pos": pos})
         logits, k_tail, v_tail = self._tail(out["h"], out["pos"], st.n_live, layer_end)
+        telemetry.similarities = st.sims
         return self._finish(telemetry, st, caches, layer_end, logits, k_tail, v_tail,
                             orig_len=orig_len, image_token_length=image_token_length, patch_num=patch_num,
                             patch_type=patch_type, mode="fused")
@@ -528,6 +604,74 @@ class CompressionEngine:
                             orig_len=orig_len, image_token_length=image_token_length, patch_num=patch_num,
                             patch_type=patch_type, mode="planned", plan_source=plan_source)
 
+    def _prefill_segmented(self, input_embeds, patch_type, position_ids, patch_num: int,
+                           image_token_start: int, image_token_length: int) -> PrefillResult:
+        """Compressed prefill with a compaction at every event (JAX's
+        ``_prefill_segmented``): each layer's attention runs unmasked at the
+        current bucket, the merge layer's MLP after its compaction, the prune
+        from the captured importance rows."""
+        cfg, ff = self.cfg, self.ff
+        h, pt, pos, orig_len = self._prep_inputs(input_embeds, patch_type, position_ids)
+        telemetry = PrefillTelemetry(original_length=orig_len, image_token_length=image_token_length)
+        state = SegmentedEventState(ff)
+        valid, frame_tok = orig_len, self._frame_tokens(patch_type)
+        layer_caches: list = [None] * cfg.num_layers
+
+        def prefix(n_rows: int, n: int):
+            return torch.arange(n_rows, device=self.device) < n
+
+        def merge_event(h, pt, pos, valid, frame_tok, layer: int, do_mlp: bool):
+            sim, order, count = _sim_count(h, pt, prefix(h.shape[0], valid), patch_num, ff.similarity_lower_bound)
+            k_marked, kind, above, budget = state.merge_decision(count, frame_tok)
+            new_valid = valid - k_marked
+            new_len = bucket_length(new_valid, ff.bucket)
+            if k_marked > 0 or new_len != h.shape[0] or do_mlp:
+                merged, keep = apply_merge(h, mark_topk(sim, k_marked), order)
+                out, _ = compact_tokens(keep, new_len, new_valid, {"h": merged, "pos": pos, "patch_type": pt})
+                h, pos, pt = out["h"], out["pos"], out["patch_type"]
+                if do_mlp:
+                    h = qwen2.layer_mlp(qwen2.layer_slice(self.params["layers"], layer), h, cfg)
+            telemetry.events.append(CompressionEvent(layer=layer, kind=kind, tokens_removed=k_marked,
+                                                     tokens_after=new_valid, above_ratio=above, budget=budget,
+                                                     bucket=new_len))
+            return h, pt, pos, new_valid, frame_tok - k_marked
+
+        # The layer-0 pre-attention merge, then one event a layer.
+        h, pt, pos, valid, frame_tok = merge_event(h, pt, pos, valid, frame_tok, -1, do_mlp=False)
+        layer = 0
+        while layer < cfg.num_layers and not state.done:
+            capture = ff.num_importance_queries if state.finish_merging else 0
+            lp = qwen2.layer_slice(self.params["layers"], layer)
+            cos, sin = qwen2.positions_cos_sin(pos, cfg)
+            h_mid, k, v, importance = qwen2.layer_attention(lp, h, cos, sin, cfg, attn_impl=self.attn_impl,
+                                                            capture_num=capture, valid_len=valid)
+            layer_caches[layer] = (k, v, valid)
+            if not state.finish_merging:
+                h, pt, pos, valid, frame_tok = merge_event(h_mid, pt, pos, valid, frame_tok, layer, do_mlp=True)
+            else:
+                # Prune (reference main.py:61-101) from the captured importance.
+                ratio, cur_img_len, k_keep, removed = state.prune_decision(image_token_length, orig_len, valid)
+                new_valid = valid - removed
+                new_len = bucket_length(new_valid, ff.bucket)
+                keep = prune_keep_mask(importance, image_token_start, cur_img_len, k_keep,
+                                       prefix(h_mid.shape[0], valid))
+                out, _ = compact_tokens(keep, new_len, new_valid, {"h": h_mid, "pos": pos, "patch_type": pt})
+                h, pos, pt = qwen2.layer_mlp(lp, out["h"], cfg), out["pos"], out["patch_type"]
+                telemetry.events.append(CompressionEvent(layer=layer, kind="prune", tokens_removed=removed,
+                                                         tokens_after=new_valid, budget=ratio, bucket=new_len))
+                valid = new_valid
+            layer += 1
+
+        logits, k_tail, v_tail = self._tail(h, pos, valid, layer)
+        for j in range(layer, cfg.num_layers):
+            layer_caches[j] = (k_tail[j], v_tail[j], valid)
+        telemetry.sparsity_list = list(state.sparsity)
+        telemetry.final_length = valid
+        telemetry.final_image_tokens = image_token_length - (orig_len - valid)
+        telemetry.tail_start_layer = layer
+        return PrefillResult(logits=logits, layer_caches=layer_caches, valid_len=valid,
+                             decode_pos_base=layer_caches[0][2], telemetry=telemetry, mode="segmented")
+
     def dense_prefill(self, input_embeds, position_ids) -> PrefillResult:
         """Uncompressed prefill (the A/B baseline)."""
         h = torch.as_tensor(input_embeds).to(device=self.device, dtype=self.cfg.dtype)
@@ -540,15 +684,24 @@ class CompressionEngine:
 
     # -- decode --------------------------------------------------------------
 
-    def make_decode_state(self, result: PrefillResult, max_new_tokens: int, s_pool: Optional[int] = None):
+    def make_decode_state(self, result: PrefillResult, max_new_tokens: int, s_pool: Optional[int] = None,
+                          pools=None):
         """Assemble the ragged per-layer caches into one padded pool:
-        (k_pool, v_pool (L, S_pool, Hk, hd), per-layer lengths)."""
+        (k_pool, v_pool (L, S_pool, Hk, hd), per-layer lengths). ``pools``
+        (a (k_pool, v_pool) pair) is filled in place instead of allocating,
+        so a decode graph's pools are the only copy."""
         cfg = self.cfg
-        max_len = max(c[2] for c in result.layer_caches)
-        s_pool = s_pool or bucket_length(max_len + max_new_tokens, self.ff.bucket)
-        k_pool = torch.zeros((cfg.num_layers, s_pool, cfg.num_kv_heads, cfg.head_dim_),
-                             dtype=cfg.dtype, device=self.device)
-        v_pool = torch.zeros_like(k_pool)
+        if pools is not None:
+            k_pool, v_pool = pools
+            k_pool.zero_()
+            v_pool.zero_()
+            s_pool = int(k_pool.shape[1])
+        else:
+            max_len = max(c[2] for c in result.layer_caches)
+            s_pool = s_pool or bucket_length(max_len + max_new_tokens, self.ff.bucket)
+            k_pool = torch.zeros((cfg.num_layers, s_pool, cfg.num_kv_heads, cfg.head_dim_),
+                                 dtype=cfg.dtype, device=self.device)
+            v_pool = torch.zeros_like(k_pool)
         lens = []
         for l, (k, v, length) in enumerate(result.layer_caches):
             rows = min(k.shape[0], s_pool)  # rows past ``length`` are padding either way
@@ -557,31 +710,105 @@ class CompressionEngine:
             lens.append(int(length))
         return k_pool, v_pool, lens
 
+    def decode_graph(self, result: PrefillResult, max_new_tokens: int,
+                     sampler: Optional[SamplerConfig] = None) -> DecodeGraph:
+        """A decode graph for ``result``'s geometry that no decode is running
+        on, from the cache or newly captured. The key is what JAX's decode
+        loop makes static: the pool's rows, the tail split, the sampler, the
+        decode attention, the dtype and the token slots. A decode that starts
+        while another holds the key's graph (two streams, or a ``generate``
+        between two chunks of a stream) gets a graph of its own, as each JAX
+        call keeps its own state."""
+        sampler = sampler or SamplerConfig()
+        lens = [int(c[2]) for c in result.layer_caches]
+        s_pool = bucket_length(max(lens) + max_new_tokens, self.ff.bucket)
+        split = best_tail_split(lens, s_pool, max_new_tokens, self.ff.bucket)
+        # Kernel G behind the kernels' "flash", the plain path behind "einsum".
+        attn = "ragged" if self.attn_impl == "flash" else "einsum"
+        key = (s_pool, split, sampler, attn, self.cfg.dtype, slots_for(max_new_tokens))
+        graphs = self._graphs.pop(key, None)
+        if graphs is None:
+            while len(self._graphs) >= self.GRAPH_CACHE_SIZE:
+                self._graphs.popitem(last=False)  # a decode still running keeps its graph alive
+            graphs = []
+        self._graphs[key] = graphs
+        graph = next((g for g in graphs if not g.busy), None)
+        if graph is None:
+            graph = DecodeGraph(self.params, self.cfg, s_pool, attn_impl=attn, tail_split=split, sampler=sampler,
+                                n_slots=key[-1])
+            graphs.append(graph)
+        return graph
+
+    def _start_decode(self, result: PrefillResult, max_new_tokens: int, sampler, generator) -> DecodeGraph:
+        """A free decode graph, loaded with ``result``'s caches and first
+        token, marked busy until the caller clears ``busy``."""
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be at least 1, got {max_new_tokens}")
+        sampler = sampler or SamplerConfig()
+        graph = self.decode_graph(result, max_new_tokens, sampler)
+        _, _, lens = self.make_decode_state(result, max_new_tokens, pools=(graph.k_pool, graph.v_pool))
+        uniforms = draw_uniforms(max_new_tokens, generator, self.device) if sampler.temperature else None
+        graph.start(lens, result.decode_pos_base, result.logits, uniforms)
+        graph.busy = True
+        return graph
+
+    def generate_device(self, result: PrefillResult, max_new_tokens: int,
+                        sampler: Optional[SamplerConfig] = None, generator: Optional[torch.Generator] = None):
+        """The generated token ids as an int64 (max_new_tokens,) tensor on the
+        device, with no read to the host: the first token from the prefill's
+        logits, then ``max_new_tokens - 1`` replays of the decode graph back
+        to back. Greedy by default; a sampled decode draws its uniforms from
+        ``generator`` before the first step."""
+        graph = self._start_decode(result, max_new_tokens, sampler, generator)
+        try:
+            graph.run(max_new_tokens - 1)
+            return graph.out[:max_new_tokens].clone()  # queued before any later decode's writes
+        finally:
+            graph.busy = False
+
     def generate(self, result: PrefillResult, max_new_tokens: int, eos_token_id: Optional[int] = None,
                  sampler: Optional[SamplerConfig] = None, generator: Optional[torch.Generator] = None):
         """Decode ``max_new_tokens`` tokens (greedy by default); returns a list
-        of token ids, cut after ``eos_token_id`` if it appears. Tokens stay on
-        the device until the one read at the end."""
-        sampler = sampler or SamplerConfig()
-        k_pool, v_pool, lens = self.make_decode_state(result, max_new_tokens)
-        split = best_tail_split(lens, int(k_pool.shape[1]), max_new_tokens, self.ff.bucket)
-        tok = sample_token(result.logits, sampler, generator)
-        toks = [tok]
-        for step in range(max_new_tokens - 1):
-            te = qwen2.embed(self.params, tok)
-            logits, k_pool, v_pool, lens = qwen2.decode_step(
-                self.params, te, result.decode_pos_base + step, k_pool, v_pool, lens, self.cfg,
-                attn_impl=self.attn_impl, tail_split=split)
-            tok = sample_token(logits, sampler, generator)
-            toks.append(tok)
-        out = [int(t) for t in torch.stack(toks).tolist()]
+        of token ids, cut after ``eos_token_id`` if it appears. One read at
+        the end: ``generate_device`` plus the host-side cut, as in JAX."""
+        out = [int(t) for t in self.generate_device(result, max_new_tokens, sampler, generator).tolist()]
         if eos_token_id is not None and eos_token_id in out:
             out = out[: out.index(eos_token_id) + 1]
         return out
 
+    def generate_greedy(self, result: PrefillResult, max_new_tokens: int, eos_token_id: Optional[int] = None):
+        """Greedy ``generate`` (the JAX engine's name for it)."""
+        return self.generate(result, max_new_tokens, eos_token_id=eos_token_id)
+
+    def generate_stream(self, result: PrefillResult, max_new_tokens: int, chunk: int = 4,
+                        eos_token_id: Optional[int] = None, sampler: Optional[SamplerConfig] = None,
+                        generator: Optional[torch.Generator] = None):
+        """Streaming decode: yields the CUMULATIVE token list after the first
+        token and then after every ``chunk`` tokens (``chunk`` replays, one
+        read), cut after ``eos_token_id``, which ends the stream (JAX's
+        ``generate_stream``). The tokens are ``generate``'s."""
+        graph = self._start_decode(result, max_new_tokens, sampler, generator)
+        try:
+            out = [int(graph.out[0])]
+            yield list(out)
+            if eos_token_id is not None and out[-1] == eos_token_id:
+                return
+            emitted = 1
+            while emitted < max_new_tokens:
+                n = min(chunk, max_new_tokens - emitted)
+                graph.run(n)
+                out += [int(t) for t in graph.out[emitted:emitted + n].tolist()]
+                emitted += n
+                if eos_token_id is not None and eos_token_id in out:
+                    yield list(out[: out.index(eos_token_id) + 1])
+                    return
+                yield list(out)
+        finally:  # the stream ended, or was closed or dropped
+            graph.busy = False
 
 __all__ = [
     "CompressionEngine",
+    "SegmentedEventState",
     "CostInfeasibleError",
     "PlanHistory",
     "PrefillResult",

@@ -29,6 +29,11 @@ class PrefillTelemetry:
     final_length: int = 0
     final_image_tokens: int = 0
     tail_start_layer: int = 0
+    # Per-event similarity vectors (fp32 tensors on the engine's device; a
+    # zero row for the prune), aligned 1:1 with ``events``, when the engine's
+    # ``debug_similarities`` is on (fused executor): the reference's
+    # ``model.similarities`` research record.
+    similarities: Optional[list] = None
 
     @property
     def vision_token_reduction(self) -> float:

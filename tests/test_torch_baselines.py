@@ -275,6 +275,38 @@ def test_model_generate_takes_the_sink_cache_decode_like_jax_generate_greedy(sta
     assert replace_forward(model, "streamingllm", **full_cache).generate(inputs, max_new_tokens=8)[0] != toks
 
 
+def test_sink_cache_decode_entry_points_match_jax_generate_greedy(stacks):
+    """ROADMAP Queue 3 item 2's knobs (window 6, 2 sink tokens): the
+    port's ``generate_device`` and ``generate_stream`` decode over the sink
+    + window cache, as its ``generate`` does, and equal JAX's
+    ``generate_greedy``, where JAX's own ``generate_device`` drops the
+    variant and decodes over the full cache. The prompt is 128 tokens: the
+    scenario's 67-token prompt would read JAX's first logits from a pad row
+    (Queue 3 item 1)."""
+    jcfg, tcfg, jp, tp = stacks
+    h, pt, pos, start, n_img = prompt(20, 4)
+    kwargs = dict(SINK, window_length=6, num_sink_tokens=2)
+    eng_j = JaxBaselineEngine(jp, jcfg, "streamingllm", kwargs, attn_impl="einsum")
+    res_j = eng_j.prefill(h, pt, pos, 6, start, n_img)
+    ref = eng_j.generate_greedy(res_j, 8)
+    assert [int(t) for t in np.asarray(eng_j.generate_device(res_j, 8))] != ref  # JAX's fault
+    eng = BaselineEngine(tp, tcfg, "streamingllm", kwargs)
+    res = eng.prefill(h, pt, pos, 6, start, n_img)
+    dev = eng.generate_device(res, 8)
+    assert dev.dtype == torch.int64 and dev.tolist() == ref
+    chunks = list(eng.generate_stream(res, 8, chunk=3))
+    assert chunks == [ref[:1], ref[:4], ref[:7], ref]
+    eos = ref[5]  # in the middle of the second chunk of three
+    cut = list(eng.generate_stream(res, 8, chunk=3, eos_token_id=eos))
+    assert cut[-1] == ref[: ref.index(eos) + 1] and all(eos not in c for c in cut[:-1])
+    assert list(eng.generate_stream(res, 8, chunk=3, eos_token_id=ref[0])) == [ref[:1]]
+    for call in (lambda s: eng.generate_device(res, 4, sampler=s), lambda s: list(eng.generate_stream(res, 4, sampler=s))):
+        with pytest.raises(NotImplementedError):
+            call(SamplerConfig(temperature=0.7))
+    full = BaselineEngine(tp, tcfg, "streamingllm", {k: v for k, v in kwargs.items() if k != "sink_cache_decode"})
+    assert full.generate_device(full.prefill(h, pt, pos, 6, start, n_img), 8).tolist() != ref
+
+
 def test_sink_cache_decode_over_the_whole_cache_is_full_decode(stacks):
     _, tcfg, _, tp = stacks
     h, pt, pos, start, n_img = prompt(20, 4)

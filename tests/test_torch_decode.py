@@ -17,6 +17,12 @@ its port; JAX weights carry over with ``params_from_numpy``. Tolerances:
   over other shapes.
 * The plain matvecs round to bf16 and sum in fp32 on both sides: 1e-5 of
   the output's largest magnitude.
+* A device-tensor length or position against the host int: the same
+  arithmetic on the same values, so bitwise equal.
+
+The sampler draws its tokens by inverse CDF from uniforms drawn before the
+decode: a valid sample, not ``jax.random``'s or ``torch.multinomial``'s
+bits, so its tests check the kept set, determinism and the frequencies.
 """
 
 import ast
@@ -46,6 +52,7 @@ from framefusion_tpu_torch.ops import kernels as registry
 from framefusion_tpu_torch.ops.attention import verify_attention
 from framefusion_tpu_torch.ops.kernels import decode_attention as tda
 from framefusion_tpu_torch.ops.kernels import matvec_q8 as tmv
+from framefusion_tpu_torch.ops.sampling import SamplerConfig, draw_uniforms, filtered_probs, sample_token
 from framefusion_tpu_torch.pipeline import TextPipeline
 
 ATTN_TOL = 1e-5
@@ -107,20 +114,23 @@ def test_ragged_decode_split_plan_covers_the_length(length, hk):
     assert per_cta == 1 or -(-tiles // (per_cta - 1)) * hk > tda.SM_COUNT
 
 
-def _split_k(q, k, v, cache_len: int):
-    """Kernel G's algebra in fp32: per split of the wrapper's plan, each of
+def _split_k(q, k, v, cache_len: int, max_len=None):
+    """Kernel G's algebra in fp32: per split of the wrapper's plan (made for
+    ``max_len``, the host-int launch's ``cache_len`` by default), each of
     the four warps' 16-key slices of every 64-key tile keeps (m, l, acc)
     in log2 units; the CTA merges its warps in warp order, then the splits
-    merge in split order."""
+    merge in split order. A split past the length is an empty partial:
+    m = -inf, l = 0, acc = 0."""
     hq, d = q.shape
     g = hq // k.shape[1]
     scale_log2 = math.log2(math.e) / math.sqrt(d)
-    keys_per_split, n_split = tda.split_plan(cache_len, k.shape[1])
+    keys_per_split, n_split = tda.split_plan(max_len or cache_len, k.shape[1])
     kx, vx = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)  # (S, Hq, D)
 
     def merge(parts):
         m = torch.stack([p[0] for p in parts]).amax(0)
-        w = [torch.exp2(p[0] - m) for p in parts]
+        m_ref = torch.where(torch.isinf(m), torch.zeros_like(m), m)  # no live key in any part: weights 0
+        w = [torch.exp2(p[0] - m_ref) for p in parts]
         return m, sum(p[1] * wi for p, wi in zip(parts, w)), sum(p[2] * wi[:, None] for p, wi in zip(parts, w))
 
     splits = []
@@ -148,6 +158,47 @@ def test_ragged_decode_split_k_algebra_matches_plain(length, hk, g):
     q = torch.from_numpy(rng.standard_normal((hk * g, 128)).astype(np.float32))
     k, v = (torch.from_numpy(rng.standard_normal((length + 37, hk, 128)).astype(np.float32)) for _ in range(2))
     assert_rel(_split_k(q, k, v, length), tda.ragged_decode_attn_plain(q, k, v, length).numpy(), ATTN_TOL)
+
+
+@pytest.mark.parametrize("max_len,lengths", [(3328, [1, 63, 64, 65, 3293, 3328]), (11776, [1, 65, 11698])])
+def test_ragged_decode_split_k_algebra_at_a_device_length(max_len, lengths):
+    """A launch planned for ``max_len`` (as a captured graph's is) at
+    shorter live lengths: the splits past the length merge as empty
+    partials and the result is the plain version's."""
+    rng = np.random.default_rng(max_len)
+    q = torch.from_numpy(rng.standard_normal((28, 128)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((max_len, 4, 128)).astype(np.float32)) for _ in range(2))
+    for length in lengths:
+        assert_rel(_split_k(q, k, v, length, max_len), tda.ragged_decode_attn_plain(q, k, v, length).numpy(),
+                   ATTN_TOL)
+
+
+@pytest.mark.parametrize("hk", [4, 1])
+@pytest.mark.parametrize("max_len", [1, 63, 64, 65, 3293, 3328, 11698, 11776])
+def test_ragged_decode_plan_for_max_len_covers_every_length(max_len, hk):
+    """Every length in [1, max_len] lies inside the plan's splits, split 0
+    always holds key 0, and no split starts past ``max_len``."""
+    keys, n_split = tda.split_plan(max_len, hk)
+    assert keys % tda.TILE_KEYS == 0 and (n_split - 1) * keys < max_len <= n_split * keys
+    lengths = np.arange(1, max_len + 1)
+    live_splits = -(-lengths // keys)  # splits holding a live key: the first ones, in order
+    assert live_splits.min() == 1 and live_splits.max() == n_split and (live_splits <= n_split).all()
+
+
+@pytest.mark.parametrize("length", [1, 17, 40])
+def test_plain_ragged_decode_takes_a_tensor_length(length):
+    rng = np.random.default_rng(length)
+    q = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((48, 2, 128)).astype(np.float32)) for _ in range(2))
+    want = tda.ragged_decode_attn_plain(q, k, v, length)
+    for as_tensor in (torch.tensor(length), torch.tensor([length], dtype=torch.int32)):
+        assert torch.equal(tda.ragged_decode_attn_plain(q, k, v, as_tensor), want)
+        assert torch.equal(tda.ragged_decode_attention(q, k, v, as_tensor), want)
+        assert torch.equal(tda.ragged_decode_attn(q, k, v, as_tensor), want)
+    with pytest.raises(ValueError, match="one integer"):
+        tda.ragged_decode_attn(q, k, v, torch.tensor([length, length]))
+    with pytest.raises(ValueError, match="cache_len"):
+        tda.ragged_decode_attn(q, k, v, 49)  # past the view
 
 
 def test_verify_attention_matches_jax():
@@ -204,6 +255,27 @@ def test_decode_step_ragged_matches_jax(models, quantized):
     np.testing.assert_allclose(vpt.numpy(), np.asarray(vpj), atol=BF16_TOL, rtol=BF16_TOL)
     for a, b in zip(outs["ragged"][:3], outs["flash"][:3]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("impl", ["einsum", "flash", "ragged"])
+@pytest.mark.parametrize("lens_dtype", [torch.int64, torch.int32])
+def test_decode_step_device_state_equals_host_form(models, quantized, impl, lens_dtype):
+    """Position and lengths as device tensors (the captured step's form):
+    the same logits, pool rows and lengths, bit for bit."""
+    trees, _, tcfg = models
+    tp = trees[quantized][1]
+    rng = np.random.default_rng(5)
+    k_pool, v_pool = (torch.from_numpy(a) for a in _pools(rng, tcfg.num_layers))
+    lens = [50, 20, 20]
+    emb = torch.from_numpy((rng.standard_normal(tcfg.hidden_size) * 0.05).astype(np.float32))
+    host = tq.decode_step(tp, emb, 51, k_pool.clone(), v_pool.clone(), lens, tcfg, attn_impl=impl,
+                          tail_split=(1, 32))
+    dev = tq.decode_step(tp, emb, torch.tensor(51), k_pool.clone(), v_pool.clone(),
+                         torch.tensor(lens, dtype=lens_dtype), tcfg, attn_impl=impl, tail_split=(1, 32))
+    for a, b in zip(host[:3], dev[:3]):
+        assert torch.equal(a, b)
+    assert host[3] == [51, 21, 21] and dev[3].dtype == torch.int64 and dev[3].tolist() == host[3]
 
 
 def test_decode_step_rejects_unknown_impl(models):
@@ -468,3 +540,35 @@ def test_counterpart_table_points_at_real_code():
         assert isinstance(wrapper.launches, int), kernel
         assert registry.replaces(kernel), kernel
     assert registry.replaces("ragged_decode_attn") == ["framefusion_tpu/ops/kernels/decode_attention.py:79"]
+
+
+# -- sampling -----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cfg", [SamplerConfig(temperature=0.7, top_k=5), SamplerConfig(temperature=1.0, top_p=0.6),
+                                 SamplerConfig(temperature=1.3, top_k=40, top_p=0.3),
+                                 SamplerConfig(temperature=0.5)])
+def test_inverse_cdf_sampler_keeps_to_the_filtered_set(cfg):
+    """Every draw (the extreme uniforms included) is a token of the top-k /
+    top-p set, the draws are the generator's (same seed, same tokens), and
+    their frequencies follow the filtered probabilities."""
+    logits = torch.from_numpy(np.random.default_rng(0).standard_normal(500).astype(np.float32) * 3)
+    scaled = logits / cfg.temperature
+    kept = torch.ones(500, dtype=torch.bool)
+    if cfg.top_k is not None:
+        kept &= scaled >= torch.topk(scaled, cfg.top_k).values[-1]
+    if cfg.top_p is not None:  # the smallest head of the sorted distribution reaching top_p
+        order = torch.argsort(scaled, descending=True)
+        head = torch.cumsum(torch.softmax(scaled[order], -1), -1) < cfg.top_p
+        n_head = min(int(head.sum()) + 1, 500)
+        kept &= scaled >= scaled[order[n_head - 1]]
+    probs = filtered_probs(logits, cfg)
+    assert torch.equal(probs > 0, kept)
+    u = torch.cat([torch.tensor([0.0, 1.0 - 2.0 ** -24]), draw_uniforms(2000, torch.Generator().manual_seed(1))])
+    toks = torch.stack([sample_token(logits, cfg, u=x) for x in u])
+    assert kept[toks].all()
+    freq = torch.bincount(toks[2:], minlength=500).float() / 2000
+    assert float((freq - probs).abs().max()) < 0.05
+    again = [int(sample_token(logits, cfg, torch.Generator().manual_seed(3))) for _ in range(2)]
+    assert again[0] == again[1]
+    assert int(sample_token(logits, SamplerConfig(), u=u[0])) == int(torch.argmax(logits))

@@ -29,6 +29,7 @@ from framefusion_tpu_torch.ops.kernels import decode_attention as tda
 from framefusion_tpu_torch.ops.kernels import flash_prefill as tfp
 from framefusion_tpu_torch.ops.kernels import matvec_q8 as tmv
 from framefusion_tpu_torch.ops.kernels import sink_prefill as tsp
+from framefusion_tpu_torch.runtime.decode_graph import capture_graph
 
 ATTN_TOL = 1e-4
 MV_RTOL = 1e-5
@@ -412,14 +413,10 @@ def test_cuda_importance_is_repeatable(cuda, num):
     rows = capture_rows(s, num, s, kv, device=cuda)
     first = tfp.attn_importance_rows(q, k, rows, m, l, kv)
     assert torch.equal(tfp.attn_importance_rows(q, k, rows, m, l, kv), first)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        tfp.attn_importance_rows(q, k, rows, m, l, kv)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = tfp.attn_importance_rows(q, k, rows, m, l, kv)
+    # warmed up, then captured, on the capture stream (which then owns its arrival counters)
+    held = {}
+    graph = capture_graph(lambda: held.update(out=tfp.attn_importance_rows(q, k, rows, m, l, kv)), cuda)
+    out = held["out"]
     for _ in range(3):
         out.zero_()
         graph.replay()
@@ -468,14 +465,10 @@ def test_cuda_ragged_decode_is_repeatable(cuda, length):
     pool = torch.randn((2, 6000, 4, 128), generator=gen, device=cuda).to(torch.bfloat16)
     first = tda.ragged_decode_attn(q, pool[0], pool[1], length)
     assert torch.equal(tda.ragged_decode_attn(q, pool[0], pool[1], length), first)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        tda.ragged_decode_attn(q, pool[0], pool[1], length)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = tda.ragged_decode_attn(q, pool[0], pool[1], length)
+    # warmed up, then captured, on the capture stream (which then owns its arrival counters)
+    held = {}
+    graph = capture_graph(lambda: held.update(out=tda.ragged_decode_attn(q, pool[0], pool[1], length)), cuda)
+    out = held["out"]
     for _ in range(3):
         out.zero_()
         graph.replay()
@@ -483,6 +476,38 @@ def test_cuda_ragged_decode_is_repeatable(cuda, length):
         assert torch.equal(out, first)
     assert torch.equal(tda.ragged_decode_attn(q, pool[0], pool[1], length), first)
     torch.cuda.synchronize()
+    assert all(int(buf.abs().sum()) == 0 for buf in tda._COUNTERS.values())
+
+
+@pytest.mark.gpu
+def test_cuda_ragged_decode_reads_its_length_from_the_device(cuda):
+    """One captured launch with a device length, planned for the view's
+    11,776 rows, replayed at lengths 1 to 11,698 without recapture: each
+    within the per-head bound of the plain version, the same bits over two
+    replays, the arrival counters back at zero; a length outside [1,
+    11,776] gives NaN rows."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((28, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    pool = torch.randn((2, 11776, 4, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    length = torch.ones((), dtype=torch.int64, device=cuda)
+    held = {}
+    graph = capture_graph(lambda: held.update(out=tda.ragged_decode_attn(q, pool[0], pool[1], length)), cuda)
+    out = held["out"]
+    for n in (1, 63, 64, 65, 3293, 11698):
+        length.fill_(n)
+        graph.replay()
+        first = out.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first), n
+        ref = tda.ragged_decode_attn_plain(q, pool[0], pool[1], n)
+        err = (out.float() - ref.float()).abs().amax(-1)
+        assert (err <= 2e-2 * ref.float().abs().amax(-1)).all(), n
+    for bad in (0, 11777):
+        length.fill_(bad)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.isnan(out.float()).all(), bad
     assert all(int(buf.abs().sum()) == 0 for buf in tda._COUNTERS.values())
 
 
@@ -539,14 +564,10 @@ def test_cuda_gemv_is_repeatable(cuda, dtype):
     stacks = [stack(3584), stack(512), stack(512)]
     first = tmv.gemv_stacked(x, stacks, 1)
     assert all(torch.equal(a, b) for a, b in zip(tmv.gemv_stacked(x, stacks, 1), first))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        tmv.gemv_stacked(x, stacks, 1)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        outs = tmv.gemv_stacked(x, stacks, 1)
+    # warmed up, then captured, on the capture stream (which then owns its arrival counters)
+    held = {}
+    graph = capture_graph(lambda: held.update(outs=tmv.gemv_stacked(x, stacks, 1)), cuda)
+    outs = held["outs"]
     for _ in range(3):
         for o in outs:
             o.zero_()
