@@ -15,12 +15,16 @@ Phases, each printed as it runs; every run makes all of them:
              same function (the yardstick, where one exists) timed with CUDA
              events (the short ones, B, C, D and G, over CUDA-graph replays,
              so the host's launch overhead does not hide them), beside the
-             least time the card could take (bound_ms).
+             least time the card could take (bound_ms). Kernels C and D also
+             at the batched decode's B = 2, 4, 8 rows.
 2b. kernel_check — ``framefusion_tpu_torch.kernel_bench.check_kernels()``:
              the JAX package's on-chip check matrix (every attention regime,
              the importance epilogues, E, F, G, the matvecs at Qwen2-7B
              shapes, and decode_step / decode_step_batch / verify_step /
-             verify_step_batch against each other), each row within its bound.
+             verify_step_batch against each other), each row within its bound;
+             then ``check_batch_parity()``: the lockstep-batched planned
+             prefill's decisions equal the solo prefills' (three 16-frame
+             prompts, Qwen2-7B width, 8 layers), with no failure.
 3. cross   — a tiny bf16 model, its weights drawn with numpy from a seed,
              through the compressed prefill (fused, planned and segmented)
              and greedy decode twice: plain versions and the decode step
@@ -28,7 +32,10 @@ Phases, each printed as it runs; every run makes all of them:
              on the card. Events, cache lengths and tokens must be equal,
              generate_device and generate_stream must give generate's
              tokens, the tokens must vary, and the prefill logits must agree
-             within a stated bf16 bound.
+             within a stated bf16 bound. Then three prompts through
+             prefill_planned_batch and generate_batch (the batched step eagerly
+             on the CPU, its captured graph on the card): modes, events, cache
+             lengths and tokens equal, logits within the bound.
 4. full    — random Qwen2-7B weights (bf16 on the card) and the 64-frame
              LLaVA-Video prompt: apply_framefusion + generate (fused; the
              decode is a CUDA graph of the step, captured in this run), the
@@ -42,8 +49,8 @@ Phases, each printed as it runs; every run makes all of them:
              "flash" under teacher forcing (both fed the same token for 8
              steps; the logits agree within the stated bound; G's launches
              counted around the "ragged" steps, one per layer), then
-             ``kernel_bench.bench_decodestep``: ms/step of "einsum", "flash"
-             and "ragged" on a uniform pool and on the prefill's own caches,
+             ``kernel_bench.bench_decodestep`` over 16 steps: ms/step of
+             "einsum", "flash" and "ragged" on a uniform pool and on the prefill's own caches,
              with and without the tail split, eager and as a captured graph,
              the weight-stream floor and the launches per step.
 4c. graph  — the engine's decode graph on phase 4's int8 model and
@@ -87,6 +94,21 @@ Phases, each printed as it runs; every run makes all of them:
              tokens each; kernel launch counts read around the whole
              comparison, kernel F's around each StreamingLLM prefill; then F
              against its plain version on that prefill's layer-0 q, k, v.
+9. batch   — the batched main path at full width: random Qwen2-7B weights
+             (bf16) and 8 distinct 64-frame prompts (seeds 0..7, coherence
+             0.35 / 0.45 / 0.55). prefill_planned_batch at B = 1, 2, 4, 8
+             against the solo prefill_planned at PlanHistory's buckets (events
+             and lengths equal, logits within the bound), both timed; then
+             generate_batch on the int8 model as one captured CUDA graph of
+             decode_step_batch (kernels C and D at B rows) per B: its capture,
+             the launches it holds and ran, 3 teacher-forced replays against
+             each row's solo eager "ragged" steps (logits within the bound),
+             greedy agreement with the solo decodes (reported), ms/step over 32
+             replays (two readings), tokens/s, the plain attention's time of a
+             step alone, and at B = 1 and 8 the profiler's idle share and device time
+             by kernel. Launches of A and B are counted around the B = 8 batched
+             prefill, of C and D around the B = 8 generate_batch (eager, captured,
+             replayed: ``batch_launches``).
 
 The line before the last is a JSON object with one entry per kernel, built
 from ``framefusion_tpu_torch.ops.kernels`` (the TPU functions each stands
@@ -97,7 +119,11 @@ E, 8 for F). For C, D and G, which the decode graph holds, ``launches`` is
 ``graph_launches`` (the replays' count times the launches the graph holds,
 both counted in this run), and ``captured_calls`` are the wrapper calls
 recorded at the capture, which ran only at the replays; G's
-``device_length_ms`` is its time with the length read from the device. The
+``device_length_ms`` is its time with the length read from the device.
+A-D also carry ``batch_launches`` from phase 9 (A and B around the B = 8
+batched prefill, C and D around the B = 8 batched decode: eager, captured,
+replayed), and C's and D's ``shapes`` their rows at B = 2, 4, 8 (the
+int8 ones with phase 9's launches at that B; phase 9 decodes int8). The
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. The script never runs on the CPU: without a CUDA device
 it exits at once.
@@ -168,6 +194,10 @@ REGIMES_A = {6528: "phase layers: S 6,528, key_valid with 45% dead keys",
              11697: "dense prefill: S 11,697, no mask"}
 # Kernel C's shapes on the decode path: (K, the stacks' widths) -> name.
 SHAPES_C = {(3584, (3584, 512, 512)): "qkv", (3584, (3584,)): "wo", (18944, (3584,)): "w_down"}
+# The batched decode's rows beside the solo decode's one (kernels C and D, phases 2 and 9).
+BATCH_ROWS = (2, 4, 8)
+# The batch sizes of phase 9.
+BATCH_SIZES = (1,) + BATCH_ROWS
 
 
 def log(msg: str) -> None:
@@ -444,6 +474,41 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
                 kernels[key].update({f: entry[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")})
                 if t_l is not None:
                     kernels[key]["library_ms"] = t_l
+            # The batched decode's rows (phase 9): B rows in one launch, each
+            # row its own pass over the weights (grid.z); the split plan
+            # depends on the rows, so each B is a launch shape of its own.
+            for rows in BATCH_ROWS:
+                xr = _rand(gen, (rows, kdim))
+                if name == "gateup":
+                    outs = [mv.gemv_gateup(xr, stacks[0], stacks[1], scales[0], scales[1], 1)]
+                    refs = [mv.gemv_gateup_plain(xr, stacks[0], stacks[1], scales[0], scales[1], 1)]
+                    run_k = lambda: mv.gemv_gateup(xr, stacks[0], stacks[1], scales[0], scales[1], next_layer())
+                    run_p = lambda: mv.gemv_gateup_plain(xr, stacks[0], stacks[1], scales[0], scales[1], next_layer())
+                else:
+                    outs, refs = mv.gemv_stacked(xr, stacks, 1), mv.gemv_stacked_plain(xr, stacks, 1)
+                    run_k = lambda: mv.gemv_stacked(xr, stacks, next_layer())
+                    run_p = lambda: mv.gemv_stacked_plain(xr, stacks, next_layer())
+                torch.cuda.synchronize()
+                err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+                rel = err / max(r.abs().max().item() for r in refs)
+                chk.expect(rel <= GEMV_RTOL, f"{key} {name} {wdtype} B={rows}: max_abs_err {err:.3e} (rel {rel:.3e}) "
+                                             f"<= {GEMV_RTOL}")
+                _max_err(kernels[key], err)
+                t_k = graph_time_ms(run_k, iters=20)
+                t_p = graph_time_ms(run_p, iters=10)
+                row = {"shape": f"{name} {wdtype} B={rows}", "launches": None}
+                t_b = _bound(row, per_layer + sum(ns) * 4 * (wdtype == "int8" and name == "gateup")
+                             + rows * (kdim * 2 + n_out * 4), 2 * rows * kdim * sum(ns))
+                t_l = None
+                if wdtype == "bf16" and name != "gateup":
+                    w_cat = torch.cat(stacks, dim=2) if len(stacks) > 1 else stacks[0]
+                    t_l = graph_time_ms(lambda: torch.matmul(xr, w_cat[next_layer()]), iters=20)
+                    del w_cat
+                row.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+                kernels[key]["shapes"].append(row)
+                log(f"  {key} {name} {wdtype} B={rows}: kernel {t_k:.4f} ms ({t_k / entry['ms']:.2f}x its 1-row time, "
+                    f"{t_b / t_k:.3f} of the bound {t_b:.4f} ms, {row['bound_by']}), plain {t_p:.4f} ms, torch.matmul "
+                    f"{'none' if t_l is None else f'{t_l:.4f} ms (kernel / library {t_k / t_l:.3f})'}")
             del stacks, scales
 
     # matvec_q8 / matvec_bf16 (the JAX package's plain (K, N) matvec): kernel
@@ -634,6 +699,50 @@ def phase_cross(chk: Checks) -> None:
                                       f"<= {LOGIT_RTOL}")
         chk.expect(len(cpu[0]) > 1, f"cross {mode}: the scenario compresses ({len(cpu[0])} events)")
 
+    # The batched main path on this geometry: three prompts through one
+    # lockstep-batched planned prefill, then one batched decode (its step
+    # eagerly on the CPU, the captured batched graph on the card). The
+    # weights are ``readout_params`` and each prompt ends in a vocabulary
+    # token, so that 8 greedy tokens in each of three rows survive bf16
+    # rounding (with ``numpy_params`` a row's 6th token flips between fp32
+    # and bf16 on the CPU); the compression decisions and the logits bound
+    # are what can fail (fp32 against bf16 on the CPU: 2.3e-2 at most).
+    tree = readout_params(cfg, seed=0, resid_scale=0.03)
+    batch = batch_prompts(cfg.hidden_size, 3, seed0=5, n_frames=12, patch_num=8, n_pre=6, n_post=5)
+    for i, prompt in enumerate(batch):
+        prompt[0][-1] = tree["embed"][7 + i]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        eng = CompressionEngine(_cast_floats(qwen2.params_from_numpy(tree, dev), cfg.dtype), cfg, ff)
+        res = eng.prefill_planned_batch(batch, patch_num=8)
+        got[dev] = ([[(e.layer, e.kind, e.tokens_removed) for e in r.telemetry.events] for r in res],
+                    [r.mode for r in res], [[c[2] for c in r.layer_caches] for r in res], eng.generate_batch(res, 8),
+                    torch.stack([r.logits.float().cpu() for r in res]))
+    cpu, gpu = got["cpu"], got["cuda"]
+    rel = float(((cpu[4] - gpu[4]).abs().amax(-1) / cpu[4].abs().amax(-1)).max())
+    log(f"  planned_batch: modes {gpu[1]}, events {gpu[0]}; tokens cpu {cpu[3]}, cuda {gpu[3]}")
+    chk.expect(cpu[:3] == gpu[:3] and gpu[1] == ["planned_batch"] * 3,
+               "cross planned_batch: modes, events and cache lengths equal on both devices, every prompt planned")
+    chk.expect(cpu[3] == gpu[3], "cross generate_batch: greedy tokens equal (the batched graph on the card)")
+    chk.expect(all(len(set(t)) >= 3 for t in gpu[3]) and len({tuple(t) for t in gpu[3]}) == 3,
+               "cross generate_batch: the tokens vary within and across the rows")
+    chk.expect(rel <= LOGIT_RTOL, f"cross planned_batch: prefill logits differ by {rel:.3e} of their row's largest "
+                                  f"<= {LOGIT_RTOL}")
+
+
+def batch_prompts(hidden: int, n: int, seed0: int = 0, **kw) -> list:
+    """``n`` distinct video prompts for ``prefill_planned_batch``: seeds
+    ``seed0``.., coherence cycling 0.35 / 0.45 / 0.55 (numpy embeddings,
+    ``build_video_prompt``'s other arguments from ``kw``)."""
+    from framefusion_tpu_torch.models.adapters.common import build_video_prompt
+
+    out = []
+    for i in range(n):
+        h, pt, img_start, n_img = build_video_prompt(np.random.default_rng(seed0 + i), hidden,
+                                                     coherent=(0.35, 0.45, 0.55)[i % 3], **kw)
+        out.append((h, pt, np.arange(len(pt)), img_start, n_img))
+    return out
+
 
 def numpy_params(cfg, seed: int, scale: float) -> dict:
     """Random Qwen2 weights in the JAX package's pytree layout, drawn with
@@ -664,6 +773,8 @@ def phase_kernel_check(chk: Checks) -> None:
 
     n_fail = kernel_bench.check_kernels(log=log)
     chk.expect(n_fail == 0, f"kernel_check: {n_fail} failed rows")
+    n_fail = kernel_bench.check_batch_parity(log=log)
+    chk.expect(n_fail == 0, f"batch_parity: {n_fail} failed checks")
 
 
 def _set_launches(entry: dict, n: int) -> None:
@@ -720,6 +831,16 @@ class CallLog:
         for k, captured in self.keys:
             out[k] = out.get(k, 0) + (replays if captured else 1)
         return out
+
+
+def _cd_log(mv):
+    """Kernels C's and D's calls from the model, by (kernel, rows, K, the
+    stacks' widths)."""
+    return CallLog(mv, {
+        "matvec_stacked": lambda x, w, layer: ("gemv_stacked", x.shape[0], x.shape[1], (w.shape[2],)),
+        "matvec_stacked_qkv": lambda x, wq, wk, wv, layer: (
+            "gemv_stacked", x.shape[0], x.shape[1], (wq.shape[2], wk.shape[2], wv.shape[2])),
+        "matvec_stacked_gateup": lambda x, wg, wu, sg, su, layer: ("gemv_gateup", x.shape[0], x.shape[1], None)})
 
 
 def _a_log(fp):
@@ -792,8 +913,8 @@ def phase_full(chk: Checks, kernels: dict, ctx: dict) -> None:
             masked = regime["regime"] == REGIMES_A[6528]
             regime["launches"] = sum(n for (_, m), n in a_counts.items() if m == masked)
     for shape in kernels["gemv_stacked"]["shapes"]:
-        name, wdtype = shape["shape"].split()
-        if wdtype == "bf16":
+        name, wdtype, *rows = shape["shape"].split()  # the B-row shapes are phase 9's
+        if wdtype == "bf16" and not rows:
             shape["launches"] = sum(n for (kd, ns), n in c_counts.items() if SHAPES_C.get((kd, ns)) == name)
     for name in wrappers:
         chk.expect(kernels[name]["launches"] > 0, f"{name}: {kernels[name]['launches']} launches in the fused run")
@@ -866,8 +987,8 @@ def phase_full(chk: Checks, kernels: dict, ctx: dict) -> None:
     q_counts = q_log.counts(DecodeGraph.replays - replays)
     log(f"  int8 decode: kernel C launches by (K, widths): {q_counts}")
     for shape in kernels["gemv_stacked"]["shapes"]:
-        name, wdtype = shape["shape"].split()
-        if wdtype == "int8":
+        name, wdtype, *rows = shape["shape"].split()
+        if wdtype == "int8" and not rows:
             shape["launches"] = sum(n for (kd, ns), n in q_counts.items() if SHAPES_C.get((kd, ns)) == name)
     chk.expect(mv.gemv_stacked.launches > launches[0] and mv.gemv_gateup.launches > launches[1]
                and len(toks_q) == 8 and all(0 <= t < cfg.vocab_size for t in toks_q),
@@ -915,7 +1036,9 @@ def phase_decode(chk: Checks, kernels: dict, ctx: dict) -> None:
                f"ragged_decode_attn: {da.ragged_decode_attn.launches} launches in {n} ragged steps "
                f"(one per layer: {n * cfg.num_layers})")
     del states
-    out = kernel_bench.bench_decodestep(params, cfg, res, log=log)
+    # 16 steps a reading (the benchmark's own default is 32): the eager rows are
+    # host-bound and the longest part of the run; phase 4c times the graph over 32.
+    out = kernel_bench.bench_decodestep(params, cfg, res, steps=16, log=log)
     chk.expect(all(math.isfinite(r["ms_per_step"]) and r["ms_per_step"] > 0 for r in out["rows"]),
                f"decodestep: {len(out['rows'])} timings measured")
 
@@ -1478,6 +1601,199 @@ def phase_baselines(chk: Checks, kernels: dict) -> None:
     log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def phase_batch(chk: Checks, kernels: dict) -> None:
+    """The batched main path at full width: random Qwen2-7B weights (bf16)
+    and 8 distinct 64-frame prompts; ``prefill_planned_batch`` at B = 1, 2,
+    4, 8 against the solo ``prefill_planned`` at the same buckets, then
+    ``generate_batch`` on the int8 model as a captured graph of
+    ``decode_step_batch`` (kernels C and D at B rows)."""
+    from framefusion_tpu_torch import kernel_bench
+    from framefusion_tpu_torch.config import qwen2_7b_config
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+    from framefusion_tpu_torch.ops.quant import quantize_params_int8
+    from framefusion_tpu_torch.runtime.decode_graph import DecodeGraph
+    from framefusion_tpu_torch.runtime.engine import CompressionEngine, PlanHistory, best_tail_split
+
+    cfg = qwen2_7b_config()
+    b_max, n, steps, forced = max(BATCH_SIZES), 8, 32, 3
+    torch.cuda.reset_peak_memory_stats()
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    t0 = time.perf_counter()
+    batch = [(torch.from_numpy(h).to("cuda", cfg.dtype), pt, pos, s0, n_img)
+             for h, pt, pos, s0, n_img in batch_prompts(cfg.hidden_size, b_max)]
+    log(f"  {b_max} prompts of {len(batch[0][1])} tokens (seeds 0..{b_max - 1}, coherence 0.35 / 0.45 / 0.55) made "
+        f"in {time.perf_counter() - t0:.1f} s")
+    eng = apply_framefusion(FrameFusionModel(family="llava_video", cfg=cfg, params=params), 0.3, 0.6, 0.1).engine()
+    # Each prompt's solo fused prefill seeds PlanHistory (one geometry): the
+    # batches and the solo planned prefills then plan at its buckets.
+    for b in batch:
+        eng.prefill(*b[:3], 182, *b[3:])
+    pre_plan, plan = eng.plan_history.suggest(PlanHistory.key(182, 64, eng.ff), eng.ff.bucket)
+    args = [(*b[:3], 182, *b[3:]) for b in batch]
+    solo = [eng.prefill_planned(*a, plan_len=plan, pre_plan_len=pre_plan) for a in args]
+
+    def ev(r):
+        return [(e.layer, e.kind, e.tokens_removed) for e in r.telemetry.events]
+
+    log(f"  PlanHistory buckets: pre_plan {pre_plan}, plan {plan}; solo planned: modes {[r.mode for r in solo]}, "
+        f"final lengths {[r.valid_len for r in solo]}, tail from layers {[r.telemetry.tail_start_layer for r in solo]}")
+    wrappers = {"flash_attn_fwd": fp.flash_attn_fwd, "attn_importance_rows": fp.attn_importance_rows,
+                "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup}
+    res_max = None
+    for bsz in BATCH_SIZES:
+        part = batch[:bsz]
+        _zero_counts(wrappers)
+        res = eng.prefill_planned_batch(part, 182)
+        torch.cuda.synchronize()
+        if bsz == b_max:
+            ran, res_max = _ran(wrappers), res
+            for name in ("flash_attn_fwd", "attn_importance_rows"):
+                kernels[name]["batch_launches"] = {"eager": ran[name], "captured": 0, "replayed": 0}
+            log(f"  batch of {bsz}: kernel launches that ran in prefill_planned_batch {ran}")
+        same = all(r.mode == "planned_batch" and r.plan_source == "history" and ev(r) == ev(s)
+                   and r.valid_len == s.valid_len and [c[2] for c in r.layer_caches] == [c[2] for c in s.layer_caches]
+                   for r, s in zip(res, solo))
+        rel = max(float((r.logits - s.logits).abs().max() / s.logits.abs().max()) for r, s in zip(res, solo))
+        chk.expect(same, f"batch B={bsz}: every prompt planned from history, events, final and cache lengths equal "
+                         f"the solo planned prefill's (shared tail from layer {res[0].telemetry.tail_start_layer})")
+        chk.expect(rel <= LOGIT_RTOL and all(bool(torch.isfinite(r.logits).all()) for r in res),
+                   f"batch B={bsz}: prefill logits finite, {rel:.3e} of the largest from the solo prefill's "
+                   f"<= {LOGIT_RTOL}")
+        part_args = args[:bsz]
+        t_batch = cuda_time_ms(lambda: eng.prefill_planned_batch(part, 182), iters=2, warmup=0)
+        t_solo = cuda_time_ms(lambda: [eng.prefill_planned(*a, plan_len=plan, pre_plan_len=pre_plan)
+                                       for a in part_args], iters=2, warmup=0)
+        log(f"  batch B={bsz}: prefill_planned_batch {t_batch:.2f} ms against {bsz} solo prefill_planned "
+            f"{t_solo:.2f} ms (batch / solo {t_batch / t_solo:.3f}; CUDA events, mean of 2)")
+    del solo
+    log(f"  max_memory_allocated (bf16 prefills): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # The batched decode on the int8 model (the decode configuration of
+    # phases 4b and 4c), over the B = 8 batch's results.
+    params_q = quantize_params_int8(params)
+    eng_q = CompressionEngine(params_q, cfg, eng.ff)
+    floor_ms = kernel_bench.weight_stream_bytes(params_q) / kernel_bench.H100_BYTES_PER_S * 1e3
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for bsz in BATCH_SIZES:
+        res = res_max[:bsz]
+        lens = [[int(r.layer_caches[l][2]) for r in res] for l in range(cfg.num_layers)]
+        start = (lens, [r.decode_pos_base for r in res], torch.stack([r.logits for r in res]))
+        _zero_counts(wrappers)
+        with _cd_log(mv) as cd_log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph = eng_q.batch_decode_graph(res, n)
+            torch.cuda.synchronize()
+            t_capture = time.perf_counter() - t0
+            toks = eng_q.generate_batch(res, n)
+            torch.cuda.synchronize()
+        replays, ran = DecodeGraph.replays, _ran(wrappers)
+        cd = cd_log.counts(replays)
+        captured = {k: w.captured for k, w in wrappers.items() if w.captured}
+        log(f"  decode B={bsz}: pool {tuple(graph.k_pool.shape)}, write_pos {graph.write_pos}, split "
+            f"{graph.tail_split}; warm-up step + capture {t_capture * 1e3:.1f} ms; generate_batch({n}): "
+            f"{replays} replays; launches that ran {ran}, captured {captured}; C/D by (kernel, rows, K, widths) {cd}")
+        chk.expect(replays == n - 1 and captured == {"gemv_stacked": 3 * cfg.num_layers, "gemv_gateup": cfg.num_layers}
+                   and all(DecodeGraph.replayed[k] == replays * c for k, c in captured.items())
+                   and sum(cd.values()) == ran["gemv_stacked"] + ran["gemv_gateup"],
+                   f"decode B={bsz}: one batched graph, captured with C three times and D once a layer, replayed "
+                   f"for the {n - 1} tokens after the prefill's; every C and D launch recorded with its rows")
+        for (key, rows, kdim, widths), count in cd.items():
+            name = "gateup" if key == "gemv_gateup" else SHAPES_C.get((kdim, widths))
+            for shape in kernels[key]["shapes"]:
+                if shape["shape"] == f"{name} int8 B={rows}":
+                    shape["launches"] = count
+        if bsz == b_max:
+            for name in ("gemv_stacked", "gemv_gateup"):
+                kernels[name]["batch_launches"] = {"eager": wrappers[name].launches,
+                                                   "captured": wrappers[name].captured,
+                                                   "replayed": DecodeGraph.replayed[name]}
+
+        # Teacher forcing: the batched replays against each row's solo eager
+        # "ragged" steps (host ints, kernel G), all fed the solo steps' tokens.
+        graph = eng_q._start_batch_decode(res, n, None, None)
+        solo_states = []
+        for r in res:
+            k_pool, v_pool, lens_r = eng_q.make_decode_state(r, n)
+            solo_states.append([k_pool, v_pool, lens_r, best_tail_split(lens_r, int(k_pool.shape[1]), n,
+                                                                        eng_q.ff.bucket)])
+        tok, worst = torch.stack([torch.argmax(r.logits) for r in res]), 0.0
+        for step in range(forced):
+            rows = []
+            for i, (r, st) in enumerate(zip(res, solo_states)):
+                logits, st[0], st[1], st[2] = qwen2.decode_step(params_q, qwen2.embed(params_q, tok[i]),
+                                                                r.decode_pos_base + step, st[0], st[1], st[2], cfg,
+                                                                attn_impl="ragged", tail_split=st[3])
+                rows.append(logits)
+            ref = torch.stack(rows)
+            graph.tok.copy_(tok)
+            graph.run(1)
+            worst = max(worst, float(((graph.logits - ref).abs().amax(-1) / ref.abs().amax(-1)).max()))
+            tok = torch.argmax(ref, dim=-1)
+        graph.busy = False
+        del solo_states
+        chk.expect(worst <= LOGIT_RTOL, f"decode B={bsz}: {forced} teacher-forced batched replays against the solo "
+                                        f"eager steps: logits differ by {worst:.3e} of their row's largest "
+                                        f"<= {LOGIT_RTOL}")
+        solo_toks = [eng_q.generate(r, n) for r in res]
+        agree = [next((j for j, (a, c) in enumerate(zip(s_, t_)) if a != c), n) for s_, t_ in zip(solo_toks, toks)]
+        chk.expect(all(0 <= t < cfg.vocab_size for row in toks for t in row) and len(toks) == bsz,
+                   f"decode B={bsz}: {bsz} rows of {n} tokens in the vocabulary")
+        log(f"  decode B={bsz}: greedy tokens agreeing with the solo decodes before the first difference "
+            f"(reported, not gated: bf16 ties): {agree} of {n}")
+
+        # ms/step over 32 replays (two readings); the plain attention alone.
+        g32 = eng_q._start_batch_decode(res, steps + 1, None, None)
+        readings = []
+        for _ in range(2):
+            g32.start(*start)
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            g32.run(steps)
+            e1.record()
+            torch.cuda.synchronize()
+            readings.append(e0.elapsed_time(e1) / steps)
+        ms = sum(readings) / 2
+        q = _rand(gen, (bsz, cfg.num_heads, cfg.head_dim_))
+        kv_cur = _rand(gen, (2, bsz, cfg.num_kv_heads, cfg.head_dim_))
+        pos_iota = torch.arange(g32.k_pool.shape[2], device="cuda")
+        in_decode = (pos_iota >= g32.write_pos) & (pos_iota < g32.write_pos + steps // 2)
+        prefix = [pos_iota[None, :] < g32.lens[l][:, None] for l in range(cfg.num_layers)]
+        t_attn = kernel_bench.graph_time_ms(lambda: [qwen2.batch_decode_attention(
+            q, kv_cur[0], kv_cur[1], g32.k_pool, g32.v_pool, l, prefix[l], in_decode, g32.tail_split,
+            cfg.head_dim_ ** -0.5) for l in range(cfg.num_layers)], iters=3)
+        log(f"  decode B={bsz}: {ms:.3f} ms/step over {steps} replays ({readings[0]:.3f}, {readings[1]:.3f}), "
+            f"{bsz * 1e3 / ms:.1f} tokens/s, {ms / floor_ms:.2f}x the {floor_ms:.3f} ms weight-stream floor; the "
+            f"plain attention of a step alone (28 layers, a captured graph at step {steps // 2}) {t_attn:.3f} ms, "
+            f"{t_attn / ms:.3f} of the step")
+        chk.expect(all(math.isfinite(t) and t > 0 for t in readings + [t_attn]), f"decode B={bsz}: times measured")
+        if bsz in (1, b_max):
+            g32.start(*start)
+            prof = kernel_bench.device_profile(lambda: g32.run(8))
+            per_step = {k: v / 8 for k, v in sorted(prof["by_name"].items(), key=lambda kv: -kv[1])}
+
+            def part_ms(name):
+                return sum(v for k, v in per_step.items() if name in k) / 1e3
+
+            chk.expect(prof["launches"] > 0, f"decode B={bsz}: the profiler saw the replays' device operations")
+            log(f"  decode B={bsz}, profiler over 8 replays: device idle share {prof['idle_share']:.4f} of the "
+                f"{prof['window_us'] / 8e3:.3f} ms a step; {prof['launches'] / 8:.0f} device operations a step; "
+                f"device ms a step: C+D pass (gemv_kernel) {part_ms('gemv_kernel'):.3f}, D epilogue "
+                f"{part_ms('gateup_reduce'):.3f}, all {prof['busy_us'] / 8e3:.3f}")
+            log(f"  decode B={bsz}, top device kernels a step (us): "
+                f"{ {k[:60]: round(v, 2) for k, v in list(per_step.items())[:8]} }")
+        g32.busy = False
+        del g32, graph
+    for shape in kernels["gemv_stacked"]["shapes"] + kernels["gemv_gateup"]["shapes"]:
+        if " bf16 B=" in shape["shape"]:
+            shape["launches"] = 0  # this phase decodes int8
+    log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -1508,6 +1824,7 @@ def main() -> int:
     # shape (bf16 and int8): each with its own numbers and launches.
     kernels["flash_attn_fwd"]["regimes"] = []
     kernels["gemv_stacked"]["shapes"] = []
+    kernels["gemv_gateup"]["shapes"] = []  # its rows at the batched decode's B
     no_library = {"attn_importance_rows", "gemv_gateup"}
     ctx: dict = {}
     phases = {"device": lambda: phase_device(chk), "kernels": lambda: phase_kernels(chk, kernels),
@@ -1516,7 +1833,7 @@ def main() -> int:
               "decode": lambda: phase_decode(chk, kernels, ctx), "graph": lambda: phase_graph(chk, kernels, ctx),
               "cross_vision": lambda: phase_cross_vision(chk), "pixels": lambda: phase_pixels(chk, kernels),
               "cross_baselines": lambda: phase_cross_baselines(chk),
-              "baselines": lambda: phase_baselines(chk, kernels)}
+              "baselines": lambda: phase_baselines(chk, kernels), "batch": lambda: phase_batch(chk, kernels)}
     t_start = time.perf_counter()
     for phase, run in phases.items():
         log(f"== {phase} ({time.perf_counter() - t_start:.1f} s)")
@@ -1531,9 +1848,11 @@ def main() -> int:
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     unmeasured = [f"{n}.{f}" for n, k in kernels.items() for f, v in k.items()
                   if v is None and not (f == "library_ms" and n in no_library)]
-    unmeasured += [f"{n}.{e.get('regime', e.get('shape'))}.{f}" for n in ("flash_attn_fwd", "gemv_stacked")
+    unmeasured += [f"{n}.{e.get('regime', e.get('shape'))}.{f}" for n in ("flash_attn_fwd", "gemv_stacked", "gemv_gateup")
                    for e in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"] for f, v in e.items()
-                   if v is None and not (f == "library_ms" and "int8" in str(e.get("shape")))]
+                   if v is None and not (f == "library_ms" and (n == "gemv_gateup" or "int8" in str(e.get("shape"))))]
+    unmeasured += [f"{n}.batch_launches" for n in ("flash_attn_fwd", "attn_importance_rows", "gemv_stacked",
+                                                   "gemv_gateup") if "batch_launches" not in kernels[n]]
     chk.expect(not unmeasured, f"every number of the kernels line was measured in this run (missing: {unmeasured})")
     if chk.failures:
         log("FAILED: " + "; ".join(chk.failures))

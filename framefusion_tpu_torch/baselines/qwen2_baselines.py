@@ -242,7 +242,8 @@ def _sink_cache_decode_steps(params, first_logits, k_pool, v_pool, cache_lens, p
 class BaselineEngine(CompressionEngine):
     """Prefill executor for one baseline method; decode is inherited, except
     StreamingLLM's ``sink_cache_decode`` variant, which every decode entry
-    point (``generate``, ``generate_device``, ``generate_stream``) runs,
+    point (``generate``, ``generate_device``, ``generate_stream``, and
+    ``generate_batch`` one sequence at a time) runs,
     greedily: a sampled decode of it raises. JAX's ``generate_device`` and
     ``generate_stream`` drop the variant and decode over the full cache.
 
@@ -299,6 +300,17 @@ class BaselineEngine(CompressionEngine):
                 yield out[: out.index(eos_token_id) + 1]
                 return
             yield list(out)
+
+    def generate_batch(self, results, max_new_tokens: int, eos_token_id=None,
+                       sampler: Optional[SamplerConfig] = None, generator=None):
+        """The engine's batched decode, except for StreamingLLM's sink-cache
+        variant: the batched step attends the whole cache, so that variant
+        decodes each sequence on its own windowed decode (greedy only; a
+        sampled batch raises), as JAX's ``generate_batch`` falls back."""
+        if not self._sink_decode(sampler):
+            return super().generate_batch(results, max_new_tokens, eos_token_id=eos_token_id, sampler=sampler,
+                                          generator=generator)
+        return [self.generate(r, max_new_tokens, eos_token_id=eos_token_id) for r in results]
 
     def _sink_steps(self, result: PrefillResult, max_new_tokens: int):
         window = self.kwargs.get("window_length", int(self.kwargs.get("length_rate", 0.3) * result.valid_len))

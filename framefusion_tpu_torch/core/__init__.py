@@ -1,5 +1,5 @@
 from .constants import TEXT_TOKEN, IGNORE_TOKEN, SPECIAL_TOKEN, PAD_TOKEN
-from .schedule import compute_pruning_ratio, compute_pruning_ratio_device, CostInfeasibleError
+from .schedule import compute_pruning_ratio, compute_pruning_ratio_device, pruning_ratio_flagged, CostInfeasibleError
 from .patch_order import order_by_patch
 from .similarity import similarity_by_patch
 from .merge import descending_rank, mark_topk, apply_merge, apply_merge_weighted
@@ -13,6 +13,7 @@ __all__ = [
     "PAD_TOKEN",
     "compute_pruning_ratio",
     "compute_pruning_ratio_device",
+    "pruning_ratio_flagged",
     "CostInfeasibleError",
     "order_by_patch",
     "similarity_by_patch",

@@ -33,6 +33,19 @@ def compute_pruning_ratio(sparsity_list: list[float], cost: float, num_layers: i
     Raises:
         CostInfeasibleError: if even pruning everything cannot reach ``cost``.
     """
+    ratio, infeasible = pruning_ratio_flagged(sparsity_list, cost, num_layers)
+    if infeasible:
+        raise CostInfeasibleError("The cost is too small")
+    return ratio
+
+
+def pruning_ratio_flagged(sparsity_list: list[float], cost: float, num_layers: int = 28) -> tuple[float, bool]:
+    """``(ratio, infeasible)``: ``compute_pruning_ratio`` with the device
+    twin's flag in place of the exception. The engine's phases decide on
+    it and raise after the phase, as the JAX package's phase programs do.
+    An infeasible schedule's ratio is 1.0 (prune everything), where the
+    device twin's is above 1 or infinite: it stays a finite ratio that the
+    prune can round, and no result is built from it."""
     f = np.float32
     n_events = len(sparsity_list)
     density = f(1.0)
@@ -41,13 +54,14 @@ def compute_pruning_ratio(sparsity_list: list[float], cost: float, num_layers: i
         density = f(density * (f(1.0) - f(s)))
         spent = f(spent + density)
     remaining_budget = f(f(num_layers) * f(cost) - spent)
-    if remaining_budget < 0:
-        raise CostInfeasibleError("The cost is too small")
     remaining_layers = f(num_layers - n_events)
-    frac = f(remaining_budget / f(remaining_layers * density))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        frac = f(remaining_budget / f(remaining_layers * density))
+    if remaining_budget < 0:
+        return 1.0, True
     if frac > 1:
-        return 0.0
-    return float(f(f(1.0) - frac))
+        return 0.0, False
+    return float(f(f(1.0) - frac)), False
 
 
 def compute_pruning_ratio_device(sparsity: torch.Tensor, n_events: torch.Tensor, cost: torch.Tensor,

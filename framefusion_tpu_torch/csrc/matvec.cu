@@ -41,8 +41,9 @@
 // * int8 widening: a byte permute puts each (sign-flipped) byte into the
 //   mantissa of 2^23, and one subtraction gives its value: two operations a
 //   weight instead of a shift, a mask and an int-to-float conversion.
-// Activation rows are grid.z, so B > 1 re-reads the weights through L2; the
-// main path is B = 1. Kernel D runs the same pass without the counters and
+// Activation rows are grid.z, so B > 1 rows read the weights B times (through
+// L2 at best): the batched decode pays for each row, where the TPU kernel
+// reads each weight tile once for all rows. Kernel D runs the same pass without the counters and
 // its gate-up epilogue kernel adds the partials in chunk order.
 //
 // Every entry point returns cudaGetLastError() after its launches.

@@ -93,8 +93,36 @@ class FrameFusionModel:
                                         sampler=sampler, generator=generator)
         return tokens, result
 
+    def generate_batch(self, inputs_list, max_new_tokens: int = 64, eos_token_id: Optional[int] = None,
+                       sampler=None, generator=None, mode: str = "fused", speculative: bool = False):
+        """Batched serving: the prefills, then one batched decode of them all
+        (``CompressionEngine.generate_batch``). ``mode="planned_batch"``
+        with FrameFusion applied runs every prefill as one lockstep batch
+        (``prefill_planned_batch``; the inputs share one ``patch_num``); any
+        other mode, a dense model or a baseline prefills per request (a
+        dense or baseline engine has no batched prefill; "planned_batch"
+        then means "fused"). ``speculative=True`` is not ported yet. Returns
+        (per-request token lists, PrefillResults)."""
+        if speculative:
+            raise NotImplementedError('speculative decoding is not ported to PyTorch yet '
+                                      '(ROADMAP item "Speculative decoding")')
+        is_baseline = getattr(self.engine(), "mode", None) is not None
+        if mode == "planned_batch" and self.ff is not None and not is_baseline:
+            pn = inputs_list[0].patch_num
+            if any(i.patch_num != pn for i in inputs_list):
+                raise ValueError("generate_batch: a planned batch takes one patch_num (one vision geometry)")
+            results = self.engine().prefill_planned_batch(
+                [(i.input_embeds, i.patch_type, i.position_ids, i.image_token_start, i.image_token_length)
+                 for i in inputs_list], patch_num=pn)
+        else:
+            per_request = "fused" if mode == "planned_batch" else mode
+            results = [self.prefill(inp, mode=per_request) for inp in inputs_list]
+        tokens = self.engine().generate_batch(results, max_new_tokens, eos_token_id=eos_token_id, sampler=sampler,
+                                              generator=generator)
+        return tokens, results
 
-# Adapters ported so far; the other families are ROADMAP Queue 1 item 11.
+
+# Adapters ported so far; the others wait for ROADMAP item "The other families".
 _PORTED_ADAPTERS = ("llava_video",)
 
 
@@ -109,7 +137,7 @@ def get_token_type(family: str):
     module = FAMILIES[family].adapter_module
     if module not in _PORTED_ADAPTERS:
         raise NotImplementedError(f"{family}: its adapter is not ported to PyTorch yet "
-                                  "(ROADMAP Queue 1 item 11: the other families)")
+                                  '(ROADMAP item "The other families")')
     return importlib.import_module(f".models.adapters.{module}", __package__)
 
 

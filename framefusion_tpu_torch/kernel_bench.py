@@ -1,9 +1,10 @@
 """On-card kernel check and decode-step benchmark of the port.
 
-Counterpart of ``scripts/kernel_bench.py`` in two of its modes; run from the
+Counterpart of ``scripts/kernel_bench.py`` in three of its modes; run from the
 repository root on a machine with a CUDA card:
 
     python -m framefusion_tpu_torch.kernel_bench --check
+    python -m framefusion_tpu_torch.kernel_bench --batch-parity
     python -m framefusion_tpu_torch.kernel_bench --what decodestep
 
 ``--check`` (:func:`check_kernels`) runs the JAX check's case matrix on the
@@ -15,6 +16,11 @@ with the bound stated below, then the decode-side programs of
 ``models/qwen2.py`` against each other on a 2-layer Qwen2-7B-geometry stack.
 It prints PASS or FAIL per row and the number of failures, and exits
 non-zero on any failure.
+
+``--batch-parity`` (:func:`check_batch_parity`) holds the lockstep-batched
+planned prefill's decisions against the solo prefills' on three 16-frame
+prompts at Qwen2-7B width (8 layers), and reports the batched decode's
+greedy agreement with the solo decodes.
 
 ``--what decodestep`` (:func:`bench_decodestep`) times ``decode_step`` at
 full Qwen2-7B width (int8 weight-only, full vocabulary) with CUDA events over
@@ -28,7 +34,7 @@ run as a captured CUDA graph of the step (``runtime/decode_graph.py``,
 rows ``graph-ragged``, the engine's decode, and ``graph-flash``): replays
 timed between CUDA events, with the kernel launches the graph holds.
 
-Both need a CUDA device and exit non-zero at once without one.
+All need a CUDA device and exit non-zero at once without one.
 """
 
 from __future__ import annotations
@@ -444,6 +450,70 @@ def check_kernels(log=print) -> int:
     return len(rows.failures)
 
 
+def check_batch_parity(log=print) -> int:
+    """On-card check that the lockstep-batched planned prefill decides as
+    the solo prefills do (the counterpart of the JAX script's
+    ``check_batch_parity``): Qwen2-7B heads and hidden size, 8 layers, vocab
+    8,192, three 16-frame x 182-patch prompts at coherence 0.35 / 0.45 /
+    0.55. The batch runs its (B, S, D) GEMMs where the solo runs (S, D)
+    ones, so a similarity or budget tie could flip a decision; the CPU
+    suite pins exact parity with the plain versions, this check the
+    kernels' path at real widths. Gated: the solo planned prefill at
+    PlanHistory's buckets decides as the solo fused one, and the batch at
+    the same buckets as the solo planned ones. Reported only: how many
+    greedy tokens of the batched decode agree with each solo decode (bf16
+    argmax ties are legitimate). Returns the number of failures."""
+    _require_cuda()
+    from .config import FrameFusionConfig, qwen2_7b_config
+    from .models import qwen2
+    from .models.adapters.common import build_video_prompt
+    from .runtime.engine import CompressionEngine, PlanHistory
+
+    cfg = qwen2_7b_config(vocab_size=8192, num_layers=8)
+    ff = FrameFusionConfig(cost=0.3, similarity_lower_bound=0.6, ratio_lower_bound=0.1, schedule_num_layers=8)
+    engine = CompressionEngine(qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0)), cfg, ff)
+    rng = np.random.default_rng(7)
+    patch_num, n_frames = 182, 16
+    prompts = []
+    for c in (0.35, 0.45, 0.55):
+        h, pt, img_start, n_img = build_video_prompt(rng, cfg.hidden_size, n_frames=n_frames, patch_num=patch_num,
+                                                     coherent=c)
+        prompts.append((torch.from_numpy(h).to("cuda", cfg.dtype), pt, np.arange(len(pt)), img_start, n_img))
+    failures = []
+
+    def ev(res):
+        return [(e.layer, e.kind, e.tokens_removed) for e in res.telemetry.events]
+
+    def gate(ok, name, what):
+        log(f"  {'PASS' if ok else 'FAIL'}  {what}")
+        if not ok:
+            failures.append(name)
+
+    solo_fused = [engine.prefill(h, pt, pos, patch_num, i0, il) for (h, pt, pos, i0, il) in prompts]
+    pre_plan, plan = engine.plan_history.suggest(PlanHistory.key(patch_num, n_frames, ff), ff.bucket)
+    log(f"  history buckets: pre_plan={pre_plan} plan={plan}")
+    solo_planned = [engine.prefill_planned(h, pt, pos, patch_num, i0, il, plan_len=plan, pre_plan_len=pre_plan)
+                    for (h, pt, pos, i0, il) in prompts]
+    for i, (f_res, p_res) in enumerate(zip(solo_fused, solo_planned)):
+        gate(ev(f_res) == ev(p_res) and f_res.valid_len == p_res.valid_len and p_res.mode == "planned",
+             f"solo-planned-seq{i}", f"solo planned == fused   seq{i} events={ev(p_res)} n={p_res.valid_len} "
+             f"mode={p_res.mode}")
+    batched = engine.prefill_planned_batch(prompts, patch_num=patch_num, plan_len=plan, pre_plan_len=pre_plan)
+    for i, (s_res, b_res) in enumerate(zip(solo_planned, batched)):
+        gate(ev(s_res) == ev(b_res) and s_res.valid_len == b_res.valid_len
+             and [c[2] for c in s_res.layer_caches] == [c[2] for c in b_res.layer_caches],
+             f"batch-decisions-seq{i}", f"batch == solo decisions seq{i} events={ev(b_res)} n={b_res.valid_len} "
+             f"mode={b_res.mode}")
+    n_new = 8
+    batch_toks = engine.generate_batch(batched, n_new)
+    for i, s_res in enumerate(solo_planned):
+        solo_toks = engine.generate(s_res, n_new)
+        m = next((j for j, (a, b) in enumerate(zip(solo_toks, batch_toks[i])) if a != b), n_new)
+        log(f"  INFO  batched-decode greedy match seq{i}: {m}/{n_new}")
+    log(f"\n{len(failures)} failures" + (f": {failures}" if failures else ""))
+    return len(failures)
+
+
 # ---------------------------------------------------------------------------
 # --what decodestep
 
@@ -630,10 +700,11 @@ def bench_decodestep(params=None, cfg=None, prefill=None, steps: int = 32, log=p
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check", action="store_true", help="kernel check on the card")
+    ap.add_argument("--batch-parity", action="store_true", help="batched-vs-solo prefill decisions on the card")
     ap.add_argument("--what", choices=["decodestep"], help="benchmark to run")
     args = ap.parse_args(argv)
-    if not args.check and args.what is None:
-        ap.error("give --check or --what decodestep")
+    if not args.check and not args.batch_parity and args.what is None:
+        ap.error("give --check, --batch-parity or --what decodestep")
     _require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -643,6 +714,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         failures = check_kernels()
         print(f"check: {time.perf_counter() - t0:.1f} s")
+    if args.batch_parity:
+        failures += check_batch_parity()
     if args.what == "decodestep":
         bench_decodestep()
     return 1 if failures else 0

@@ -410,8 +410,8 @@ def decode_step(params: dict, token_embed, position_id, k_pool, v_pool, cache_le
 
 def verify_step(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_lens, cfg: LLMConfig,
                 attn_impl: str = "flash", tail_split=None):
-    """Speculative-verify step: K candidate rows through the stack in one
-    weight pass.
+    """Speculative-verify step: K candidate rows through the stack together
+    (one launch of kernels C and D each, which read the weights once a row).
 
     Row 0 is the last committed token, rows 1..K-1 draft continuations. All
     K rows' K/V are written IN PLACE at each layer's own offset ``[len,
@@ -500,6 +500,26 @@ def _attend_segments(qf, segments, s_cur, cur_pv, score_eq: str, pv_eq: str, sca
     return (out + cur_pv(p_cur)) / (denom + p_cur.sum(dim=-1, keepdim=True))
 
 
+def batch_decode_attention(q, k, v, k_pool, v_pool, l: int, prefix, in_decode, tail_split, scale: float):
+    """Layer ``l``'s attention in :func:`decode_step_batch`: each row's query
+    (q (B, Hq, hd)) over its pool prefix (``prefix`` (B, S_pool) bool) and
+    the decode rows written so far (``in_decode`` (S_pool,) bool), plus the
+    current token's own k, v (B, Hk, hd) as an extra column; the split's
+    layers read two segments. Plain fp32 torch, as XLA computes it in JAX.
+    Returns (B, Hk, G, hd) fp32."""
+    b, hk, hd = k.shape
+    qf = q.reshape(b, hk, -1, hd).to(torch.float32)
+    vf_cur = v.to(torch.float32).reshape(b, hk, 1, hd)
+    s_cur = (qf * k.to(torch.float32).reshape(b, hk, 1, hd)).sum(dim=-1, keepdim=True) * scale
+    if tail_split is None or l < tail_split[0]:
+        segments = [(k_pool[l], v_pool[l], prefix | in_decode[None, :])]
+    else:
+        tail_s, rs = tail_split[1], tail_split[2]
+        segments = [(k_pool[l, :, :tail_s], v_pool[l, :, :tail_s], prefix[:, :tail_s]),
+                    (k_pool[l, :, rs:], v_pool[l, :, rs:], in_decode[None, rs:].expand(b, -1))]
+    return _attend_segments(qf, segments, s_cur, lambda p: p * vf_cur, "bhgd,bshd->bhgs", "bhgs,bshd->bhgd", scale)
+
+
 def decode_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_lens, write_pos: int,
                       step: int, cfg: LLMConfig, attn_impl: str = "einsum", tail_split=None):
     """One decode step for a batch of sequences at a common write offset.
@@ -511,13 +531,21 @@ def decode_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
     through the layer loop and written once, IN PLACE, at the end.
 
     Args:
-        token_embeds: (B, D). position_ids: (B,).
+        token_embeds: (B, D). position_ids: (B,): host ints, or an int64
+            tensor on the pools' device.
         k_pool, v_pool: (L, B, S_pool, Hk, hd). cache_lens: (L, B) prefix
-            lengths. write_pos: start of the decode region. step: 0-based
-            decode step.
+            lengths (host ints or a tensor on the pools' device).
+            write_pos: start of the decode region, a host int (the decode
+            geometry). step: 0-based decode step: a host int, or an int64
+            scalar tensor on the pools' device. With device tensors for
+            ``step``, ``position_ids`` and ``cache_lens`` the step reads
+            nothing back to the host (the decode mask is a tensor compare,
+            the row write an indexed copy), so it can be captured in a CUDA
+            graph; it computes what the host-int form computes, bit for bit.
         attn_impl: "einsum" (JAX "jax") or "flash" (the projections through
-            kernels C/D for all B rows; JAX "pallas"). The attention is plain
-            torch either way, as it is XLA in JAX.
+            kernels C/D for all B rows, which refuse B > 64 as JAX's
+            do; JAX "pallas"). The attention is
+            plain torch either way, as it is XLA in JAX.
         tail_split: optional ``(P, tail_s, region_start)`` — layers >= P
             read only rows ``[0, tail_s) ∪ [region_start, S_pool)``, merged
             with a 3-way online softmax; the caller guarantees those layers'
@@ -532,8 +560,9 @@ def decode_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
     b = token_embeds.shape[0]
     n_l, s_pool = k_pool.shape[0], k_pool.shape[2]
     hk, hd = cfg.num_kv_heads, cfg.head_dim_
-    g = cfg.num_heads // hk
-    write_pos, step = int(write_pos), int(step)
+    write_pos = int(write_pos)
+    if not isinstance(step, torch.Tensor):
+        step = int(step)
     cos, sin = positions_cos_sin(_index_tensor(position_ids, dev).reshape(b), cfg)
     lens = _index_tensor(cache_lens, dev)
     pos_iota = torch.arange(s_pool, device=dev)
@@ -550,31 +579,22 @@ def decode_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
         x = rmsnorm(h, lp["ln1"], cfg.rms_norm_eps)
         q, k, v = _rows_qkv(layers, lp, x, l, cfg, use_mv)
         q, k = apply_rope(q, k, cos, sin)
-        qf = q.reshape(b, hk, g, hd).to(torch.float32)
-        vf_cur = v.to(torch.float32).reshape(b, hk, 1, hd)
-        s_cur = (qf * k.to(torch.float32).reshape(b, hk, 1, hd)).sum(dim=-1, keepdim=True) * scale
         prefix = pos_iota[None, :] < lens[l][:, None]  # (B, S_pool)
-        if tail_split is None or l < tail_split[0]:
-            segments = [(k_pool[l], v_pool[l], prefix | in_decode[None, :])]
-        else:
-            tail_s, rs = tail_split[1], tail_split[2]
-            segments = [(k_pool[l, :, :tail_s], v_pool[l, :, :tail_s], prefix[:, :tail_s]),
-                        (k_pool[l, :, rs:], v_pool[l, :, rs:], in_decode[None, rs:].expand(b, -1))]
-        out = _attend_segments(qf, segments, s_cur, lambda p: p * vf_cur, "bhgd,bshd->bhgs",
-                               "bhgs,bshd->bhgd", scale)
+        out = batch_decode_attention(q, k, v, k_pool, v_pool, l, prefix, in_decode, tail_split, scale)
         h = _rows_out_mlp(layers, lp, h, out.reshape(b, -1), l, cfg, use_mv)
         k_new[l] = k.to(k_pool.dtype)
         v_new[l] = v.to(v_pool.dtype)
-    k_pool[:, :, write_pos + step] = k_new
-    v_pool[:, :, write_pos + step] = v_new
+    row = torch.as_tensor(write_pos + step, device=dev).reshape(1)
+    k_pool.index_copy_(2, row, k_new[:, :, None])
+    v_pool.index_copy_(2, row, v_new[:, :, None])
     return final_logits(params, h, cfg), k_pool, v_pool
 
 
 def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_lens, decode_mask,
                       write_pos: int, step: int, cfg: LLMConfig, attn_impl: str = "flash", tail_split=None,
                       k_tail=None, v_tail=None, phys=None):
-    """Speculative verify for a batch: (B, K) candidate rows in one weight
-    pass — :func:`verify_step` with :func:`decode_step_batch`'s cache layout.
+    """Speculative verify for a batch: (B, K) candidate rows together —
+    :func:`verify_step` with :func:`decode_step_batch`'s cache layout.
 
     Each macro step writes every sequence's K rows at the common offset
     ``write_pos + step * K``, IN PLACE after the layer loop; ``decode_mask``

@@ -27,10 +27,10 @@ DEFAULT_TEMPLATE = (
 
 # Families whose prompt building the JAX pipeline has and this one does not yet.
 _NOT_PORTED = {
-    "qwen2_vl": "ROADMAP Queue 1 item 11 (qwen2_vl: mRoPE and its towers)",
-    "internvl": "ROADMAP Queue 1 item 11 (internvl: InternViT and the InternLM2 import)",
-    "minicpmv": "ROADMAP Queue 1 item 11 (minicpmv and its frontend)",
-    "nvila": "ROADMAP Queue 1 item 11 (nvila and its frontend)",
+    "qwen2_vl": 'ROADMAP item "The other families" (qwen2_vl: mRoPE and its towers)',
+    "internvl": 'ROADMAP item "The other families" (internvl: InternViT and the InternLM2 import)',
+    "minicpmv": 'ROADMAP item "The other families" (minicpmv and its frontend)',
+    "nvila": 'ROADMAP item "The other families" (nvila and its frontend)',
 }
 
 
@@ -166,7 +166,7 @@ class TextPipeline:
         ``last_result``."""
         if speculative:
             raise NotImplementedError("speculative decoding is not ported to PyTorch yet "
-                                      "(ROADMAP Queue 1 item 13: runtime/spec_decode.py)")
+                                      '(ROADMAP item "Speculative decoding")')
         inputs = self.build_inputs(question, frames=frames, video_features=video_features)
         eos = eos_token_id if eos_token_id is not None else getattr(self.tokenizer, "eos_token_id", None)
         tokens, result = self.model.generate(inputs, max_new_tokens, eos_token_id=eos)

@@ -15,6 +15,11 @@ length and the remaining layers (the tail) run there.
   the compression-finishing layer's MLP deferred to the compacted tail. A
   plan that proves too tight, or a phase deeper than ``pool_layers``, falls
   back to fused (``mode == "planned_fallback_fused"``).
+* **Planned batch** (``prefill_planned_batch``): B prompts through the
+  planned executor in lockstep (JAX's batched phase and tail programs): one
+  shared layer counter, each sequence decided by the solo phase's own merge
+  and prune code, the norms and projections batched over (B, S), kernel A
+  once per sequence; a sequence that overflows its bucket falls back alone.
 * **Segmented** (``prefill(mode="segmented")``): no mask-only phase; every
   merge or prune event compacts at once to the bucket of its survivors, so
   each layer's attention runs unmasked at a shrinking bucket, and the merge
@@ -36,7 +41,9 @@ Decode (``generate_device``, ``generate`` and ``generate_stream``) replays
 one captured CUDA graph of the decode step (runtime/decode_graph.py), the
 counterpart of the JAX engine's one-program ``lax.scan``; the graphs are
 cached by decode geometry, so a second prompt of the same geometry copies
-its caches into the graph's pools and replays.
+its caches into the graph's pools and replays. ``generate_batch`` does the
+same for B prefill results with the batched step (one pool column a
+sequence, the decode region at a common offset past every prefix).
 """
 
 from __future__ import annotations
@@ -62,14 +69,21 @@ from ..core import (
     mark_topk,
     order_by_patch,
     prune_keep_mask,
+    pruning_ratio_flagged,
     similarity_by_patch,
 )
 from ..models import qwen2
+from ..ops.rope import apply_rope
 from ..ops.sampling import SamplerConfig, draw_uniforms
-from .decode_graph import DecodeGraph, slots_for
+from .decode_graph import BatchDecodeGraph, DecodeGraph, slots_for
 from .telemetry import CompressionEvent, PrefillTelemetry
 
 f32 = np.float32
+
+
+def _check_new_tokens(max_new_tokens: int) -> None:
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be at least 1, got {max_new_tokens}")
 
 
 def _round_half_even(x: float) -> int:
@@ -136,6 +150,26 @@ def best_tail_split(layer_lens, s_pool: int, new_tokens: int, bucket: int):
     return best
 
 
+def best_tail_split_batch(layer_lens_by_seq, s_pool: int, region_start: int, bucket: int):
+    """Batched-decode split ``(P, tail_s, region_start)``, or None.
+
+    The batched pools write new K/V at a common offset past every ragged
+    prefix (``qwen2.decode_step_batch``), so tail layers hold live rows only
+    in ``[0, tail_s) ∪ [region_start, S_pool)``: ``tail_s`` needs no
+    new-token headroom but must not cross ``region_start``. P minimises the
+    rows read per step over the two segments."""
+    n = len(layer_lens_by_seq[0])
+    region = s_pool - region_start
+    maxlens = [max(seq[l] for seq in layer_lens_by_seq) for l in range(n)]
+    best, best_cost = None, n * s_pool
+    for p in range(1, n):
+        tail_s = min(bucket_length(max(maxlens[p:]), bucket), region_start)
+        cost = p * s_pool + (n - p) * (tail_s + region)
+        if cost < best_cost:
+            best, best_cost = (p, tail_s, region_start), cost
+    return best
+
+
 @dataclasses.dataclass
 class PrefillResult:
     logits: torch.Tensor  # (V,) fp32 last-token logits
@@ -192,6 +226,10 @@ class _PhaseState:
     # Each event's similarity vector (zeros for the prune) when the engine's
     # ``debug_similarities`` is on, else None.
     sims: Optional[list] = None
+    # The cost schedule's infeasible flag: the decisions go on, and the
+    # executor raises CostInfeasibleError after the phase, as JAX's phase
+    # programs do.
+    infeasible: bool = False
 
     @property
     def done(self) -> bool:
@@ -201,7 +239,8 @@ class _PhaseState:
 def _merge_decision(st: _PhaseState, count: int, ff: FrameFusionConfig):
     """Threshold-or-budget merge decision (reference main.py:104-139 with the
     fp32 schedule). Updates ``st``; returns (k_marked, kind, above, budget)."""
-    budget = compute_pruning_ratio(st.sparsity, ff.cost, ff.schedule_num_layers)
+    budget, infeasible = pruning_ratio_flagged(st.sparsity, ff.cost, ff.schedule_num_layers)
+    st.infeasible |= infeasible
     with np.errstate(divide="ignore", invalid="ignore"):  # no frame tokens: NaN takes the capped branch, k = 0
         above = float(f32(count) / f32(st.frame_tok))
     if above < budget:
@@ -327,9 +366,10 @@ class CompressionEngine:
     def _pre_event(self, h, pt, pos, valid: int, st: _PhaseState, patch_num: int, new_len=None):
         """Layer-0 pre-attention merge, compacted: returns (h, pt, pos, bucket).
 
-        ``new_len`` is the planned executor's static bucket; None picks the
-        bucket of the survivor count. Returns None when the survivors do not
-        fit ``new_len`` (the caller falls back)."""
+        ``new_len`` is the planned executors' static bucket; None picks the
+        bucket of the survivor count. Survivors past ``new_len`` are cut off
+        (``st.n_live > new_len`` tells the caller, which falls back; the
+        lockstep batch runs such a sequence on, as JAX's does)."""
         ff = self.ff
         live = torch.arange(h.shape[0], device=h.device) < valid
         sim, order, count = _sim_count(h, pt, live, patch_num, ff.similarity_lower_bound)
@@ -337,8 +377,6 @@ class CompressionEngine:
         new_valid = valid - k_marked
         if new_len is None:
             new_len = bucket_length(new_valid, ff.bucket)
-        elif new_valid > new_len:
-            return None
         merged, keep = apply_merge(h, mark_topk(sim, k_marked), order)
         out, _ = compact_tokens(keep & live, new_len, new_valid, {"h": merged, "pos": pos, "patch_type": pt})
         if st.sims is not None:
@@ -360,23 +398,8 @@ class CompressionEngine:
         cfg, ff = self.cfg, self.ff
         cos, sin = qwen2.positions_cos_sin(pos, cfg)
         bucket = h.shape[0]
-        s_th = float(f32(ff.similarity_lower_bound))
-
-        def merge(h_cur, layer):
-            sim, order, count = _sim_count(h_cur, pt, live, patch_num, s_th)
-            k_marked, kind, above, budget = _merge_decision(st, count, ff)
-            merged, keep = apply_merge(h_cur, mark_topk(sim, k_marked), order)
-            if st.sims is not None:
-                st.sims.append(sim)
-            st.n_live -= k_marked
-            st.frame_tok -= k_marked
-            st.events.append(CompressionEvent(layer=layer, kind=kind, tokens_removed=k_marked,
-                                              tokens_after=st.n_live, above_ratio=above,
-                                              budget=budget, bucket=bucket))
-            return merged, live & keep
-
         if include_pre_event:
-            h, live = merge(h, -1)
+            h, live = self._merge_event(st, h, live, pt, patch_num, -1, bucket)
 
         caches, pending, layer = [], -1, 0
         while layer < stop_layer and not st.done:
@@ -389,24 +412,10 @@ class CompressionEngine:
             )
             caches.append((k, v, live))
             if not prune_now:
-                h, live = merge(h_mid, layer)
+                h, live = self._merge_event(st, h_mid, live, pt, patch_num, layer, bucket)
             else:
-                # Prune (reference main.py:61-101): keep the top-k image
-                # tokens by importance; k is banker's-rounded from fp32.
-                ratio = compute_pruning_ratio(st.sparsity, ff.cost, ff.schedule_num_layers)
-                cur_img_len = image_len - (orig_len - st.n_live)
-                k_keep = _round_half_even(float(f32(cur_img_len) * (f32(1.0) - f32(ratio))))
-                live_rank = torch.cumsum(live.to(torch.int64), dim=0) - 1
-                in_window = live & (live_rank >= image_start) & (live_rank < image_start + cur_img_len)
-                score = torch.where(in_window, importance, torch.full_like(importance, float("-inf")))
-                live = (live & ~in_window) | (in_window & (descending_rank(score) < k_keep))
-                removed = cur_img_len - k_keep
-                st.n_live -= removed
-                st.fp = True
-                st.events.append(CompressionEvent(layer=layer, kind="prune", tokens_removed=removed,
-                                                  tokens_after=st.n_live, budget=ratio, bucket=bucket))
-                if st.sims is not None:  # no similarity: a zero row keeps the list aligned with the events
-                    st.sims.append(torch.zeros(bucket, dtype=torch.float32, device=h.device))
+                live = self._prune_event(st, importance, live, layer, orig_len=orig_len, image_start=image_start,
+                                         image_len=image_len)
                 h = h_mid
             if defer_final_mlp and st.done:
                 pending = layer
@@ -414,6 +423,43 @@ class CompressionEngine:
                 h = qwen2.layer_mlp(lp, h, cfg)
             layer += 1
         return h, live, layer, caches, pending
+
+    def _merge_event(self, st: _PhaseState, h, live, pt, patch_num: int, layer: int, bucket: int):
+        """One merge event on a sequence's mask-only state (the solo phase and
+        the lockstep batch both call it): the threshold-or-budget decision,
+        the merge in place, the event logged. Returns (h, live)."""
+        sim, order, count = _sim_count(h, pt, live, patch_num, self.ff.similarity_lower_bound)
+        k_marked, kind, above, budget = _merge_decision(st, count, self.ff)
+        merged, keep = apply_merge(h, mark_topk(sim, k_marked), order)
+        if st.sims is not None:
+            st.sims.append(sim)
+        st.n_live -= k_marked
+        st.frame_tok -= k_marked
+        st.events.append(CompressionEvent(layer=layer, kind=kind, tokens_removed=k_marked, tokens_after=st.n_live,
+                                          above_ratio=above, budget=budget, bucket=bucket))
+        return merged, live & keep
+
+    def _prune_event(self, st: _PhaseState, importance, live, layer: int, *, orig_len: int, image_start: int,
+                     image_len: int):
+        """The prune on a sequence's mask-only state (reference
+        main.py:61-101): keep the top-k image tokens by importance; k is
+        banker's-rounded from fp32. Returns the new live mask."""
+        ratio, infeasible = pruning_ratio_flagged(st.sparsity, self.ff.cost, self.ff.schedule_num_layers)
+        st.infeasible |= infeasible
+        cur_img_len = image_len - (orig_len - st.n_live)
+        k_keep = _round_half_even(float(f32(cur_img_len) * (f32(1.0) - f32(ratio))))
+        live_rank = torch.cumsum(live.to(torch.int64), dim=0) - 1
+        in_window = live & (live_rank >= image_start) & (live_rank < image_start + cur_img_len)
+        score = torch.where(in_window, importance, torch.full_like(importance, float("-inf")))
+        live = (live & ~in_window) | (in_window & (descending_rank(score) < k_keep))
+        removed = cur_img_len - k_keep
+        st.n_live -= removed
+        st.fp = True
+        st.events.append(CompressionEvent(layer=layer, kind="prune", tokens_removed=removed, tokens_after=st.n_live,
+                                          budget=ratio, bucket=live.shape[0]))
+        if st.sims is not None:  # no similarity: a zero row keeps the list aligned with the events
+            st.sims.append(torch.zeros(live.shape[0], dtype=torch.float32, device=live.device))
+        return live
 
     def _tail(self, h, pos, valid_len: int, start_layer: int, pending_mlp_layer: int = -1):
         """Remaining layers at the compacted bucket (the deferred MLP first);
@@ -436,6 +482,85 @@ class CompressionEngine:
             order = torch.argsort((~live).to(torch.uint8), stable=True)
             out.append((k[order], v[order], int(live.sum())))
         return out
+
+    # -- the lockstep batch ----------------------------------------------------
+
+    def _attn_core_batch(self, lp, h, cos, sin, key_valid=None, capture=None):
+        """Batched attention half of a layer (JAX's ``_attn_core_batch``):
+        rmsnorm, the q/k/v/o projections and rope run over all (B, S) rows
+        at once (one weight read for the batch), the attention kernel once
+        per sequence through ``qwen2.attention_kernel_dispatch`` (kernel A
+        with the sequence's key-valid row; A + B where ``capture[b]``, the
+        sequence's prune layer). Returns (h_out, k, v (B, S, Hk, hd),
+        importance per sequence or None)."""
+        cfg = self.cfg
+        b, s, d = h.shape
+        x = qwen2.rmsnorm(h, lp["ln1"], cfg.rms_norm_eps).reshape(b * s, d)
+        q, k, v = qwen2._project_qkv(lp, x, cfg)
+        q, k = apply_rope(q, k, cos.reshape(b * s, -1), sin.reshape(b * s, -1))
+        q, k, v = (t.reshape(b, s, *t.shape[1:]) for t in (q, k, v))
+        attn, importance = torch.empty_like(q), [None] * b
+        for i in range(b):
+            num = self.ff.num_importance_queries if capture is not None and capture[i] else 0
+            kv_i = key_valid[i] if key_valid is not None else None
+            attn[i], importance[i] = qwen2.attention_kernel_dispatch(q[i], k[i], v[i], self.attn_impl, num, None, kv_i)
+        h_out = h + qwen2.mm(attn.reshape(b * s, -1), lp["wo"]).reshape(b, s, d)
+        return h_out, k, v, importance
+
+    def _phase_batch(self, h, pts, pos, live, states, *, orig_lens, image_starts, image_lens, patch_num: int):
+        """The lockstep-batched mask-only phase (JAX's ``_phase_program_batch``):
+        one shared layer counter over B sequences, each decided by the solo
+        phase's own ``_merge_event`` / ``_prune_event``. A sequence that is
+        done runs the later layers with no event (mask-only); the loop ends
+        when every sequence is done or at ``pool_layers``, and the MLP of the
+        layer where all are done is deferred to the compacted tail.
+
+        Returns (h, live, layer_end, per-layer (k, v, live-at-attention) for
+        the batch, pending MLP layer or -1)."""
+        cfg = self.cfg
+        cos, sin = qwen2.positions_cos_sin(pos, cfg)
+        bucket = h.shape[1]
+        caches, pending, layer = [], -1, 0
+        while layer < self.pool_layers and not all(st.done for st in states):
+            lp = qwen2.layer_slice(self.params["layers"], layer)
+            capture = [st.fm and not st.done for st in states]
+            h, k, v, importance = self._attn_core_batch(lp, h, cos, sin, key_valid=live, capture=capture)
+            caches.append((k, v, live))
+            live = live.clone()
+            for i, st in enumerate(states):
+                if st.done:
+                    continue
+                if not st.fm:
+                    h[i], live[i] = self._merge_event(st, h[i], live[i], pts[i], patch_num, layer, bucket)
+                else:
+                    live[i] = self._prune_event(st, importance[i], live[i], layer, orig_len=orig_lens[i],
+                                                image_start=image_starts[i], image_len=image_lens[i])
+            if all(st.done for st in states):
+                pending = layer
+            else:
+                h = qwen2.layer_mlp(lp, h, cfg)
+            layer += 1
+        return h, live, layer, caches, pending
+
+    def _tail_batch(self, h, pos, valid_lens, start_layer: int, pending_mlp_layer: int):
+        """The batched tail (JAX's ``_tail_program_batch``): the deferred MLP
+        first, then the remaining layers at the shared bucket (batched
+        GEMMs, kernel A per sequence with no mask); each row's logits at its
+        own ``valid_len - 1``. Returns (logits (B, V), k_all, v_all (L, B,
+        S, Hk, hd))."""
+        cfg = self.cfg
+        if pending_mlp_layer >= 0:
+            h = qwen2.layer_mlp(qwen2.layer_slice(self.params["layers"], pending_mlp_layer), h, cfg)
+        cos, sin = qwen2.positions_cos_sin(pos, cfg)
+        b, s, _ = h.shape
+        k_all = torch.zeros((cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim_), dtype=cfg.dtype, device=h.device)
+        v_all = torch.zeros_like(k_all)
+        for l in range(start_layer, cfg.num_layers):
+            lp = qwen2.layer_slice(self.params["layers"], l)
+            h, k_all[l], v_all[l], _ = self._attn_core_batch(lp, h, cos, sin)
+            h = qwen2.layer_mlp(lp, h, cfg)
+        last = torch.stack([h[i, n - 1] for i, n in enumerate(valid_lens)])
+        return qwen2.final_logits(self.params, last, cfg), k_all, v_all
 
     def _finish(self, telemetry, st, caches, layer_end, logits, k_tail, v_tail, *,
                 orig_len, image_token_length, patch_num, patch_type, mode, plan_source=None):
@@ -528,6 +653,8 @@ class CompressionEngine:
             h, pt, pos, live, st, orig_len=orig_len, image_start=image_token_start,
             image_len=image_token_length, patch_num=patch_num, stop_layer=cfg.num_layers,
             include_pre_event=include_pre, defer_final_mlp=False)
+        if st.infeasible:
+            raise CostInfeasibleError("The cost is too small")
         s_small = bucket_length(st.n_live, ff.bucket)
         out, _ = compact_tokens(live, s_small, st.n_live, {"h": h, "pos": pos})
         logits, k_tail, v_tail = self._tail(out["h"], out["pos"], st.n_live, layer_end)
@@ -585,15 +712,16 @@ class CompressionEngine:
         two_stage = pre_plan_len is not None and ff.bucket <= pre_plan_len < s_b
         if two_stage:
             plan_len = min(plan_len, pre_plan_len)
-            pre = self._pre_event(h, pt, pos, orig_len, st, patch_num, new_len=pre_plan_len)
-            if pre is None:
+            h, pt, pos, _ = self._pre_event(h, pt, pos, orig_len, st, patch_num, new_len=pre_plan_len)
+            if st.n_live > pre_plan_len:
                 return fallback()  # pre-plan bucket too tight
-            h, pt, pos, _ = pre
         live = torch.arange(h.shape[0], device=h.device) < st.n_live
         h, live, layer_end, caches, pending = self._phase(
             h, pt, pos, live, st, orig_len=orig_len, image_start=image_token_start,
             image_len=image_token_length, patch_num=patch_num, stop_layer=self.pool_layers,
             include_pre_event=not two_stage, defer_final_mlp=True)
+        if st.infeasible:
+            raise CostInfeasibleError("The cost is too small")
         if st.n_live > plan_len or (not st.done and layer_end < cfg.num_layers):
             return fallback()
         for ev in st.events[1 if two_stage else 0:]:
@@ -603,6 +731,107 @@ class CompressionEngine:
         return self._finish(telemetry, st, caches, layer_end, logits, k_tail, v_tail,
                             orig_len=orig_len, image_token_length=image_token_length, patch_num=patch_num,
                             patch_type=patch_type, mode="planned", plan_source=plan_source)
+
+    def prefill_planned_batch(self, batch, patch_num: int, plan_len: Optional[int] = None,
+                              pre_plan_len: Optional[int] = None) -> list:
+        """Lockstep-batched planned prefill (JAX's ``prefill_planned_batch``):
+        B prompts padded to the batch's largest bucket, each one's layer-0
+        merge compacted to the shared ``pre_plan_len``, one lockstep phase
+        (``_phase_batch``), each sequence compacted to the shared
+        ``plan_len``, one batched tail.
+
+        ``batch``: a list of ``(input_embeds, patch_type, position_ids,
+        image_token_start, image_token_length)``; the prompts share
+        ``patch_num``. Without buckets from the caller, PlanHistory plans
+        when it has a suggestion for every prompt (the largest of each),
+        else the largest analytic ``pre_plan_length``. A sequence whose
+        survivors overflow a bucket, or whose phase outran the pool, falls
+        back to its own fused prefill (``mode == "planned_fallback_fused"``)
+        without moving the others' decisions; a pre-plan overflow is seen
+        before its phase state is read, as that sequence rode the lockstep
+        loop on its cut state (and may have moved the shared exit layer, as
+        in JAX). An infeasible cost raises CostInfeasibleError for the
+        whole batch. Returns a list of PrefillResult (``mode ==
+        "planned_batch"``), ready for ``generate_batch``."""
+        cfg, ff = self.cfg, self.ff
+        if not batch:
+            raise ValueError("prefill_planned_batch: empty batch")
+        preps = [self._prep_inputs(e, pt, pos) for (e, pt, pos, _, _) in batch]
+        s_b = max(p[0].shape[0] for p in preps)
+
+        def pad_to(h, pt, pos, _):
+            pad = s_b - h.shape[0]
+            return (torch.nn.functional.pad(h, (0, 0, 0, pad)), torch.nn.functional.pad(pt, (0, pad), value=PAD_TOKEN),
+                    torch.nn.functional.pad(pos, (0, pad)))
+
+        padded = [pad_to(*p) for p in preps]
+        orig_lens = [p[3] for p in preps]
+        frame_toks = [self._frame_tokens(pt) for (_, pt, _, _, _) in batch]
+        img_starts, img_lens = [b_[3] for b_ in batch], [b_[4] for b_ in batch]
+
+        plan_source = "explicit"
+        if pre_plan_len is None:
+            suggestions = [self.plan_history.suggest(PlanHistory.key(patch_num, ft // patch_num, ff), ff.bucket)
+                           if patch_num > 0 and ft and ft % patch_num == 0 else None for ft in frame_toks]
+            if all(sug is not None for sug in suggestions):
+                pre_plan_len = max(sug[0] for sug in suggestions)
+                if plan_len is None:
+                    plan_len = max(sug[1] for sug in suggestions)
+                plan_source = "history"
+            else:
+                pre_plan_len = max(pre_plan_length(n, ft, ff) for n, ft in zip(orig_lens, frame_toks))
+                plan_source = "analytic"
+        pre_plan_len = min(max(pre_plan_len, ff.bucket), s_b)
+        plan_len = pre_plan_len if plan_len is None else min(max(plan_len, ff.bucket), pre_plan_len)
+
+        states, hs, pts, poss, pre_overflow = [], [], [], [], []
+        for (h, pt, pos), n, ft in zip(padded, orig_lens, frame_toks):
+            st = _PhaseState(n_live=n, frame_tok=ft)
+            h, pt, pos, _ = self._pre_event(h, pt, pos, n, st, patch_num, new_len=pre_plan_len)
+            pre_overflow.append(st.n_live > pre_plan_len)
+            states.append(st)
+            hs.append(h)
+            pts.append(pt)
+            poss.append(pos)
+        pos = torch.stack(poss)
+        live = torch.arange(pre_plan_len, device=self.device)[None, :] < torch.tensor(
+            [st.n_live for st in states], device=self.device)[:, None]
+        h, live, layer_end, caches, pending = self._phase_batch(
+            torch.stack(hs), pts, pos, live, states, orig_lens=orig_lens, image_starts=img_starts,
+            image_lens=img_lens, patch_num=patch_num)
+
+        planned = []
+        for i, st in enumerate(states):
+            if pre_overflow[i]:
+                continue  # its phase ran on a cut state: nothing of it is read
+            if st.infeasible:
+                raise CostInfeasibleError(f"The cost is too small (batch index {i})")
+            if st.n_live <= plan_len and (st.done or layer_end >= cfg.num_layers):
+                planned.append(i)
+        tail = {}
+        if planned:
+            outs = [compact_tokens(live[i], plan_len, states[i].n_live, {"h": h[i], "pos": pos[i]})[0] for i in planned]
+            logits, k_tail, v_tail = self._tail_batch(torch.stack([o["h"] for o in outs]),
+                                                      torch.stack([o["pos"] for o in outs]),
+                                                      [states[i].n_live for i in planned], layer_end, pending)
+            tail = {i: j for j, i in enumerate(planned)}
+
+        results = []
+        for i, (embeds, patch_type, position_ids, img_s, img_l) in enumerate(batch):
+            if i not in tail:
+                res = self._prefill_fused(embeds, patch_type, position_ids, patch_num, img_s, img_l)
+                res.mode, res.plan_source = "planned_fallback_fused", plan_source
+                results.append(res)
+                continue
+            st, j = states[i], tail[i]
+            for ev in st.events[1:]:
+                ev.bucket = plan_len
+            telemetry = PrefillTelemetry(original_length=orig_lens[i], image_token_length=img_l)
+            results.append(self._finish(telemetry, st, [(k[i], v[i], lv[i]) for k, v, lv in caches], layer_end,
+                                        logits[j], k_tail[:, j], v_tail[:, j], orig_len=orig_lens[i],
+                                        image_token_length=img_l, patch_num=patch_num, patch_type=patch_type,
+                                        mode="planned_batch", plan_source=plan_source))
+        return results
 
     def _prefill_segmented(self, input_embeds, patch_type, position_ids, patch_num: int,
                            image_token_start: int, image_token_length: int) -> PrefillResult:
@@ -685,14 +914,19 @@ class CompressionEngine:
     # -- decode --------------------------------------------------------------
 
     def make_decode_state(self, result: PrefillResult, max_new_tokens: int, s_pool: Optional[int] = None,
-                          pools=None):
+                          pools=None, column: Optional[int] = None):
         """Assemble the ragged per-layer caches into one padded pool:
         (k_pool, v_pool (L, S_pool, Hk, hd), per-layer lengths). ``pools``
         (a (k_pool, v_pool) pair) is filled in place instead of allocating,
-        so a decode graph's pools are the only copy."""
+        so a decode graph's pools are the only copy; with ``column`` they are
+        a batched graph's (L, B, S_pool, Hk, hd) pools and only that
+        sequence's column is filled (one sequence at a time, so the batch's
+        pools are never held twice)."""
         cfg = self.cfg
         if pools is not None:
             k_pool, v_pool = pools
+            if column is not None:
+                k_pool, v_pool = k_pool[:, column], v_pool[:, column]
             k_pool.zero_()
             v_pool.zero_()
             s_pool = int(k_pool.shape[1])
@@ -710,22 +944,12 @@ class CompressionEngine:
             lens.append(int(length))
         return k_pool, v_pool, lens
 
-    def decode_graph(self, result: PrefillResult, max_new_tokens: int,
-                     sampler: Optional[SamplerConfig] = None) -> DecodeGraph:
-        """A decode graph for ``result``'s geometry that no decode is running
-        on, from the cache or newly captured. The key is what JAX's decode
-        loop makes static: the pool's rows, the tail split, the sampler, the
-        decode attention, the dtype and the token slots. A decode that starts
-        while another holds the key's graph (two streams, or a ``generate``
-        between two chunks of a stream) gets a graph of its own, as each JAX
-        call keeps its own state."""
-        sampler = sampler or SamplerConfig()
-        lens = [int(c[2]) for c in result.layer_caches]
-        s_pool = bucket_length(max(lens) + max_new_tokens, self.ff.bucket)
-        split = best_tail_split(lens, s_pool, max_new_tokens, self.ff.bucket)
-        # Kernel G behind the kernels' "flash", the plain path behind "einsum".
-        attn = "ragged" if self.attn_impl == "flash" else "einsum"
-        key = (s_pool, split, sampler, attn, self.cfg.dtype, slots_for(max_new_tokens))
+    def _free_graph(self, key: tuple, make):
+        """The graph of ``key`` that no decode is running on, from the cache
+        or ``make()``: a least-recently-used cache of ``GRAPH_CACHE_SIZE``
+        keys, each with every graph made for it (a decode that starts while
+        another holds the key's graph gets a graph of its own, as each JAX
+        call keeps its own state)."""
         graphs = self._graphs.pop(key, None)
         if graphs is None:
             while len(self._graphs) >= self.GRAPH_CACHE_SIZE:
@@ -734,21 +958,73 @@ class CompressionEngine:
         self._graphs[key] = graphs
         graph = next((g for g in graphs if not g.busy), None)
         if graph is None:
-            graph = DecodeGraph(self.params, self.cfg, s_pool, attn_impl=attn, tail_split=split, sampler=sampler,
-                                n_slots=key[-1])
+            graph = make()
             graphs.append(graph)
         return graph
+
+    def decode_graph(self, result: PrefillResult, max_new_tokens: int,
+                     sampler: Optional[SamplerConfig] = None) -> DecodeGraph:
+        """A decode graph for ``result``'s geometry that no decode is running
+        on (``_free_graph``). The key is what JAX's decode loop makes
+        static: the pool's rows, the tail split, the sampler, the decode
+        attention, the dtype and the token slots."""
+        sampler = sampler or SamplerConfig()
+        lens = [int(c[2]) for c in result.layer_caches]
+        s_pool = bucket_length(max(lens) + max_new_tokens, self.ff.bucket)
+        split = best_tail_split(lens, s_pool, max_new_tokens, self.ff.bucket)
+        # Kernel G behind the kernels' "flash", the plain path behind "einsum".
+        attn = "ragged" if self.attn_impl == "flash" else "einsum"
+        key = (s_pool, split, sampler, attn, self.cfg.dtype, slots_for(max_new_tokens))
+        return self._free_graph(key, lambda: DecodeGraph(self.params, self.cfg, s_pool, attn_impl=attn,
+                                                         tail_split=split, sampler=sampler, n_slots=key[-1]))
+
+    def batch_decode_graph(self, results: list, max_new_tokens: int,
+                           sampler: Optional[SamplerConfig] = None) -> BatchDecodeGraph:
+        """A batched decode graph for ``results`` that no decode is running
+        on (``_free_graph``), keyed by what JAX's ``_decode_loop_batch``
+        makes static: B, the pool's rows (one bucket for the batch), the
+        common write offset, the split, the sampler, the decode attention,
+        the dtype and the token slots."""
+        sampler = sampler or SamplerConfig()
+        lens = [[int(c[2]) for c in r.layer_caches] for r in results]
+        s_pool = bucket_length(max(max(seq) for seq in lens) + max_new_tokens, self.ff.bucket)
+        write_pos = s_pool - max_new_tokens
+        split = best_tail_split_batch(lens, s_pool, write_pos, self.ff.bucket)
+        # Kernels C and D behind "flash" (JAX's "pallas"); the attention is plain either way.
+        attn = "flash" if self.attn_impl == "flash" else "einsum"
+        key = ("batch", len(results), s_pool, write_pos, split, sampler, attn, self.cfg.dtype,
+               slots_for(max_new_tokens))
+        return self._free_graph(key, lambda: BatchDecodeGraph(
+            self.params, self.cfg, s_pool, batch=len(results), write_pos=write_pos, attn_impl=attn,
+            tail_split=split, sampler=sampler, n_slots=key[-1]))
 
     def _start_decode(self, result: PrefillResult, max_new_tokens: int, sampler, generator) -> DecodeGraph:
         """A free decode graph, loaded with ``result``'s caches and first
         token, marked busy until the caller clears ``busy``."""
-        if max_new_tokens < 1:
-            raise ValueError(f"max_new_tokens must be at least 1, got {max_new_tokens}")
+        _check_new_tokens(max_new_tokens)
         sampler = sampler or SamplerConfig()
         graph = self.decode_graph(result, max_new_tokens, sampler)
         _, _, lens = self.make_decode_state(result, max_new_tokens, pools=(graph.k_pool, graph.v_pool))
-        uniforms = draw_uniforms(max_new_tokens, generator, self.device) if sampler.temperature else None
-        graph.start(lens, result.decode_pos_base, result.logits, uniforms)
+        return self._load(graph, sampler, generator, max_new_tokens, lens, result.decode_pos_base, result.logits)
+
+    def _start_batch_decode(self, results: list, max_new_tokens: int, sampler, generator) -> BatchDecodeGraph:
+        """``_start_decode`` for a batch: a free batched graph, each result's
+        caches in its own pool column."""
+        _check_new_tokens(max_new_tokens)
+        if not results:
+            raise ValueError("generate_batch: empty batch")
+        sampler = sampler or SamplerConfig()
+        graph = self.batch_decode_graph(results, max_new_tokens, sampler)
+        cols = [self.make_decode_state(r, max_new_tokens, pools=(graph.k_pool, graph.v_pool), column=b)[2]
+                for b, r in enumerate(results)]
+        return self._load(graph, sampler, generator, (max_new_tokens, len(results)), list(zip(*cols)),
+                          [r.decode_pos_base for r in results], torch.stack([r.logits for r in results]))
+
+    def _load(self, graph, sampler: SamplerConfig, generator, draws, lens, pos_base, logits):
+        """Start ``graph`` on the loaded pools (the uniforms of a sampled
+        decode drawn first, ``draws`` of them) and mark it busy."""
+        uniforms = draw_uniforms(draws, generator, self.device) if sampler.temperature else None
+        graph.start(lens, pos_base, logits, uniforms)
         graph.busy = True
         return graph
 
@@ -774,6 +1050,31 @@ class CompressionEngine:
         out = [int(t) for t in self.generate_device(result, max_new_tokens, sampler, generator).tolist()]
         if eos_token_id is not None and eos_token_id in out:
             out = out[: out.index(eos_token_id) + 1]
+        return out
+
+    def generate_batch(self, results: list, max_new_tokens: int, eos_token_id: Optional[int] = None,
+                       sampler: Optional[SamplerConfig] = None, generator: Optional[torch.Generator] = None):
+        """Decode a batch of prefill results together (JAX's
+        ``generate_batch``): one pool bucket for the batch, each sequence's
+        ragged caches in its own column, the decode region at the common
+        offset ``S_pool - max_new_tokens`` past every prefix, and
+        ``max_new_tokens - 1`` replays of the batched decode graph back to
+        back (each step one launch of kernels C and D for all B rows, which
+        read the weights once a row). Greedy by default;
+        a sampled decode draws a (max_new_tokens, B) block of uniforms from
+        ``generator`` first. One read at the end, then each row is cut after
+        ``eos_token_id``. Returns a list of token lists."""
+        graph = self._start_batch_decode(list(results), max_new_tokens, sampler, generator)
+        try:
+            graph.run(max_new_tokens - 1)
+            rows = graph.out[:max_new_tokens].T.tolist()
+        finally:
+            graph.busy = False
+        out = []
+        for ids in rows:
+            if eos_token_id is not None and eos_token_id in ids:
+                ids = ids[: ids.index(eos_token_id) + 1]
+            out.append(ids)
         return out
 
     def generate_greedy(self, result: PrefillResult, max_new_tokens: int, eos_token_id: Optional[int] = None):
@@ -813,6 +1114,7 @@ __all__ = [
     "PlanHistory",
     "PrefillResult",
     "best_tail_split",
+    "best_tail_split_batch",
     "plan_length_analytic",
     "plan_length_measured",
     "pre_plan_length",

@@ -41,9 +41,9 @@ _QWEN2_LAYER_KEYS = {
 }
 
 # Architecture string (config.json ``architectures[0]``) -> family. Only the
-# llava_video family is ported; the others are ROADMAP Queue 1 item 11.
+# llava_video family is ported; the others wait for ROADMAP item "The other families".
 _ARCH_TO_FAMILY = {"LlavaQwenForCausalLM": "llava_video"}
-_NOT_PORTED = "is not ported to PyTorch yet (ROADMAP Queue 1 item 11: the other families)"
+_NOT_PORTED = 'is not ported to PyTorch yet (ROADMAP item "The other families")'
 
 
 def to_numpy(t) -> np.ndarray:

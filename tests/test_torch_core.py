@@ -114,6 +114,24 @@ def test_schedule_twins_match_jax(sparsity, cost, layers):
     assert bool(infeas_t) == bool(infeas_j) is False
 
 
+@pytest.mark.parametrize("sparsity,cost,layers", [
+    ([0.3], 0.3, 28), ([0.25, 0.2], 0.4, 6),  # feasible: the raising twin's ratio
+    ([0.0, 0.0, 0.0], 0.05, 6), ([0.3, 0.0], 0.05, 6),  # infeasible
+    ([0.1] * 6, 0.05, 6), ([1.0] * 2, 0.3, 6),  # infeasible, every event slot used / density 0
+])
+def test_schedule_flagged_matches_jax_flag(sparsity, cost, layers):
+    ratio, flag = tschedule.pruning_ratio_flagged(sparsity, cost, layers)
+    arr = np.zeros(8, np.float32)
+    arr[: len(sparsity)] = sparsity
+    _, infeas_j = jschedule.compute_pruning_ratio_device(
+        jnp.asarray(arr), jnp.int32(len(sparsity)), jnp.float32(cost), layers)
+    assert flag == bool(infeas_j)
+    if flag:  # finite, so the phase that decides on it can round it before it raises
+        assert ratio == 1.0
+    else:
+        assert ratio == jschedule.compute_pruning_ratio(sparsity, cost, layers)
+
+
 def test_schedule_infeasible():
     with pytest.raises(tschedule.CostInfeasibleError):
         tschedule.compute_pruning_ratio([0.0, 0.0, 0.0], 0.05, 6)

@@ -149,11 +149,11 @@ def test_from_checkpoint_matches_jax(tmp_path):
 
 def test_unported_paths_raise(pipes):
     _, tpipe = pipes
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item \"Speculative decoding\""):
         tpipe.ask("Q?", video_features=np.zeros((18, 128), np.float32), speculative=True)
     other = TextPipeline(model=FrameFusionModel(family="internvl", cfg=tpipe.model.cfg, params=tpipe.model.params),
                          tokenizer=StubTokenizer())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item \"The other families\""):
         other.ask("Q?", video_features=np.zeros((18, 128), np.float32))
     with pytest.raises(ValueError, match="vision tower"):
         TextPipeline(model=tpipe.model, tokenizer=StubTokenizer()).ask("Q?", frames=_uint8_frames(0, n=2))
