@@ -16,7 +16,8 @@ Phases, each printed as it runs; every run makes all of them:
              events (the short ones, B, C, D and G, over CUDA-graph replays,
              so the host's launch overhead does not hide them), beside the
              least time the card could take (bound_ms). Kernels C and D also
-             at the batched decode's B = 2, 4, 8 rows.
+             at the batched decode's B = 2, 4, 8 rows and the speculative
+             verify's 5 and 20.
 2b. kernel_check — ``framefusion_tpu_torch.kernel_bench.check_kernels()``:
              the JAX package's on-chip check matrix (every attention regime,
              the importance epilogues, E, F, G, the matvecs at Qwen2-7B
@@ -109,6 +110,22 @@ Phases, each printed as it runs; every run makes all of them:
              by kernel. Launches of A and B are counted around the B = 8 batched
              prefill, of C and D around the B = 8 generate_batch (eager, captured,
              replayed: ``batch_launches``).
+10. spec_serve — speculative decoding and the serving loop on phase 9's
+             int8 model (phase 4's weights) and prompts: the device-form
+             verify_step at K = 5 against 5 eager decode_step "flash" and
+             "ragged" steps (teacher forced, LOGIT_RTOL) and the
+             device-form verify_step_batch at B = 4 bitwise its host form;
+             generate_spec(64, draft_len 4) on phase 9's first fused prefill
+             against generate(64), generate_spec_batch at B = 4 against
+             generate_batch (token agreement reported: bf16 ties); each
+             captured macro step (solo, batched, the serving chunk) bitwise
+             its eager body; ms a macro step; then ServingLoop over the 8
+             prompts in a staggered order (4 slots, chunks of 8,
+             max_new_cap 32, tail_pool (2, 3456)) at draft_len 0 and 4,
+             every request ended, agreement with its solo generate_greedy
+             reported, chunk and admission ms, captures, compactions,
+             requests/s and tokens/s. C's and D's launches on these paths
+             (eager, captured, replayed: ``spec_launches``).
 
 The line before the last is a JSON object with one entry per kernel, built
 from ``framefusion_tpu_torch.ops.kernels`` (the TPU functions each stands
@@ -123,7 +140,9 @@ recorded at the capture, which ran only at the replays; G's
 A-D also carry ``batch_launches`` from phase 9 (A and B around the B = 8
 batched prefill, C and D around the B = 8 batched decode: eager, captured,
 replayed), and C's and D's ``shapes`` their rows at B = 2, 4, 8 (the
-int8 ones with phase 9's launches at that B; phase 9 decodes int8). The
+int8 ones with phase 9's launches at that B; phase 9 decodes int8) and at
+the verify's 5 and 20 rows (the int8 ones with phase 10's launches); C
+and D also carry ``spec_launches`` from phase 10. The
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. The script never runs on the CPU: without a CUDA device
 it exits at once.
@@ -175,6 +194,12 @@ FEATURE_RTOL = 1.5e-2
 #   probabilities, other summation orders) may differ by up to about twice
 #   that.
 LOGIT_RTOL = 6e-2
+# * Phase 10 holds the K = 5 verify program against 5 decode steps ("flash"
+#   and "ragged") at full width to LOGIT_RTOL too: kernels C and D at 5 rows
+#   split their sums otherwise than at 1 row, and over 28 int8 layers two
+#   such roundings of one model spread 3-4.5e-2 (the batched step against
+#   the solo one in phase 9); kernel_bench's 3e-2 verify bound is a 2-layer
+#   bound.
 # * Phase 4b holds "ragged" decode against "flash" at full width: the two
 #   differ only in where the attention rounds (kernel G's fp32 split-K sums
 #   against the plain fp32 einsum, both rounded to bf16), two bf16 runs as
@@ -198,6 +223,10 @@ SHAPES_C = {(3584, (3584, 512, 512)): "qkv", (3584, (3584,)): "wo", (18944, (358
 BATCH_ROWS = (2, 4, 8)
 # The batch sizes of phase 9.
 BATCH_SIZES = (1,) + BATCH_ROWS
+# The speculative verify's rows (kernels C and D, phases 2 and 10): K = 5
+# (draft_len 4) solo, B * K = 20 at B = 4.
+SPEC_DRAFT, SPEC_B = 4, 4
+VERIFY_ROWS = (SPEC_DRAFT + 1, SPEC_B * (SPEC_DRAFT + 1))
 
 
 def log(msg: str) -> None:
@@ -477,7 +506,7 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
             # The batched decode's rows (phase 9): B rows in one launch, each
             # row its own pass over the weights (grid.z); the split plan
             # depends on the rows, so each B is a launch shape of its own.
-            for rows in BATCH_ROWS:
+            for rows in BATCH_ROWS + VERIFY_ROWS:
                 xr = _rand(gen, (rows, kdim))
                 if name == "gateup":
                     outs = [mv.gemv_gateup(xr, stacks[0], stacks[1], scales[0], scales[1], 1)]
@@ -1601,7 +1630,7 @@ def phase_baselines(chk: Checks, kernels: dict) -> None:
     log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def phase_batch(chk: Checks, kernels: dict) -> None:
+def phase_batch(chk: Checks, kernels: dict, ctx: dict) -> None:
     """The batched main path at full width: random Qwen2-7B weights (bf16)
     and 8 distinct 64-frame prompts; ``prefill_planned_batch`` at B = 1, 2,
     4, 8 against the solo ``prefill_planned`` at the same buckets, then
@@ -1629,8 +1658,10 @@ def phase_batch(chk: Checks, kernels: dict) -> None:
     eng = apply_framefusion(FrameFusionModel(family="llava_video", cfg=cfg, params=params), 0.3, 0.6, 0.1).engine()
     # Each prompt's solo fused prefill seeds PlanHistory (one geometry): the
     # batches and the solo planned prefills then plan at its buckets.
-    for b in batch:
-        eng.prefill(*b[:3], 182, *b[3:])
+    for i, b in enumerate(batch):
+        res = eng.prefill(*b[:3], 182, *b[3:])
+        if i == 0:
+            ctx["res_fused"] = res  # phase 10's solo speculative decode
     pre_plan, plan = eng.plan_history.suggest(PlanHistory.key(182, 64, eng.ff), eng.ff.bucket)
     args = [(*b[:3], 182, *b[3:]) for b in batch]
     solo = [eng.prefill_planned(*a, plan_len=plan, pre_plan_len=pre_plan) for a in args]
@@ -1790,8 +1821,319 @@ def phase_batch(chk: Checks, kernels: dict) -> None:
         del g32, graph
     for shape in kernels["gemv_stacked"]["shapes"] + kernels["gemv_gateup"]["shapes"]:
         if " bf16 B=" in shape["shape"]:
-            shape["launches"] = 0  # this phase decodes int8
+            shape["launches"] = 0  # this phase and phase 10 decode int8
     log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    ctx.update(cfg=cfg, params_q=params_q, eng_q=eng_q, batch=batch, res_batch=res_max[:4])  # for phase 10
+
+
+def _graph_equals_eager(owner, replay, eager, n: int) -> list:
+    """``replay(n)`` against ``n`` calls of ``eager()`` run on the capture
+    stream from the same state: the names of ``owner``'s tensors that are
+    not bitwise equal afterwards. The state is put back as it was."""
+    from framefusion_tpu_torch.runtime.decode_graph import capture_stream
+
+    names = [k for k, v in vars(owner).items() if isinstance(v, torch.Tensor) and k != "counters"]
+    start = {k: getattr(owner, k).clone() for k in names}
+    replay(n)
+    torch.cuda.synchronize()
+    replayed = {k: getattr(owner, k).clone() for k in names}
+    for k in names:
+        getattr(owner, k).copy_(start[k])
+    stream = capture_stream("cuda")
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(n):
+            eager()
+    torch.cuda.synchronize()
+    differ = [k for k in names if not torch.equal(getattr(owner, k), replayed[k])]
+    for k in names:
+        getattr(owner, k).copy_(start[k])
+    torch.cuda.synchronize()
+    return differ
+
+
+def phase_spec_serve(chk: Checks, kernels: dict, ctx: dict) -> None:
+    """Speculative decoding and the serving loop at full width, on phase
+    9's int8 model (Qwen2-7B, seed 0, phase 4's weights) and prompts:
+    teacher-forced checks of the verify programs' device forms, each
+    captured macro step against its eager body, generate_spec and
+    generate_spec_batch against generate and generate_batch, and the
+    ServingLoop over the 8 prompts at draft_len 0 and 4."""
+    from framefusion_tpu_torch import kernel_bench
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.adapters.common import PrefillInputs
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+    from framefusion_tpu_torch.runtime import spec_decode
+    from framefusion_tpu_torch.runtime.decode_graph import DecodeGraph
+    from framefusion_tpu_torch.runtime.engine import best_tail_split, best_tail_split_batch
+    from framefusion_tpu_torch.runtime.serving import ServeRequest, ServingLoop
+
+    cfg, params, eng = ctx["cfg"], ctx["params_q"], ctx["eng_q"]
+    res, res_b = ctx["res_fused"], ctx["res_batch"]
+    eng._graphs.clear()
+    dev, n_l, kq = torch.device("cuda"), cfg.num_layers, SPEC_DRAFT + 1
+    n_spec, n_batch = 64, 32
+    yes = torch.ones((), dtype=torch.bool, device=dev)
+    wrappers = {"flash_attn_fwd": fp.flash_attn_fwd, "attn_importance_rows": fp.attn_importance_rows,
+                "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup}
+    spec = {name: {"eager": 0, "captured": 0, "replayed": 0} for name in ("gemv_stacked", "gemv_gateup")}
+    by_rows: dict = {}  # C / D launches by (kernel, rows, K, widths) over the main-path runs
+
+    def tally(cd_log):
+        """Add the main-path run since ``_zero_counts`` to phase 10's counts."""
+        for name, entry in spec.items():
+            entry["eager"] += wrappers[name].launches
+            entry["captured"] += wrappers[name].captured
+            entry["replayed"] += DecodeGraph.replayed[name]
+        for key, n in cd_log.counts(DecodeGraph.replays).items():
+            by_rows[key] = by_rows.get(key, 0) + n
+
+    # -- the verify programs' device forms ---------------------------------
+    toks = eng.generate(res, kq)  # the rows both sides are fed (teacher forcing)
+    rows = torch.tensor(toks, device=dev)
+    k_pool, v_pool, lens = eng.make_decode_state(res, n_spec + SPEC_DRAFT)
+    split = best_tail_split(lens, int(k_pool.shape[1]), n_spec + SPEC_DRAFT, eng.ff.bucket)
+    lv = qwen2.verify_step(params, qwen2.embed(params, rows), res.decode_pos_base + torch.arange(kq, device=dev),
+                           k_pool.clone(), v_pool.clone(), torch.tensor(lens, device=dev), cfg, attn_impl="flash",
+                           tail_split=split, gate=yes)[0]
+    for impl in ("flash", "ragged"):
+        kp, vp, ln, seq = k_pool.clone(), v_pool.clone(), lens, []
+        for i in range(kq):
+            lg, kp, vp, ln = qwen2.decode_step(params, qwen2.embed(params, rows[i]), res.decode_pos_base + i, kp, vp,
+                                               ln, cfg, attn_impl=impl, tail_split=split)
+            seq.append(lg)
+        err = kernel_bench.rel_err(lv, torch.stack(seq))
+        chk.expect(bool(torch.isfinite(lv).all()) and err <= LOGIT_RTOL,
+                   f"spec: device-form verify_step (K={kq}, kernels C and D at {kq} rows) against {kq} eager "
+                   f"decode_step(\"{impl}\") steps, teacher forced at full width: logits differ by {err:.3e} of the "
+                   f"largest <= {LOGIT_RTOL}")
+    del k_pool, v_pool, kp, vp, seq
+
+    lens_b = [[int(c[2]) for c in r.layer_caches] for r in res_b]
+    s_pool_b, write_pos = spec_decode.spec_geometry(lens_b, n_batch, SPEC_DRAFT, eng.ff.bucket)
+    split_b = best_tail_split_batch(lens_b, s_pool_b, write_pos, eng.ff.bucket)
+    shape = (n_l, SPEC_B, s_pool_b, cfg.num_kv_heads, cfg.head_dim_)
+    kb, vb = torch.zeros(shape, dtype=cfg.dtype, device=dev), torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    for b, r in enumerate(res_b):
+        eng.make_decode_state(r, 0, pools=(kb, vb), column=b)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    embs = qwen2.embed(params, torch.randint(0, cfg.vocab_size, (SPEC_B, kq), generator=gen, device=dev))
+    pos = [[r.decode_pos_base + 2 + i for i in range(kq)] for r in res_b]
+    dmask = torch.zeros((SPEC_B, s_pool_b), dtype=torch.bool, device=dev)
+    dmask[:, write_pos:write_pos + 3] = True  # committed rows of an earlier step
+    lens_lb = [list(col) for col in zip(*lens_b)]
+    host = qwen2.verify_step_batch(params, embs, pos, kb.clone(), vb.clone(), lens_lb, dmask, write_pos, 1, cfg,
+                                   tail_split=split_b)
+    devf = qwen2.verify_step_batch(params, embs, torch.tensor(pos, device=dev), kb.clone(), vb.clone(),
+                                   torch.tensor(lens_lb, device=dev), dmask, torch.tensor(write_pos, device=dev),
+                                   torch.tensor(1, device=dev), cfg, tail_split=split_b, gate=yes)
+    chk.expect(all(torch.equal(a, b) for a, b in zip(host[:3], devf[:3])) and bool(torch.isfinite(host[0]).all()),
+               f"spec: device-form verify_step_batch (B={SPEC_B}, K={kq}, pools {tuple(kb.shape)}, split {split_b}) "
+               f"bitwise its host-int form (logits and pools)")
+    del kb, vb, host, devf
+
+    # -- generate_spec (solo) against generate ------------------------------
+    walls = {}
+    _zero_counts(wrappers)
+    with _cd_log(mv) as cd:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_spec, stats = eng.generate_spec(res, n_spec, draft_len=SPEC_DRAFT, return_stats=True)
+        walls["spec first"] = (time.perf_counter() - t0) * 1e3
+    replays, captured = DecodeGraph.replays, {k: w.captured for k, w in wrappers.items() if w.captured}
+    tally(cd)
+    chk.expect(replays == stats["macro_steps"] and captured == {"gemv_stacked": 3 * n_l, "gemv_gateup": n_l}
+               and all(DecodeGraph.replayed[k] == replays * c for k, c in captured.items()),
+               f"generate_spec: one captured macro step with C three times and D once a layer ({captured}), "
+               f"{replays} replays for {stats['macro_steps']} macro steps")
+    for kind, fn in (("spec", lambda: eng.generate_spec(res, n_spec, draft_len=SPEC_DRAFT)),
+                     ("plain", lambda: eng.generate(res, n_spec)), ("plain", lambda: eng.generate(res, n_spec)),
+                     ("spec", lambda: eng.generate_spec(res, n_spec, draft_len=SPEC_DRAFT))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        walls.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+    plain = eng.generate(res, n_spec)
+    agree = next((j for j, (a, b) in enumerate(zip(out_spec, plain)) if a != b), n_spec)
+    chk.expect(len(out_spec) == n_spec and all(0 <= t < cfg.vocab_size for t in out_spec) and got == out_spec,
+               f"generate_spec({n_spec}): {n_spec} tokens in the vocabulary, the same on every call")
+    log(f"  generate_spec({n_spec}, draft_len {SPEC_DRAFT}): {stats['macro_steps']} macro steps, "
+        f"{stats['tokens_per_pass']:.3f} tokens a pass, acceptance {stats['accepted']} / {stats['drafted']} "
+        f"({stats['accepted'] / max(stats['drafted'], 1):.3f}; random weights repeat tokens: claims nothing); "
+        f"tokens agreeing with generate({n_spec}) before the first difference (bf16 ties not gated): "
+        f"{agree} of {n_spec}")
+    log(f"  wall ms after the prefill: generate_spec({n_spec}) {walls['spec']} (first call with its capture "
+        f"{walls['spec first']:.1f}), generate({n_spec}) {walls['plain']}; spec / plain "
+        f"{sum(walls['spec']) / sum(walls['plain']):.3f}")
+
+    # The mechanism with drafts that hit: the history seeded with the plain
+    # decode's own tokens (an oracle; the same tokens must come out).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_o, stats_o = eng.generate_spec(res, n_spec, draft_len=SPEC_DRAFT, prompt_ids=plain, return_stats=True)
+    wall_o = (time.perf_counter() - t0) * 1e3
+    agree_o = next((j for j, (a, b) in enumerate(zip(out_o, plain)) if a != b), n_spec)
+    log(f"  generate_spec({n_spec}) with the plain tokens as its history (oracle drafts): {stats_o['macro_steps']} "
+        f"macro steps, {stats_o['tokens_per_pass']:.3f} tokens a pass, acceptance {stats_o['accepted']} / "
+        f"{stats_o['drafted']}, wall {wall_o:.1f} ms; agreement with generate({n_spec}) {agree_o} of {n_spec}")
+    chk.expect(stats_o["macro_steps"] < n_spec - 1 and len(out_o) == n_spec,
+               f"generate_spec with oracle drafts: {stats_o['macro_steps']} macro steps < {n_spec - 1}")
+
+    hist_cap = spec_decode.history_cap([0], n_spec, SPEC_DRAFT)
+    graph = eng.spec_graph(res, n_spec, SPEC_DRAFT, hist_cap)
+    _, _, lens = eng.make_decode_state(res, 0, pools=(graph.k_pool, graph.v_pool))
+
+    def macro_ms(g, start, steps=16):
+        readings = []
+        for _ in range(2):
+            start()
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            g.run(steps)
+            e1.record()
+            torch.cuda.synchronize()
+            readings.append(e0.elapsed_time(e1) / steps)
+        return readings
+
+    start_solo = lambda: graph.start(lens, res.decode_pos_base, res.logits, [[]], n_spec)  # noqa: E731
+    ms_solo = macro_ms(graph, start_solo)
+    start_solo()
+    graph.run(2)
+    differ = _graph_equals_eager(graph, graph.run, graph._step, 3)
+    chk.expect(not differ, f"spec: 3 replayed solo macro steps bitwise the eager ones (differ: {differ})")
+    graph.busy = False
+
+    # -- generate_spec_batch (B = 4) against generate_batch -----------------
+    _zero_counts(wrappers)
+    with _cd_log(mv) as cd:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_b, stats_b = eng.generate_spec_batch(res_b, n_batch, draft_len=SPEC_DRAFT, return_stats=True)
+        wall_b = (time.perf_counter() - t0) * 1e3
+    replays = DecodeGraph.replays
+    tally(cd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_b2 = eng.generate_spec_batch(res_b, n_batch, draft_len=SPEC_DRAFT)
+    wall_b2 = (time.perf_counter() - t0) * 1e3
+    plain_b = eng.generate_batch(res_b, n_batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate_batch(res_b, n_batch)
+    wall_pb = (time.perf_counter() - t0) * 1e3
+    agree_b = [next((j for j, (a, b) in enumerate(zip(s_, p_)) if a != b), n_batch) for s_, p_ in zip(out_b, plain_b)]
+    chk.expect(out_b2 == out_b and len(out_b) == SPEC_B and all(len(r) == n_batch for r in out_b)
+               and all(0 <= t < cfg.vocab_size for r in out_b for t in r) and replays == stats_b["macro_steps"],
+               f"generate_spec_batch(B={SPEC_B}, {n_batch}): rows of {n_batch} tokens in the vocabulary, the same on "
+               f"every call, one replay a macro step")
+    log(f"  generate_spec_batch(B={SPEC_B}, {n_batch}): {stats_b['macro_steps']} macro steps, "
+        f"{stats_b['tokens_per_pass']:.3f} tokens a pass (the slowest row), accepted {stats_b['accepted']} of "
+        f"drafted {stats_b['drafted']}; agreement with generate_batch before the first difference (not gated): "
+        f"{agree_b} of {n_batch}; wall ms {wall_b2:.1f} (first call with its capture {wall_b:.1f}), "
+        f"generate_batch {wall_pb:.1f}")
+    bgraph = eng.spec_batch_graph(res_b, n_batch, SPEC_DRAFT, spec_decode.history_cap([0] * SPEC_B, n_batch,
+                                                                                       SPEC_DRAFT))
+    cols = [eng.make_decode_state(r, 0, pools=(bgraph.k_pool, bgraph.v_pool), column=b)[2]
+            for b, r in enumerate(res_b)]
+    start_b = lambda: bgraph.start(list(zip(*cols)), [r.decode_pos_base for r in res_b],  # noqa: E731
+                                   torch.stack([r.logits for r in res_b]), [[]] * SPEC_B, n_batch)
+    ms_b = macro_ms(bgraph, start_b)
+    start_b()
+    bgraph.run(2)
+    differ = _graph_equals_eager(bgraph, bgraph.run, bgraph._step, 3)
+    chk.expect(not differ, f"spec: 3 replayed batched macro steps bitwise the eager ones (differ: {differ})")
+    bgraph.busy = False
+    floor_ms = kernel_bench.weight_stream_bytes(params) / kernel_bench.H100_BYTES_PER_S * 1e3
+    log(f"  macro step ms over 16 replays (two readings): solo K={kq} {ms_solo} (pool "
+        f"{tuple(graph.k_pool.shape)}, split {graph.tail_split}), B={SPEC_B} x K={kq} {ms_b} (pool "
+        f"{tuple(bgraph.k_pool.shape)}, split {bgraph.tail_split}); weight-stream floor {floor_ms:.3f} ms")
+    chk.expect(all(math.isfinite(t) and t > 0 for t in ms_solo + ms_b), "spec: macro-step times measured")
+    del graph, bgraph
+    eng._graphs.clear()
+
+    # -- the serving loop -----------------------------------------------------
+    inputs = [PrefillInputs(h, pt, pos_, 182, s0, n_img) for h, pt, pos_, s0, n_img in ctx["batch"]]
+    budgets = [32, 20, 32, 12, 28, 32, 16, 24]
+    order = [2, 0, 5, 7, 1, 4, 6, 3]  # the staggered submission order
+    solo, max_lens = {}, [0] * n_l
+    for i, inp in enumerate(inputs):
+        r = eng.prefill(inp.input_embeds, inp.patch_type, inp.position_ids, 182, inp.image_token_start,
+                        inp.image_token_length)
+        solo[i] = eng.generate_greedy(r, budgets[i])
+        max_lens = [max(a, int(c[2])) for a, c in zip(max_lens, r.layer_caches)]
+        del r
+    eng._graphs.clear()
+    log(f"  serving: solo references (fused prefill on the int8 weights, then generate_greedy); per-layer longest "
+        f"cache {max_lens}")
+    for draft in (0, SPEC_DRAFT):
+        loop = ServingLoop(eng, max_slots=SPEC_B, max_new_cap=32, chunk_steps=8, draft_len=draft,
+                           prefix_cap=max(max_lens), tail_pool=(2, 3456))
+        ids = {loop.submit(ServeRequest(inputs[i], max_new_tokens=budgets[i])): i for i in order}
+        _zero_counts(wrappers)
+        with _cd_log(mv) as cd:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = loop.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ran, replays = _ran(wrappers), DecodeGraph.replays
+        captured = {k: w.captured for k, w in wrappers.items() if w.captured}
+        tally(cd)
+        # A replayed chunk step against the eager one, on a loop of its own
+        # (its launches are no part of the path): four admissions, a chunk.
+        check = ServingLoop(eng, max_slots=SPEC_B, max_new_cap=32, chunk_steps=8, draft_len=draft,
+                            prefix_cap=max(max_lens), tail_pool=(2, 3456))
+        for i in order[:SPEC_B]:
+            check.submit(ServeRequest(inputs[i], max_new_tokens=budgets[i]))
+        check.step()
+        cgraph = next(iter(check._graphs.values()))
+        differ = _graph_equals_eager(check, cgraph._replay, lambda: check._macro_step(cgraph.split), 2)
+        del check, cgraph
+        chk.expect(not differ, f"serving draft_len {draft}: 2 replayed chunk steps bitwise the eager ones "
+                               f"(differ: {differ})")
+        ended = sorted(ids.values()) == sorted(ids[r] for r in results) and all(
+            1 <= len(results[r].tokens) <= budgets[ids[r]] for r in results)
+        agree = {ids[r]: next((j for j, (a, b) in enumerate(zip(results[r].tokens, solo[ids[r]])) if a != b),
+                              len(solo[ids[r]])) for r in results}
+        n_tok = sum(len(r.tokens) for r in results.values())
+        chk.expect(ended and all(0 <= t < cfg.vocab_size for r in results.values() for t in r.tokens),
+                   f"serving draft_len {draft}: every request of {len(inputs)} ended with tokens in the vocabulary")
+        log(f"  serving draft_len {draft} (slots {loop.b}, chunk {loop.chunk}, max_new_cap {loop.max_new_cap}, "
+            f"tail_pool (2, 3456), phys {loop.phys}: pools {tuple(loop.k_pool.shape)}"
+            f"{'' if loop.k_tail is None else f' + {tuple(loop.k_tail.shape)}'}): "
+            f"{loop._chunk_idx} chunks, {loop.chunk_s / max(loop._chunk_idx, 1) * 1e3:.2f} ms a chunk, admission "
+            f"{loop.admit_s / len(inputs) * 1e3:.1f} ms each, {loop.captures} captures in "
+            f"{loop.capture_s * 1e3:.1f} ms, {loop.compactions} compactions; {len(inputs) / wall:.3f} requests/s, "
+            f"{n_tok / wall:.1f} tokens/s over {wall:.2f} s; mean queue_s "
+            f"{sum(r.queue_s for r in results.values()) / len(results):.3f}, serve_s "
+            f"{sum(r.serve_s for r in results.values()) / len(results):.3f}")
+        log(f"  serving draft_len {draft}: tokens agreeing with each request's solo generate_greedy before the first "
+            f"difference (bf16 ties not gated), by prompt: {dict(sorted(agree.items()))} of "
+            f"{dict(enumerate(budgets))}; admitted at chunks "
+            f"{ {ids[r]: results[r].admitted_step for r in sorted(results)} }")
+        log(f"  serving draft_len {draft}: launches that ran {ran}; captured {captured}; {replays} replays")
+        chk.expect(loop.phys is not None and loop.captures == 1
+                   and captured == {"gemv_stacked": 3 * n_l, "gemv_gateup": n_l},
+                   f"serving draft_len {draft}: the split pools (phys {loop.phys}) and one chunk graph, captured with "
+                   f"C three times and D once a layer")
+        chk.expect(ran["flash_attn_fwd"] > 0 and ran["gemv_stacked"] > 0 and ran["gemv_gateup"] > 0,
+                   f"serving draft_len {draft}: kernels A, C and D ran")
+        del loop, results
+    for name, entry in spec.items():
+        kernels[name]["spec_launches"] = entry
+    for (key, nrows, kdim, widths), count in by_rows.items():
+        if nrows in VERIFY_ROWS:
+            name = "gateup" if key == "gemv_gateup" else SHAPES_C.get((kdim, widths))
+            for shape in kernels[key]["shapes"]:
+                if shape["shape"] == f"{name} int8 B={nrows}":
+                    shape["launches"] = count
+    log(f"  phase 10 C and D launches (generate_spec, generate_spec_batch, serving at draft_len 0 and {SPEC_DRAFT}): "
+        f"{spec}; by (kernel, rows, K, widths) {by_rows}")
+    chk.expect(all(e["replayed"] > 0 and e["captured"] > 0 for e in spec.values()),
+               "phase 10: kernels C and D were captured and replayed on the speculative paths")
+    ctx.clear()
 
 
 def main() -> int:
@@ -1833,7 +2175,8 @@ def main() -> int:
               "decode": lambda: phase_decode(chk, kernels, ctx), "graph": lambda: phase_graph(chk, kernels, ctx),
               "cross_vision": lambda: phase_cross_vision(chk), "pixels": lambda: phase_pixels(chk, kernels),
               "cross_baselines": lambda: phase_cross_baselines(chk),
-              "baselines": lambda: phase_baselines(chk, kernels), "batch": lambda: phase_batch(chk, kernels)}
+              "baselines": lambda: phase_baselines(chk, kernels), "batch": lambda: phase_batch(chk, kernels, ctx),
+              "spec_serve": lambda: phase_spec_serve(chk, kernels, ctx)}
     t_start = time.perf_counter()
     for phase, run in phases.items():
         log(f"== {phase} ({time.perf_counter() - t_start:.1f} s)")
@@ -1853,6 +2196,7 @@ def main() -> int:
                    if v is None and not (f == "library_ms" and (n == "gemv_gateup" or "int8" in str(e.get("shape"))))]
     unmeasured += [f"{n}.batch_launches" for n in ("flash_attn_fwd", "attn_importance_rows", "gemv_stacked",
                                                    "gemv_gateup") if "batch_launches" not in kernels[n]]
+    unmeasured += [f"{n}.spec_launches" for n in ("gemv_stacked", "gemv_gateup") if "spec_launches" not in kernels[n]]
     chk.expect(not unmeasured, f"every number of the kernels line was measured in this run (missing: {unmeasured})")
     if chk.failures:
         log("FAILED: " + "; ".join(chk.failures))

@@ -246,6 +246,9 @@ class BaselineEngine(CompressionEngine):
     ``generate_batch`` one sequence at a time) runs,
     greedily: a sampled decode of it raises. JAX's ``generate_device`` and
     ``generate_stream`` drop the variant and decode over the full cache.
+    Speculative decoding and the serving loop refuse the variant (their
+    verify pass attends the whole cache); JAX's serving loop serves it over
+    the full cache without a word.
 
     Two buckets, as in the JAX package: ``bucket`` (the constructor
     argument) sizes FastV's compaction; ``ff.bucket`` (``FrameFusionConfig``'s
@@ -311,6 +314,22 @@ class BaselineEngine(CompressionEngine):
             return super().generate_batch(results, max_new_tokens, eos_token_id=eos_token_id, sampler=sampler,
                                           generator=generator)
         return [self.generate(r, max_new_tokens, eos_token_id=eos_token_id) for r in results]
+
+    def _guard_spec_sink(self) -> None:
+        """Speculation verifies over the whole cache; the sink-cache variant
+        decodes over sink + window, so it would give other tokens: refused
+        (by ``generate_spec``, ``generate_spec_batch`` and the serving loop)."""
+        if self.mode == "streamingllm" and self.kwargs.get("sink_cache_decode"):
+            raise NotImplementedError("speculative decoding and the serving loop do not support the "
+                                      "sink_cache_decode StreamingLLM variant (windowed decode attention)")
+
+    def generate_spec(self, *args, **kwargs):
+        self._guard_spec_sink()
+        return super().generate_spec(*args, **kwargs)
+
+    def generate_spec_batch(self, *args, **kwargs):
+        self._guard_spec_sink()
+        return super().generate_spec_batch(*args, **kwargs)
 
     def _sink_steps(self, result: PrefillResult, max_new_tokens: int):
         window = self.kwargs.get("window_length", int(self.kwargs.get("length_rate", 0.3) * result.valid_len))

@@ -85,27 +85,39 @@ class FrameFusionModel:
         )
 
     def generate(self, inputs: PrefillInputs, max_new_tokens: int = 64,
-                 eos_token_id: Optional[int] = None, sampler=None, generator=None):
+                 eos_token_id: Optional[int] = None, sampler=None, generator=None,
+                 speculative: bool = False, draft_len: int = 4, prompt_ids=None):
         """Prefill + decode (greedy, or an ``ops.sampling.SamplerConfig``).
-        Returns (token_ids, PrefillResult)."""
+        Returns (token_ids, PrefillResult).
+
+        ``speculative=True`` (greedy only) decodes by prompt-lookup
+        draft-and-verify: the same tokens, fewer weight passes when the
+        output echoes ``prompt_ids`` or itself (runtime/spec_decode.py)."""
+        _check_speculative(speculative, sampler)
         result = self.prefill(inputs)
-        tokens = self.engine().generate(result, max_new_tokens, eos_token_id=eos_token_id,
-                                        sampler=sampler, generator=generator)
+        if speculative:
+            tokens = self.engine().generate_spec(result, max_new_tokens, draft_len=draft_len, prompt_ids=prompt_ids,
+                                                 eos_token_id=eos_token_id)
+        else:
+            tokens = self.engine().generate(result, max_new_tokens, eos_token_id=eos_token_id,
+                                            sampler=sampler, generator=generator)
         return tokens, result
 
     def generate_batch(self, inputs_list, max_new_tokens: int = 64, eos_token_id: Optional[int] = None,
-                       sampler=None, generator=None, mode: str = "fused", speculative: bool = False):
+                       sampler=None, generator=None, mode: str = "fused", speculative: bool = False,
+                       draft_len: int = 4, prompt_ids=None):
         """Batched serving: the prefills, then one batched decode of them all
         (``CompressionEngine.generate_batch``). ``mode="planned_batch"``
         with FrameFusion applied runs every prefill as one lockstep batch
         (``prefill_planned_batch``; the inputs share one ``patch_num``); any
         other mode, a dense model or a baseline prefills per request (a
         dense or baseline engine has no batched prefill; "planned_batch"
-        then means "fused"). ``speculative=True`` is not ported yet. Returns
-        (per-request token lists, PrefillResults)."""
-        if speculative:
-            raise NotImplementedError('speculative decoding is not ported to PyTorch yet '
-                                      '(ROADMAP item "Speculative decoding")')
+        then means "fused"). ``speculative=True`` (greedy only) decodes the
+        batch by draft-and-verify (``generate_spec_batch``: the same tokens
+        as the plain batched greedy decode); ``prompt_ids`` is then one text
+        id list (or None) a request. Returns (per-request token lists,
+        PrefillResults)."""
+        _check_speculative(speculative, sampler)
         is_baseline = getattr(self.engine(), "mode", None) is not None
         if mode == "planned_batch" and self.ff is not None and not is_baseline:
             pn = inputs_list[0].patch_num
@@ -117,9 +129,29 @@ class FrameFusionModel:
         else:
             per_request = "fused" if mode == "planned_batch" else mode
             results = [self.prefill(inp, mode=per_request) for inp in inputs_list]
-        tokens = self.engine().generate_batch(results, max_new_tokens, eos_token_id=eos_token_id, sampler=sampler,
-                                              generator=generator)
+        if speculative:
+            tokens = self.engine().generate_spec_batch(results, max_new_tokens, draft_len=draft_len,
+                                                       prompt_ids=prompt_ids, eos_token_id=eos_token_id)
+        else:
+            tokens = self.engine().generate_batch(results, max_new_tokens, eos_token_id=eos_token_id,
+                                                  sampler=sampler, generator=generator)
         return tokens, results
+
+    def serving_loop(self, **kwargs):
+        """The continuous-batching scheduler on this model's engine
+        (``runtime.serving.ServingLoop``): submit ``ServeRequest``s, then
+        ``run()``. Requests join freed slots mid-flight; each one's tokens
+        equal its solo greedy decode. Kwargs: max_slots, max_new_cap,
+        chunk_steps, draft_len (speculative serving), prefix_cap,
+        prefill_mode, seed_cap, tail_pool."""
+        from .runtime.serving import ServingLoop
+
+        return ServingLoop(self.engine(), **kwargs)
+
+
+def _check_speculative(speculative: bool, sampler) -> None:
+    if speculative and sampler is not None:
+        raise ValueError("speculative decoding is greedy only: pass no sampler")
 
 
 # Adapters ported so far; the others wait for ROADMAP item "The other families".

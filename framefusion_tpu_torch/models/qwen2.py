@@ -315,6 +315,18 @@ def _index_tensor(x, device) -> torch.Tensor:
     return t.to(device=device, dtype=torch.int64)
 
 
+def _write_rows(pool: torch.Tensor, dim: int, rows: torch.Tensor, new: torch.Tensor, gate=None) -> None:
+    """``pool.index_copy_(dim, rows, new)``: the device form's row write.
+    Under a ``gate`` (a 0-d bool tensor) that is False the rows, clamped
+    into the pool, are written back with what they hold, so nothing changes
+    and nothing out of range is written (a captured macro step replayed
+    after its decode ended)."""
+    if gate is not None:
+        rows = rows.clamp(max=pool.shape[dim] - 1)
+        new = torch.where(gate, new, pool.index_select(dim, rows))
+    pool.index_copy_(dim, rows, new)
+
+
 def _check_impl(attn_impl: str, allowed) -> None:
     if attn_impl not in allowed:
         raise ValueError(f"attn_impl must be one of {allowed}, got {attn_impl!r}")
@@ -409,7 +421,7 @@ def decode_step(params: dict, token_embed, position_id, k_pool, v_pool, cache_le
 
 
 def verify_step(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_lens, cfg: LLMConfig,
-                attn_impl: str = "flash", tail_split=None):
+                attn_impl: str = "flash", tail_split=None, gate=None):
     """Speculative-verify step: K candidate rows through the stack together
     (one launch of kernels C and D each, which read the weights once a row).
 
@@ -423,34 +435,55 @@ def verify_step(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_
         token_embeds: (K, D). position_ids: (K,) rotary positions.
         k_pool, v_pool: (L, S_pad, Hk, hd), with >= K rows of headroom past
             every layer's length (inside ``tail_s`` for tail layers).
-        cache_lens: per-layer valid entries excluding these rows.
+        cache_lens: per-layer valid entries excluding these rows: host
+            ints, or an int (L,) tensor on the pools' device. With device
+            tensors for it and ``position_ids`` the step reads nothing back
+            to the host (the rows are written with ``index_copy_`` at
+            ``lens[l] + arange(K)``, the mask is a tensor compare), so it can
+            be captured in a CUDA graph; it computes what the host-int form
+            computes, bit for bit.
         attn_impl: "flash" streams the projections through kernels C/D (the
             JAX package's default on the TPU); "einsum" is the plain path
             (JAX's ``FF_VERIFY_MV=0``).
         tail_split: optional ``(P, tail_s)`` as in :func:`decode_step`.
+        gate: device form only: a 0-d bool tensor; when it is False the K
+            rows are not written (``_write_rows``) and the logits mean
+            nothing.
 
     Returns:
         (logits (K, V) fp32, k_pool, v_pool) — logits[i] scores the token
         after row i, as greedy decode would with rows 0..i committed.
     """
     _check_impl(attn_impl, ATTN_IMPLS)
+    dev = token_embeds.device
     kq = token_embeds.shape[0]
-    cos, sin = positions_cos_sin(_index_tensor(position_ids, token_embeds.device).reshape(kq), cfg)
+    on_device = isinstance(cache_lens, torch.Tensor)
+    if gate is not None and not on_device:
+        raise ValueError("verify_step: a gate needs the device form (cache_lens a tensor)")
+    cos, sin = positions_cos_sin(_index_tensor(position_ids, dev).reshape(kq), cfg)
     h = token_embeds
     use_mv = attn_impl == "flash"
     layers = params["layers"]
     s_full = k_pool.shape[1]
     if tail_split is not None and tail_split[1] >= s_full:
         tail_split = None
+    if on_device:
+        lens = cache_lens.to(torch.int64)
+        rows = torch.arange(kq, device=dev)
     for l in range(cfg.num_layers):
         s_view = tail_split[1] if tail_split is not None and l >= tail_split[0] else s_full
         lp = layer_slice(layers, l)
         x = rmsnorm(h, lp["ln1"], cfg.rms_norm_eps)
         q, k, v = _rows_qkv(layers, lp, x, l, cfg, use_mv)
         q, k = apply_rope(q, k, cos, sin)
-        length = int(cache_lens[l])
-        k_pool[l, length:length + kq] = k.to(k_pool.dtype)
-        v_pool[l, length:length + kq] = v.to(v_pool.dtype)
+        if on_device:
+            length = lens[l]
+            _write_rows(k_pool[l], 0, length + rows, k.to(k_pool.dtype), gate)
+            _write_rows(v_pool[l], 0, length + rows, v.to(v_pool.dtype), gate)
+        else:
+            length = int(cache_lens[l])
+            k_pool[l, length:length + kq] = k.to(k_pool.dtype)
+            v_pool[l, length:length + kq] = v.to(v_pool.dtype)
         attn = verify_attention(q, _pool_view(k_pool, l, s_view), _pool_view(v_pool, l, s_view), length)
         h = _rows_out_mlp(layers, lp, h, attn.reshape(kq, -1), l, cfg, use_mv)
     return final_logits(params, h, cfg), k_pool, v_pool
@@ -591,8 +624,8 @@ def decode_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
 
 
 def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_lens, decode_mask,
-                      write_pos: int, step: int, cfg: LLMConfig, attn_impl: str = "flash", tail_split=None,
-                      k_tail=None, v_tail=None, phys=None):
+                      write_pos, step, cfg: LLMConfig, attn_impl: str = "flash", tail_split=None,
+                      k_tail=None, v_tail=None, phys=None, gate=None):
     """Speculative verify for a batch: (B, K) candidate rows together —
     :func:`verify_step` with :func:`decode_step_batch`'s cache layout.
 
@@ -607,6 +640,12 @@ def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
         k_pool, v_pool: (L, B, S_pool, Hk, hd). cache_lens: (L, B) prefix
             lengths. decode_mask: (B, S_pool) bool, committed decode rows.
         write_pos: start of the decode region. step: 0-based macro step.
+            Each a host int, or an int64 scalar tensor on the pools' device:
+            with either a tensor (and ``position_ids`` / ``cache_lens``
+            tensors) the step reads nothing back to the host (the rows are
+            written with ``index_copy_`` at ``write_pos + step * K +
+            arange(K)``), so it can be captured in a CUDA graph; it computes
+            what the host-int form computes, bit for bit.
         attn_impl: "flash" streams the projections through kernels C/D when
             B * K <= 64 rows; "einsum" is the plain path.
         tail_split: optional ``(P, tail_s, region_start)`` as in
@@ -618,6 +657,8 @@ def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
             region ``[rs, S_pool)``. ``decode_mask``, ``write_pos`` and
             ``step`` stay in head-pool coordinates. ``phys`` replaces
             ``tail_split``.
+        gate: device form only: a 0-d bool tensor; when it is False no row
+            is written (``_write_rows``) and the logits mean nothing.
 
     Returns:
         (logits (B, K, V) fp32, k_pool, v_pool, k_tail, v_tail).
@@ -637,6 +678,9 @@ def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
     scale = 1.0 / math.sqrt(hd)
     use_mv = attn_impl == "flash" and b * kq <= matvec_q8.MAX_ROWS
     layers = params["layers"]
+    on_device = isinstance(write_pos, torch.Tensor) or isinstance(step, torch.Tensor)
+    if gate is not None and not on_device:
+        raise ValueError("verify_step_batch: a gate needs the device form (write_pos or step a tensor)")
     if phys is not None:
         p_split, tail_rs, rs = phys
         if k_tail is None or k_pool.shape[0] != p_split or k_tail.shape[2] - tail_rs != s_pool - rs:
@@ -680,15 +724,23 @@ def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
         h = _rows_out_mlp(layers, lp, h.reshape(b * kq, -1), out, l, cfg, use_mv).reshape(b, kq, -1)
         k_new[l] = k.to(k_pool.dtype)
         v_new[l] = v.to(v_pool.dtype)
-    base = int(write_pos) + int(step) * kq
-    if phys is not None:
-        k_pool[:, :, base:base + kq] = k_new[:p_split]
-        v_pool[:, :, base:base + kq] = v_new[:p_split]
-        tbase = base - rs + tail_rs
-        k_tail[:, :, tbase:tbase + kq] = k_new[p_split:]
-        v_tail[:, :, tbase:tbase + kq] = v_new[p_split:]
+    if on_device:
+        rows = write_pos + step * kq + torch.arange(kq, device=dev)
+
+        def put(pool, new, shift=0):
+            _write_rows(pool, 2, rows + shift, new, gate)
     else:
-        k_pool[:, :, base:base + kq] = k_new
-        v_pool[:, :, base:base + kq] = v_new
+        base = int(write_pos) + int(step) * kq
+
+        def put(pool, new, shift=0):
+            pool[:, :, base + shift:base + shift + kq] = new
+    if phys is not None:
+        put(k_pool, k_new[:p_split])
+        put(v_pool, v_new[:p_split])
+        put(k_tail, k_new[p_split:], tail_rs - rs)
+        put(v_tail, v_new[p_split:], tail_rs - rs)
+    else:
+        put(k_pool, k_new)
+        put(v_pool, v_new)
     logits = final_logits(params, h.reshape(b * kq, -1), cfg).reshape(b, kq, -1)
     return logits, k_pool, v_pool, k_tail, v_tail

@@ -160,15 +160,16 @@ class TextPipeline:
                                                 num_patches_per_side=pps)
 
     def ask(self, question: str, frames=None, video_features=None, max_new_tokens: int = 64,
-            eos_token_id: Optional[int] = None, speculative: bool = False) -> str:
+            eos_token_id: Optional[int] = None, speculative: bool = False, draft_len: int = 4) -> str:
         """Answer ``question`` about the video (frames or precomputed
         features) with greedy decoding; the prefill result is kept in
-        ``last_result``."""
-        if speculative:
-            raise NotImplementedError("speculative decoding is not ported to PyTorch yet "
-                                      '(ROADMAP item "Speculative decoding")')
+        ``last_result``. ``speculative=True`` decodes by draft-and-verify
+        with the prompt's text ids (``last_prompt_ids``) seeding the drafts:
+        the same answer."""
         inputs = self.build_inputs(question, frames=frames, video_features=video_features)
         eos = eos_token_id if eos_token_id is not None else getattr(self.tokenizer, "eos_token_id", None)
-        tokens, result = self.model.generate(inputs, max_new_tokens, eos_token_id=eos)
+        tokens, result = self.model.generate(inputs, max_new_tokens, eos_token_id=eos, speculative=speculative,
+                                             draft_len=draft_len,
+                                             prompt_ids=self.last_prompt_ids if speculative else None)
         self.last_result = result
         return self.tokenizer.decode(tokens)

@@ -44,6 +44,8 @@ cached by decode geometry, so a second prompt of the same geometry copies
 its caches into the graph's pools and replays. ``generate_batch`` does the
 same for B prefill results with the batched step (one pool column a
 sequence, the decode region at a common offset past every prefix).
+``generate_spec`` and ``generate_spec_batch`` (runtime/spec_decode.py)
+replay a captured speculative macro step from the same cache.
 """
 
 from __future__ import annotations
@@ -75,7 +77,8 @@ from ..core import (
 from ..models import qwen2
 from ..ops.rope import apply_rope
 from ..ops.sampling import SamplerConfig, draw_uniforms
-from .decode_graph import BatchDecodeGraph, DecodeGraph, slots_for
+from . import spec_decode
+from .decode_graph import BatchDecodeGraph, DecodeGraph, SpecBatchDecodeGraph, SpecDecodeGraph, slots_for
 from .telemetry import CompressionEvent, PrefillTelemetry
 
 f32 = np.float32
@@ -998,6 +1001,44 @@ class CompressionEngine:
             self.params, self.cfg, s_pool, batch=len(results), write_pos=write_pos, attn_impl=attn,
             tail_split=split, sampler=sampler, n_slots=key[-1]))
 
+    def _verify_impl(self) -> str:
+        """The verify pass's projections: kernels C and D behind "flash"
+        (JAX's default on the TPU), the plain path behind "einsum"."""
+        return "flash" if self.attn_impl == "flash" else "einsum"
+
+    def spec_graph(self, result: PrefillResult, max_new_tokens: int, draft_len: int,
+                   hist_cap: int) -> SpecDecodeGraph:
+        """A speculative graph for ``result`` that no decode is running on
+        (``_free_graph``), keyed by what JAX's ``spec_decode_loop`` makes
+        static: the pool's rows (``max_new_tokens + draft_len`` of headroom
+        past the longest layer), the tail split, ``draft_len``, the
+        history's length, the token slots, the projections and the dtype."""
+        lens = [int(c[2]) for c in result.layer_caches]
+        s_pool = bucket_length(max(lens) + max_new_tokens + draft_len, self.ff.bucket)
+        split = best_tail_split(lens, s_pool, max_new_tokens + draft_len, self.ff.bucket)
+        attn = self._verify_impl()
+        key = ("spec", s_pool, split, draft_len, hist_cap, slots_for(max_new_tokens), attn, self.cfg.dtype)
+        return self._free_graph(key, lambda: SpecDecodeGraph(self.params, self.cfg, s_pool, attn_impl=attn,
+                                                             tail_split=split, draft_len=draft_len,
+                                                             hist_cap=hist_cap, n_slots=key[5]))
+
+    def spec_batch_graph(self, results: list, max_new_tokens: int, draft_len: int,
+                         hist_cap: int) -> SpecBatchDecodeGraph:
+        """A batched speculative graph for ``results`` that no decode is
+        running on, keyed by what JAX's ``spec_decode_loop_batch`` makes
+        static: B, the pool's rows and the decode region's start
+        (``spec_decode.spec_geometry``), the split, ``draft_len``, the
+        history's length, the token slots, the projections and the dtype."""
+        lens = [[int(c[2]) for c in r.layer_caches] for r in results]
+        s_pool, write_pos = spec_decode.spec_geometry(lens, max_new_tokens, draft_len, self.ff.bucket)
+        split = best_tail_split_batch(lens, s_pool, write_pos, self.ff.bucket)
+        attn = self._verify_impl()
+        key = ("spec_batch", len(results), s_pool, write_pos, split, draft_len, hist_cap,
+               slots_for(max_new_tokens), attn, self.cfg.dtype)
+        return self._free_graph(key, lambda: SpecBatchDecodeGraph(
+            self.params, self.cfg, s_pool, batch=len(results), write_pos=write_pos, attn_impl=attn,
+            tail_split=split, draft_len=draft_len, hist_cap=hist_cap, n_slots=key[7]))
+
     def _start_decode(self, result: PrefillResult, max_new_tokens: int, sampler, generator) -> DecodeGraph:
         """A free decode graph, loaded with ``result``'s caches and first
         token, marked busy until the caller clears ``busy``."""
@@ -1080,6 +1121,26 @@ class CompressionEngine:
     def generate_greedy(self, result: PrefillResult, max_new_tokens: int, eos_token_id: Optional[int] = None):
         """Greedy ``generate`` (the JAX engine's name for it)."""
         return self.generate(result, max_new_tokens, eos_token_id=eos_token_id)
+
+    def generate_spec(self, result: PrefillResult, max_new_tokens: int, draft_len: int = 4, prompt_ids=None,
+                      eos_token_id: Optional[int] = None, return_stats: bool = False):
+        """Greedy decode by speculative draft-and-verify (prompt-lookup
+        drafts; the same tokens as ``generate``, fewer weight passes when
+        the output echoes ``prompt_ids`` or itself): replays of one captured
+        macro step (runtime/spec_decode.py). ``return_stats`` adds a dict of
+        macro_steps, drafted, accepted and tokens_per_pass."""
+        return spec_decode.generate_spec(self, result, max_new_tokens, draft_len=draft_len, prompt_ids=prompt_ids,
+                                         eos_token_id=eos_token_id, return_stats=return_stats)
+
+    def generate_spec_batch(self, results: list, max_new_tokens: int, draft_len: int = 4, prompt_ids=None,
+                            eos_token_id: Optional[int] = None, return_stats: bool = False):
+        """Batched speculative greedy decode: every sequence's K candidate
+        rows verified in one pass (kernels C and D at B * K rows, which read
+        the weights once a row); the same tokens as ``generate_batch``.
+        ``prompt_ids``: one text id list (or None) a sequence."""
+        return spec_decode.generate_spec_batch(self, results, max_new_tokens, draft_len=draft_len,
+                                               prompt_ids=prompt_ids, eos_token_id=eos_token_id,
+                                               return_stats=return_stats)
 
     def generate_stream(self, result: PrefillResult, max_new_tokens: int, chunk: int = 4,
                         eos_token_id: Optional[int] = None, sampler: Optional[SamplerConfig] = None,

@@ -148,9 +148,13 @@ def test_from_checkpoint_matches_jax(tmp_path):
 
 
 def test_unported_paths_raise(pipes):
-    _, tpipe = pipes
-    with pytest.raises(NotImplementedError, match="ROADMAP item \"Speculative decoding\""):
-        tpipe.ask("Q?", video_features=np.zeros((18, 128), np.float32), speculative=True)
+    """The other families still raise; speculative decoding is ported: the
+    same answer as JAX's speculative ask and as the plain ask."""
+    jpipe, tpipe = pipes
+    feats = np.random.default_rng(3).standard_normal((18, 128)).astype(np.float32)
+    answer = tpipe.ask("Q?", video_features=feats, max_new_tokens=8, speculative=True)
+    assert answer == jpipe.ask("Q?", video_features=feats, max_new_tokens=8, speculative=True)
+    assert answer == tpipe.ask("Q?", video_features=feats, max_new_tokens=8)
     other = TextPipeline(model=FrameFusionModel(family="internvl", cfg=tpipe.model.cfg, params=tpipe.model.params),
                          tokenizer=StubTokenizer())
     with pytest.raises(NotImplementedError, match="ROADMAP item \"The other families\""):
