@@ -17,7 +17,10 @@ Phases, each printed as it runs; every run makes all of them:
              so the host's launch overhead does not hide them), beside the
              least time the card could take (bound_ms). Kernels C and D also
              at the batched decode's B = 2, 4, 8 rows and the speculative
-             verify's 5 and 20.
+             verify's 5 and 20; kernel E at the Qwen2-VL-7B tower's (32, 884,
+             16, 80) and kernel B at Qwen2-VL's 4 capture rows at phase 11's
+             phase-layer length (decided here from that prompt's layer-0
+             merge), each an entry of its kernel's ``shapes``.
 2b. kernel_check — ``framefusion_tpu_torch.kernel_bench.check_kernels()``:
              the JAX package's on-chip check matrix (every attention regime,
              the importance epilogues, E, F, G, the matvecs at Qwen2-7B
@@ -72,6 +75,13 @@ Phases, each printed as it runs; every run makes all of them:
              kernels on the card. The frontend features agree within a
              stated bf16 bound; events, cache lengths and tokens are equal
              and the tokens vary.
+5b. cross_qwen2vl — a tiny Qwen2-VL tower of head dim 80 (embed 160, 2
+             heads, depth 2) and a 6-layer mRoPE LLM (``readout_params``),
+             weights drawn with numpy, through TextPipeline.ask on uint8
+             frames: plain versions on the CPU, kernels on the card. Tower
+             features and prefill logits within the bf16 bounds; events,
+             cache lengths, the decode base and tokens equal; the tokens
+             vary; E and B launched on the card only.
 6. pixels  — pixels to answer at full width: random SigLIP-so400m tower,
              projector and Qwen2-7B (bf16), 64 uint8 frames at 360x480
              through the native preprocessing, the tower (kernel E), the
@@ -126,6 +136,19 @@ Phases, each printed as it runs; every run makes all of them:
              reported, chunk and admission ms, captures, compactions,
              requests/s and tokens/s. C's and D's launches on these paths
              (eager, captured, replayed: ``spec_launches``).
+11. qwen2vl — the Qwen2-VL family at full width: a random Qwen2-VL tower of
+             the published geometry (depth 32, embed 1280, 16 heads of 80,
+             patch 14, temporal patch 2, merge 2, MLP ratio 4, out 3584) and
+             phase 4's Qwen2-7B weights with mRoPE (16, 24, 24); 64 uint8
+             frames at 360x480 (smart_resize 364x476, grid (32, 26, 34),
+             7,072 video tokens) through TextPipeline.ask at cost 0.3, S_th
+             0.5, r_min 0.1: launches of A-G around it (E once a tower
+             layer), the decode base max(positions) + 1; encode, fused /
+             planned / dense prefill and pixels-to-answer ms. Then the LLM
+             alone on a coherent synthetic video of the same 32 x 221 layout
+             (spliced by the Qwen2-VL adapter), which must prune with kernel
+             B at 4 capture rows at phase 2's length, and 8 tokens through
+             the int8 decode graph from its mRoPE base.
 
 The line before the last is a JSON object with one entry per kernel, built
 from ``framefusion_tpu_torch.ops.kernels`` (the TPU functions each stands
@@ -142,7 +165,9 @@ batched prefill, C and D around the B = 8 batched decode: eager, captured,
 replayed), and C's and D's ``shapes`` their rows at B = 2, 4, 8 (the
 int8 ones with phase 9's launches at that B; phase 9 decodes int8) and at
 the verify's 5 and 20 rows (the int8 ones with phase 10's launches); C
-and D also carry ``spec_launches`` from phase 10. The
+and D also carry ``spec_launches`` from phase 10. E's and B's ``shapes``
+hold the Qwen2-VL regimes with phase 11's launches (E around its pixels to
+answer, B around its coherent prompt's prefill). The
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. The script never runs on the CPU: without a CUDA device
 it exits at once.
@@ -581,6 +606,57 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
                 f"{t_k / t_l:.3f}")
             kernels["bidir_attn_fwd"].update(ms=t_k, plain_ms=t_p, library_ms=t_l)
         del q, k, v, out, ref
+
+    # -- kernel E at the Qwen2-VL-7B tower's shape (phase 11: 32 temporal
+    # frames of 26 x 34 patches, 16 heads of 80; N off the key tile), and
+    # kernel B at Qwen2-VL's 4 capture rows at phase 11's phase-layer length
+    b, n, h, hd = QWEN2VL_E_SHAPE
+    q, k, v = (_rand(gen, (b, n, h, hd)) for _ in range(3))
+    out = ba.flash_bidir_attention(q, k, v)
+    ref = ba.bidir_attn_fwd_plain(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    err_rh = (out.float() - ref.float()).abs().amax(-1)
+    rel = (err_rh / ref.float().abs().amax(-1).clamp(min=1e-30)).max().item()
+    entry = {"path": "qwen2vl", "shape": f"({b}, {n}, {h}, {hd})", "launches": None, "max_abs_err": err_rh.max().item()}
+    chk.expect(rel <= ATTN_ROW_RTOL, f"E {entry['shape']} (Qwen2-VL-7B tower): max_abs_err {entry['max_abs_err']:.3e}; "
+                                     f"per (row, head) error / its largest output: max {rel:.3e} <= {ATTN_ROW_RTOL}")
+    _max_err(kernels["bidir_attn_fwd"], entry["max_abs_err"])
+    t_k = cuda_time_ms(lambda: ba.flash_bidir_attention(q, k, v), iters=20)
+    t_p = cuda_time_ms(lambda: ba.bidir_attn_fwd_plain(q, k, v, hd ** -0.5), iters=3, warmup=1)
+    t_l = cuda_time_ms(lambda: sdpa(q, k, v), iters=20)
+    t_b = _bound(entry, 4 * b * n * h * hd * 2, 4 * b * h * n * n * hd)
+    entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+    kernels["bidir_attn_fwd"]["shapes"].append(entry)
+    log(f"  E {entry['shape']}: kernel {t_k:.4f} ms ({t_b / t_k:.3f} of the bound {t_b:.4f} ms, "
+        f"{entry['bound_by']}), plain {t_p:.4f} ms, scaled_dot_product_attention {t_l:.4f} ms, kernel / library "
+        f"{t_k / t_l:.3f}")
+    del q, k, v, out, ref
+
+    s, n_live = QWEN2VL_PHASE_S, QWEN2VL_PHASE_LIVE
+    q, k = _rand(gen, (s, hq, d)), _rand(gen, (s, hk, d))
+    kv = (torch.arange(s, device="cuda") < n_live) & (torch.rand((s,), generator=gen, device="cuda") >= 0.2)
+    kv[n_live - 14:n_live] = True  # the trailing text rows stay live
+    _, m, l = fp.flash_attn_fwd(q, k, k, kv)
+    rows = capture_rows(s, 4, None, kv)
+    imp = fp.attn_importance_rows(q, k, rows, m, l, kv)
+    imp_p = fp.attn_importance_rows_plain(q, k, rows, m, l, kv)
+    torch.cuda.synchronize()
+    err = (imp - imp_p).abs().max().item()
+    entry = {"path": "qwen2vl", "shape": f"num=4 S={s} Hq={hq} Hk={hk}", "S": s, "launches": None, "max_abs_err": err,
+             "library_ms": None}
+    chk.expect(err <= IMP_RTOL * imp_p.abs().max().item(),
+               f"B {entry['shape']} (Qwen2-VL's capture rows, phase 11's phase layers): max_abs_err {err:.3e} "
+               f"(rel {err / imp_p.abs().max().item():.3e}) <= {IMP_RTOL}")
+    _max_err(kernels["attn_importance_rows"], err)
+    t_k = graph_time_ms(lambda: fp.attn_importance_rows(q, k, rows, m, l, kv), iters=20)
+    t_p = graph_time_ms(lambda: fp.attn_importance_rows_plain(q, k, rows, m, l, kv), iters=5)
+    seen = float(torch.cumsum(kv.to(torch.int64), 0)[rows].sum())
+    t_b = _bound(entry, 4 * hq * d * 2 + s * hk * d * 2 + s + 4 * 8 + 2 * 4 * hq * 4 + s * 4, 2 * hq * d * seen)
+    entry.update(ms=t_k, plain_ms=t_p)
+    kernels["attn_importance_rows"]["shapes"].append(entry)
+    log(f"  B {entry['shape']}: kernel {t_k * 1e3:.2f} us ({t_b / t_k:.3f} of the bound {t_b * 1e3:.2f} us, "
+        f"{entry['bound_by']}), plain {t_p:.3f} ms")
+    del q, k, m, l
 
     # -- kernel F at the StreamingLLM prefill's full-width shapes (S 11,697,
     # init 8, window int(0.3 S) - 8; S 11,776, the bucket-padded length the
@@ -1507,6 +1583,255 @@ def tiny_baselines_run(device: str, dtype: torch.dtype = torch.bfloat16) -> dict
     return out
 
 
+# -- Qwen2-VL (phases 5b and 11) ---------------------------------------------------------
+
+# Qwen2-VL-7B's video geometry at 64 frames of 360 x 480: smart_resize (factor
+# 28) gives 364 x 476, a grid of (32, 26, 34) patches, 221 merged patches a
+# temporal frame and 7,072 video tokens; kernel E runs B = 32, N = 884.
+QWEN2VL_GRID = (32, 26, 34)
+QWEN2VL_E_SHAPE = (32, 884, 16, 80)
+# The published FrameFusion knobs for Qwen2-VL: cost 0.3, S_th 0.5, r_min 0.1.
+QWEN2VL_KNOBS = (0.3, 0.5, 0.1)
+# Phase 11's coherent prompt (7,121 tokens) keeps 4,025 live tokens after its
+# layer -1 merge, in the 4,096 bucket: the length kernel B prunes at, which
+# phase 2 times and phase 11 checks against the launches it logs.
+QWEN2VL_PHASE_S, QWEN2VL_PHASE_LIVE = 4096, 4025
+
+
+def numpy_qwen2vl_vit_params(vcfg, seed: int, scale: float, resid_scale: float) -> dict:
+    """Random Qwen2-VL tower weights in the JAX package's pytree layout, drawn
+    with numpy; the blocks write to the residual stream at ``resid_scale``."""
+    rng = np.random.default_rng(seed)
+    n_l, d, i, mu = vcfg.depth, vcfg.embed_dim, vcfg.mlp_hidden, vcfg.merge_unit
+
+    def norm(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    layers = {"ln1_w": np.ones((n_l, d), np.float32), "ln1_b": norm(n_l, d),
+              "ln2_w": np.ones((n_l, d), np.float32), "ln2_b": norm(n_l, d),
+              "w_qkv": norm(n_l, d, 3 * d), "b_qkv": norm(n_l, 3 * d), "wo": norm(n_l, d, d), "bo": norm(n_l, d),
+              "w_fc1": norm(n_l, d, i), "b_fc1": norm(n_l, i), "w_fc2": norm(n_l, i, d), "b_fc2": norm(n_l, d)}
+    for name in ("wo", "bo", "w_fc2", "b_fc2"):
+        layers[name] *= np.float32(resid_scale / scale)
+    return {"patch_proj": norm(vcfg.patch_dim, d), "layers": layers,
+            "merger_ln_w": np.ones(d, np.float32), "merger_ln_b": np.zeros(d, np.float32),
+            "merger_w0": norm(mu * d, mu * d), "merger_b0": np.zeros(mu * d, np.float32),
+            "merger_w1": norm(mu * d, vcfg.hidden_size), "merger_b1": np.zeros(vcfg.hidden_size, np.float32)}
+
+
+def tiny_qwen2vl_run(device: str, dtype: torch.dtype):
+    """The tiny Qwen2-VL pixels-to-answer run of phase 5b on one device: a
+    tower of head dim 80 (embed 160, 2 heads, depth 2) and a 6-layer mRoPE
+    LLM, weights drawn with numpy (``readout_params``: each token has one
+    clear successor, so the tokens survive bf16 rounding and the logits
+    bound is the check that can fail), through TextPipeline.ask on uint8
+    frames. Returns (tower features fp32 on the CPU, events, cache lengths,
+    decode base, tokens, E launches, B launches, prefill logits fp32 on the
+    CPU)."""
+    from framefusion_tpu_torch.config import tiny_llm_config
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.vision import qwen2_vl_vit
+    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.pipeline import TextPipeline
+
+    cfg = tiny_llm_config(num_layers=6, hidden_size=512, intermediate_size=1024, num_heads=4, num_kv_heads=2,
+                          mrope_section=(16, 24, 24), dtype=dtype)
+    vcfg = qwen2_vl_vit.Qwen2VLViTConfig(embed_dim=160, depth=2, num_heads=2, mlp_ratio=2.0,
+                                         hidden_size=cfg.hidden_size, dtype=dtype)  # head dim 80, as 7B's
+    params = _cast_floats(qwen2.params_from_numpy(readout_params(cfg, seed=0, resid_scale=0.03), device), dtype)
+    vit = _cast_floats(qwen2.params_from_numpy(numpy_qwen2vl_vit_params(vcfg, seed=1, scale=0.05,
+                                                                        resid_scale=0.005), device), dtype)
+    model = apply_framefusion(FrameFusionModel(family="qwen2_vl", cfg=cfg, params=params), 0.3, 0.95, 0.1)
+    model.ff = model.ff.replace(schedule_num_layers=cfg.num_layers, bucket=32)
+    pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg)
+    frames = half_static_frames(np.random.default_rng(7), 12, 112, 140)
+    patches, grid = qwen2_vl_vit.pixels_to_patches(pipe._prepare_frames(frames), vcfg)
+    launches = ba.bidir_attn_fwd.launches, fp.attn_importance_rows.launches
+    feats = qwen2_vl_vit.encode_video(vit, patches, *grid, vcfg)
+    toks = [int(t) for t in pipe.ask(QUESTION, frames=frames, max_new_tokens=8).split()]
+    res = pipe.last_result
+    return (feats.float().cpu(), [(e.layer, e.kind, e.tokens_removed) for e in res.telemetry.events],
+            [c[2] for c in res.layer_caches], res.decode_pos_base, toks,
+            ba.bidir_attn_fwd.launches - launches[0], fp.attn_importance_rows.launches - launches[1],
+            res.logits.float().cpu())
+
+
+def phase_cross_qwen2vl(chk: Checks) -> None:
+    cpu = tiny_qwen2vl_run("cpu", torch.bfloat16)
+    gpu = tiny_qwen2vl_run("cuda", torch.bfloat16)
+    rel = float((cpu[0] - gpu[0]).abs().max() / cpu[0].abs().max())
+    log(f"  cpu events {cpu[1]} decode base {cpu[3]} tokens {cpu[4]}; cuda events {gpu[1]} decode base {gpu[3]} "
+        f"tokens {gpu[4]}")
+    chk.expect(rel <= FEATURE_RTOL, f"cross qwen2vl: tower features (head dim 80) differ by {rel:.3e} of their "
+                                    f"largest <= {FEATURE_RTOL}")
+    rel = float((cpu[7] - gpu[7]).abs().max() / cpu[7].abs().max())
+    chk.expect(rel <= LOGIT_RTOL, f"cross qwen2vl: prefill logits differ by {rel:.3e} of their largest <= {LOGIT_RTOL}")
+    chk.expect(cpu[1:4] == gpu[1:4], "cross qwen2vl: events, cache lengths and decode base equal")
+    chk.expect(cpu[4] == gpu[4], "cross qwen2vl: greedy tokens equal")
+    chk.expect(len(set(gpu[4])) >= 3, f"cross qwen2vl: the tokens vary ({len(set(gpu[4]))} distinct of 8)")
+    chk.expect(any(e[1] == "prune" for e in cpu[1]), f"cross qwen2vl: the scenario merges and prunes ({cpu[1]})")
+    chk.expect(cpu[5] == cpu[6] == 0 and gpu[5] > 0 and gpu[6] > 0,
+               f"cross qwen2vl: kernels E and B launched on the card only (E {gpu[5]}, B {gpu[6]} launches)")
+
+
+def qwen2vl_coherent_prompt(embed_rows: np.ndarray):
+    """The LLM-only Qwen2-VL prompt of phase 11: ``build_video_prompt``'s
+    coherent synthetic video (0.45 of the patches resemble the previous
+    frame's) at the 32 x 221 layout, spliced by the port's Qwen2-VL adapter
+    between 35 and 14 text rows (``embed_rows``: (50, hidden), the last one
+    the placeholder). Returns PrefillInputs with (3, S) mRoPE positions."""
+    from framefusion_tpu_torch.models.adapters import qwen2_vl
+    from framefusion_tpu_torch.models.adapters.common import build_video_prompt
+
+    grid_t, grid_h, grid_w = QWEN2VL_GRID
+    patch_num = grid_h * grid_w // 4
+    h, _, n_pre, n_img = build_video_prompt(np.random.default_rng(11), embed_rows.shape[1], n_frames=grid_t,
+                                            patch_num=patch_num, n_pre=35, n_post=14, coherent=0.45)
+    text = np.concatenate([embed_rows[:35], embed_rows[-1:], embed_rows[35:49]])
+    return qwen2_vl.build_prefill_inputs(text, h[n_pre:n_pre + n_img], n_pre, grid_t, grid_h, grid_w)
+
+
+def phase_qwen2vl(chk: Checks, kernels: dict, ctx: dict) -> None:
+    from framefusion_tpu_torch import native
+    from framefusion_tpu_torch.config import qwen2_vl_7b_config
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.vision import qwen2_vl_vit
+    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
+    from framefusion_tpu_torch.ops.kernels import decode_attention as da
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+    from framefusion_tpu_torch.ops.quant import quantize_params_int8
+    from framefusion_tpu_torch.pipeline import TextPipeline
+    from framefusion_tpu_torch.runtime.engine import CompressionEngine
+
+    ctx.clear()  # phase 10's model and pools
+    torch.cuda.empty_cache()
+    native.load(required=True)
+    cfg = qwen2_vl_7b_config()  # Qwen2-7B's decoder with mRoPE t16 / h24 / w24
+    vcfg = qwen2_vl_vit.Qwen2VLViTConfig(dtype=torch.bfloat16)  # depth 32, embed 1280, 16 heads of 80
+    t0 = time.perf_counter()
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))  # phase 4's weights
+    vit = qwen2_vl_vit.init_params(vcfg, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    log(f"  random Qwen2-VL-7B: LLM (phase 4's weights) and tower "
+        f"({sum(t.numel() for t in vit['layers'].values()) / 1e6:.0f} M tower block params) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    model = apply_framefusion(FrameFusionModel(family="qwen2_vl", cfg=cfg, params=params,
+                                               vision={"kind": "qwen2_vl_vit", "cfg": vcfg, "params": vit}),
+                              *QWEN2VL_KNOBS)
+    pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg)
+    frames = coherent_frames(np.random.default_rng(0), 64, 360, 480)
+    pre = pipe._prepare_frames(frames)
+    patches, grid = qwen2_vl_vit.pixels_to_patches(pre, vcfg)
+    chk.expect(pre.shape == (64, 364, 476, 3) and grid == QWEN2VL_GRID,
+               f"qwen2vl: 64 frames 360x480 -> smart_resize {pre.shape[1:3]}, grid {grid}")
+
+    wrappers = {"flash_attn_fwd": fp.flash_attn_fwd, "attn_importance_rows": fp.attn_importance_rows,
+                "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup, "bidir_attn_fwd": ba.bidir_attn_fwd,
+                "ragged_decode_attn": da.ragged_decode_attn}
+    _zero_counts(wrappers)
+    answer = pipe.ask(QUESTION, frames=frames, max_new_tokens=8)
+    torch.cuda.synchronize()
+    counts = _ran(wrappers)
+    res = pipe.last_result
+    inputs = pipe.build_inputs(QUESTION, frames=frames)
+    toks = [int(t) for t in answer.split()]
+    ev = [(e.layer, e.kind, e.tokens_removed) for e in res.telemetry.events]
+    log(f"  pixels to answer: launches {counts}; events {ev}, final length {res.valid_len} of "
+        f"{inputs.input_embeds.shape[0]}, decode base {res.decode_pos_base}, tokens {toks}")
+    chk.expect(inputs.image_token_length == 7072 and inputs.patch_num == 221 and res.pos_dims == 3,
+               f"qwen2vl: {inputs.image_token_length} video tokens (32 x 221) of {inputs.input_embeds.shape[0]}, "
+               f"(3, S) positions")
+    chk.expect(res.decode_pos_base == int(inputs.position_ids.max()) + 1,
+               f"qwen2vl: decode base {res.decode_pos_base} = max(positions) + 1")
+    chk.expect(counts["bidir_attn_fwd"] == vcfg.depth,
+               f"qwen2vl: kernel E launched once a tower layer ({counts['bidir_attn_fwd']} of {vcfg.depth})")
+    for name in ("flash_attn_fwd", "gemv_stacked", "gemv_gateup", "ragged_decode_attn"):
+        chk.expect(counts[name] > 0, f"qwen2vl: {name}: {counts[name]} launches in the pixels-to-answer run")
+    if not any(e[1] == "prune" for e in ev):
+        log(f"  attn_importance_rows: {counts['attn_importance_rows']} launches (the random tower's video "
+            f"prunes nothing: kernel B runs on the coherent prompt below)")
+    chk.expect(bool(torch.isfinite(res.logits).all()) and len(toks) == 8
+               and all(0 <= t < cfg.vocab_size for t in toks), "qwen2vl: logits finite, 8 tokens in the vocabulary")
+    _set_launches(_shape_entry(kernels["bidir_attn_fwd"], "qwen2vl"), counts["bidir_attn_fwd"])
+
+    t_enc = cuda_time_ms(lambda: qwen2_vl_vit.encode_video(vit, patches, *grid, vcfg), iters=2, warmup=1)
+    eng = model.engine()
+    args = (inputs.input_embeds, inputs.patch_type, inputs.position_ids, inputs.patch_num,
+            inputs.image_token_start, inputs.image_token_length)
+    t_pre = {mode: cuda_time_ms(lambda mode=mode: eng.prefill(*args, mode=mode), iters=2, warmup=1)
+             for mode in ("fused", "planned", "dense")}
+    t_p2a = cuda_time_ms(lambda: pipe.ask(QUESTION, frames=frames, max_new_tokens=8), iters=2, warmup=1)
+    log(f"  encode ms (64 preprocessed frames, 28,288 patches; CUDA events, mean of 2): {t_enc:.2f}")
+    log(f"  prefill ms at {inputs.input_embeds.shape[0]} tokens (mean of 2): fused {t_pre['fused']:.2f}, planned "
+        f"{t_pre['planned']:.2f}, dense {t_pre['dense']:.2f}, dense / fused {t_pre['dense'] / t_pre['fused']:.3f}")
+    log(f"  pixels-to-answer ms (64 uint8 frames -> 8 tokens, bf16; mean of 2): {t_p2a:.2f}")
+
+    # The LLM alone on a coherent synthetic video of the same layout: it
+    # must prune, with kernel B at Qwen2-VL's 4 capture rows.
+    embed_rows = qwen2.embed(params, torch.arange(100, 150, device="cuda")).float().cpu().numpy()
+    inp_c = qwen2vl_coherent_prompt(embed_rows)
+    args_c = (inp_c.input_embeds, inp_c.patch_type, inp_c.position_ids, inp_c.patch_num, inp_c.image_token_start,
+              inp_c.image_token_length)
+    b_log = CallLog(fp, {"flash_causal_attention_importance":
+                         lambda q, k, v, valid_len, num, key_valid=None: (num, q.shape[0])})
+    _zero_counts(wrappers)
+    with b_log:
+        res_c = eng.prefill(*args_c, mode="fused")
+        torch.cuda.synchronize()
+    counts_c = _ran(wrappers)
+    ev_c = [(e.layer, e.kind, e.tokens_removed) for e in res_c.telemetry.events]
+    b_rows = b_log.counts()
+    phase_s = _shape_entry(kernels["attn_importance_rows"], "qwen2vl")["S"]
+    log(f"  coherent prompt ({len(inp_c.patch_type)} tokens): events {ev_c}, buckets "
+        f"{[e.bucket for e in res_c.telemetry.events]}, final length {res_c.valid_len}; kernel B calls by "
+        f"(capture rows, S) {b_rows}; launches {counts_c}")
+    chk.expect(any(e[1] == "prune" for e in ev_c), "qwen2vl coherent prompt: the prefill prunes")
+    chk.expect(counts_c["attn_importance_rows"] >= 1 and all(num == 4 for num, _ in b_rows)
+               and sum(b_rows.values()) == counts_c["attn_importance_rows"],
+               f"qwen2vl coherent prompt: kernel B launched with 4 capture rows ({b_rows})")
+    first_prune = next((i for i, e in enumerate(ev_c) if e[1] == "prune"), len(ev_c))
+    live = len(inp_c.patch_type) - sum(e[2] for e in ev_c[:first_prune])
+    chk.expect(all(s == phase_s for _, s in b_rows) and live == QWEN2VL_PHASE_LIVE,
+               f"qwen2vl coherent prompt: kernel B ran at the phase length ({phase_s}) and live tokens "
+               f"({live}) phase 2 timed it at")
+    _set_launches(_shape_entry(kernels["attn_importance_rows"], "qwen2vl"), counts_c["attn_importance_rows"])
+    res_cp = eng.prefill(*args_c, mode="planned")
+    chk.expect([(e.layer, e.kind, e.tokens_removed) for e in res_cp.telemetry.events] == ev_c
+               and res_cp.mode == "planned", f"qwen2vl coherent prompt: planned ({res_cp.mode}) makes fused's events")
+    t_c = cuda_time_ms(lambda: eng.prefill(*args_c, mode="fused"), iters=2, warmup=1)
+    t_cd = cuda_time_ms(lambda: eng.prefill(*args_c, mode="dense"), iters=2, warmup=1)
+    log(f"  coherent prompt prefill ms (mean of 2): fused {t_c:.2f}, dense {t_cd:.2f}, dense / fused "
+        f"{t_cd / t_c:.3f}")
+
+    # Weight-only int8 decode of 8 tokens as the captured graph, at the
+    # mRoPE decode base: the layer weights become int8 pairs in place.
+    ff = eng.ff
+    del eng, pipe, model
+    params_q = quantize_params_int8(params)
+    eng_q = CompressionEngine(params_q, cfg, ff)
+    _zero_counts(wrappers)
+    toks_q = eng_q.generate(res_c, 8)
+    torch.cuda.synchronize()
+    counts_q = _ran(wrappers)
+    t_gen = cuda_time_ms(lambda: eng_q.generate(res_c, 8), iters=2, warmup=1)
+    log(f"  int8 decode graph at base {res_c.decode_pos_base}: tokens {toks_q}, launches {counts_q}, "
+        f"generate(8) {t_gen:.2f} ms")
+    chk.expect(res_c.decode_pos_base == int(inp_c.position_ids.max()) + 1 and len(toks_q) == 8
+               and all(0 <= t < cfg.vocab_size for t in toks_q)
+               and all(counts_q[n] > 0 for n in ("gemv_stacked", "gemv_gateup", "ragged_decode_attn")),
+               "qwen2vl: int8 decode graph (C, D, G) from max(positions) + 1, 8 tokens in the vocabulary")
+    log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def _shape_entry(kernel: dict, tag: str) -> dict:
+    """The entry of ``kernel``'s ``shapes`` that phase 2 made for ``tag``."""
+    return next(e for e in kernel["shapes"] if e.get("path") == tag)
+
+
 def phase_cross_baselines(chk: Checks) -> None:
     """Every method on the CPU (plain versions) and on the card (kernels).
     With ``readout_params`` the greedy tokens hold by construction, so the
@@ -1583,7 +1908,7 @@ def phase_baselines(chk: Checks, kernels: dict) -> None:
     h0, _, pos0, _ = eng._prep_inputs(inputs.input_embeds, pt, inputs.position_ids)
     lp = qwen2.layer_slice(params["layers"], 0)
     q, k, v = qwen2._project_qkv(lp, qwen2.rmsnorm(h0, lp["ln1"], cfg.rms_norm_eps), cfg)
-    q, k = apply_rope(q, k, *qwen2.positions_cos_sin(pos0, cfg))
+    q, k = apply_rope(q, k, *qwen2.token_cos_sin(pos0, cfg))
     window = int(0.3 * len(pt)) - 8
     out, ref = sp.sink_attn_fwd(q, k, v, 8, window).float(), sp.sink_attn_fwd_plain(q, k, v, 8, window).float()
     err_rh = (out - ref).abs().amax(-1)
@@ -2167,16 +2492,20 @@ def main() -> int:
     kernels["flash_attn_fwd"]["regimes"] = []
     kernels["gemv_stacked"]["shapes"] = []
     kernels["gemv_gateup"]["shapes"] = []  # its rows at the batched decode's B
+    kernels["bidir_attn_fwd"]["shapes"] = []  # the Qwen2-VL-7B tower's shape (phase 11)
+    kernels["attn_importance_rows"]["shapes"] = []  # Qwen2-VL's 4 capture rows (phase 11)
     no_library = {"attn_importance_rows", "gemv_gateup"}
     ctx: dict = {}
     phases = {"device": lambda: phase_device(chk), "kernels": lambda: phase_kernels(chk, kernels),
               "kernel_check": lambda: phase_kernel_check(chk),
               "cross": lambda: phase_cross(chk), "full": lambda: phase_full(chk, kernels, ctx),
               "decode": lambda: phase_decode(chk, kernels, ctx), "graph": lambda: phase_graph(chk, kernels, ctx),
-              "cross_vision": lambda: phase_cross_vision(chk), "pixels": lambda: phase_pixels(chk, kernels),
+              "cross_vision": lambda: phase_cross_vision(chk), "cross_qwen2vl": lambda: phase_cross_qwen2vl(chk),
+              "pixels": lambda: phase_pixels(chk, kernels),
               "cross_baselines": lambda: phase_cross_baselines(chk),
               "baselines": lambda: phase_baselines(chk, kernels), "batch": lambda: phase_batch(chk, kernels, ctx),
-              "spec_serve": lambda: phase_spec_serve(chk, kernels, ctx)}
+              "spec_serve": lambda: phase_spec_serve(chk, kernels, ctx),
+              "qwen2vl": lambda: phase_qwen2vl(chk, kernels, ctx)}
     t_start = time.perf_counter()
     for phase, run in phases.items():
         log(f"== {phase} ({time.perf_counter() - t_start:.1f} s)")
@@ -2191,9 +2520,12 @@ def main() -> int:
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     unmeasured = [f"{n}.{f}" for n, k in kernels.items() for f, v in k.items()
                   if v is None and not (f == "library_ms" and n in no_library)]
-    unmeasured += [f"{n}.{e.get('regime', e.get('shape'))}.{f}" for n in ("flash_attn_fwd", "gemv_stacked", "gemv_gateup")
+    unmeasured += [f"{n}.{e.get('regime', e.get('shape'))}.{f}"
+                   for n in ("flash_attn_fwd", "gemv_stacked", "gemv_gateup", "bidir_attn_fwd", "attn_importance_rows")
                    for e in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"] for f, v in e.items()
-                   if v is None and not (f == "library_ms" and (n == "gemv_gateup" or "int8" in str(e.get("shape"))))]
+                   if v is None and not (f == "library_ms" and (n in no_library or "int8" in str(e.get("shape"))))]
+    unmeasured += [f"{n}.qwen2vl shape" for n in ("bidir_attn_fwd", "attn_importance_rows")
+                   if not any(e.get("path") == "qwen2vl" for e in kernels[n]["shapes"])]
     unmeasured += [f"{n}.batch_launches" for n in ("flash_attn_fwd", "attn_importance_rows", "gemv_stacked",
                                                    "gemv_gateup") if "batch_launches" not in kernels[n]]
     unmeasured += [f"{n}.spec_launches" for n in ("gemv_stacked", "gemv_gateup") if "spec_launches" not in kernels[n]]

@@ -45,7 +45,7 @@ from ..ops.attention import NEG_INF
 from ..ops.kernels.sink_prefill import sink_attn_fwd_plain, sink_flash_attention
 from ..ops.rope import apply_rope
 from ..ops.sampling import SamplerConfig
-from ..runtime.engine import CompressionEngine, PrefillResult
+from ..runtime.engine import CompressionEngine, PrefillResult, _pos_dims
 from ..runtime.telemetry import CompressionEvent, PrefillTelemetry
 
 MODES = ("fastv", "streamingllm", "prefill_merge", "merge_then_fastv", "fastv_then_merge")
@@ -77,7 +77,7 @@ def _fastv_forward(params, h, pos, *, cfg: LLMConfig, attn_impl: str, fastv_k: i
     """Returns (logits, k_pre, v_pre, k_post, v_post): the (L, ...) caches of
     the full-length layers < k and of the compacted layers >= k."""
     s = h.shape[0]
-    cos, sin = qwen2.positions_cos_sin(pos, cfg)
+    cos, sin = qwen2.token_cos_sin(pos, cfg)
     # Layers 0..k-2 dense; layer k-1 also captures the last live row's
     # importance (kernels A + B with "flash").
     h, k_pre, v_pre = qwen2.run_layers(params, h, cos, sin, cfg, stop_layer=fastv_k - 1, attn_impl=attn_impl)
@@ -97,7 +97,7 @@ def _fastv_forward(params, h, pos, *, cfg: LLMConfig, attn_impl: str, fastv_k: i
     new_valid = valid0 - img_len + keep_img
     out, _ = compact_tokens(keep, new_len, new_valid, {"h": h, "pos": pos})
 
-    cos2, sin2 = qwen2.positions_cos_sin(out["pos"], cfg)
+    cos2, sin2 = qwen2.token_cos_sin(out["pos"], cfg)
     h2, k_post, v_post = qwen2.run_layers(params, out["h"], cos2, sin2, cfg, start_layer=fastv_k,
                                           attn_impl=attn_impl)
     logits = qwen2.final_logits(params, h2[new_valid - 1 : new_valid], cfg)[0]
@@ -116,7 +116,7 @@ def _streamingllm_forward(params, h, pos, *, cfg: LLMConfig, attn_impl: str, ini
     s = h.shape[0]
     # Kernel F through the JAX entry point (its clamps included), or F's plain version.
     attend = sink_flash_attention if attn_impl == "flash" else sink_attn_fwd_plain
-    cos, sin = qwen2.positions_cos_sin(pos, cfg)
+    cos, sin = qwen2.token_cos_sin(pos, cfg)
     k_all = torch.empty((cfg.num_layers, s, cfg.num_kv_heads, cfg.head_dim_), dtype=cfg.dtype, device=h.device)
     v_all = torch.empty_like(k_all)
     for l in range(cfg.num_layers):
@@ -149,7 +149,7 @@ def _merging_segment(params, h, pos, patch_type, weights, live, k_seg, *, cfg: L
     segment); its importance is captured on that layer only.
 
     Returns (h, live, weights, [(k, v, live-at-attention) per layer])."""
-    cos, sin = qwen2.positions_cos_sin(pos, cfg)
+    cos, sin = qwen2.token_cos_sin(pos, cfg)
     caches = []
     for i, k_l in enumerate(k_seg):
         l = start_layer + i
@@ -388,8 +388,10 @@ class BaselineEngine(CompressionEngine):
 
         telemetry.final_length = final_valid
         telemetry.final_image_tokens = image_token_length - (orig_len - final_valid)
+        # mRoPE decodes from max(prefill positions) + 1, as the engine does.
         return PrefillResult(logits=logits, layer_caches=caches, valid_len=final_valid,
-                             decode_pos_base=caches[0][2], telemetry=telemetry, mode=self.mode)
+                             decode_pos_base=self._decode_base(position_ids, caches[0][2]), telemetry=telemetry,
+                             mode=self.mode, pos_dims=_pos_dims(position_ids))
 
     def _merging_schedule(self, orig_len: int, img_len: int, telemetry):
         """The static trajectory: per-layer merge counts, the live count at

@@ -4,7 +4,8 @@
 ``apply_framefusion(model, cost, similarity_lower_bound, ratio_lower_bound)``
 plus the static planning knobs (shape buckets, importance rows, the
 scheduler's layer count). ``LLMConfig`` describes the Qwen2-family decoder
-stack; its ``dtype`` is a ``torch.dtype``.
+stack (``mrope_section`` set for Qwen2-VL's multimodal rotary); its
+``dtype`` is a ``torch.dtype``.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ class FrameFusionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LLMConfig:
-    """Decoder-stack geometry (Qwen2 family)."""
+    """Decoder-stack geometry (Qwen2 / Qwen2-VL family)."""
 
     vocab_size: int = 152064
     hidden_size: int = 3584
@@ -48,6 +49,9 @@ class LLMConfig:
     tie_word_embeddings: bool = False
     qkv_bias: bool = True
     dtype: torch.dtype = torch.bfloat16
+    # mRoPE section sizes over the head_dim/2 frequency slots (Qwen2-VL);
+    # None: standard 1D RoPE.
+    mrope_section: Optional[tuple] = None
 
     @property
     def head_dim_(self) -> int:
@@ -83,6 +87,23 @@ def qwen2_7b_config(**kw) -> LLMConfig:
         num_heads=28,
         num_kv_heads=4,
         rope_theta=1e6,
+    )
+    base.update(kw)
+    return LLMConfig(**base)
+
+
+def qwen2_vl_7b_config(**kw) -> LLMConfig:
+    """Qwen2-VL-7B-Instruct LLM geometry: Qwen2-7B's decoder with mRoPE
+    sections t16 / h24 / w24 over head_dim 128."""
+    base = dict(
+        vocab_size=152064,
+        hidden_size=3584,
+        intermediate_size=18944,
+        num_layers=28,
+        num_heads=28,
+        num_kv_heads=4,
+        rope_theta=1e6,
+        mrope_section=(16, 24, 24),
     )
     base.update(kw)
     return LLMConfig(**base)

@@ -2,8 +2,9 @@
 
 Port of ``framefusion_tpu.interface``: ``apply_framefusion`` returns a new,
 configured ``FrameFusionModel`` whose engine runs the compressed prefill —
-the reference's three knobs, no mutation. This package runs the 1D-RoPE
-families; the Qwen2-VL family (mRoPE) is not ported yet and is rejected.
+the reference's three knobs, no mutation. This package runs the LLaVA-Video /
+Qwen2 families (1D RoPE) and Qwen2-VL (mRoPE: (3, S) position ids, 4
+importance rows); the other families' adapters are refused.
 """
 
 from __future__ import annotations
@@ -58,8 +59,6 @@ class FrameFusionModel:
     def __post_init__(self):
         if self.family not in FAMILIES:
             raise NotImplementedError(f"Model family not supported: {self.family}")
-        if FAMILIES[self.family].mrope:
-            raise NotImplementedError(f"{self.family}: mRoPE families are not ported to PyTorch yet")
 
     @property
     def spec(self) -> FamilySpec:
@@ -155,7 +154,7 @@ def _check_speculative(speculative: bool, sampler) -> None:
 
 
 # Adapters ported so far; the others wait for ROADMAP item "The other families".
-_PORTED_ADAPTERS = ("llava_video",)
+_PORTED_ADAPTERS = ("llava_video", "qwen2_vl")
 
 
 def get_token_type(family: str):

@@ -279,9 +279,11 @@ def _check_attention(rows: _Rows, gen) -> None:
     _time_attention(rows.log, "A grouped (direct, all-valid mask)", q, k, v,
                     lambda: fp.flash_attn_fwd(q, k, v, ones), lambda: fp.flash_attn_fwd_plain(q, k, v, ones))
 
-    # The importance epilogues (A + B), num 4, compacted and mask-only.
+    # The importance epilogues (A + B), num 4 (Qwen2-VL's capture rows),
+    # compacted and mask-only; S 7,168 is the bucket of Qwen2-VL-7B's
+    # 7,072-token 64-frame video prompt.
     for name, s, hq, hk in (("gmulti (S<=8192)", 3456, 28, 4), ("per-qhead fused (g=1)", 3456, 4, 4),
-                            ("MID blkgrp", 11776, 28, 4)):
+                            ("MID blkgrp", 11776, 28, 4), ("Qwen2-VL prompt bucket", 7168, 28, 4)):
         q, k, v = qkv(s, hq, hk)
         vlen = s - 40
         kv = torch.arange(s, device="cuda") < vlen
@@ -301,7 +303,9 @@ def _check_attention(rows: _Rows, gen) -> None:
         row_rel_err(sp.sink_attn_fwd(q, k, v, 8, 1024), sp.sink_attn_fwd_plain(q, k, v, 8, 1024)), ATTN_ROW_RTOL))
     del q, k, v
 
-    for b, n, h, d in ((4, 729, 16, 72), (2, 1025, 16, 64)):
+    # SigLIP-so400m's frame batch, a 64-dim tower, and the Qwen2-VL-7B
+    # tower's (32 temporal frames of 26 x 34 patches, 16 heads of 80).
+    for b, n, h, d in ((4, 729, 16, 72), (2, 1025, 16, 64), (32, 884, 16, 80)):
         q4, k4, v4 = (_rand(gen, (b, n, h, d)) for _ in range(3))
         rows.run(f"E bidir ({b}, {n}, {h}, {d})", lambda q4=q4, k4=k4, v4=v4, d=d: (
             row_rel_err(ba.flash_bidir_attention(q4, k4, v4), ba.bidir_attn_fwd_plain(q4, k4, v4, d ** -0.5)),

@@ -22,7 +22,7 @@ class PrefillInputs:
 
     input_embeds: object  # (S, D) numpy array or tensor
     patch_type: np.ndarray  # (S,) int
-    position_ids: np.ndarray  # (S,) int
+    position_ids: np.ndarray  # (S,) int, or (3, S) mRoPE streams
     patch_num: int
     image_token_start: int
     image_token_length: int

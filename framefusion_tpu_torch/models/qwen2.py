@@ -45,7 +45,7 @@ from ..config import LLMConfig
 from ..ops.attention import causal_attention_einsum, decode_attention, last_rows_importance, verify_attention
 from ..ops.kernels import flash_prefill, matvec_q8
 from ..ops.kernels.decode_attention import ragged_decode_attention
-from ..ops.rope import apply_rope, rope_cos_sin
+from ..ops.rope import apply_rope, mrope_cos_sin, rope_cos_sin
 from ..weights import resolve_device
 
 ATTN_IMPLS = ("einsum", "flash")  # prefill, the engines, verify and batched decode
@@ -132,6 +132,26 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def positions_cos_sin(position_ids: torch.Tensor, cfg: LLMConfig):
     return rope_cos_sin(position_ids, cfg.head_dim_, cfg.rope_theta)
+
+
+def pos_tokens(position_ids, device) -> torch.Tensor:
+    """(S,) or (3, S) positions -> token-major (S, P) int64 on ``device``:
+    the layout every gather, pad and compaction takes along its token axis."""
+    if not isinstance(position_ids, torch.Tensor):
+        position_ids = torch.from_numpy(np.asarray(position_ids))
+    pos = position_ids.to(device=device, dtype=torch.int64)
+    return pos.reshape(-1, 1) if pos.ndim == 1 else pos.T
+
+
+def token_cos_sin(pos_tok: torch.Tensor, cfg: LLMConfig):
+    """cos/sin from token-major positions (..., S, P), the layout the
+    executors carry through padding and compaction: P = 1 is 1D RoPE, P = 3
+    the mRoPE streams. Returns (..., S, head_dim) tables."""
+    if pos_tok.shape[-1] == 1:
+        return rope_cos_sin(pos_tok[..., 0], cfg.head_dim_, cfg.rope_theta)
+    if cfg.mrope_section is None:
+        raise ValueError("3-stream positions need an mRoPE config (mrope_section)")
+    return mrope_cos_sin(pos_tok.movedim(-1, 0), cfg.head_dim_, cfg.rope_theta, cfg.mrope_section)
 
 
 def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -295,7 +315,7 @@ def run_layers(params: dict, h, cos, sin, cfg: LLMConfig, *, start_layer: int = 
 def dense_prefill(params: dict, input_embeds, position_ids, cfg: LLMConfig, *,
                   attn_impl: str = "einsum", want_caches: bool = True):
     """Full dense prefill. Returns (logits_last (V,), k_all, v_all)."""
-    cos, sin = positions_cos_sin(position_ids, cfg)
+    cos, sin = token_cos_sin(pos_tokens(position_ids, input_embeds.device), cfg)
     h, k_all, v_all = run_layers(params, input_embeds, cos, sin, cfg, attn_impl=attn_impl,
                                  want_caches=want_caches)
     return final_logits(params, h[-1:], cfg)[0], k_all, v_all

@@ -1,11 +1,13 @@
 """Text-level pipeline: checkpoint + tokenizer + frames -> answer text
-(port of ``framefusion_tpu.pipeline``, the LLaVA-Video / Qwen2 families).
+(port of ``framefusion_tpu.pipeline``, the LLaVA-Video / Qwen2 and Qwen2-VL
+families).
 
 Given a tokenizer (HF AutoTokenizer or anything with encode/decode), LLM
-params, a vision tower and frames, it builds the LLaVA-style chat prompt,
-encodes the frames (preprocess -> SigLIP -> LLaVA frontend), splices the
-video features at the media placeholder, runs the (compressed) prefill and
-greedy decode, and decodes text. Embeddings stay on the model's device.
+params, a vision tower and frames, it builds the family's chat prompt,
+encodes the frames (preprocess -> SigLIP -> LLaVA frontend, or preprocess
+at ``smart_resize``'s geometry -> the Qwen2-VL tower), splices the video
+features at the media placeholder, runs the (compressed) prefill and greedy
+decode, and decodes text. Embeddings stay on the model's device.
 """
 
 from __future__ import annotations
@@ -18,16 +20,25 @@ import torch
 
 from .interface import FrameFusionModel
 from .models import qwen2
-from .models.adapters import llava_video
+from .models.adapters import llava_video, qwen2_vl
 
 DEFAULT_TEMPLATE = (
     "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n"
     "<|im_start|>user\n<image>\n{question}<|im_end|>\n<|im_start|>assistant\n"
 )
 
+# Qwen2-VL's processor expands the video into
+# <|vision_start|><|video_pad|>...<|vision_end|>; here the single
+# <|video_pad|> marks where the visual embeddings splice in.
+QWEN2_VL_TEMPLATE = (
+    "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n"
+    "<|im_start|>user\n<|vision_start|><|video_pad|><|vision_end|>"
+    "{question}<|im_end|>\n<|im_start|>assistant\n"
+)
+FAMILY_TEMPLATES = {"qwen2_vl": QWEN2_VL_TEMPLATE}
+
 # Families whose prompt building the JAX pipeline has and this one does not yet.
 _NOT_PORTED = {
-    "qwen2_vl": 'ROADMAP item "The other families" (qwen2_vl: mRoPE and its towers)',
     "internvl": 'ROADMAP item "The other families" (internvl: InternViT and the InternLM2 import)',
     "minicpmv": 'ROADMAP item "The other families" (minicpmv and its frontend)',
     "nvila": 'ROADMAP item "The other families" (nvila and its frontend)',
@@ -36,8 +47,14 @@ _NOT_PORTED = {
 
 @dataclasses.dataclass
 class TextPipeline:
-    """End-to-end video QA for the LLaVA-Video / Qwen2-stack families: chat
-    template with one ``<image>`` placeholder, frame-major feature block."""
+    """End-to-end video QA. Prompt building dispatches on ``model.family``:
+
+      * LLaVA-Video / Qwen2-stack families: chat template with one
+        ``<image>`` placeholder, frame-major feature block;
+      * ``qwen2_vl``: the vision span at ``<|video_pad|>`` with 3D mRoPE
+        position ids from the video grid (the tower's, or ``video_grid_thw``
+        beside precomputed features).
+    """
 
     model: FrameFusionModel
     tokenizer: object  # .encode(str) -> list[int], .decode(list[int]) -> str
@@ -80,7 +97,9 @@ class TextPipeline:
                    projector=vision.get("projector"))
 
     def _template(self) -> str:
-        return self.chat_template if self.chat_template is not None else DEFAULT_TEMPLATE
+        if self.chat_template is not None:
+            return self.chat_template
+        return FAMILY_TEMPLATES.get(self.model.family, DEFAULT_TEMPLATE)
 
     def _render_prompt(self, media: str, question: str, fallback: str) -> str:
         """The chat prompt: through the tokenizer's ``chat_template`` when it
@@ -104,28 +123,35 @@ class TextPipeline:
         rows = torch.as_tensor(np.where(ids < 0, 0, ids), device=self.device)
         return qwen2.embed(self.model.params, rows).to(torch.float32)
 
-    def build_inputs(self, question: str, frames=None, video_features=None):
-        """Tokenize the chat prompt and splice the video features.
+    def build_inputs(self, question: str, frames=None, video_features=None, video_grid_thw=None):
+        """Tokenize the family's chat prompt and splice the video features.
 
         Also records ``last_prompt_ids``, the prompt's text token ids
         (placeholder rows dropped). ``frames`` may be raw uint8 (T, H, W, C)
         video frames: they are resized and normalized to the tower's
         geometry in-repo (preprocess.py); float frames are taken as already
-        preprocessed."""
+        preprocessed. ``video_grid_thw`` goes with precomputed Qwen2-VL
+        ``video_features``."""
         if self.model.family in _NOT_PORTED:
             raise NotImplementedError(f"{self.model.family}: prompt building is not ported to PyTorch yet "
                                       f"({_NOT_PORTED[self.model.family]})")
         self._prompt_ids_acc = []
         try:
-            inputs = self._build_llava_inputs(question, self._prepare_frames(frames), video_features)
+            frames = self._prepare_frames(frames)
+            if self.model.family == "qwen2_vl":
+                inputs = self._build_qwen2_vl_inputs(question, frames, video_features, video_grid_thw)
+            else:
+                inputs = self._build_llava_inputs(question, frames, video_features)
         finally:
             self.last_prompt_ids = list(self._prompt_ids_acc)
             self._prompt_ids_acc = None
         return inputs
 
     def _prepare_frames(self, frames):
-        """Raw uint8 frames -> the family's normalized model pixels at the
-        tower's ``image_size``. Float inputs pass through untouched."""
+        """Raw uint8 frames -> the family's normalized model pixels: for
+        Qwen2-VL at ``smart_resize``'s geometry with factor = patch_size *
+        spatial_merge_size (the HF processor's rule), else at the tower's
+        ``image_size``. Float inputs pass through untouched."""
         if frames is None:
             return None
         frames = np.asarray(frames)
@@ -133,6 +159,11 @@ class TextPipeline:
             return frames
         from . import preprocess as pp
 
+        if self.model.family == "qwen2_vl":
+            if self.vit_cfg is None:
+                raise ValueError("uint8 frames need a vision tower")
+            factor = self.vit_cfg.patch_size * self.vit_cfg.spatial_merge_size
+            return pp.preprocess_frames(frames, self.model.family, factor=factor)
         if self.vit_cfg is None or not hasattr(self.vit_cfg, "image_size"):
             raise ValueError("uint8 frames need a fixed-size vision tower (image_size)")
         size = self.vit_cfg.image_size
@@ -159,14 +190,45 @@ class TextPipeline:
         return llava_video.build_prefill_inputs(text_embeds, feats, image_token_pos=len(ids_before),
                                                 num_patches_per_side=pps)
 
+    def _build_qwen2_vl_inputs(self, question: str, frames, video_features, video_grid_thw):
+        """Qwen2-VL: one vision span at ``<|video_pad|>``, 3D mRoPE ids from
+        the video grid. Frames run through the Qwen2-VL tower
+        (``pixels_to_patches`` -> ``encode_video``, kernel E under
+        ``attn_impl="flash"``); precomputed ``video_features`` need
+        ``video_grid_thw``."""
+        if video_features is None:
+            from .models.vision.qwen2_vl_vit import encode_video, pixels_to_patches
+
+            if frames is None or self.vit_params is None:
+                raise ValueError("qwen2_vl needs frames with a Qwen2-VL tower (vit_params/vit_cfg), or "
+                                 "video_features with video_grid_thw")
+            patches, video_grid_thw = pixels_to_patches(np.asarray(frames, np.float32), self.vit_cfg)
+            video_features = encode_video(self.vit_params, patches, *video_grid_thw, self.vit_cfg,
+                                          attn_impl=self.model.attn_impl)
+        if video_grid_thw is None:
+            raise ValueError("qwen2_vl video_features need video_grid_thw")
+        grid_t, grid_h, grid_w = (int(x) for x in video_grid_thw)
+        prompt = self._render_prompt("<|vision_start|><|video_pad|><|vision_end|>", question,
+                                     self._template().format(question=question))
+        before, _, after = prompt.partition("<|video_pad|>")
+        ids_before = list(self.tokenizer.encode(before))
+        ids_after = list(self.tokenizer.encode(after))
+        text_embeds = self._embed_ids(ids_before + [self.PLACEHOLDER_ID] + ids_after)
+        feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
+        merge = getattr(self.vit_cfg, "spatial_merge_size", 2)
+        return qwen2_vl.build_prefill_inputs(text_embeds, feats, video_token_pos=len(ids_before), grid_t=grid_t,
+                                             grid_h=grid_h, grid_w=grid_w, spatial_merge_size=merge)
+
     def ask(self, question: str, frames=None, video_features=None, max_new_tokens: int = 64,
-            eos_token_id: Optional[int] = None, speculative: bool = False, draft_len: int = 4) -> str:
-        """Answer ``question`` about the video (frames or precomputed
-        features) with greedy decoding; the prefill result is kept in
-        ``last_result``. ``speculative=True`` decodes by draft-and-verify
-        with the prompt's text ids (``last_prompt_ids``) seeding the drafts:
-        the same answer."""
-        inputs = self.build_inputs(question, frames=frames, video_features=video_features)
+            eos_token_id: Optional[int] = None, video_grid_thw=None,
+            speculative: bool = False, draft_len: int = 4) -> str:
+        """Answer ``question`` about the video (frames, or precomputed
+        features with ``video_grid_thw`` for Qwen2-VL) with greedy decoding;
+        the prefill result is kept in ``last_result``. ``speculative=True``
+        decodes by draft-and-verify with the prompt's text ids
+        (``last_prompt_ids``) seeding the drafts: the same answer."""
+        inputs = self.build_inputs(question, frames=frames, video_features=video_features,
+                                   video_grid_thw=video_grid_thw)
         eos = eos_token_id if eos_token_id is not None else getattr(self.tokenizer, "eos_token_id", None)
         tokens, result = self.model.generate(inputs, max_new_tokens, eos_token_id=eos, speculative=speculative,
                                              draft_len=draft_len,

@@ -178,7 +178,9 @@ class PrefillResult:
     logits: torch.Tensor  # (V,) fp32 last-token logits
     layer_caches: list  # per layer: (k, v, length) — ragged bucketed shapes
     valid_len: int  # live tokens at stack output
-    decode_pos_base: int  # first decode rotary position (= layer-0 cache length)
+    # First decode rotary position: the layer-0 cache length, or for mRoPE
+    # max(prefill positions) + 1 (``_mrope_decode_base``).
+    decode_pos_base: int
     telemetry: Optional[PrefillTelemetry]
     # "fused", "planned", "planned_fallback_fused" or "dense"; a baseline
     # engine's results carry its method ("fastv", "streamingllm", ...).
@@ -186,6 +188,15 @@ class PrefillResult:
     # Where planned buckets came from: "explicit", "history", "measured",
     # "analytic"; "cold" for a measured call that had nothing to measure.
     plan_source: Optional[str] = None
+    # Position streams of the prompt: 1 (RoPE) or 3 (mRoPE). Decode tiles
+    # one position over the streams, which is 1D RoPE value for value, so
+    # only ``decode_pos_base`` differs between the two.
+    pos_dims: int = 1
+
+
+def _pos_dims(position_ids) -> int:
+    """1 for (S,) positions, 3 for mRoPE's (3, S)."""
+    return 3 if np.ndim(position_ids) == 2 else 1
 
 
 class PlanHistory:
@@ -345,9 +356,30 @@ class CompressionEngine:
         h = torch.nn.functional.pad(h, (0, 0, 0, pad))
         pt = torch.as_tensor(np.asarray(patch_type), device=self.device).to(torch.int64)
         pt = torch.nn.functional.pad(pt, (0, pad), value=PAD_TOKEN)
-        pos = torch.as_tensor(np.asarray(position_ids), device=self.device).to(torch.int64)
-        pos = torch.nn.functional.pad(pos, (0, pad))
+        pos = torch.nn.functional.pad(qwen2.pos_tokens(position_ids, self.device), (0, 0, 0, pad))
         return h, pt, pos, orig_len
+
+    @staticmethod
+    def _mrope_decode_base(position_ids) -> Optional[int]:
+        """First decode rotary position for the mRoPE (Qwen2-VL) family, or
+        None for the 1D families.
+
+        The reference decodes Qwen2-VL at ``cache_position + rope_deltas``:
+        HF generate's ``cache_position`` advances from the original prompt
+        length and ``rope_deltas = max(prefill positions) + 1 - length``, so
+        the first decoded token sits at ``max(positions) + 1`` whatever the
+        compression dropped (only vision tokens, whose positions never pass
+        the text tail's). The 1D families decode from the compressed layer-0
+        cache length (DynamicCache.get_seq_length)."""
+        if _pos_dims(position_ids) == 1:
+            return None
+        if not isinstance(position_ids, torch.Tensor):
+            position_ids = np.asarray(position_ids)
+        return int(position_ids.max()) + 1
+
+    def _decode_base(self, position_ids, layer0_len: int) -> int:
+        base = self._mrope_decode_base(position_ids)
+        return layer0_len if base is None else base
 
     @staticmethod
     def _frame_tokens(patch_type) -> int:
@@ -399,7 +431,7 @@ class CompressionEngine:
         Returns (h, live, layer_end, phase caches [(k, v, live-at-attention)],
         pending MLP layer or -1)."""
         cfg, ff = self.cfg, self.ff
-        cos, sin = qwen2.positions_cos_sin(pos, cfg)
+        cos, sin = qwen2.token_cos_sin(pos, cfg)
         bucket = h.shape[0]
         if include_pre_event:
             h, live = self._merge_event(st, h, live, pt, patch_num, -1, bucket)
@@ -470,7 +502,7 @@ class CompressionEngine:
         cfg = self.cfg
         if pending_mlp_layer >= 0:
             h = qwen2.layer_mlp(qwen2.layer_slice(self.params["layers"], pending_mlp_layer), h, cfg)
-        cos, sin = qwen2.positions_cos_sin(pos, cfg)
+        cos, sin = qwen2.token_cos_sin(pos, cfg)
         h, k_all, v_all = qwen2.run_layers(self.params, h, cos, sin, cfg, start_layer=start_layer,
                                            attn_impl=self.attn_impl)
         logits = qwen2.final_logits(self.params, h[valid_len - 1 : valid_len], cfg)[0]
@@ -521,7 +553,7 @@ class CompressionEngine:
         Returns (h, live, layer_end, per-layer (k, v, live-at-attention) for
         the batch, pending MLP layer or -1)."""
         cfg = self.cfg
-        cos, sin = qwen2.positions_cos_sin(pos, cfg)
+        cos, sin = qwen2.token_cos_sin(pos, cfg)
         bucket = h.shape[1]
         caches, pending, layer = [], -1, 0
         while layer < self.pool_layers and not all(st.done for st in states):
@@ -554,7 +586,7 @@ class CompressionEngine:
         cfg = self.cfg
         if pending_mlp_layer >= 0:
             h = qwen2.layer_mlp(qwen2.layer_slice(self.params["layers"], pending_mlp_layer), h, cfg)
-        cos, sin = qwen2.positions_cos_sin(pos, cfg)
+        cos, sin = qwen2.token_cos_sin(pos, cfg)
         b, s, _ = h.shape
         k_all = torch.zeros((cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim_), dtype=cfg.dtype, device=h.device)
         v_all = torch.zeros_like(k_all)
@@ -566,7 +598,7 @@ class CompressionEngine:
         return qwen2.final_logits(self.params, last, cfg), k_all, v_all
 
     def _finish(self, telemetry, st, caches, layer_end, logits, k_tail, v_tail, *,
-                orig_len, image_token_length, patch_num, patch_type, mode, plan_source=None):
+                orig_len, image_token_length, patch_num, patch_type, position_ids, mode, plan_source=None):
         cfg = self.cfg
         layer_caches = self._pack_caches(caches) + [
             (k_tail[j], v_tail[j], st.n_live) for j in range(layer_end, cfg.num_layers)
@@ -578,8 +610,9 @@ class CompressionEngine:
         telemetry.tail_start_layer = layer_end
         self._record_plan_stats(patch_num, patch_type, telemetry)
         return PrefillResult(logits=logits, layer_caches=layer_caches, valid_len=st.n_live,
-                             decode_pos_base=layer_caches[0][2], telemetry=telemetry, mode=mode,
-                             plan_source=plan_source)
+                             decode_pos_base=self._decode_base(position_ids, layer_caches[0][2]),
+                             telemetry=telemetry, mode=mode, plan_source=plan_source,
+                             pos_dims=_pos_dims(position_ids))
 
     # -- prefill -----------------------------------------------------------
 
@@ -590,7 +623,7 @@ class CompressionEngine:
         Args:
             input_embeds: (S, D) fused text+vision embeddings.
             patch_type: (S,) patch ids / sentinels.
-            position_ids: (S,) rotary positions.
+            position_ids: (S,) rotary positions, or (3, S) mRoPE streams.
             patch_num: spatial patches per frame.
             image_token_start / image_token_length: the image span.
             mode: "fused", "planned", "measured", "auto" (planned from
@@ -664,7 +697,7 @@ class CompressionEngine:
         telemetry.similarities = st.sims
         return self._finish(telemetry, st, caches, layer_end, logits, k_tail, v_tail,
                             orig_len=orig_len, image_token_length=image_token_length, patch_num=patch_num,
-                            patch_type=patch_type, mode="fused")
+                            patch_type=patch_type, position_ids=position_ids, mode="fused")
 
     def prefill_planned(self, input_embeds, patch_type, position_ids, patch_num: int,
                         image_token_start: int, image_token_length: int,
@@ -733,7 +766,8 @@ class CompressionEngine:
         logits, k_tail, v_tail = self._tail(out["h"], out["pos"], st.n_live, layer_end, pending)
         return self._finish(telemetry, st, caches, layer_end, logits, k_tail, v_tail,
                             orig_len=orig_len, image_token_length=image_token_length, patch_num=patch_num,
-                            patch_type=patch_type, mode="planned", plan_source=plan_source)
+                            patch_type=patch_type, position_ids=position_ids, mode="planned",
+                            plan_source=plan_source)
 
     def prefill_planned_batch(self, batch, patch_num: int, plan_len: Optional[int] = None,
                               pre_plan_len: Optional[int] = None) -> list:
@@ -765,8 +799,10 @@ class CompressionEngine:
         def pad_to(h, pt, pos, _):
             pad = s_b - h.shape[0]
             return (torch.nn.functional.pad(h, (0, 0, 0, pad)), torch.nn.functional.pad(pt, (0, pad), value=PAD_TOKEN),
-                    torch.nn.functional.pad(pos, (0, pad)))
+                    torch.nn.functional.pad(pos, (0, 0, 0, pad)))
 
+        if len({p[2].shape[1] for p in preps}) > 1:
+            raise ValueError("prefill_planned_batch: mixed rope layouts (1D and mRoPE positions) in one batch")
         padded = [pad_to(*p) for p in preps]
         orig_lens = [p[3] for p in preps]
         frame_toks = [self._frame_tokens(pt) for (_, pt, _, _, _) in batch]
@@ -833,7 +869,8 @@ class CompressionEngine:
             results.append(self._finish(telemetry, st, [(k[i], v[i], lv[i]) for k, v, lv in caches], layer_end,
                                         logits[j], k_tail[:, j], v_tail[:, j], orig_len=orig_lens[i],
                                         image_token_length=img_l, patch_num=patch_num, patch_type=patch_type,
-                                        mode="planned_batch", plan_source=plan_source))
+                                        position_ids=position_ids, mode="planned_batch",
+                                        plan_source=plan_source))
         return results
 
     def _prefill_segmented(self, input_embeds, patch_type, position_ids, patch_num: int,
@@ -874,7 +911,7 @@ class CompressionEngine:
         while layer < cfg.num_layers and not state.done:
             capture = ff.num_importance_queries if state.finish_merging else 0
             lp = qwen2.layer_slice(self.params["layers"], layer)
-            cos, sin = qwen2.positions_cos_sin(pos, cfg)
+            cos, sin = qwen2.token_cos_sin(pos, cfg)
             h_mid, k, v, importance = qwen2.layer_attention(lp, h, cos, sin, cfg, attn_impl=self.attn_impl,
                                                             capture_num=capture, valid_len=valid)
             layer_caches[layer] = (k, v, valid)
@@ -902,17 +939,19 @@ class CompressionEngine:
         telemetry.final_image_tokens = image_token_length - (orig_len - valid)
         telemetry.tail_start_layer = layer
         return PrefillResult(logits=logits, layer_caches=layer_caches, valid_len=valid,
-                             decode_pos_base=layer_caches[0][2], telemetry=telemetry, mode="segmented")
+                             decode_pos_base=self._decode_base(position_ids, layer_caches[0][2]),
+                             telemetry=telemetry, mode="segmented", pos_dims=_pos_dims(position_ids))
 
     def dense_prefill(self, input_embeds, position_ids) -> PrefillResult:
         """Uncompressed prefill (the A/B baseline)."""
         h = torch.as_tensor(input_embeds).to(device=self.device, dtype=self.cfg.dtype)
-        pos = torch.as_tensor(np.asarray(position_ids), device=self.device).to(torch.int64)
+        pos = torch.as_tensor(np.asarray(position_ids), device=self.device).to(torch.int64)  # (S,) or (3, S)
         logits, k_all, v_all = qwen2.dense_prefill(self.params, h, pos, self.cfg, attn_impl=self.attn_impl)
         s = int(h.shape[0])
         caches = [(k_all[l], v_all[l], s) for l in range(self.cfg.num_layers)]
-        return PrefillResult(logits=logits, layer_caches=caches, valid_len=s, decode_pos_base=s,
-                             telemetry=None, mode="dense")
+        return PrefillResult(logits=logits, layer_caches=caches, valid_len=s,
+                             decode_pos_base=self._decode_base(position_ids, s), telemetry=None, mode="dense",
+                             pos_dims=_pos_dims(position_ids))
 
     # -- decode --------------------------------------------------------------
 

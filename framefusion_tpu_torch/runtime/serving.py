@@ -164,7 +164,10 @@ class ServingLoop:
         dev = engine.device
         self.b, self.chunk, self.draft_len, self.kq = max_slots, chunk_steps, draft_len, draft_len + 1
         self.max_new_cap, self.prefill_mode, self.seed_cap = max_new_cap, prefill_mode, seed_cap
-        self.pos_dims = 1  # 1D rotary positions (mRoPE families are not ported)
+        # Position streams of the prompts (3 for mRoPE). The chunk step
+        # decodes with 1D rotary at each slot's ``pos_base``: one position
+        # tiled over the streams is 1D RoPE value for value.
+        self.pos_dims = 3 if cfg.mrope_section is not None else 1
         self.attn_impl = engine._verify_impl()
         # [0, region_start) holds compacted live rows (the longest prefix
         # plus a full budget); the scratch tail one chunk of writes.
@@ -300,6 +303,8 @@ class ServingLoop:
         result = eng.prefill(inp.input_embeds, inp.patch_type, inp.position_ids, patch_num=inp.patch_num,
                              image_token_start=inp.image_token_start, image_token_length=inp.image_token_length,
                              mode=self.prefill_mode)
+        if result.pos_dims != self.pos_dims:
+            raise ValueError("rope layout mismatch")
         # Compaction invariant: a prefix plus a full budget of committed rows
         # must fit below region_start, or compaction would spill live rows
         # into the scratch region the next chunk overwrites.

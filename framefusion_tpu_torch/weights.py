@@ -1,17 +1,19 @@
 """Weight import: HuggingFace hub checkpoints -> this package's params
-(port of ``framefusion_tpu.weights``, the ``llava_video`` family only).
+(port of ``framefusion_tpu.weights``, the ``llava_video`` and ``qwen2_vl``
+families).
 
 Linear weights transpose from HF's (out, in) to (in, out), so the forward
 is plain ``x @ w``; layer weights stack along a leading layer axis. Entry
 points: ``params_from_state_dict`` (any mapping name -> numpy array or
 tensor), ``load_state`` (safetensors shards of a checkpoint directory) and
-``load_checkpoint`` (config.json + shards -> a ``FrameFusionModel`` with the
-SigLIP tower and projector attached).
+``load_checkpoint`` (config.json + shards -> a ``FrameFusionModel`` with its
+vision tower attached: SigLIP and the LLaVA projector, or the Qwen2-VL
+tower).
 
-One difference from the JAX loader: the SigLIP tower is loaded in the
-requested ``dtype`` (bf16 by default, which kernel E takes), where the JAX
-loader keeps it fp32. A checkpoint stores the tower in bf16, so the values
-are the same.
+One difference from the JAX loader: the towers (SigLIP and Qwen2-VL's) are
+loaded in the requested ``dtype`` (bf16 by default, which kernel E takes),
+where the JAX loader keeps them fp32. A checkpoint stores a tower in bf16,
+so the values are the same.
 """
 
 from __future__ import annotations
@@ -40,9 +42,11 @@ _QWEN2_LAYER_KEYS = {
     "mlp.down_proj.weight": ("w_down", True),
 }
 
-# Architecture string (config.json ``architectures[0]``) -> family. Only the
-# llava_video family is ported; the others wait for ROADMAP item "The other families".
-_ARCH_TO_FAMILY = {"LlavaQwenForCausalLM": "llava_video"}
+# Architecture string (config.json ``architectures[0]``) -> family. The
+# llava_video and qwen2_vl families are ported; the others, and Qwen2.5-VL
+# (its window-attention tower), wait for ROADMAP item "The other families".
+_ARCH_TO_FAMILY = {"LlavaQwenForCausalLM": "llava_video", "Qwen2VLForConditionalGeneration": "qwen2_vl"}
+_PORTED_FAMILIES = ("llava_video", "qwen2_vl")
 _NOT_PORTED = 'is not ported to PyTorch yet (ROADMAP item "The other families")'
 
 
@@ -153,13 +157,18 @@ def load_state(checkpoint_dir: str) -> dict:
 
 
 def llm_config_from_hf(cfg_dict: dict, dtype=torch.bfloat16):
-    """HF ``config.json`` dict -> (family, LLMConfig). LLaVA-Video keeps the
-    LLM fields at the top level; other architectures raise."""
+    """HF ``config.json`` dict -> (family, LLMConfig). The LLM fields live at
+    the top level or under ``text_config``; Qwen2-VL's mRoPE sections come
+    from ``rope_scaling.mrope_section``. Other architectures raise."""
     arch = (cfg_dict.get("architectures") or ["?"])[0]
     family = _ARCH_TO_FAMILY.get(arch)
     if family is None:
         raise NotImplementedError(f"Model not supported\nArchitecture: {arch} {_NOT_PORTED}")
-    text = cfg_dict
+    text = cfg_dict.get("text_config") if isinstance(cfg_dict.get("text_config"), dict) else cfg_dict
+    rope_scaling = text.get("rope_scaling") or {}
+    mrope_section = None
+    if isinstance(rope_scaling, dict) and rope_scaling.get("mrope_section"):
+        mrope_section = tuple(int(x) for x in rope_scaling["mrope_section"])
     llm = LLMConfig(
         vocab_size=text["vocab_size"],
         hidden_size=text["hidden_size"],
@@ -171,19 +180,51 @@ def llm_config_from_hf(cfg_dict: dict, dtype=torch.bfloat16):
         rms_norm_eps=float(text.get("rms_norm_eps", 1e-6)),
         tie_word_embeddings=bool(text.get("tie_word_embeddings", False)),
         qkv_bias=bool(text.get("bias", True)),
+        mrope_section=mrope_section,
         dtype=dtype,
     )
     return family, llm
 
 
-def _load_vision(state: dict, cfg_dict: dict, llm_cfg: LLMConfig, device):
-    """The SigLIP tower and LLaVA projector of a LLaVA-Video checkpoint, or
-    None when it carries no (recognizable) vision weights."""
+def _load_qwen2_vl_vision(state: dict, vis_cfg: dict, llm_cfg: LLMConfig, device):
+    """The Qwen2-VL tower of a ``qwen2_vl`` checkpoint in ``llm_cfg.dtype``,
+    or None when it carries none. A Qwen2.5-VL tower (its config has
+    ``out_hidden_size``) raises: it is not ported."""
+    from .models.vision import qwen2_vl_vit
+
+    if not any(k.startswith("visual.") for k in state):
+        return None
+    if "out_hidden_size" in vis_cfg:
+        raise NotImplementedError(f"the Qwen2.5-VL vision tower {_NOT_PORTED}")
+    vit_cfg = qwen2_vl_vit.Qwen2VLViTConfig(
+        embed_dim=vis_cfg.get("embed_dim", 1280),
+        depth=vis_cfg.get("depth", 32),
+        num_heads=vis_cfg.get("num_heads", 16),
+        patch_size=vis_cfg.get("patch_size", 14),
+        temporal_patch_size=vis_cfg.get("temporal_patch_size", 2),
+        spatial_merge_size=vis_cfg.get("spatial_merge_size", 2),
+        mlp_ratio=vis_cfg.get("mlp_ratio", 4.0),
+        hidden_size=llm_cfg.hidden_size,
+        dtype=llm_cfg.dtype,
+    )
+    try:
+        params = qwen2_vl_vit.params_from_hf(state, vit_cfg, prefix="visual.", device=device)
+    except (KeyError, ValueError):
+        return None  # partial/unrecognized vision weights: LLM-only load
+    return {"kind": "qwen2_vl_vit", "cfg": vit_cfg, "params": params}
+
+
+def _load_vision(family: str, state: dict, cfg_dict: dict, llm_cfg: LLMConfig, device):
+    """The family's vision tower: SigLIP and the LLaVA projector for
+    llava_video, the Qwen2-VL tower for qwen2_vl; None when the checkpoint
+    carries no (recognizable) vision weights."""
     from .models.vision import siglip
 
+    vis_cfg = cfg_dict.get("vision_config") or {}
+    if family == "qwen2_vl":
+        return _load_qwen2_vl_vision(state, vis_cfg, llm_cfg, device)
     if not any("vision_tower" in k for k in state):
         return None
-    vis_cfg = cfg_dict.get("vision_config") or {}
     try:
         tower_prefix = next(p for p in ("model.vision_tower.vision_tower.vision_model.", "vision_tower.vision_model.")
                             if any(k.startswith(p) for k in state))
@@ -219,8 +260,9 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
 
     ``quantize="int8"``: decoder matmul weights are quantized on the host
     during import, so the device never holds the bf16 originals. The vision
-    tower, embeddings, norms and lm_head keep ``dtype``; the projector is
-    fp32, as in the JAX loader. ``device=None`` loads onto the card and
+    tower, embeddings, norms and lm_head keep ``dtype``; the LLaVA projector
+    is fp32, as in the JAX loader. ``Qwen2_5_VLForConditionalGeneration``
+    and a Qwen2.5-VL tower raise NotImplementedError. ``device=None`` loads onto the card and
     raises without one; ``device="cpu"`` asks for the CPU.
     """
     from .interface import FAMILIES, FrameFusionModel
@@ -231,12 +273,12 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
         cfg_dict = json.load(f)
     detected, llm_cfg = llm_config_from_hf(cfg_dict, dtype=dtype)
     family = family or detected
-    if family != "llava_video":
+    if family not in _PORTED_FAMILIES:
         raise NotImplementedError(f"family {family} {_NOT_PORTED}")
     spec = FAMILIES[family]
     if llm_cfg.qkv_bias != spec.qkv_bias:
         raise ValueError(f"config qkv_bias={llm_cfg.qkv_bias} vs family {family}")
     state = load_state(checkpoint_dir)
     params = params_from_state_dict(state, llm_cfg, prefix=spec.llm_prefix, quantize=quantize, device=device)
-    vision = _load_vision(state, cfg_dict, llm_cfg, device)
+    vision = _load_vision(family, state, cfg_dict, llm_cfg, device)
     return FrameFusionModel(family=family, cfg=llm_cfg, params=params, vision=vision)

@@ -43,6 +43,10 @@ from framefusion_tpu_torch.ops.sampling import SamplerConfig
 from framefusion_tpu_torch.runtime.engine import CompressionEngine
 from test_core import make_sequence
 
+# Tiny shapes: one intra-op thread each. pytest-xdist workers share the cores, and
+# torch's default of a thread per core makes them spin against each other.
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

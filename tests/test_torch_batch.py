@@ -45,6 +45,10 @@ from framefusion_tpu_torch.runtime.engine import CompressionEngine, best_tail_sp
 from test_core import make_sequence
 from test_engine import build_inputs
 
+# Tiny shapes: one intra-op thread each. pytest-xdist workers share the cores, and
+# torch's default of a thread per core makes them spin against each other.
+torch.set_num_threads(1)
+
 TOL = 1e-4
 BASE = dict(cost=0.4, similarity_lower_bound=0.75, ratio_lower_bound=0.05, schedule_num_layers=6, bucket=32)
 # tests/test_engine.py's three-prompt set (TestBatchedPrefill): seed, coherence, frames.

@@ -28,6 +28,10 @@ from framefusion_tpu_torch.ops import rope as trope
 from framefusion_tpu_torch.ops.sampling import SamplerConfig, sample_token
 from test_core import make_sequence
 
+# Tiny shapes: one intra-op thread each. pytest-xdist workers share the cores, and
+# torch's default of a thread per core makes them spin against each other.
+torch.set_num_threads(1)
+
 VAL_TOL = 1e-5
 
 

@@ -55,6 +55,10 @@ from framefusion_tpu_torch.ops.kernels import matvec_q8 as tmv
 from framefusion_tpu_torch.ops.sampling import SamplerConfig, draw_uniforms, filtered_probs, sample_token
 from framefusion_tpu_torch.pipeline import TextPipeline
 
+# Tiny shapes: one intra-op thread each. pytest-xdist workers share the cores, and
+# torch's default of a thread per core makes them spin against each other.
+torch.set_num_threads(1)
+
 ATTN_TOL = 1e-5
 TOL = 1e-4
 BF16_TOL = 2e-3

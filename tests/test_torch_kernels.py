@@ -31,6 +31,10 @@ from framefusion_tpu_torch.ops.kernels import matvec_q8 as tmv
 from framefusion_tpu_torch.ops.kernels import sink_prefill as tsp
 from framefusion_tpu_torch.runtime.decode_graph import capture_graph
 
+# Tiny shapes: one intra-op thread each. pytest-xdist workers share the cores, and
+# torch's default of a thread per core makes them spin against each other.
+torch.set_num_threads(1)
+
 ATTN_TOL = 1e-4
 MV_RTOL = 1e-5
 

@@ -32,6 +32,10 @@ from framefusion_tpu_torch.models.vision import siglip as ts
 from framefusion_tpu_torch.pipeline import DEFAULT_TEMPLATE, TextPipeline
 from test_pipeline import StubTokenizer
 
+# Tiny shapes: one intra-op thread each. pytest-xdist workers share the cores, and
+# torch's default of a thread per core makes them spin against each other.
+torch.set_num_threads(1)
+
 TOL = 1e-5
 
 

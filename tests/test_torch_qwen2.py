@@ -19,6 +19,10 @@ from framefusion_tpu.ops.quant import quantize_params_int8 as jax_quantize
 from framefusion_tpu_torch.config import tiny_llm_config
 from framefusion_tpu_torch.models import qwen2 as tq
 
+# Tiny shapes: one intra-op thread each. pytest-xdist workers share the cores, and
+# torch's default of a thread per core makes them spin against each other.
+torch.set_num_threads(1)
+
 TOL = 1e-4
 BF16_TOL = 2e-3
 

@@ -41,6 +41,10 @@ from framefusion_tpu_torch.runtime.engine import CompressionEngine
 from framefusion_tpu_torch.runtime.serving import ServeRequest, ServingLoop
 from test_engine import build_inputs
 
+# Tiny shapes: one intra-op thread each. pytest-xdist workers share the cores, and
+# torch's default of a thread per core makes them spin against each other.
+torch.set_num_threads(1)
+
 FF = dict(cost=0.4, similarity_lower_bound=0.75, ratio_lower_bound=0.05, schedule_num_layers=4, bucket=32)
 
 
