@@ -82,6 +82,16 @@ Phases, each printed as it runs; every run makes all of them:
              features and prefill logits within the bf16 bounds; events,
              cache lengths, the decode base and tokens equal; the tokens
              vary; E and B launched on the card only.
+5c. cross_internvl — a tiny InternViT of head dim 64 (hidden 128, 2 heads,
+             depth 2; N 65, one past a key tile) and a 6-layer LLM with
+             InternLM2's attention (no qkv bias, groups of 4: 8 / 2 heads;
+             ``readout_params``), weights drawn with numpy, through
+             TextPipeline.ask on uint8 frames (the interleaved ``FrameN:
+             <image>`` prompt): plain versions on the CPU, kernels on the
+             card. Features, prefill logits and layer 0's cached keys (the
+             merge's keep set) within the bf16 bounds; events, cache lengths
+             and tokens equal; the tokens vary; E and B launched on the card
+             only.
 6. pixels  — pixels to answer at full width: random SigLIP-so400m tower,
              projector and Qwen2-7B (bf16), 64 uint8 frames at 360x480
              through the native preprocessing, the tower (kernel E), the
@@ -149,6 +159,29 @@ Phases, each printed as it runs; every run makes all of them:
              (spliced by the Qwen2-VL adapter), which must prune with kernel
              B at 4 capture rows at phase 2's length, and 8 tokens through
              the int8 decode graph from its mRoPE base.
+12. internvl — the InternVL2.5-8B family at full width: random
+             InternLM2.5-7B weights (32 layers, hidden 4096, 32 / 8 heads,
+             intermediate 14336, vocab 92553, no qkv bias) made on the card,
+             an InternViT-300M tower of the published geometry (image 448,
+             patch 14, 24 layers, 16 heads of 64, qkv bias) and the
+             4096 -> 4096 -> 4096 mlp1 projector; 64 uint8 frames at 360x480
+             through TextPipeline.ask (448 x 448, InternViT, pixel shuffle,
+             mlp1, one ``FrameN: <image>`` line a frame: 16,384 image tokens
+             in a span that holds the labels) at cost 0.3, S_th 0.5, r_min
+             0.1 and 8 greedy tokens: launches of A-G around it (E once a
+             tower layer), encode, fused / planned / dense prefill and
+             pixels-to-answer ms, the device idle share. Then the LLM on a
+             coherent synthetic video spliced into the same prompt, which must
+             prune (B at one capture row, 32 / 8 heads): tokens after the
+             layer -1 merge and after the prune; the int8 decode graph's
+             ms/step over 32 replays beside its weight-stream floor. Last,
+             each kernel against its plain version at the shapes these runs
+             gave it (A at every (S, mask) its prefills launched, B at the
+             phase length, E at (64, 1025, 16, 64) with its last row and
+             column held on their own, C and D bf16 and int8 at InternLM2's
+             decode widths, G at 8 KV heads over the decode's first length),
+             each timed beside its bound, plain and library ms, with the
+             launches phase 12 counted.
 
 The line before the last is a JSON object with one entry per kernel, built
 from ``framefusion_tpu_torch.ops.kernels`` (the TPU functions each stands
@@ -167,7 +200,11 @@ int8 ones with phase 9's launches at that B; phase 9 decodes int8) and at
 the verify's 5 and 20 rows (the int8 ones with phase 10's launches); C
 and D also carry ``spec_launches`` from phase 10. E's and B's ``shapes``
 hold the Qwen2-VL regimes with phase 11's launches (E around its pixels to
-answer, B around its coherent prompt's prefill). The
+answer, B around its coherent prompt's prefill). Entries with ``"path":
+"internvl"`` (A's regimes, B's, C's, D's, E's and G's shapes) are phase
+12's rows, with its launches: A's from its prefills by (S, mask), C's and
+D's bf16 from the pixels-to-answer decode and int8 from the int8 decode
+graph. The
 last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. The script never runs on the CPU: without a CUDA device
 it exits at once.
@@ -355,6 +392,263 @@ def _rand(gen, shape, dtype=torch.bfloat16, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32) * scale).to(dtype)
 
 
+def _row_rel(out, ref):
+    """(max abs error, max of each (row, head)'s error over that row's
+    largest plain output) of an attention output against its plain version;
+    rows whose every key is masked (0 / 0) give 0."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    return err.max().item(), (err / ref.float().abs().amax(-1).clamp(min=1e-30)).max().item()
+
+
+def _a_regime(chk, kernels, gen, s: int, hq: int, hk: int, dead: float, label: str):
+    """Kernel A at S keys, Hq / Hk heads of 128 against its plain version
+    (with ``dead`` > 0: a key_valid mask with that share of dead keys, rows
+    0..15 seeing none), timed beside its bound and SDPA. Appends the regime
+    (``label``) to A's entry; returns it and (q, k, kv, m, l) for kernel B."""
+    from framefusion_tpu_torch.kernel_bench import sdpa
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+
+    d = 128
+    q, k, v = _rand(gen, (s, hq, d)), _rand(gen, (s, hk, d)), _rand(gen, (s, hk, d))
+    kv = None
+    if dead:
+        kv = torch.rand((s,), generator=gen, device="cuda") >= dead
+        kv[:16] = False  # rows 0..15 see no valid key at all
+        kv[-1] = True
+    out, m, l = fp.flash_attn_fwd(q, k, v, kv)
+    out_p, m_p, l_p = fp.flash_attn_fwd_plain(q, k, v, kv)
+    torch.cuda.synchronize()
+    err, rel = _row_rel(out, out_p)
+    _, rel_late = _row_rel(out[1024:], out_p[1024:])
+    fin = torch.isfinite(m_p)
+    m_err = (m - m_p)[fin].abs().max().item()
+    l_rel = ((l - l_p).abs() / l_p.clamp(min=1e-30))[fin].max().item()
+    tag = f"A S={s} Hq={hq} Hk={hk} dead={dead:.2f}"
+    chk.expect(rel <= ATTN_ROW_RTOL, f"{tag}: max_abs_err {err:.3e}; per (row, head) error / its largest output: "
+                                     f"max {rel:.3e}, rows >= 1024 {rel_late:.3e}; <= {ATTN_ROW_RTOL}")
+    chk.expect(m_err <= STAT_RTOL and l_rel <= STAT_RTOL,
+               f"{tag}: row max err {m_err:.3e}, row sum rel err {l_rel:.3e} <= {STAT_RTOL}")
+    if dead:
+        chk.expect(bool((out[:16] == 0).all()) and bool((l[:, :16] == 0).all()),
+                   f"{tag}: rows with every key masked give 0")
+    del out_p, m_p, l_p
+    t_k = cuda_time_ms(lambda: fp.flash_attn_fwd(q, k, v, kv), iters=10)
+    t_p = cuda_time_ms(lambda: fp.flash_attn_fwd_plain(q, k, v, kv), iters=2, warmup=1)
+    _max_err(kernels["flash_attn_fwd"], err)
+    # The data decides the work: the (row, key) pairs at or below the
+    # diagonal whose key is live.
+    pairs = float(torch.cumsum(kv.to(torch.int64), 0).sum()) if dead else s * (s + 1) / 2
+    regime = {"regime": label, "launches": None}
+    t_b = _bound(regime, (2 * s * hq * d + 2 * s * hk * d) * 2 + (s if dead else 0) + 2 * hq * s * 4,
+                 4 * hq * d * pairs)
+    if dead:
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device="cuda")) & kv[None, :]
+        t_l = cuda_time_ms(lambda: sdpa(q, k, v, mask), iters=2, warmup=1)
+        del mask
+    else:
+        t_l = cuda_time_ms(lambda: sdpa(q, k, v, is_causal=True), iters=10)
+    log(f"  {tag}: kernel {t_k:.4f} ms ({4 * hq * d * pairs / (t_k * 1e-3) / 1e12:.1f} TFLOP/s, "
+        f"{t_b / t_k:.3f} of the bound {t_b:.4f} ms, {regime['bound_by']}), plain {t_p:.3f} ms, "
+        f"scaled_dot_product_attention ({'GQA, bool mask' if dead else 'GQA, causal'}) {t_l:.4f} ms, "
+        f"kernel / library {t_k / t_l:.3f}")
+    regime.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+    kernels["flash_attn_fwd"]["regimes"].append(regime)
+    return regime, (q, k, kv, m, l)
+
+
+def _b_row(chk, kernels, gen, s: int, n_live: int, num: int, hq: int, hk: int, trailing: int, path: str) -> dict:
+    """Kernel B at ``num`` capture rows over S keys, the first ``n_live``
+    of them the live prefix (20% of it dead, its last ``trailing`` text rows
+    live), on kernel A's statistics, against its plain version, timed from
+    graph replays beside its bound: an entry of B's ``shapes`` for
+    ``path``."""
+    from framefusion_tpu_torch.kernel_bench import graph_time_ms
+    from framefusion_tpu_torch.ops.attention import capture_rows
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+
+    d = 128
+    q, k = _rand(gen, (s, hq, d)), _rand(gen, (s, hk, d))
+    kv = (torch.arange(s, device="cuda") < n_live) & (torch.rand((s,), generator=gen, device="cuda") >= 0.2)
+    kv[n_live - trailing:n_live] = True
+    _, m, l = fp.flash_attn_fwd(q, k, k, kv)
+    rows = capture_rows(s, num, None, kv)
+    imp = fp.attn_importance_rows(q, k, rows, m, l, kv)
+    imp_p = fp.attn_importance_rows_plain(q, k, rows, m, l, kv)
+    torch.cuda.synchronize()
+    err = (imp - imp_p).abs().max().item()
+    entry = {"path": path, "shape": f"num={num} S={s} Hq={hq} Hk={hk}", "S": s, "launches": None, "max_abs_err": err,
+             "library_ms": None}
+    chk.expect(err <= IMP_RTOL * imp_p.abs().max().item(),
+               f"B {entry['shape']} ({path}): max_abs_err {err:.3e} (rel {err / imp_p.abs().max().item():.3e}) "
+               f"<= {IMP_RTOL}")
+    _max_err(kernels["attn_importance_rows"], err)
+    t_k = graph_time_ms(lambda: fp.attn_importance_rows(q, k, rows, m, l, kv), iters=20)
+    t_p = graph_time_ms(lambda: fp.attn_importance_rows_plain(q, k, rows, m, l, kv), iters=5)
+    seen = float(torch.cumsum(kv.to(torch.int64), 0)[rows].sum())  # live keys at or before each row
+    t_b = _bound(entry, num * hq * d * 2 + s * hk * d * 2 + s + num * 8 + 2 * num * hq * 4 + s * 4,
+                 2 * hq * d * seen)
+    entry.update(ms=t_k, plain_ms=t_p)
+    kernels["attn_importance_rows"]["shapes"].append(entry)
+    log(f"  B {entry['shape']}: kernel {t_k * 1e3:.2f} us ({t_b / t_k:.3f} of the bound {t_b * 1e3:.2f} us, "
+        f"{entry['bound_by']}), plain {t_p:.3f} ms; no single PyTorch call computes it")
+    return entry
+
+
+def _e_row(chk, kernels, gen, shape: tuple, path: str) -> dict:
+    """Kernel E at (B, N, H, hd) against its plain version, per (row, head),
+    then its last query row and, with V one-hot on the last key (the output
+    is then that key's probability), its last key's column on their own;
+    timed beside its bound and non-causal SDPA: an entry of E's ``shapes``."""
+    from framefusion_tpu_torch.kernel_bench import sdpa
+    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
+
+    b, n, h, hd = shape
+    q, k, v = (_rand(gen, (b, n, h, hd)) for _ in range(3))
+    out = ba.flash_bidir_attention(q, k, v)
+    ref = ba.bidir_attn_fwd_plain(q, k, v, hd ** -0.5)
+    v_last = torch.zeros_like(v)
+    v_last[:, -1] = 1
+    p_last = ba.flash_bidir_attention(q, k, v_last)[..., 0].float()
+    p_ref = ba.bidir_attn_fwd_plain(q, k, v_last, hd ** -0.5)[..., 0].float()
+    torch.cuda.synchronize()
+    err, rel = _row_rel(out, ref)
+    _, rel_last = _row_rel(out[:, -1], ref[:, -1])
+    rel_col = ((p_last - p_ref).abs().max() / p_ref.abs().max()).item()
+    entry = {"path": path, "shape": f"({b}, {n}, {h}, {hd})", "launches": None, "max_abs_err": err}
+    chk.expect(rel <= ATTN_ROW_RTOL and rel_last <= ATTN_ROW_RTOL and rel_col <= ATTN_ROW_RTOL,
+               f"E {entry['shape']} ({path}): max_abs_err {err:.3e}; per (row, head) error / its largest output: max "
+               f"{rel:.3e}, last row {rel_last:.3e}; last key's probability {rel_col:.3e} of its largest; "
+               f"<= {ATTN_ROW_RTOL}")
+    _max_err(kernels["bidir_attn_fwd"], err)
+    del out, ref, v_last, p_last, p_ref
+    t_k = cuda_time_ms(lambda: ba.flash_bidir_attention(q, k, v), iters=20)
+    t_p = cuda_time_ms(lambda: ba.bidir_attn_fwd_plain(q, k, v, hd ** -0.5), iters=3, warmup=1)
+    t_l = cuda_time_ms(lambda: sdpa(q, k, v), iters=20)
+    t_b = _bound(entry, 4 * b * n * h * hd * 2, 4 * b * h * n * n * hd)
+    entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+    kernels["bidir_attn_fwd"]["shapes"].append(entry)
+    log(f"  E {entry['shape']}: kernel {t_k:.4f} ms ({t_b / t_k:.3f} of the bound {t_b:.4f} ms, "
+        f"{entry['bound_by']}), plain {t_p:.4f} ms, scaled_dot_product_attention (non-causal) {t_l:.4f} ms, "
+        f"kernel / library {t_k / t_l:.3f}")
+    return entry
+
+
+def _cd_rows(chk, kernels, gen, name: str, wdtype: str, kdim: int, ns: list, rows_list, path=None) -> list:
+    """Kernel C (``name`` qkv / wo / w_down: one to three stacks of widths
+    ``ns``) or D (``gateup``) at K = ``kdim``, bf16 or int8 weights, at each
+    count of activation rows in ``rows_list``, against its plain version;
+    timed from graph replays over layer stacks cycled past the 50 MB L2
+    (as a decode step finds each layer cold), beside its bound and, for
+    bf16 C, one ``torch.matmul`` against the stacks side by side. Returns
+    one entry a row count (shape ``"{name} {wdtype}[ B=rows]"``; with
+    ``path``, that key and the K and N too)."""
+    from framefusion_tpu_torch.kernel_bench import graph_time_ms
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+    from framefusion_tpu_torch.ops.quant import quantize_weight
+
+    key = "gemv_gateup" if name == "gateup" else "gemv_stacked"
+    per_layer = kdim * sum(ns) * (1 if wdtype == "int8" else 2)
+    n_layers = max(2, math.ceil(150e6 / per_layer))
+    stacks, scales = [], []
+    for n in ns:
+        w = _rand(gen, (n_layers, kdim, n), scale=0.02)
+        if wdtype == "int8":
+            wq = quantize_weight(w)
+            stacks.append(wq["q8"])
+            scales.append(wq["scale"])
+        else:
+            stacks.append(w)
+            scales.append(None)
+        del w
+    w_cat = None
+    if wdtype == "bf16" and name != "gateup":  # the yardstick's operand: gate-up and int8 have no single call
+        w_cat = torch.cat(stacks, dim=2) if len(stacks) > 1 else stacks[0]
+    layer = [0]
+
+    def next_layer():
+        layer[0] = (layer[0] + 1) % n_layers
+        return layer[0]
+
+    n_out = sum(ns) // (2 if name == "gateup" else 1)
+    entries = []
+    for rows in rows_list:
+        x = _rand(gen, (rows, kdim))
+        if name == "gateup":
+            outs = [mv.gemv_gateup(x, stacks[0], stacks[1], scales[0], scales[1], 1)]
+            refs = [mv.gemv_gateup_plain(x, stacks[0], stacks[1], scales[0], scales[1], 1)]
+            run_k = lambda: mv.gemv_gateup(x, stacks[0], stacks[1], scales[0], scales[1], next_layer())
+            run_p = lambda: mv.gemv_gateup_plain(x, stacks[0], stacks[1], scales[0], scales[1], next_layer())
+        else:
+            outs, refs = mv.gemv_stacked(x, stacks, 1), mv.gemv_stacked_plain(x, stacks, 1)
+            run_k = lambda: mv.gemv_stacked(x, stacks, next_layer())
+            run_p = lambda: mv.gemv_stacked_plain(x, stacks, next_layer())
+        torch.cuda.synchronize()
+        err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+        rel = err / max(r.abs().max().item() for r in refs)
+        shape = f"{name} {wdtype}" + (f" B={rows}" if rows > 1 else "")
+        tag = f"{key} {shape} K={kdim} N={ns}"
+        chk.expect(rel <= GEMV_RTOL, f"{tag}: max_abs_err {err:.3e} (rel {rel:.3e}) <= {GEMV_RTOL}")
+        _max_err(kernels[key], err)
+        t_k = graph_time_ms(run_k, iters=20)
+        t_p = graph_time_ms(run_p, iters=10)
+        entry = {"shape": shape, "launches": None}
+        if path:
+            entry.update(path=path, shape=f"{shape} K={kdim} N={'+'.join(map(str, ns))}")
+        t_b = _bound(entry, per_layer + sum(ns) * 4 * (wdtype == "int8" and name == "gateup")
+                     + rows * (kdim * 2 + n_out * 4), 2 * rows * kdim * sum(ns))
+        t_l = None if w_cat is None else graph_time_ms(lambda: torch.matmul(x, w_cat[next_layer()]), iters=20)
+        entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+        entries.append(entry)
+        vs_one = f", {t_k / entries[0]['ms']:.2f}x its 1-row time" if rows > 1 else ""
+        log(f"  {tag}: kernel {t_k:.4f} ms ({per_layer / (t_k * 1e-3) / 1e9:.0f} GB/s of weights{vs_one}, "
+            f"{t_b / t_k:.3f} of the bound {t_b:.4f} ms, {entry['bound_by']}), plain {t_p:.4f} ms, torch.matmul "
+            f"{'none' if t_l is None else f'{t_l:.4f} ms (kernel / library {t_k / t_l:.3f})'}")
+    return entries
+
+
+def _g_row(chk, kernels, gen, length: int, s_view: int, hq: int, hk: int, path: str) -> dict:
+    """Kernel G over ``length`` keys of an S_view-row cache view against its
+    plain version, timed from graph replays over views cycled past the L2
+    (host length, and the length read from the device), beside its bound
+    and SDPA on the live rows: an entry of G's ``shapes``."""
+    from framefusion_tpu_torch.kernel_bench import graph_time_ms, sdpa
+    from framefusion_tpu_torch.ops.kernels import decode_attention as da
+
+    d = 128
+    n_views = max(2, math.ceil(150e6 / (2 * s_view * hk * d * 2)))
+    kpool, vpool = _rand(gen, (n_views, s_view, hk, d)), _rand(gen, (n_views, s_view, hk, d))
+    q = _rand(gen, (hq, d))
+    out = da.ragged_decode_attn(q, kpool[0], vpool[0], length)
+    ref = da.ragged_decode_attn_plain(q, kpool[0], vpool[0], length)
+    torch.cuda.synchronize()
+    err, rel = _row_rel(out, ref)
+    entry = {"path": path, "shape": f"length {length} of S_view {s_view}, Hq={hq} Hk={hk}", "launches": None,
+             "max_abs_err": err}
+    chk.expect(rel <= ATTN_ROW_RTOL, f"G {entry['shape']} ({path}): max_abs_err {err:.3e}; per head error / its "
+                                     f"largest output: max {rel:.3e} <= {ATTN_ROW_RTOL}")
+    _max_err(kernels["ragged_decode_attn"], err)
+    view = [0]
+
+    def kv_view():
+        view[0] = (view[0] + 1) % n_views
+        return kpool[view[0]], vpool[view[0]]
+
+    len_dev = torch.tensor(length, device="cuda")
+    t_k = graph_time_ms(lambda: da.ragged_decode_attn(q, *kv_view(), length), iters=50)
+    t_dev = graph_time_ms(lambda: da.ragged_decode_attn(q, *kv_view(), len_dev), iters=50)
+    t_p = graph_time_ms(lambda: da.ragged_decode_attn_plain(q, *kv_view(), length), iters=10)
+    t_l = graph_time_ms(lambda: sdpa(q[None], *(t[:length] for t in kv_view())), iters=20)
+    t_b = _bound(entry, 2 * length * hk * d * 2 + 2 * hq * d * 2, 4 * hq * d * length)
+    entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l, device_length_ms=t_dev)
+    kernels["ragged_decode_attn"]["shapes"].append(entry)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"  G {entry['shape']}: kernel {t_k * 1e3:.2f} us ({t_b / t_k:.3f} of the bound {t_b * 1e3:.2f} us, "
+        f"{entry['bound_by']}; the length read from the device {t_dev * 1e3:.2f} us; split plan (keys per CTA, "
+        f"splits) {da.split_plan(length, hk, sm)}), plain {t_p * 1e3:.2f} us, scaled_dot_product_attention on the "
+        f"live rows (GQA) {t_l * 1e3:.2f} us (kernel / library {t_k / t_l:.3f})")
+    return entry
+
+
 def phase_kernels(chk: Checks, kernels: dict) -> None:
     from framefusion_tpu_torch.core import descending_rank
     from framefusion_tpu_torch.kernel_bench import graph_time_ms, kernel_device_us, sdpa
@@ -364,7 +658,6 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
     from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
     from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
     from framefusion_tpu_torch.ops.kernels import sink_prefill as sp
-    from framefusion_tpu_torch.ops.quant import quantize_weight
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     hq, hk, d = 28, 4, 128
@@ -373,53 +666,7 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
     # regimes (REGIMES_A) ---------------------------------------------------
     cases = {}
     for s, dead in ((11697, 0.0), (6528, 0.45), (3328, 0.0)):
-        q, k, v = _rand(gen, (s, hq, d)), _rand(gen, (s, hk, d)), _rand(gen, (s, hk, d))
-        kv = None
-        if dead:
-            kv = torch.rand((s,), generator=gen, device="cuda") >= dead
-            kv[:16] = False  # rows 0..15 see no valid key at all
-            kv[-1] = True
-        out, m, l = fp.flash_attn_fwd(q, k, v, kv)
-        out_p, m_p, l_p = fp.flash_attn_fwd_plain(q, k, v, kv)
-        torch.cuda.synchronize()
-        err_rh = (out.float() - out_p.float()).abs().amax(-1)  # (S, Hq)
-        row_rel = err_rh / out_p.float().abs().amax(-1).clamp(min=1e-30)  # 0/0 rows (all masked) give 0
-        err = err_rh.max().item()
-        rel, rel_late = row_rel.max().item(), row_rel[1024:].max().item()
-        fin = torch.isfinite(m_p)
-        m_err = (m - m_p)[fin].abs().max().item()
-        l_rel = ((l - l_p).abs() / l_p.clamp(min=1e-30))[fin].max().item()
-        tag = f"A S={s} dead={dead:.2f}"
-        chk.expect(rel <= ATTN_ROW_RTOL,
-                   f"{tag}: max_abs_err {err:.3e}; per (row, head) error / its largest output: max {rel:.3e}, "
-                   f"rows >= 1024 {rel_late:.3e}; <= {ATTN_ROW_RTOL}")
-        chk.expect(m_err <= STAT_RTOL and l_rel <= STAT_RTOL,
-                   f"{tag}: row max err {m_err:.3e}, row sum rel err {l_rel:.3e} <= {STAT_RTOL}")
-        if dead:
-            chk.expect(bool((out[:16] == 0).all()) and bool((l[:, :16] == 0).all()),
-                       f"{tag}: rows with every key masked give 0")
-        t_k = cuda_time_ms(lambda: fp.flash_attn_fwd(q, k, v, kv), iters=10)
-        t_p = cuda_time_ms(lambda: fp.flash_attn_fwd_plain(q, k, v, kv), iters=2, warmup=1)
-        cases[s] = (q, k, kv, m, l)
-        _max_err(kernels["flash_attn_fwd"], err)
-        # The data decides the work: the (row, key) pairs at or below the
-        # diagonal whose key is live.
-        pairs = float(torch.cumsum(kv.to(torch.int64), 0).sum()) if dead else s * (s + 1) / 2
-        regime = {"regime": REGIMES_A[s], "launches": None}
-        t_b = _bound(regime, (2 * s * hq * d + 2 * s * hk * d) * 2 + (s if dead else 0) + 2 * hq * s * 4,
-                     4 * hq * d * pairs)
-        if dead:
-            mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device="cuda")) & kv[None, :]
-            t_l = cuda_time_ms(lambda: sdpa(q, k, v, mask), iters=2, warmup=1)
-            del mask
-        else:
-            t_l = cuda_time_ms(lambda: sdpa(q, k, v, is_causal=True), iters=10)
-        log(f"  {tag}: kernel {t_k:.4f} ms ({4 * hq * d * pairs / (t_k * 1e-3) / 1e12:.1f} TFLOP/s, "
-            f"{t_b / t_k:.3f} of the bound {t_b:.4f} ms, {regime['bound_by']}), plain {t_p:.3f} ms, "
-            f"scaled_dot_product_attention ({'GQA, bool mask' if dead else 'GQA, causal'}) {t_l:.4f} ms, "
-            f"kernel / library {t_k / t_l:.3f}")
-        regime.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
-        kernels["flash_attn_fwd"]["regimes"].append(regime)
+        regime, cases[s] = _a_regime(chk, kernels, gen, s, hq, hk, dead, REGIMES_A[s])
         if s == 6528:  # the phase layers' regime heads the entry, as in earlier runs
             kernels["flash_attn_fwd"].update({f: regime[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                                      "bound_by")})
@@ -459,111 +706,22 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
             kernels["attn_importance_rows"].update(ms=t_k, plain_ms=t_p)
     del cases, q, k, m, l
 
-    # -- kernels C and D at the decode shapes --------------------------------
+    # -- kernels C and D at the decode shapes, one row and the batched
+    # decode's and the verify's rows (phases 9 and 10: B rows in one launch,
+    # each row its own pass over the weights, grid.z; the split plan depends
+    # on the rows, so each is a launch shape of its own) ---------------------
     hid, inter = 3584, 18944
     shapes = {"qkv": (hid, [hid, 512, 512]), "wo": (hid, [hid]), "w_down": (inter, [hid]),
               "gateup": (hid, [inter, inter])}
     for wdtype in ("bf16", "int8"):
         for name, (kdim, ns) in shapes.items():
-            per_layer = kdim * sum(ns) * (1 if wdtype == "int8" else 2)
-            n_layers = max(2, math.ceil(150e6 / per_layer))  # cycle layers past the 50 MB L2
-            x = _rand(gen, (1, kdim))
-            stacks, scales = [], []
-            for n in ns:
-                w = _rand(gen, (n_layers, kdim, n), scale=0.02)
-                if wdtype == "int8":
-                    wq = quantize_weight(w)
-                    stacks.append(wq["q8"])
-                    scales.append(wq["scale"])
-                else:
-                    stacks.append(w)
-                    scales.append(None)
-                del w
-            layer = [0]
-
-            def next_layer():
-                layer[0] = (layer[0] + 1) % n_layers
-                return layer[0]
-
-            if name == "gateup":
-                out = mv.gemv_gateup(x, stacks[0], stacks[1], scales[0], scales[1], 1)
-                ref = mv.gemv_gateup_plain(x, stacks[0], stacks[1], scales[0], scales[1], 1)
-                outs, refs = [out], [ref]
-                run_k = lambda: mv.gemv_gateup(x, stacks[0], stacks[1], scales[0], scales[1], next_layer())
-                run_p = lambda: mv.gemv_gateup_plain(x, stacks[0], stacks[1], scales[0], scales[1], next_layer())
-                key = "gemv_gateup"
-            else:
-                outs = mv.gemv_stacked(x, stacks, 1)
-                refs = mv.gemv_stacked_plain(x, stacks, 1)
-                run_k = lambda: mv.gemv_stacked(x, stacks, next_layer())
-                run_p = lambda: mv.gemv_stacked_plain(x, stacks, next_layer())
-                key = "gemv_stacked"
-            torch.cuda.synchronize()
-            err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
-            rel = err / max(r.abs().max().item() for r in refs)
-            chk.expect(rel <= GEMV_RTOL, f"{key} {name} {wdtype} K={kdim} N={ns}: max_abs_err {err:.3e} (rel {rel:.3e}) <= {GEMV_RTOL}")
-            t_k = graph_time_ms(run_k, iters=20)
-            t_p = graph_time_ms(run_p, iters=10)
-            gbs = per_layer / (t_k * 1e-3) / 1e9
-            n_out = sum(ns) // (2 if name == "gateup" else 1)
-            entry = {"shape": f"{name} {wdtype}", "launches": None}
-            t_b = _bound(entry, per_layer + sum(ns) * 4 * (wdtype == "int8" and name == "gateup") + kdim * 2
-                         + n_out * 4, 2 * kdim * sum(ns))
-            t_l = None
-            if wdtype == "bf16" and name != "gateup":
-                # Yardstick: one torch.matmul against the stacks side by
-                # side (the same bytes and products; gate-up and int8 have
-                # no single call).
-                w_cat = torch.cat(stacks, dim=2) if len(stacks) > 1 else stacks[0]
-                t_l = graph_time_ms(lambda: torch.matmul(x, w_cat[next_layer()]), iters=20)
-                del w_cat
-            log(f"  {key} {name} {wdtype}: kernel {t_k:.4f} ms ({gbs:.0f} GB/s of weights, {t_b / t_k:.3f} of the "
-                f"bound {t_b:.4f} ms, {entry['bound_by']}), plain {t_p:.4f} ms, torch.matmul "
-                f"{'none' if t_l is None else f'{t_l:.4f} ms (kernel / library {t_k / t_l:.3f})'}")
-            _max_err(kernels[key], err)
-            entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
-            if key == "gemv_stacked":
-                kernels[key]["shapes"].append(entry)
+            key = "gemv_gateup" if name == "gateup" else "gemv_stacked"
+            one, *batched = _cd_rows(chk, kernels, gen, name, wdtype, kdim, ns, (1,) + BATCH_ROWS + VERIFY_ROWS)
+            kernels[key]["shapes"] += ([one] if key == "gemv_stacked" else []) + batched
             if wdtype == "bf16" and name in ("qkv", "gateup"):  # bf16 qkv heads C's entry, as in earlier runs
-                kernels[key].update({f: entry[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")})
-                if t_l is not None:
-                    kernels[key]["library_ms"] = t_l
-            # The batched decode's rows (phase 9): B rows in one launch, each
-            # row its own pass over the weights (grid.z); the split plan
-            # depends on the rows, so each B is a launch shape of its own.
-            for rows in BATCH_ROWS + VERIFY_ROWS:
-                xr = _rand(gen, (rows, kdim))
-                if name == "gateup":
-                    outs = [mv.gemv_gateup(xr, stacks[0], stacks[1], scales[0], scales[1], 1)]
-                    refs = [mv.gemv_gateup_plain(xr, stacks[0], stacks[1], scales[0], scales[1], 1)]
-                    run_k = lambda: mv.gemv_gateup(xr, stacks[0], stacks[1], scales[0], scales[1], next_layer())
-                    run_p = lambda: mv.gemv_gateup_plain(xr, stacks[0], stacks[1], scales[0], scales[1], next_layer())
-                else:
-                    outs, refs = mv.gemv_stacked(xr, stacks, 1), mv.gemv_stacked_plain(xr, stacks, 1)
-                    run_k = lambda: mv.gemv_stacked(xr, stacks, next_layer())
-                    run_p = lambda: mv.gemv_stacked_plain(xr, stacks, next_layer())
-                torch.cuda.synchronize()
-                err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
-                rel = err / max(r.abs().max().item() for r in refs)
-                chk.expect(rel <= GEMV_RTOL, f"{key} {name} {wdtype} B={rows}: max_abs_err {err:.3e} (rel {rel:.3e}) "
-                                             f"<= {GEMV_RTOL}")
-                _max_err(kernels[key], err)
-                t_k = graph_time_ms(run_k, iters=20)
-                t_p = graph_time_ms(run_p, iters=10)
-                row = {"shape": f"{name} {wdtype} B={rows}", "launches": None}
-                t_b = _bound(row, per_layer + sum(ns) * 4 * (wdtype == "int8" and name == "gateup")
-                             + rows * (kdim * 2 + n_out * 4), 2 * rows * kdim * sum(ns))
-                t_l = None
-                if wdtype == "bf16" and name != "gateup":
-                    w_cat = torch.cat(stacks, dim=2) if len(stacks) > 1 else stacks[0]
-                    t_l = graph_time_ms(lambda: torch.matmul(xr, w_cat[next_layer()]), iters=20)
-                    del w_cat
-                row.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
-                kernels[key]["shapes"].append(row)
-                log(f"  {key} {name} {wdtype} B={rows}: kernel {t_k:.4f} ms ({t_k / entry['ms']:.2f}x its 1-row time, "
-                    f"{t_b / t_k:.3f} of the bound {t_b:.4f} ms, {row['bound_by']}), plain {t_p:.4f} ms, torch.matmul "
-                    f"{'none' if t_l is None else f'{t_l:.4f} ms (kernel / library {t_k / t_l:.3f})'}")
-            del stacks, scales
+                kernels[key].update({f: one[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")})
+                if one["library_ms"] is not None:
+                    kernels[key]["library_ms"] = one["library_ms"]
 
     # matvec_q8 / matvec_bf16 (the JAX package's plain (K, N) matvec): kernel
     # C with the weight as a one-layer stack.
@@ -610,53 +768,9 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
     # -- kernel E at the Qwen2-VL-7B tower's shape (phase 11: 32 temporal
     # frames of 26 x 34 patches, 16 heads of 80; N off the key tile), and
     # kernel B at Qwen2-VL's 4 capture rows at phase 11's phase-layer length
-    b, n, h, hd = QWEN2VL_E_SHAPE
-    q, k, v = (_rand(gen, (b, n, h, hd)) for _ in range(3))
-    out = ba.flash_bidir_attention(q, k, v)
-    ref = ba.bidir_attn_fwd_plain(q, k, v, hd ** -0.5)
-    torch.cuda.synchronize()
-    err_rh = (out.float() - ref.float()).abs().amax(-1)
-    rel = (err_rh / ref.float().abs().amax(-1).clamp(min=1e-30)).max().item()
-    entry = {"path": "qwen2vl", "shape": f"({b}, {n}, {h}, {hd})", "launches": None, "max_abs_err": err_rh.max().item()}
-    chk.expect(rel <= ATTN_ROW_RTOL, f"E {entry['shape']} (Qwen2-VL-7B tower): max_abs_err {entry['max_abs_err']:.3e}; "
-                                     f"per (row, head) error / its largest output: max {rel:.3e} <= {ATTN_ROW_RTOL}")
-    _max_err(kernels["bidir_attn_fwd"], entry["max_abs_err"])
-    t_k = cuda_time_ms(lambda: ba.flash_bidir_attention(q, k, v), iters=20)
-    t_p = cuda_time_ms(lambda: ba.bidir_attn_fwd_plain(q, k, v, hd ** -0.5), iters=3, warmup=1)
-    t_l = cuda_time_ms(lambda: sdpa(q, k, v), iters=20)
-    t_b = _bound(entry, 4 * b * n * h * hd * 2, 4 * b * h * n * n * hd)
-    entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
-    kernels["bidir_attn_fwd"]["shapes"].append(entry)
-    log(f"  E {entry['shape']}: kernel {t_k:.4f} ms ({t_b / t_k:.3f} of the bound {t_b:.4f} ms, "
-        f"{entry['bound_by']}), plain {t_p:.4f} ms, scaled_dot_product_attention {t_l:.4f} ms, kernel / library "
-        f"{t_k / t_l:.3f}")
-    del q, k, v, out, ref
-
-    s, n_live = QWEN2VL_PHASE_S, QWEN2VL_PHASE_LIVE
-    q, k = _rand(gen, (s, hq, d)), _rand(gen, (s, hk, d))
-    kv = (torch.arange(s, device="cuda") < n_live) & (torch.rand((s,), generator=gen, device="cuda") >= 0.2)
-    kv[n_live - 14:n_live] = True  # the trailing text rows stay live
-    _, m, l = fp.flash_attn_fwd(q, k, k, kv)
-    rows = capture_rows(s, 4, None, kv)
-    imp = fp.attn_importance_rows(q, k, rows, m, l, kv)
-    imp_p = fp.attn_importance_rows_plain(q, k, rows, m, l, kv)
-    torch.cuda.synchronize()
-    err = (imp - imp_p).abs().max().item()
-    entry = {"path": "qwen2vl", "shape": f"num=4 S={s} Hq={hq} Hk={hk}", "S": s, "launches": None, "max_abs_err": err,
-             "library_ms": None}
-    chk.expect(err <= IMP_RTOL * imp_p.abs().max().item(),
-               f"B {entry['shape']} (Qwen2-VL's capture rows, phase 11's phase layers): max_abs_err {err:.3e} "
-               f"(rel {err / imp_p.abs().max().item():.3e}) <= {IMP_RTOL}")
-    _max_err(kernels["attn_importance_rows"], err)
-    t_k = graph_time_ms(lambda: fp.attn_importance_rows(q, k, rows, m, l, kv), iters=20)
-    t_p = graph_time_ms(lambda: fp.attn_importance_rows_plain(q, k, rows, m, l, kv), iters=5)
-    seen = float(torch.cumsum(kv.to(torch.int64), 0)[rows].sum())
-    t_b = _bound(entry, 4 * hq * d * 2 + s * hk * d * 2 + s + 4 * 8 + 2 * 4 * hq * 4 + s * 4, 2 * hq * d * seen)
-    entry.update(ms=t_k, plain_ms=t_p)
-    kernels["attn_importance_rows"]["shapes"].append(entry)
-    log(f"  B {entry['shape']}: kernel {t_k * 1e3:.2f} us ({t_b / t_k:.3f} of the bound {t_b * 1e3:.2f} us, "
-        f"{entry['bound_by']}), plain {t_p:.3f} ms")
-    del q, k, m, l
+    # (its last 14 text rows live)
+    _e_row(chk, kernels, gen, QWEN2VL_E_SHAPE, "qwen2vl")
+    _b_row(chk, kernels, gen, QWEN2VL_PHASE_S, QWEN2VL_PHASE_LIVE, 4, hq, hk, 14, "qwen2vl")
 
     # -- kernel F at the StreamingLLM prefill's full-width shapes (S 11,697,
     # init 8, window int(0.3 S) - 8; S 11,776, the bucket-padded length the
@@ -861,8 +975,9 @@ def numpy_params(cfg, seed: int, scale: float) -> dict:
 
     layers = {"ln1": np.ones((n_l, d), np.float32), "ln2": np.ones((n_l, d), np.float32),
               "wq": norm(n_l, d, nq), "wk": norm(n_l, d, nk), "wv": norm(n_l, d, nk), "wo": norm(n_l, nq, d),
-              "w_gate": norm(n_l, d, i), "w_up": norm(n_l, d, i), "w_down": norm(n_l, i, d),
-              "bq": norm(n_l, nq), "bk": norm(n_l, nk), "bv": norm(n_l, nk)}
+              "w_gate": norm(n_l, d, i), "w_up": norm(n_l, d, i), "w_down": norm(n_l, i, d)}
+    if cfg.qkv_bias:
+        layers.update(bq=norm(n_l, nq), bk=norm(n_l, nk), bv=norm(n_l, nk))
     return {"embed": norm(cfg.vocab_size, d), "layers": layers, "final_norm": np.ones(d, np.float32),
             "lm_head": norm(d, cfg.vocab_size)}
 
@@ -1827,6 +1942,336 @@ def phase_qwen2vl(chk: Checks, kernels: dict, ctx: dict) -> None:
     log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# -- InternVL (phases 5c and 12) --------------------------------------------------------
+
+# InternVL2.5-8B at 64 frames: InternViT-300M encodes each 448 x 448 frame
+# as 1,024 patches + CLS (kernel E at B = 64, N = 1,025, 16 heads of 64) and
+# the pixel shuffle leaves 256 tokens a frame; the published FrameFusion
+# knobs (cost 0.3, S_th 0.5, r_min 0.1).
+INTERNVL_FRAMES = 64
+INTERNVL_E_SHAPE = (INTERNVL_FRAMES, 1025, 16, 64)
+INTERNVL_KNOBS = (0.3, 0.5, 0.1)
+# * The cross-device InternVL run also holds layer 0's cached keys (the
+#   tokens the layer -1 merge kept, in order: the keep set itself, as the
+#   CPU tests hold it) to LOGIT_RTOL of the largest: a token kept on one
+#   device and not the other would differ by O(1); a bf16 run's keys differ
+#   from its fp32 run's by 7.4e-3 on the CPU. The prune's keep set is
+#   held by its size (events, cache lengths) and the logits bound: near
+#   the cut the random model's importances lie closer together than two
+#   bf16 runs move them (``tiny_internvl_run`` on the CPU, bf16 against
+#   fp32, keeps other near-tied tokens), so which of those it keeps is
+#   rounding.
+
+
+def numpy_internvit_params(vcfg, seed: int, scale: float, resid_scale: float) -> dict:
+    """Random InternViT weights (qkv bias, no qk norm, layer scales of 1) in
+    the port's pytree layout, drawn with numpy; the blocks write to the
+    residual stream at ``resid_scale``."""
+    rng = np.random.default_rng(seed)
+    n_l, d, i = vcfg.num_layers, vcfg.hidden_size, vcfg.intermediate_size
+
+    def norm(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    layers = {"ln1_w": np.ones((n_l, d), np.float32), "ln1_b": norm(n_l, d),
+              "ln2_w": np.ones((n_l, d), np.float32), "ln2_b": norm(n_l, d),
+              "wq": norm(n_l, d, d), "bq": norm(n_l, d), "wk": norm(n_l, d, d), "bk": norm(n_l, d),
+              "wv": norm(n_l, d, d), "bv": norm(n_l, d), "wo": norm(n_l, d, d), "bo": norm(n_l, d),
+              "w_fc1": norm(n_l, d, i), "b_fc1": norm(n_l, i), "w_fc2": norm(n_l, i, d), "b_fc2": norm(n_l, d),
+              "lambda1": np.ones((n_l, d), np.float32), "lambda2": np.ones((n_l, d), np.float32)}
+    for name in ("wo", "bo", "w_fc2", "b_fc2"):
+        layers[name] *= np.float32(resid_scale / scale)
+    return {"patch_kernel": norm(vcfg.patch_size, vcfg.patch_size, 3, d), "patch_bias": norm(d),
+            "cls_token": norm(d), "pos_embed": norm(vcfg.num_patches + 1, d), "layers": layers}
+
+
+def numpy_internvl_projector(vcfg, seed: int, scale: float) -> dict:
+    """Random ``mlp1`` projector (LayerNorm, Linear, GELU, Linear) drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    din, t = vcfg.hidden_size * vcfg.shuffle_unit, vcfg.text_hidden_size
+    return {"ln_w": np.ones(din, np.float32), "ln_b": np.zeros(din, np.float32),
+            "w1": rng.standard_normal((din, t), dtype=np.float32) * np.float32(scale), "b1": np.zeros(t, np.float32),
+            "w2": rng.standard_normal((t, t), dtype=np.float32) * np.float32(scale), "b2": np.zeros(t, np.float32)}
+
+
+def tiny_internvl_run(device: str, dtype: torch.dtype) -> dict:
+    """The tiny InternVL pixels-to-answer run of phase 5c on one device: an
+    InternViT of head dim 64 (hidden 128, 2 heads, depth 2; 8 x 8 patches +
+    CLS, so N = 65 is one past a key tile) and a 6-layer LLM with InternLM2's
+    attention (no qkv bias, 8 query heads over 2 KV heads: groups of 4),
+    weights drawn with numpy (``readout_params``), through TextPipeline.ask
+    on 12 uint8 frames (the interleaved ``FrameN: <image>`` prompt). Returns
+    the features, events, cache lengths, tokens, prefill logits and layer
+    0's cached keys (fp32 on the CPU), and E's and B's launches."""
+    from framefusion_tpu_torch.config import tiny_llm_config
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.vision import internvl_vit
+    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.pipeline import TextPipeline
+
+    cfg = tiny_llm_config(num_layers=6, hidden_size=1024, intermediate_size=2048, num_heads=8, num_kv_heads=2,
+                          qkv_bias=False, dtype=dtype)
+    vcfg = internvl_vit.tiny_internvit_config(image_size=56, hidden_size=128, intermediate_size=256, num_heads=2,
+                                              attention_bias=True, text_hidden_size=cfg.hidden_size, dtype=dtype)
+    params = _cast_floats(qwen2.params_from_numpy(readout_params(cfg, seed=0, resid_scale=0.03), device), dtype)
+    vit = _cast_floats(qwen2.params_from_numpy(numpy_internvit_params(vcfg, seed=1, scale=0.05, resid_scale=0.005),
+                                               device), dtype)
+    proj = _cast_floats(qwen2.params_from_numpy(numpy_internvl_projector(vcfg, seed=2, scale=0.05), device), dtype)
+    model = apply_framefusion(FrameFusionModel(family="internvl", cfg=cfg, params=params), 0.3, 0.95, 0.1)
+    model.ff = model.ff.replace(schedule_num_layers=cfg.num_layers, bucket=32)
+    pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg, projector=proj)
+    frames = half_static_frames(np.random.default_rng(8), 12, 112, 140)
+    launches = ba.bidir_attn_fwd.launches, fp.attn_importance_rows.launches
+    feats = internvl_vit.extract_features(vit, proj, pipe._prepare_frames(frames), vcfg)
+    toks = [int(t) for t in pipe.ask(QUESTION, frames=frames, max_new_tokens=8).split()]
+    res = pipe.last_result
+    k0, _, n0 = res.layer_caches[0]
+    return dict(feats=feats.float().cpu(), events=[(e.layer, e.kind, e.tokens_removed) for e in res.telemetry.events],
+                lens=[c[2] for c in res.layer_caches], tokens=toks, logits=res.logits.float().cpu(),
+                keys=k0[:n0].float().cpu(), e=ba.bidir_attn_fwd.launches - launches[0],
+                b=fp.attn_importance_rows.launches - launches[1])
+
+
+def phase_cross_internvl(chk: Checks) -> None:
+    cpu = tiny_internvl_run("cpu", torch.bfloat16)
+    gpu = tiny_internvl_run("cuda", torch.bfloat16)
+    log(f"  cpu events {cpu['events']} tokens {cpu['tokens']}; cuda events {gpu['events']} tokens {gpu['tokens']}")
+    for what, label, bound in (("feats", "tower features (head dim 64)", FEATURE_RTOL),
+                               ("logits", "prefill logits", LOGIT_RTOL),
+                               ("keys", "layer 0's cached keys (the merge's keep set, in order)", LOGIT_RTOL)):
+        same = cpu[what].shape == gpu[what].shape
+        rel = float((cpu[what] - gpu[what]).abs().max() / cpu[what].abs().max()) if same else math.inf
+        chk.expect(rel <= bound, f"cross internvl: {label} differ by {rel:.3e} of their largest <= {bound}")
+    chk.expect(cpu["events"] == gpu["events"] and cpu["lens"] == gpu["lens"],
+               "cross internvl: events and cache lengths equal")
+    chk.expect(cpu["tokens"] == gpu["tokens"], "cross internvl: greedy tokens equal")
+    chk.expect(len(set(gpu["tokens"])) >= 3, f"cross internvl: the tokens vary ({len(set(gpu['tokens']))} distinct of 8)")
+    chk.expect(any(e[1] == "prune" for e in cpu["events"]),
+               f"cross internvl: the scenario merges and prunes ({cpu['events']})")
+    chk.expect(cpu["e"] == cpu["b"] == 0 and gpu["e"] > 0 and gpu["b"] > 0,
+               f"cross internvl: kernels E and B launched on the card only (E {gpu['e']}, B {gpu['b']} launches)")
+
+
+def _events(res) -> list:
+    return [(e.layer, e.kind, e.tokens_removed, e.tokens_after) for e in res.telemetry.events]
+
+
+def phase_internvl(chk: Checks, kernels: dict, ctx: dict) -> None:
+    """InternVL2.5-8B at full width, pixels to answer, then the LLM on a
+    coherent prompt of the same interleaved layout, the int8 decode graph,
+    and the kernel rows at the shapes these runs gave each kernel."""
+    from framefusion_tpu_torch import kernel_bench, native
+    from framefusion_tpu_torch.config import internlm2_8b_config
+    from framefusion_tpu_torch.core import bucket_length
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.adapters.common import build_video_prompt
+    from framefusion_tpu_torch.models.vision import internvl_vit
+    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
+    from framefusion_tpu_torch.ops.kernels import decode_attention as da
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+    from framefusion_tpu_torch.ops.quant import quantize_params_int8
+    from framefusion_tpu_torch.pipeline import TextPipeline
+    from framefusion_tpu_torch.runtime.decode_graph import DecodeGraph
+    from framefusion_tpu_torch.runtime.engine import CompressionEngine
+
+    ctx.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    native.load(required=True)
+    cfg = internlm2_8b_config()  # InternLM2.5-7B: 32 layers, hidden 4096, 32 / 8 heads, no qkv bias
+    vcfg = internvl_vit.internvit_300m_config(dtype=torch.bfloat16)  # 24 layers, 1024 wide, 16 heads of 64
+    t0 = time.perf_counter()
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    vit = internvl_vit.init_params(vcfg, torch.Generator(device="cuda").manual_seed(1))
+    proj = internvl_vit.init_projector(vcfg, torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    log(f"  random InternVL2.5-8B: InternLM2.5-7B ({sum(t.numel() for t in params['layers'].values()) / 1e9:.2f} B "
+        f"block params), InternViT-300M and mlp1 on the card in {time.perf_counter() - t0:.1f} s")
+    model = apply_framefusion(FrameFusionModel(family="internvl", cfg=cfg, params=params,
+                                               vision={"kind": "internvl_vit", "cfg": vcfg, "params": vit,
+                                                       "projector": proj}), *INTERNVL_KNOBS)
+    pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg, projector=proj)
+    frames = coherent_frames(np.random.default_rng(0), INTERNVL_FRAMES, 360, 480)
+    pre = pipe._prepare_frames(frames)
+    chk.expect(pre.shape == (INTERNVL_FRAMES, 448, 448, 3), f"internvl: 64 frames 360x480 -> {pre.shape[1:3]}")
+
+    wrappers = {"flash_attn_fwd": fp.flash_attn_fwd, "attn_importance_rows": fp.attn_importance_rows,
+                "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup, "bidir_attn_fwd": ba.bidir_attn_fwd,
+                "ragged_decode_attn": da.ragged_decode_attn}
+    a_keys: dict = {}  # kernel A's launches by (S, key_valid given), over every prefill of this phase
+    _zero_counts(wrappers)
+    with _a_log(fp) as a_log, _c_log(mv) as bf16_log:
+        answer = pipe.ask(QUESTION, frames=frames, max_new_tokens=8)  # the bf16 decode graph, captured here
+        torch.cuda.synchronize()
+    counts = _ran(wrappers)
+    c_counts = {"bf16": bf16_log.counts(DecodeGraph.replays)}  # kernel C's launches by (K, widths)
+    d_counts = {"bf16": counts["gemv_gateup"]}
+    for key, n in a_log.counts().items():
+        a_keys[key] = a_keys.get(key, 0) + n
+    res = pipe.last_result
+    inputs = pipe.build_inputs(QUESTION, frames=frames)
+    s_prompt = int(inputs.input_embeds.shape[0])
+    toks = [int(t) for t in answer.split()]
+    ev = _events(res)
+    n_img = INTERNVL_FRAMES * vcfg.tokens_per_image
+    log(f"  pixels to answer: launches {counts}; kernel A by (S, mask) {a_log.counts()}; events {ev}, final length "
+        f"{res.valid_len} of {s_prompt}, tokens {toks}")
+    chk.expect(inputs.patch_num == 256 and int((inputs.patch_type >= 0).sum()) == n_img
+               and n_img < inputs.image_token_length < s_prompt and inputs.num_importance_queries == 1,
+               f"internvl: {n_img} image tokens (64 x 256) in a span of {inputs.image_token_length} (the frame labels "
+               f"inside it) of {s_prompt}, 1 importance row")
+    chk.expect(counts["bidir_attn_fwd"] == vcfg.num_layers,
+               f"internvl: kernel E launched once a tower layer ({counts['bidir_attn_fwd']} of {vcfg.num_layers})")
+    for name in ("flash_attn_fwd", "gemv_stacked", "gemv_gateup", "ragged_decode_attn"):
+        chk.expect(counts[name] > 0, f"internvl: {name}: {counts[name]} launches in the pixels-to-answer run")
+    if not any(e[1] == "prune" for e in ev):
+        log(f"  attn_importance_rows: {counts['attn_importance_rows']} launches (the random tower's video prunes "
+            f"nothing: kernel B runs on the coherent prompt below)")
+    chk.expect(bool(torch.isfinite(res.logits).all()) and len(toks) == 8
+               and all(0 <= t < cfg.vocab_size for t in toks), "internvl: logits finite, 8 tokens in the vocabulary")
+    e_launches = counts["bidir_attn_fwd"]
+
+    pre_dev = torch.from_numpy(pre).cuda()
+    t_enc = cuda_time_ms(lambda: internvl_vit.extract_features(vit, proj, pre_dev, vcfg), iters=2, warmup=1)
+    eng = model.engine()
+    args = (inputs.input_embeds, inputs.patch_type, inputs.position_ids, inputs.patch_num,
+            inputs.image_token_start, inputs.image_token_length)
+    with _a_log(fp) as d_log:
+        eng.prefill(*args, mode="dense")
+        torch.cuda.synchronize()
+    for key, n in d_log.counts().items():
+        a_keys[key] = a_keys.get(key, 0) + n
+    t_pre = {mode: cuda_time_ms(lambda mode=mode: eng.prefill(*args, mode=mode), iters=2, warmup=1)
+             for mode in ("fused", "planned", "dense")}
+    t_p2a = cuda_time_ms(lambda: pipe.ask(QUESTION, frames=frames, max_new_tokens=8), iters=2, warmup=1)
+    prof = kernel_bench.device_profile(lambda: pipe.ask(QUESTION, frames=frames, max_new_tokens=8))
+    log(f"  encode ms (64 preprocessed frames, 65,600 tower tokens, pixel shuffle and mlp1; CUDA events, mean of 2): "
+        f"{t_enc:.2f}")
+    log(f"  prefill ms at {s_prompt} tokens (mean of 2): fused {t_pre['fused']:.2f}, planned {t_pre['planned']:.2f}, "
+        f"dense {t_pre['dense']:.2f}, dense / fused {t_pre['dense'] / t_pre['fused']:.3f}")
+    log(f"  pixels-to-answer ms (64 uint8 frames -> 8 tokens, bf16; mean of 2): {t_p2a:.2f}; profiler over one: "
+        f"device idle share {prof['idle_share']:.4f} of {prof['window_us'] / 1e3:.2f} ms, "
+        f"{prof['launches']} device operations")
+    chk.expect(prof["launches"] > 0, "internvl: the profiler saw the pixels-to-answer run's device operations")
+
+    # The LLM alone on a coherent synthetic video spliced into the same
+    # interleaved prompt (0.45 of each frame's tokens resemble the previous
+    # frame's): it must prune, with kernel B at one capture row and 32 / 8
+    # heads over a window holding the frame labels.
+    h, _, _, _ = build_video_prompt(np.random.default_rng(12), cfg.hidden_size, n_frames=INTERNVL_FRAMES,
+                                    patch_num=vcfg.tokens_per_image, n_pre=0, n_post=0, coherent=0.45)
+    inp_c = pipe.build_inputs(QUESTION, video_features=torch.from_numpy(h).reshape(INTERNVL_FRAMES, -1, h.shape[1]))
+    args_c = (inp_c.input_embeds, inp_c.patch_type, inp_c.position_ids, inp_c.patch_num, inp_c.image_token_start,
+              inp_c.image_token_length)
+    b_log = CallLog(fp, {"flash_causal_attention_importance":
+                         lambda q, k, v, valid_len, num, key_valid=None: (num, q.shape[0], q.shape[1], k.shape[1])})
+    _zero_counts(wrappers)
+    with b_log, _a_log(fp) as c_log:
+        res_c = eng.prefill(*args_c, mode="fused")
+        torch.cuda.synchronize()
+    counts_c = _ran(wrappers)
+    for key, n in c_log.counts().items():
+        a_keys[key] = a_keys.get(key, 0) + n
+    ev_c = _events(res_c)
+    b_rows = b_log.counts()
+    merge0 = next(e for e in ev_c if e[0] == -1)
+    prune = next((e for e in ev_c if e[1] == "prune"), None)
+    log(f"  coherent prompt ({len(inp_c.patch_type)} tokens): events {ev_c}, buckets "
+        f"{[e.bucket for e in res_c.telemetry.events]}, final length {res_c.valid_len}; tokens after the layer -1 "
+        f"merge {merge0[3]}, after the prune {None if prune is None else prune[3]}; kernel B calls by (capture rows, "
+        f"S, Hq, Hk) {b_rows}; kernel A by (S, mask) {c_log.counts()}; launches {counts_c}")
+    phase_s = bucket_length(merge0[3], eng.ff.bucket)
+    chk.expect(prune is not None, "internvl coherent prompt: the prefill prunes")
+    chk.expect(counts_c["attn_importance_rows"] >= 1 and sum(b_rows.values()) == counts_c["attn_importance_rows"]
+               and all(k == (1, phase_s, 32, 8) for k in b_rows),
+               f"internvl coherent prompt: kernel B launched with 1 capture row, Hq 32 / Hk 8, at the phase length "
+               f"{phase_s} ({b_rows})")
+    res_cp = eng.prefill(*args_c, mode="planned")
+    chk.expect(_events(res_cp) == ev_c and res_cp.mode == "planned",
+               f"internvl coherent prompt: planned ({res_cp.mode}) makes fused's events")
+    t_c = cuda_time_ms(lambda: eng.prefill(*args_c, mode="fused"), iters=2, warmup=1)
+    t_cd = cuda_time_ms(lambda: eng.prefill(*args_c, mode="dense"), iters=2, warmup=1)
+    log(f"  coherent prompt prefill ms (mean of 2): fused {t_c:.2f}, dense {t_cd:.2f}, dense / fused {t_cd / t_c:.3f}")
+
+    # Weight-only int8 decode as the captured graph: the layer weights become
+    # int8 pairs in place (the bf16 model is gone after this).
+    ff = eng.ff
+    del eng, pipe, model
+    params_q = quantize_params_int8(params)
+    eng_q = CompressionEngine(params_q, cfg, ff)
+    _zero_counts(wrappers)
+    with _c_log(mv) as q_log:
+        toks_q = eng_q.generate(res_c, 8)  # a new engine: its own graph, captured here
+        torch.cuda.synchronize()
+    counts_q = _ran(wrappers)
+    c_counts["int8"], d_counts["int8"] = q_log.counts(DecodeGraph.replays), counts_q["gemv_gateup"]
+    steps = 32
+    graph = eng_q.decode_graph(res_c, steps + 1)
+    _, _, lens = eng_q.make_decode_state(res_c, steps + 1, pools=(graph.k_pool, graph.v_pool))
+
+    def replay_ms() -> float:
+        graph.start(lens, res_c.decode_pos_base, res_c.logits)
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.run(steps)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / steps
+
+    readings = [replay_ms(), replay_ms()]
+    floor_ms = kernel_bench.weight_stream_bytes(params_q) / kernel_bench.H100_BYTES_PER_S * 1e3
+    log(f"  int8 decode graph: tokens {toks_q}, launches {counts_q}; kernel C by (K, widths) {c_counts['int8']}; "
+        f"{sum(readings) / 2:.3f} ms/step over {steps} replays ({readings[0]:.3f}, {readings[1]:.3f}); weight-stream "
+        f"floor {floor_ms:.3f} ms ({kernel_bench.weight_stream_bytes(params_q) / 1e9:.3f} GB at 3.35 TB/s; the step "
+        f"at {floor_ms / (sum(readings) / 2):.3f} of it)")
+    chk.expect(len(toks_q) == 8 and all(0 <= t < cfg.vocab_size for t in toks_q)
+               and all(counts_q[n] > 0 for n in ("gemv_stacked", "gemv_gateup", "ragged_decode_attn")),
+               "internvl: int8 decode graph (C, D, G), 8 tokens in the vocabulary")
+    log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # The kernel rows at the shapes these runs gave each kernel.
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    e = _e_row(chk, kernels, gen, INTERNVL_E_SHAPE, "internvl")
+    _set_launches(e, e_launches)
+    for (s, masked), n in sorted(a_keys.items()):
+        # A phase layer's dead keys: the bucket's padding and the tokens the
+        # layer -1 merge took (the coherent prompt's share).
+        dead = 1 - merge0[3] / s if masked else 0.0
+        label = (f"internvl phase layers: S {s}, key_valid with {dead:.0%} dead keys" if masked else
+                 f"internvl {'dense prefill' if s == s_prompt else 'tail'}: S {s}, no mask")
+        regime, _ = _a_regime(chk, kernels, gen, s, cfg.num_heads, cfg.num_kv_heads, dead, label)
+        regime.update(path="internvl")
+        _set_launches(regime, n)
+    b = _b_row(chk, kernels, gen, phase_s, merge0[3], 1, cfg.num_heads, cfg.num_kv_heads,
+               int(len(inp_c.patch_type) - inp_c.image_token_start - inp_c.image_token_length), "internvl")
+    _set_launches(b, counts_c["attn_importance_rows"])
+    hid, inter, kv_w = cfg.hidden_size, cfg.intermediate_size, cfg.num_kv_heads * cfg.head_dim_
+    widths = {"qkv": (hid, [hid, kv_w, kv_w]), "wo": (hid, [hid]), "w_down": (inter, [hid]),
+              "gateup": (hid, [inter, inter])}
+    for wdtype in ("bf16", "int8"):
+        for name, (kdim, ns) in widths.items():
+            key = "gemv_gateup" if name == "gateup" else "gemv_stacked"
+            (row,) = _cd_rows(chk, kernels, gen, name, wdtype, kdim, ns, (1,), path="internvl")
+            # bf16: the pixels-to-answer decode's launches; int8: the int8 decode graph's
+            _set_launches(row, d_counts[wdtype] if key == "gemv_gateup"
+                          else c_counts[wdtype].get((kdim, tuple(ns)), 0))
+            kernels[key]["shapes"].append(row)
+    n0 = int(res_c.layer_caches[0][2])
+    g = _g_row(chk, kernels, gen, n0 + 1, int(graph.k_pool.shape[1]), cfg.num_heads, cfg.num_kv_heads, "internvl")
+    _set_launches(g, counts_q["ragged_decode_attn"])
+    rows = [e, b, g] + [x for n in ("flash_attn_fwd", "gemv_stacked", "gemv_gateup")
+                        for x in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"]
+                        if x.get("path") == "internvl"]
+    chk.expect(all(r["launches"] > 0 for r in rows),
+               f"internvl: every row's shape was launched on this phase's path "
+               f"({[(r.get('regime', r.get('shape')), r['launches']) for r in rows]})")
+
+
 def _shape_entry(kernel: dict, tag: str) -> dict:
     """The entry of ``kernel``'s ``shapes`` that phase 2 made for ``tag``."""
     return next(e for e in kernel["shapes"] if e.get("path") == tag)
@@ -2461,6 +2906,30 @@ def phase_spec_serve(chk: Checks, kernels: dict, ctx: dict) -> None:
     ctx.clear()
 
 
+def kernels_table() -> dict:
+    """The kernels line's entries, one a kernel of
+    ``framefusion_tpu_torch.ops.kernels``, every number still to measure."""
+    from framefusion_tpu_torch.ops import kernels as registry
+
+    kernels = {}
+    for name, (_, source) in registry.KERNELS.items():
+        replaced = registry.replaces(name)
+        # Every number is filled in by this run's phases (library_ms stays
+        # null where no single PyTorch call computes the function).
+        kernels[name] = dict(route="cuda", source=source, replaces=replaced if len(replaced) > 1 else replaced[0],
+                             launches=None, main_path_launches=None, max_abs_err=None, ms=None, plain_ms=None,
+                             bound_ms=None, bound_by=None, library_ms=None)
+    # Kernel A at each of its main-path regimes, kernel C at each decode
+    # shape (bf16 and int8): each with its own numbers and launches.
+    kernels["flash_attn_fwd"]["regimes"] = []
+    kernels["gemv_stacked"]["shapes"] = []
+    kernels["gemv_gateup"]["shapes"] = []  # its rows at the batched decode's B
+    kernels["bidir_attn_fwd"]["shapes"] = []  # the Qwen2-VL-7B (phase 11) and InternViT-300M (phase 12) towers
+    kernels["attn_importance_rows"]["shapes"] = []  # Qwen2-VL's 4 capture rows (11), InternLM2's one (12)
+    kernels["ragged_decode_attn"]["shapes"] = []  # InternLM2's 8 KV heads (phase 12)
+    return kernels
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -2476,24 +2945,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from framefusion_tpu_torch.ops import kernels as registry
-
     chk = Checks()
-    kernels = {}
-    for name, (_, source) in registry.KERNELS.items():
-        replaced = registry.replaces(name)
-        # Every number is filled in by this run's phases (library_ms stays
-        # null where no single PyTorch call computes the function).
-        kernels[name] = dict(route="cuda", source=source, replaces=replaced if len(replaced) > 1 else replaced[0],
-                             launches=None, main_path_launches=None, max_abs_err=None, ms=None, plain_ms=None,
-                             bound_ms=None, bound_by=None, library_ms=None)
-    # Kernel A at each of its main-path regimes, kernel C at each decode
-    # shape (bf16 and int8): each with its own numbers and launches.
-    kernels["flash_attn_fwd"]["regimes"] = []
-    kernels["gemv_stacked"]["shapes"] = []
-    kernels["gemv_gateup"]["shapes"] = []  # its rows at the batched decode's B
-    kernels["bidir_attn_fwd"]["shapes"] = []  # the Qwen2-VL-7B tower's shape (phase 11)
-    kernels["attn_importance_rows"]["shapes"] = []  # Qwen2-VL's 4 capture rows (phase 11)
+    kernels = kernels_table()
     no_library = {"attn_importance_rows", "gemv_gateup"}
     ctx: dict = {}
     phases = {"device": lambda: phase_device(chk), "kernels": lambda: phase_kernels(chk, kernels),
@@ -2501,11 +2954,13 @@ def main() -> int:
               "cross": lambda: phase_cross(chk), "full": lambda: phase_full(chk, kernels, ctx),
               "decode": lambda: phase_decode(chk, kernels, ctx), "graph": lambda: phase_graph(chk, kernels, ctx),
               "cross_vision": lambda: phase_cross_vision(chk), "cross_qwen2vl": lambda: phase_cross_qwen2vl(chk),
+              "cross_internvl": lambda: phase_cross_internvl(chk),
               "pixels": lambda: phase_pixels(chk, kernels),
               "cross_baselines": lambda: phase_cross_baselines(chk),
               "baselines": lambda: phase_baselines(chk, kernels), "batch": lambda: phase_batch(chk, kernels, ctx),
               "spec_serve": lambda: phase_spec_serve(chk, kernels, ctx),
-              "qwen2vl": lambda: phase_qwen2vl(chk, kernels, ctx)}
+              "qwen2vl": lambda: phase_qwen2vl(chk, kernels, ctx),
+              "internvl": lambda: phase_internvl(chk, kernels, ctx)}
     t_start = time.perf_counter()
     for phase, run in phases.items():
         log(f"== {phase} ({time.perf_counter() - t_start:.1f} s)")
@@ -2521,11 +2976,17 @@ def main() -> int:
     unmeasured = [f"{n}.{f}" for n, k in kernels.items() for f, v in k.items()
                   if v is None and not (f == "library_ms" and n in no_library)]
     unmeasured += [f"{n}.{e.get('regime', e.get('shape'))}.{f}"
-                   for n in ("flash_attn_fwd", "gemv_stacked", "gemv_gateup", "bidir_attn_fwd", "attn_importance_rows")
+                   for n in ("flash_attn_fwd", "gemv_stacked", "gemv_gateup", "bidir_attn_fwd", "attn_importance_rows",
+                             "ragged_decode_attn")
                    for e in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"] for f, v in e.items()
                    if v is None and not (f == "library_ms" and (n in no_library or "int8" in str(e.get("shape"))))]
-    unmeasured += [f"{n}.qwen2vl shape" for n in ("bidir_attn_fwd", "attn_importance_rows")
-                   if not any(e.get("path") == "qwen2vl" for e in kernels[n]["shapes"])]
+    unmeasured += [f"{n}.{path} shape" for n, paths in (("bidir_attn_fwd", ("qwen2vl", "internvl")),
+                                                        ("attn_importance_rows", ("qwen2vl", "internvl")),
+                                                        ("flash_attn_fwd", ("internvl",)), ("gemv_stacked", ("internvl",)),
+                                                        ("gemv_gateup", ("internvl",)),
+                                                        ("ragged_decode_attn", ("internvl",)))
+                   for path in paths
+                   if not any(e.get("path") == path for e in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"])]
     unmeasured += [f"{n}.batch_launches" for n in ("flash_attn_fwd", "attn_importance_rows", "gemv_stacked",
                                                    "gemv_gateup") if "batch_launches" not in kernels[n]]
     unmeasured += [f"{n}.spec_launches" for n in ("gemv_stacked", "gemv_gateup") if "spec_launches" not in kernels[n]]

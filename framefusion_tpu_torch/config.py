@@ -4,8 +4,8 @@
 ``apply_framefusion(model, cost, similarity_lower_bound, ratio_lower_bound)``
 plus the static planning knobs (shape buckets, importance rows, the
 scheduler's layer count). ``LLMConfig`` describes the Qwen2-family decoder
-stack (``mrope_section`` set for Qwen2-VL's multimodal rotary); its
-``dtype`` is a ``torch.dtype``.
+stack (``mrope_section`` set for Qwen2-VL's multimodal rotary; no qkv bias
+for InternLM2); its ``dtype`` is a ``torch.dtype``.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ class FrameFusionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LLMConfig:
-    """Decoder-stack geometry (Qwen2 / Qwen2-VL family)."""
+    """Decoder-stack geometry (the Qwen2 / Qwen2-VL / InternLM2 decoders)."""
 
     vocab_size: int = 152064
     hidden_size: int = 3584
@@ -104,6 +104,24 @@ def qwen2_vl_7b_config(**kw) -> LLMConfig:
         num_kv_heads=4,
         rope_theta=1e6,
         mrope_section=(16, 24, 24),
+    )
+    base.update(kw)
+    return LLMConfig(**base)
+
+
+def internlm2_8b_config(**kw) -> LLMConfig:
+    """InternLM2.5-7B geometry (the InternVL2.5-8B backbone): 32 layers,
+    hidden 4096, GQA 32 / 8 (head dim 128), intermediate 14336, vocab 92553,
+    no qkv bias."""
+    base = dict(
+        vocab_size=92553,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        rope_theta=1e6,
+        qkv_bias=False,
     )
     base.update(kw)
     return LLMConfig(**base)

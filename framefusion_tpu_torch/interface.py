@@ -3,8 +3,9 @@
 Port of ``framefusion_tpu.interface``: ``apply_framefusion`` returns a new,
 configured ``FrameFusionModel`` whose engine runs the compressed prefill —
 the reference's three knobs, no mutation. This package runs the LLaVA-Video /
-Qwen2 families (1D RoPE) and Qwen2-VL (mRoPE: (3, S) position ids, 4
-importance rows); the other families' adapters are refused.
+Qwen2 families (1D RoPE), Qwen2-VL (mRoPE: (3, S) position ids, 4
+importance rows) and InternVL (the InternLM2 backbone: no qkv bias); the
+other families' adapters are refused.
 """
 
 from __future__ import annotations
@@ -154,7 +155,7 @@ def _check_speculative(speculative: bool, sampler) -> None:
 
 
 # Adapters ported so far; the others wait for ROADMAP item "The other families".
-_PORTED_ADAPTERS = ("llava_video", "qwen2_vl")
+_PORTED_ADAPTERS = ("llava_video", "qwen2_vl", "internvl")
 
 
 def get_token_type(family: str):

@@ -1,13 +1,14 @@
 """Text-level pipeline: checkpoint + tokenizer + frames -> answer text
-(port of ``framefusion_tpu.pipeline``, the LLaVA-Video / Qwen2 and Qwen2-VL
-families).
+(port of ``framefusion_tpu.pipeline``, the LLaVA-Video / Qwen2, Qwen2-VL
+and InternVL families).
 
 Given a tokenizer (HF AutoTokenizer or anything with encode/decode), LLM
 params, a vision tower and frames, it builds the family's chat prompt,
-encodes the frames (preprocess -> SigLIP -> LLaVA frontend, or preprocess
-at ``smart_resize``'s geometry -> the Qwen2-VL tower), splices the video
-features at the media placeholder, runs the (compressed) prefill and greedy
-decode, and decodes text. Embeddings stay on the model's device.
+encodes the frames (preprocess -> SigLIP -> LLaVA frontend; preprocess at
+``smart_resize``'s geometry -> the Qwen2-VL tower; or preprocess to 448x448
+-> InternViT -> pixel shuffle -> ``mlp1``), splices the video features at
+the media placeholders, runs the (compressed) prefill and greedy decode,
+and decodes text. Embeddings stay on the model's device.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from .interface import FrameFusionModel
 from .models import qwen2
-from .models.adapters import llava_video, qwen2_vl
+from .models.adapters import internvl, llava_video, qwen2_vl
 
 DEFAULT_TEMPLATE = (
     "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n"
@@ -35,11 +36,15 @@ QWEN2_VL_TEMPLATE = (
     "<|im_start|>user\n<|vision_start|><|video_pad|><|vision_end|>"
     "{question}<|im_end|>\n<|im_start|>assistant\n"
 )
-FAMILY_TEMPLATES = {"qwen2_vl": QWEN2_VL_TEMPLATE}
+# InternVL chat builds an interleaved 'FrameN: <image>\n' prefix, one line a
+# frame (reference example_internvl.py:139-141); each frame's features
+# splice in at its <image>.
+INTERNVL_TEMPLATE = "<|im_start|>user\n{video_prefix}{question}<|im_end|>\n<|im_start|>assistant\n"
+
+FAMILY_TEMPLATES = {"qwen2_vl": QWEN2_VL_TEMPLATE, "internvl": INTERNVL_TEMPLATE}
 
 # Families whose prompt building the JAX pipeline has and this one does not yet.
 _NOT_PORTED = {
-    "internvl": 'ROADMAP item "The other families" (internvl: InternViT and the InternLM2 import)',
     "minicpmv": 'ROADMAP item "The other families" (minicpmv and its frontend)',
     "nvila": 'ROADMAP item "The other families" (nvila and its frontend)',
 }
@@ -53,7 +58,10 @@ class TextPipeline:
         ``<image>`` placeholder, frame-major feature block;
       * ``qwen2_vl``: the vision span at ``<|video_pad|>`` with 3D mRoPE
         position ids from the video grid (the tower's, or ``video_grid_thw``
-        beside precomputed features).
+        beside precomputed features);
+      * ``internvl``: an interleaved ``FrameN: <image>`` line a frame, each
+        frame's features at its ``<image>`` (InternViT's, or precomputed
+        (n_frames, tokens_per_frame, D) features).
     """
 
     model: FrameFusionModel
@@ -140,6 +148,8 @@ class TextPipeline:
             frames = self._prepare_frames(frames)
             if self.model.family == "qwen2_vl":
                 inputs = self._build_qwen2_vl_inputs(question, frames, video_features, video_grid_thw)
+            elif self.model.family == "internvl":
+                inputs = self._build_internvl_inputs(question, frames, video_features)
             else:
                 inputs = self._build_llava_inputs(question, frames, video_features)
         finally:
@@ -151,7 +161,8 @@ class TextPipeline:
         """Raw uint8 frames -> the family's normalized model pixels: for
         Qwen2-VL at ``smart_resize``'s geometry with factor = patch_size *
         spatial_merge_size (the HF processor's rule), else at the tower's
-        ``image_size``. Float inputs pass through untouched."""
+        ``image_size`` (SigLIP, InternViT). Float inputs pass through
+        untouched."""
         if frames is None:
             return None
         frames = np.asarray(frames)
@@ -218,6 +229,44 @@ class TextPipeline:
         merge = getattr(self.vit_cfg, "spatial_merge_size", 2)
         return qwen2_vl.build_prefill_inputs(text_embeds, feats, video_token_pos=len(ids_before), grid_t=grid_t,
                                              grid_h=grid_h, grid_w=grid_w, spatial_merge_size=merge)
+
+    def _build_internvl_inputs(self, question: str, frames, video_features):
+        """InternVL: a ``FrameN: <image>`` line a frame, each frame's features
+        at its ``<image>`` (reference example_internvl.py:139-141 and
+        modeling_internvl_chat.py:19-71). Frames run through InternViT, the
+        pixel shuffle and the ``mlp1`` projector (``extract_features``,
+        kernel E under ``attn_impl="flash"``); precomputed ``video_features``
+        are (n_frames, tokens_per_frame, D)."""
+        if video_features is None:
+            from .models.vision.internvl_vit import extract_features
+
+            if frames is None or self.vit_params is None or self.projector is None:
+                raise ValueError("internvl needs frames with an InternViT tower (vit_params/vit_cfg/projector), "
+                                 "or per-frame video_features")
+            video_features = extract_features(self.vit_params, self.projector, np.asarray(frames, np.float32),
+                                              self.vit_cfg, attn_impl=self.model.attn_impl)
+        feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
+        if feats.ndim != 3:
+            raise ValueError(f"internvl video_features must be (n_frames, tokens_per_frame, D), got "
+                             f"{tuple(feats.shape)}")
+        n_frames, tpf, _ = feats.shape
+        video_prefix = "".join(f"Frame{i + 1}: {self.image_token}\n" for i in range(n_frames))
+        prompt = self._render_prompt(video_prefix, question,
+                                     self._template().format(video_prefix=video_prefix, question=question))
+        segments = prompt.split(self.image_token)
+        if len(segments) != n_frames + 1:
+            raise ValueError(f"the prompt holds {len(segments) - 1} {self.image_token} placeholders for "
+                             f"{n_frames} frames")
+        embeds, mask = [], []
+        for i, seg in enumerate(segments):
+            ids = list(self.tokenizer.encode(seg))
+            if ids:
+                embeds.append(self._embed_ids(ids))
+                mask.append(np.zeros(len(ids), bool))
+            if i < n_frames:
+                embeds.append(feats[i])
+                mask.append(np.ones(tpf, bool))
+        return internvl.build_prefill_inputs(torch.cat(embeds), np.concatenate(mask), tokens_per_frame=tpf)
 
     def ask(self, question: str, frames=None, video_features=None, max_new_tokens: int = 64,
             eos_token_id: Optional[int] = None, video_grid_thw=None,

@@ -1,19 +1,20 @@
 """Weight import: HuggingFace hub checkpoints -> this package's params
-(port of ``framefusion_tpu.weights``, the ``llava_video`` and ``qwen2_vl``
-families).
+(port of ``framefusion_tpu.weights``, the ``llava_video``, ``qwen2_vl`` and
+``internvl`` families).
 
 Linear weights transpose from HF's (out, in) to (in, out), so the forward
 is plain ``x @ w``; layer weights stack along a leading layer axis. Entry
 points: ``params_from_state_dict`` (any mapping name -> numpy array or
-tensor), ``load_state`` (safetensors shards of a checkpoint directory) and
+tensor), ``params_from_state_dict_internlm2`` (InternLM2's fused ``wqkv``),
+``load_state`` (safetensors shards of a checkpoint directory) and
 ``load_checkpoint`` (config.json + shards -> a ``FrameFusionModel`` with its
-vision tower attached: SigLIP and the LLaVA projector, or the Qwen2-VL
-tower).
+vision tower attached: SigLIP and the LLaVA projector, the Qwen2-VL tower,
+or InternViT and the ``mlp1`` projector).
 
-One difference from the JAX loader: the towers (SigLIP and Qwen2-VL's) are
-loaded in the requested ``dtype`` (bf16 by default, which kernel E takes),
-where the JAX loader keeps them fp32. A checkpoint stores a tower in bf16,
-so the values are the same.
+One difference from the JAX loader: the towers (and InternVL's projector)
+are loaded in the requested ``dtype`` (bf16 by default, which kernel E
+takes), where the JAX loader keeps them fp32. A checkpoint stores a tower in
+bf16, so the values are the same.
 """
 
 from __future__ import annotations
@@ -43,10 +44,12 @@ _QWEN2_LAYER_KEYS = {
 }
 
 # Architecture string (config.json ``architectures[0]``) -> family. The
-# llava_video and qwen2_vl families are ported; the others, and Qwen2.5-VL
-# (its window-attention tower), wait for ROADMAP item "The other families".
-_ARCH_TO_FAMILY = {"LlavaQwenForCausalLM": "llava_video", "Qwen2VLForConditionalGeneration": "qwen2_vl"}
-_PORTED_FAMILIES = ("llava_video", "qwen2_vl")
+# llava_video, qwen2_vl and internvl families are ported; the others, and
+# Qwen2.5-VL (its window-attention tower), wait for
+# ROADMAP item "The other families".
+_ARCH_TO_FAMILY = {"LlavaQwenForCausalLM": "llava_video", "Qwen2VLForConditionalGeneration": "qwen2_vl",
+                   "InternVLChatModel": "internvl"}
+_PORTED_FAMILIES = ("llava_video", "qwen2_vl", "internvl")
 _NOT_PORTED = 'is not ported to PyTorch yet (ROADMAP item "The other families")'
 
 
@@ -136,6 +139,57 @@ def params_from_state_dict(state_dict, cfg: LLMConfig, prefix: str = "model.", q
     return params
 
 
+def params_from_state_dict_internlm2(state_dict, cfg: LLMConfig, prefix: str = "language_model.model.",
+                                     quantize=None, device=None) -> dict:
+    """The stacked-parameter dict from an InternLM2 (InternVL2.5 backbone)
+    state dict.
+
+    InternLM2 stores the attention as one fused ``wqkv`` whose rows are
+    grouped per KV head: [g query heads, 1 key head, 1 value head] with g =
+    Hq / Hk (the reference unpacks it with einops,
+    models/internvl/modeling_internlm2.py:309-321). The MLP's w1 / w3 / w2
+    are gate / up / down, the norms attention_norm / ffn_norm; there is no
+    qkv bias. ``quantize`` and ``device`` as in ``params_from_state_dict``.
+    """
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize={quantize!r} (None or 'int8')")
+    if cfg.qkv_bias:
+        raise ValueError("InternLM2 has no qkv bias: pass a config with qkv_bias=False")
+    device = resolve_device(device)
+    hd, hk, d = cfg.head_dim_, cfg.num_kv_heads, cfg.hidden_size
+    g = cfg.num_heads // hk
+
+    def layer(i, name):
+        return _to_tensor(state_dict[f"{prefix}layers.{i}.{name}"])
+
+    per_layer: dict[str, list] = {}
+    for i in range(cfg.num_layers):
+        grouped = layer(i, "attention.wqkv.weight").reshape(hk, g + 2, hd, d)
+        per_layer.setdefault("wq", []).append(grouped[:, :g].reshape(hk * g * hd, d).T)
+        per_layer.setdefault("wk", []).append(grouped[:, g].reshape(hk * hd, d).T)
+        per_layer.setdefault("wv", []).append(grouped[:, g + 1].reshape(hk * hd, d).T)
+        for ours, name, transpose in (("ln1", "attention_norm.weight", False), ("ln2", "ffn_norm.weight", False),
+                                      ("wo", "attention.wo.weight", True), ("w_gate", "feed_forward.w1.weight", True),
+                                      ("w_up", "feed_forward.w3.weight", True),
+                                      ("w_down", "feed_forward.w2.weight", True)):
+            t = layer(i, name)
+            per_layer.setdefault(ours, []).append(t.T if transpose else t)
+    layers = {ours: _stack_layer_weight(ours, torch.stack(ts), cfg, quantize, device)
+              for ours, ts in per_layer.items()}
+
+    def plain(key):
+        return _to_tensor(state_dict[key]).to(device=device, dtype=cfg.dtype)
+
+    params = {"embed": plain(prefix + "tok_embeddings.weight"), "layers": layers,
+              "final_norm": plain(prefix + "norm.weight")}
+    if not cfg.tie_word_embeddings:
+        heads = [k for k in state_dict if k.endswith("output.weight") or k.endswith("lm_head.weight")]
+        if not heads:
+            raise ValueError("untied config but no output head in checkpoint")
+        params["lm_head"] = _to_tensor(state_dict[heads[0]]).T.to(device=device, dtype=cfg.dtype)
+    return params
+
+
 def load_state(checkpoint_dir: str) -> dict:
     """Read a (possibly sharded) safetensors checkpoint directory into a
     name -> CPU tensor mapping (HF hub layout: ``model.safetensors.index.json``
@@ -158,17 +212,27 @@ def load_state(checkpoint_dir: str) -> dict:
 
 def llm_config_from_hf(cfg_dict: dict, dtype=torch.bfloat16):
     """HF ``config.json`` dict -> (family, LLMConfig). The LLM fields live at
-    the top level or under ``text_config``; Qwen2-VL's mRoPE sections come
-    from ``rope_scaling.mrope_section``. Other architectures raise."""
+    the top level, under ``text_config`` or under ``llm_config``
+    (InternVL); Qwen2-VL's mRoPE sections come from
+    ``rope_scaling.mrope_section``; InternLM2 has no qkv bias (its config's
+    ``bias`` flag, or the family). Other architectures raise.
+
+    InternLM2.5's config may carry a dynamic NTK ``rope_scaling``: it acts
+    only past its 32,768 trained positions and, as in the JAX loader, is not
+    implemented; the rotary stays plain, so prompts stay below that length.
+    """
     arch = (cfg_dict.get("architectures") or ["?"])[0]
     family = _ARCH_TO_FAMILY.get(arch)
     if family is None:
         raise NotImplementedError(f"Model not supported\nArchitecture: {arch} {_NOT_PORTED}")
-    text = cfg_dict.get("text_config") if isinstance(cfg_dict.get("text_config"), dict) else cfg_dict
+    text = next((cfg_dict[key] for key in ("text_config", "llm_config") if isinstance(cfg_dict.get(key), dict)),
+                cfg_dict)
     rope_scaling = text.get("rope_scaling") or {}
     mrope_section = None
     if isinstance(rope_scaling, dict) and rope_scaling.get("mrope_section"):
         mrope_section = tuple(int(x) for x in rope_scaling["mrope_section"])
+    text_arch = (text.get("architectures") or [arch])[0]
+    qkv_bias = bool(text.get("bias", not (family == "internvl" or "InternLM2" in text_arch)))
     llm = LLMConfig(
         vocab_size=text["vocab_size"],
         hidden_size=text["hidden_size"],
@@ -179,7 +243,7 @@ def llm_config_from_hf(cfg_dict: dict, dtype=torch.bfloat16):
         rope_theta=float(text.get("rope_theta", 1e6)),
         rms_norm_eps=float(text.get("rms_norm_eps", 1e-6)),
         tie_word_embeddings=bool(text.get("tie_word_embeddings", False)),
-        qkv_bias=bool(text.get("bias", True)),
+        qkv_bias=qkv_bias,
         mrope_section=mrope_section,
         dtype=dtype,
     )
@@ -214,15 +278,49 @@ def _load_qwen2_vl_vision(state: dict, vis_cfg: dict, llm_cfg: LLMConfig, device
     return {"kind": "qwen2_vl_vit", "cfg": vit_cfg, "params": params}
 
 
+def _load_internvl_vision(state: dict, cfg_dict: dict, llm_cfg: LLMConfig, device):
+    """InternViT and the ``mlp1`` projector of an ``internvl`` checkpoint (the
+    hub's ``vision_model.`` / ``mlp1.`` layout) in ``llm_cfg.dtype``, or None
+    when it carries none or only part of them (an LLM-only load)."""
+    from .models.vision import internvl_vit
+
+    if not any(k.startswith("vision_model.") for k in state):
+        return None
+    vis_cfg = cfg_dict.get("vision_config") or {}
+    img, patch = vis_cfg.get("image_size", 448), vis_cfg.get("patch_size", 14)
+    vit_cfg = internvl_vit.InternViTConfig(
+        image_size=img if isinstance(img, int) else img[0],
+        patch_size=patch if isinstance(patch, int) else patch[0],
+        hidden_size=vis_cfg.get("hidden_size", 1024),
+        intermediate_size=vis_cfg.get("intermediate_size", 4096),
+        num_layers=vis_cfg.get("num_hidden_layers", 24),
+        num_heads=vis_cfg.get("num_attention_heads", 16),
+        attention_bias=bool(vis_cfg.get("qkv_bias", True)),
+        use_qk_norm=bool(vis_cfg.get("qk_normalization", False)),
+        text_hidden_size=llm_cfg.hidden_size,
+        downsample_ratio=float(cfg_dict.get("downsample_ratio", 0.5)),
+        dtype=llm_cfg.dtype,
+    )
+    try:
+        params = internvl_vit.params_from_remote(state, vit_cfg, prefix="vision_model.", device=device)
+        proj = internvl_vit.projector_from_remote(state, vit_cfg, prefix="mlp1.", device=device)
+    except (KeyError, ValueError):
+        return None  # partial/unrecognized vision weights: LLM-only load
+    return {"kind": "internvl_vit", "cfg": vit_cfg, "params": params, "projector": proj}
+
+
 def _load_vision(family: str, state: dict, cfg_dict: dict, llm_cfg: LLMConfig, device):
     """The family's vision tower: SigLIP and the LLaVA projector for
-    llava_video, the Qwen2-VL tower for qwen2_vl; None when the checkpoint
-    carries no (recognizable) vision weights."""
+    llava_video, the Qwen2-VL tower for qwen2_vl, InternViT and its
+    projector for internvl; None when the checkpoint carries no
+    (recognizable) vision weights."""
     from .models.vision import siglip
 
     vis_cfg = cfg_dict.get("vision_config") or {}
     if family == "qwen2_vl":
         return _load_qwen2_vl_vision(state, vis_cfg, llm_cfg, device)
+    if family == "internvl":
+        return _load_internvl_vision(state, cfg_dict, llm_cfg, device)
     if not any("vision_tower" in k for k in state):
         return None
     try:
@@ -261,7 +359,9 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
     ``quantize="int8"``: decoder matmul weights are quantized on the host
     during import, so the device never holds the bf16 originals. The vision
     tower, embeddings, norms and lm_head keep ``dtype``; the LLaVA projector
-    is fp32, as in the JAX loader. ``Qwen2_5_VLForConditionalGeneration``
+    is fp32, as in the JAX loader, InternVL's ``mlp1`` takes ``dtype``. An
+    InternVL checkpoint's InternLM2 goes through
+    ``params_from_state_dict_internlm2``. ``Qwen2_5_VLForConditionalGeneration``
     and a Qwen2.5-VL tower raise NotImplementedError. ``device=None`` loads onto the card and
     raises without one; ``device="cpu"`` asks for the CPU.
     """
@@ -279,6 +379,7 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
     if llm_cfg.qkv_bias != spec.qkv_bias:
         raise ValueError(f"config qkv_bias={llm_cfg.qkv_bias} vs family {family}")
     state = load_state(checkpoint_dir)
-    params = params_from_state_dict(state, llm_cfg, prefix=spec.llm_prefix, quantize=quantize, device=device)
+    importer = params_from_state_dict_internlm2 if family == "internvl" else params_from_state_dict
+    params = importer(state, llm_cfg, prefix=spec.llm_prefix, quantize=quantize, device=device)
     vision = _load_vision(family, state, cfg_dict, llm_cfg, device)
     return FrameFusionModel(family=family, cfg=llm_cfg, params=params, vision=vision)

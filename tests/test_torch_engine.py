@@ -183,7 +183,7 @@ def test_public_entry_matches_jax(stacks):
     assert toks_t == toks_j
     assert events(res_t) == events(res_j)
     with pytest.raises(NotImplementedError, match='ROADMAP item "The other families"'):
-        get_token_type("internvl")
+        get_token_type("minicpmv")
 
 
 def test_video_prompt_equals_bench():

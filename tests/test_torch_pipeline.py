@@ -159,7 +159,7 @@ def test_unported_paths_raise(pipes):
     answer = tpipe.ask("Q?", video_features=feats, max_new_tokens=8, speculative=True)
     assert answer == jpipe.ask("Q?", video_features=feats, max_new_tokens=8, speculative=True)
     assert answer == tpipe.ask("Q?", video_features=feats, max_new_tokens=8)
-    other = TextPipeline(model=FrameFusionModel(family="internvl", cfg=tpipe.model.cfg, params=tpipe.model.params),
+    other = TextPipeline(model=FrameFusionModel(family="minicpmv", cfg=tpipe.model.cfg, params=tpipe.model.params),
                          tokenizer=StubTokenizer())
     with pytest.raises(NotImplementedError, match="ROADMAP item \"The other families\""):
         other.ask("Q?", video_features=np.zeros((18, 128), np.float32))

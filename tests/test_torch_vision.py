@@ -223,12 +223,12 @@ def test_load_checkpoint_matches_jax(tmp_path, quantize):
 
 def test_other_families_are_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP item \"The other families\""):
-        llm_config_from_hf({"architectures": ["InternVLChatModel"]})
+        llm_config_from_hf({"architectures": ["MiniCPMV"]})
     with pytest.raises(NotImplementedError, match="ROADMAP item \"The other families\""):
         load_checkpoint(write_fixture(tmp_path, "nvila"), device="cpu")
     assert interface.get_token_type("llava_video") is tlv
     with pytest.raises(NotImplementedError, match="ROADMAP item \"The other families\""):
-        interface.get_token_type("internvl")
+        interface.get_token_type("minicpmv")
     with pytest.raises(NotImplementedError, match="not supported"):
         interface.get_token_type("gpt2")
 
