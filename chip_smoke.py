@@ -92,6 +92,18 @@ Phases, each printed as it runs; every run makes all of them:
              merge's keep set) within the bf16 bounds; events, cache lengths
              and tokens equal; the tokens vary; E and B launched on the card
              only.
+5d. cross_families — a 6-layer Qwen2 LLM (``readout_params``, hidden
+             512, 4 / 2 heads) and phase 5's SigLIP of head dim 72 (weights
+             drawn with numpy) through NVILA's connector (TextPipeline.ask on uint8
+             frames; and 8 block images as a multi-image prompt, patch_num
+             1, through ``generate``), MiniCPM-V's resampler (TextPipeline.ask
+             on frames that repeat or change whole; 8 + 2 separator rows a
+             frame) and LLaVA-NeXT-Video's own adapter (2 x 2-pooled tower
+             features, patch_num 16, through ``generate``): plain
+             versions on the CPU, kernels on the card. Features, prefill
+             logits and layer 0's cached keys within the bf16 bounds; events,
+             cache lengths and tokens equal; E (and B where it prunes)
+             launched on the card only.
 6. pixels  — pixels to answer at full width: random SigLIP-so400m tower,
              projector and Qwen2-7B (bf16), 64 uint8 frames at 360x480
              through the native preprocessing, the tower (kernel E), the
@@ -172,7 +184,8 @@ Phases, each printed as it runs; every run makes all of them:
              tower layer), encode, fused / planned / dense prefill and
              pixels-to-answer ms, the device idle share. Then the LLM on a
              coherent synthetic video spliced into the same prompt, which must
-             prune (B at one capture row, 32 / 8 heads): tokens after the
+             prune (B at one capture row, 32 / 8 heads), its events equal
+             through the planned and segmented executors: tokens after the
              layer -1 merge and after the prune; the int8 decode graph's
              ms/step over 32 replays beside its weight-stream floor. Last,
              each kernel against its plain version at the shapes these runs
@@ -181,7 +194,22 @@ Phases, each printed as it runs; every run makes all of them:
              column held on their own, C and D bf16 and int8 at InternLM2's
              decode widths, G at 8 KV heads over the decode's first length),
              each timed beside its bound, plain and library ms, with the
-             launches phase 12 counted.
+             launches phase 12 counted. The pixels-to-answer prefill's events
+             must equal a direct fused prefill's on the same inputs.
+13. nvila  — NVILA-8B at full width, as phase 12 runs its family: phase 4's
+             Qwen2-7B weights, SigLIP-so400m at 448 px (32 x 32 patches, run
+             to layer -2: E at (16, 1024, 16, 72), 26 x 4 launches) and the
+             mlp_downsample connector (2 x 2 space-to-channel, 4608 -> 3584
+             -> 3584, fp32); 64 uint8 frames at 360x480 -> 16,384 video
+             tokens, a 16,464-token prompt (A's blocked regime dense) at cost
+             0.3, S_th 0.7, r_min 0.1; then the coherent prompt (B at 28 / 4),
+             the int8 decode graph and the kernel rows (``"path": "nvila"``).
+14. minicpmv — MiniCPM-V 2.6 at full width, likewise: SigLIP at its
+             checkpoint's 980 px (70 x 70 patches, all 27 layers: E at (16,
+             4900, 16, 72), 27 x 4 launches) and the resampler (64 queries,
+             28 heads of 128, fp32); 64 frames -> a 4,224-row span (64
+             resampled + 2 separator rows a frame, patch_num 66, the
+             separators' ids 64 and 65); the rows ``"path": "minicpmv"``.
 
 The line before the last is a JSON object with one entry per kernel, built
 from ``framefusion_tpu_torch.ops.kernels`` (the TPU functions each stands
@@ -204,8 +232,8 @@ answer, B around its coherent prompt's prefill). Entries with ``"path":
 "internvl"`` (A's regimes, B's, C's, D's, E's and G's shapes) are phase
 12's rows, with its launches: A's from its prefills by (S, mask), C's and
 D's bf16 from the pixels-to-answer decode and int8 from the int8 decode
-graph. The
-last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+graph; ``"path": "nvila"`` and ``"minicpmv"`` are phases 13's and 14's,
+alike. The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. The script never runs on the CPU: without a CUDA device
 it exits at once.
 """
@@ -2062,21 +2090,13 @@ def phase_internvl(chk: Checks, kernels: dict, ctx: dict) -> None:
     """InternVL2.5-8B at full width, pixels to answer, then the LLM on a
     coherent prompt of the same interleaved layout, the int8 decode graph,
     and the kernel rows at the shapes these runs gave each kernel."""
-    from framefusion_tpu_torch import kernel_bench, native
+    from framefusion_tpu_torch import native
     from framefusion_tpu_torch.config import internlm2_8b_config
-    from framefusion_tpu_torch.core import bucket_length
     from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
     from framefusion_tpu_torch.models import qwen2
     from framefusion_tpu_torch.models.adapters.common import build_video_prompt
     from framefusion_tpu_torch.models.vision import internvl_vit
-    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
-    from framefusion_tpu_torch.ops.kernels import decode_attention as da
-    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
-    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
-    from framefusion_tpu_torch.ops.quant import quantize_params_int8
     from framefusion_tpu_torch.pipeline import TextPipeline
-    from framefusion_tpu_torch.runtime.decode_graph import DecodeGraph
-    from framefusion_tpu_torch.runtime.engine import CompressionEngine
 
     ctx.clear()
     torch.cuda.empty_cache()
@@ -2095,10 +2115,62 @@ def phase_internvl(chk: Checks, kernels: dict, ctx: dict) -> None:
                                                vision={"kind": "internvl_vit", "cfg": vcfg, "params": vit,
                                                        "projector": proj}), *INTERNVL_KNOBS)
     pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg, projector=proj)
-    frames = coherent_frames(np.random.default_rng(0), INTERNVL_FRAMES, 360, 480)
-    pre = pipe._prepare_frames(frames)
-    chk.expect(pre.shape == (INTERNVL_FRAMES, 448, 448, 3), f"internvl: 64 frames 360x480 -> {pre.shape[1:3]}")
+    del model, params
+    n_img = INTERNVL_FRAMES * vcfg.tokens_per_image
 
+    def check_inputs(inputs):
+        s_prompt = int(inputs.input_embeds.shape[0])
+        return (inputs.patch_num == 256 and int((inputs.patch_type >= 0).sum()) == n_img
+                and n_img < inputs.image_token_length < s_prompt and inputs.num_importance_queries == 1,
+                f"{n_img} image tokens (64 x 256) in a span of {inputs.image_token_length} (the frame labels "
+                f"inside it) of {s_prompt}, 1 importance row")
+
+    # The LLM alone on a coherent synthetic video spliced into the same
+    # interleaved prompt (0.45 of each frame's tokens resemble the previous
+    # frame's): it must prune, with kernel B at one capture row and 32 / 8
+    # heads over a window holding the frame labels.
+    h, _, _, _ = build_video_prompt(np.random.default_rng(12), cfg.hidden_size, n_frames=INTERNVL_FRAMES,
+                                    patch_num=vcfg.tokens_per_image, n_pre=0, n_post=0, coherent=0.45)
+    _family_phase(chk, kernels, tag="internvl", pipe=pipe, frames=coherent_frames(np.random.default_rng(0),
+                                                                                  INTERNVL_FRAMES, 360, 480),
+                  pre_shape=(INTERNVL_FRAMES, 448, 448, 3),
+                  encode=lambda px: internvl_vit.extract_features(vit, proj, px, vcfg),
+                  encode_label="64 preprocessed frames, 65,600 tower tokens, pixel shuffle and mlp1",
+                  e_shape=INTERNVL_E_SHAPE, e_launches=vcfg.num_layers, e_label="once a tower layer",
+                  check_inputs=check_inputs,
+                  coherent=torch.from_numpy(h).reshape(INTERNVL_FRAMES, -1, h.shape[1]))
+
+
+def _family_phase(chk: Checks, kernels: dict, *, tag: str, pipe, frames, pre_shape: tuple, encode,
+                  encode_label: str, e_shape: tuple, e_launches: int, e_label: str, check_inputs, coherent) -> None:
+    """One family at full width through ``pipe`` (its model on the card,
+    FrameFusion applied), as phases 12-14 run it: pixels to answer (8
+    greedy tokens, the bf16 decode graph) with the launches of A-G counted
+    around it (E ``e_launches`` times), the prompt held by
+    ``check_inputs(inputs) -> (ok, text)``; encode (``encode(pixels on the
+    card)``), fused / planned / dense prefill and pixels-to-answer ms and
+    the device idle share; then the LLM on the ``coherent`` video features
+    spliced into the family's prompt, which must prune with kernel B at one
+    capture row, its events equal through the planned and segmented
+    executors; the int8 decode graph's ms/step beside its weight-stream
+    floor; last, each kernel against its plain version at the shapes these
+    runs gave it, with the launches counted here (entries with ``"path":
+    tag``). The model's weights are quantized in place and then dropped:
+    the phase ends with the model gone."""
+    from framefusion_tpu_torch import kernel_bench
+    from framefusion_tpu_torch.core import bucket_length
+    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
+    from framefusion_tpu_torch.ops.kernels import decode_attention as da
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+    from framefusion_tpu_torch.ops.quant import quantize_params_int8
+    from framefusion_tpu_torch.runtime.decode_graph import DecodeGraph
+    from framefusion_tpu_torch.runtime.engine import CompressionEngine
+
+    cfg = pipe.model.cfg
+    pre = pipe._prepare_frames(frames)
+    chk.expect(pre.shape == pre_shape, f"{tag}: {frames.shape[0]} frames {frames.shape[1]}x{frames.shape[2]} -> "
+                                       f"{pre.shape[1:3]}")
     wrappers = {"flash_attn_fwd": fp.flash_attn_fwd, "attn_importance_rows": fp.attn_importance_rows,
                 "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup, "bidir_attn_fwd": ba.bidir_attn_fwd,
                 "ragged_decode_attn": da.ragged_decode_attn}
@@ -2117,27 +2189,24 @@ def phase_internvl(chk: Checks, kernels: dict, ctx: dict) -> None:
     s_prompt = int(inputs.input_embeds.shape[0])
     toks = [int(t) for t in answer.split()]
     ev = _events(res)
-    n_img = INTERNVL_FRAMES * vcfg.tokens_per_image
     log(f"  pixels to answer: launches {counts}; kernel A by (S, mask) {a_log.counts()}; events {ev}, final length "
         f"{res.valid_len} of {s_prompt}, tokens {toks}")
-    chk.expect(inputs.patch_num == 256 and int((inputs.patch_type >= 0).sum()) == n_img
-               and n_img < inputs.image_token_length < s_prompt and inputs.num_importance_queries == 1,
-               f"internvl: {n_img} image tokens (64 x 256) in a span of {inputs.image_token_length} (the frame labels "
-               f"inside it) of {s_prompt}, 1 importance row")
-    chk.expect(counts["bidir_attn_fwd"] == vcfg.num_layers,
-               f"internvl: kernel E launched once a tower layer ({counts['bidir_attn_fwd']} of {vcfg.num_layers})")
+    ok, text = check_inputs(inputs)
+    chk.expect(ok, f"{tag}: {text}")
+    chk.expect(counts["bidir_attn_fwd"] == e_launches,
+               f"{tag}: kernel E launched {e_label} ({counts['bidir_attn_fwd']} of {e_launches})")
     for name in ("flash_attn_fwd", "gemv_stacked", "gemv_gateup", "ragged_decode_attn"):
-        chk.expect(counts[name] > 0, f"internvl: {name}: {counts[name]} launches in the pixels-to-answer run")
+        chk.expect(counts[name] > 0, f"{tag}: {name}: {counts[name]} launches in the pixels-to-answer run")
     if not any(e[1] == "prune" for e in ev):
         log(f"  attn_importance_rows: {counts['attn_importance_rows']} launches (the random tower's video prunes "
             f"nothing: kernel B runs on the coherent prompt below)")
     chk.expect(bool(torch.isfinite(res.logits).all()) and len(toks) == 8
-               and all(0 <= t < cfg.vocab_size for t in toks), "internvl: logits finite, 8 tokens in the vocabulary")
-    e_launches = counts["bidir_attn_fwd"]
+               and all(0 <= t < cfg.vocab_size for t in toks), f"{tag}: logits finite, 8 tokens in the vocabulary")
 
     pre_dev = torch.from_numpy(pre).cuda()
-    t_enc = cuda_time_ms(lambda: internvl_vit.extract_features(vit, proj, pre_dev, vcfg), iters=2, warmup=1)
-    eng = model.engine()
+    t_enc = cuda_time_ms(lambda: encode(pre_dev), iters=2, warmup=1)
+    del pre_dev
+    eng = pipe.model.engine()
     args = (inputs.input_embeds, inputs.patch_type, inputs.position_ids, inputs.patch_num,
             inputs.image_token_start, inputs.image_token_length)
     with _a_log(fp) as d_log:
@@ -2145,26 +2214,24 @@ def phase_internvl(chk: Checks, kernels: dict, ctx: dict) -> None:
         torch.cuda.synchronize()
     for key, n in d_log.counts().items():
         a_keys[key] = a_keys.get(key, 0) + n
+    res_f = eng.prefill(*args, mode="fused")  # the engine alone, no pipeline and no decode graph
+    chk.expect(_events(res_f) == ev and res_f.valid_len == res.valid_len,
+               f"{tag}: the pixels-to-answer prefill's events (patch_num {inputs.patch_num}) equal a direct fused "
+               f"prefill's on the same inputs ({_events(res_f)})")
+    del res_f
     t_pre = {mode: cuda_time_ms(lambda mode=mode: eng.prefill(*args, mode=mode), iters=2, warmup=1)
              for mode in ("fused", "planned", "dense")}
     t_p2a = cuda_time_ms(lambda: pipe.ask(QUESTION, frames=frames, max_new_tokens=8), iters=2, warmup=1)
     prof = kernel_bench.device_profile(lambda: pipe.ask(QUESTION, frames=frames, max_new_tokens=8))
-    log(f"  encode ms (64 preprocessed frames, 65,600 tower tokens, pixel shuffle and mlp1; CUDA events, mean of 2): "
-        f"{t_enc:.2f}")
+    log(f"  encode ms ({encode_label}; CUDA events, mean of 2): {t_enc:.2f}")
     log(f"  prefill ms at {s_prompt} tokens (mean of 2): fused {t_pre['fused']:.2f}, planned {t_pre['planned']:.2f}, "
         f"dense {t_pre['dense']:.2f}, dense / fused {t_pre['dense'] / t_pre['fused']:.3f}")
-    log(f"  pixels-to-answer ms (64 uint8 frames -> 8 tokens, bf16; mean of 2): {t_p2a:.2f}; profiler over one: "
-        f"device idle share {prof['idle_share']:.4f} of {prof['window_us'] / 1e3:.2f} ms, "
+    log(f"  pixels-to-answer ms ({frames.shape[0]} uint8 frames -> 8 tokens, bf16; mean of 2): {t_p2a:.2f}; "
+        f"profiler over one: device idle share {prof['idle_share']:.4f} of {prof['window_us'] / 1e3:.2f} ms, "
         f"{prof['launches']} device operations")
-    chk.expect(prof["launches"] > 0, "internvl: the profiler saw the pixels-to-answer run's device operations")
+    chk.expect(prof["launches"] > 0, f"{tag}: the profiler saw the pixels-to-answer run's device operations")
 
-    # The LLM alone on a coherent synthetic video spliced into the same
-    # interleaved prompt (0.45 of each frame's tokens resemble the previous
-    # frame's): it must prune, with kernel B at one capture row and 32 / 8
-    # heads over a window holding the frame labels.
-    h, _, _, _ = build_video_prompt(np.random.default_rng(12), cfg.hidden_size, n_frames=INTERNVL_FRAMES,
-                                    patch_num=vcfg.tokens_per_image, n_pre=0, n_post=0, coherent=0.45)
-    inp_c = pipe.build_inputs(QUESTION, video_features=torch.from_numpy(h).reshape(INTERNVL_FRAMES, -1, h.shape[1]))
+    inp_c = pipe.build_inputs(QUESTION, video_features=coherent)
     args_c = (inp_c.input_embeds, inp_c.patch_type, inp_c.position_ids, inp_c.patch_num, inp_c.image_token_start,
               inp_c.image_token_length)
     b_log = CallLog(fp, {"flash_causal_attention_importance":
@@ -2180,19 +2247,22 @@ def phase_internvl(chk: Checks, kernels: dict, ctx: dict) -> None:
     b_rows = b_log.counts()
     merge0 = next(e for e in ev_c if e[0] == -1)
     prune = next((e for e in ev_c if e[1] == "prune"), None)
-    log(f"  coherent prompt ({len(inp_c.patch_type)} tokens): events {ev_c}, buckets "
+    log(f"  coherent prompt ({len(inp_c.patch_type)} tokens, patch_num {inp_c.patch_num}): events {ev_c}, buckets "
         f"{[e.bucket for e in res_c.telemetry.events]}, final length {res_c.valid_len}; tokens after the layer -1 "
         f"merge {merge0[3]}, after the prune {None if prune is None else prune[3]}; kernel B calls by (capture rows, "
         f"S, Hq, Hk) {b_rows}; kernel A by (S, mask) {c_log.counts()}; launches {counts_c}")
     phase_s = bucket_length(merge0[3], eng.ff.bucket)
-    chk.expect(prune is not None, "internvl coherent prompt: the prefill prunes")
+    chk.expect(prune is not None, f"{tag} coherent prompt: the prefill prunes")
+    heads = (cfg.num_heads, cfg.num_kv_heads)
     chk.expect(counts_c["attn_importance_rows"] >= 1 and sum(b_rows.values()) == counts_c["attn_importance_rows"]
-               and all(k == (1, phase_s, 32, 8) for k in b_rows),
-               f"internvl coherent prompt: kernel B launched with 1 capture row, Hq 32 / Hk 8, at the phase length "
-               f"{phase_s} ({b_rows})")
-    res_cp = eng.prefill(*args_c, mode="planned")
-    chk.expect(_events(res_cp) == ev_c and res_cp.mode == "planned",
-               f"internvl coherent prompt: planned ({res_cp.mode}) makes fused's events")
+               and all(k == (1, phase_s) + heads for k in b_rows),
+               f"{tag} coherent prompt: kernel B launched with 1 capture row, Hq {heads[0]} / Hk {heads[1]}, at the "
+               f"phase length {phase_s} ({b_rows})")
+    for mode in ("planned", "segmented"):
+        res_m = eng.prefill(*args_c, mode=mode)
+        chk.expect(_events(res_m) == ev_c and res_m.mode == mode,
+                   f"{tag} coherent prompt: {mode} ({res_m.mode}) makes fused's events")
+        del res_m
     t_c = cuda_time_ms(lambda: eng.prefill(*args_c, mode="fused"), iters=2, warmup=1)
     t_cd = cuda_time_ms(lambda: eng.prefill(*args_c, mode="dense"), iters=2, warmup=1)
     log(f"  coherent prompt prefill ms (mean of 2): fused {t_c:.2f}, dense {t_cd:.2f}, dense / fused {t_cd / t_c:.3f}")
@@ -2200,8 +2270,9 @@ def phase_internvl(chk: Checks, kernels: dict, ctx: dict) -> None:
     # Weight-only int8 decode as the captured graph: the layer weights become
     # int8 pairs in place (the bf16 model is gone after this).
     ff = eng.ff
-    del eng, pipe, model
-    params_q = quantize_params_int8(params)
+    pipe.model._engine = None
+    del eng, res, inputs, args
+    params_q = quantize_params_int8(pipe.model.params)
     eng_q = CompressionEngine(params_q, cfg, ff)
     _zero_counts(wrappers)
     with _c_log(mv) as q_log:
@@ -2231,24 +2302,29 @@ def phase_internvl(chk: Checks, kernels: dict, ctx: dict) -> None:
         f"at {floor_ms / (sum(readings) / 2):.3f} of it)")
     chk.expect(len(toks_q) == 8 and all(0 <= t < cfg.vocab_size for t in toks_q)
                and all(counts_q[n] > 0 for n in ("gemv_stacked", "gemv_gateup", "ragged_decode_attn")),
-               "internvl: int8 decode graph (C, D, G), 8 tokens in the vocabulary")
+               f"{tag}: int8 decode graph (C, D, G), 8 tokens in the vocabulary")
     log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    n0, s_view = int(res_c.layer_caches[0][2]), int(graph.k_pool.shape[1])
+    trailing = int(len(inp_c.patch_type) - inp_c.image_token_start - inp_c.image_token_length)
+    graph.busy = False
+    del graph, eng_q, res_c, inp_c, args_c
+    params_q.clear()  # the model is gone: the rows below take the card's memory
+    torch.cuda.empty_cache()
 
     # The kernel rows at the shapes these runs gave each kernel.
     gen = torch.Generator(device="cuda").manual_seed(12)
-    e = _e_row(chk, kernels, gen, INTERNVL_E_SHAPE, "internvl")
-    _set_launches(e, e_launches)
+    e = _e_row(chk, kernels, gen, e_shape, tag)
+    _set_launches(e, counts["bidir_attn_fwd"])
     for (s, masked), n in sorted(a_keys.items()):
         # A phase layer's dead keys: the bucket's padding and the tokens the
         # layer -1 merge took (the coherent prompt's share).
         dead = 1 - merge0[3] / s if masked else 0.0
-        label = (f"internvl phase layers: S {s}, key_valid with {dead:.0%} dead keys" if masked else
-                 f"internvl {'dense prefill' if s == s_prompt else 'tail'}: S {s}, no mask")
-        regime, _ = _a_regime(chk, kernels, gen, s, cfg.num_heads, cfg.num_kv_heads, dead, label)
-        regime.update(path="internvl")
+        label = (f"{tag} phase layers: S {s}, key_valid with {dead:.0%} dead keys" if masked else
+                 f"{tag} {'dense prefill' if s == s_prompt else 'tail'}: S {s}, no mask")
+        regime, _ = _a_regime(chk, kernels, gen, s, *heads, dead, label)
+        regime.update(path=tag)
         _set_launches(regime, n)
-    b = _b_row(chk, kernels, gen, phase_s, merge0[3], 1, cfg.num_heads, cfg.num_kv_heads,
-               int(len(inp_c.patch_type) - inp_c.image_token_start - inp_c.image_token_length), "internvl")
+    b = _b_row(chk, kernels, gen, phase_s, merge0[3], 1, *heads, trailing, tag)
     _set_launches(b, counts_c["attn_importance_rows"])
     hid, inter, kv_w = cfg.hidden_size, cfg.intermediate_size, cfg.num_kv_heads * cfg.head_dim_
     widths = {"qkv": (hid, [hid, kv_w, kv_w]), "wo": (hid, [hid]), "w_down": (inter, [hid]),
@@ -2256,20 +2332,326 @@ def phase_internvl(chk: Checks, kernels: dict, ctx: dict) -> None:
     for wdtype in ("bf16", "int8"):
         for name, (kdim, ns) in widths.items():
             key = "gemv_gateup" if name == "gateup" else "gemv_stacked"
-            (row,) = _cd_rows(chk, kernels, gen, name, wdtype, kdim, ns, (1,), path="internvl")
+            (row,) = _cd_rows(chk, kernels, gen, name, wdtype, kdim, ns, (1,), path=tag)
             # bf16: the pixels-to-answer decode's launches; int8: the int8 decode graph's
             _set_launches(row, d_counts[wdtype] if key == "gemv_gateup"
                           else c_counts[wdtype].get((kdim, tuple(ns)), 0))
             kernels[key]["shapes"].append(row)
-    n0 = int(res_c.layer_caches[0][2])
-    g = _g_row(chk, kernels, gen, n0 + 1, int(graph.k_pool.shape[1]), cfg.num_heads, cfg.num_kv_heads, "internvl")
+    g = _g_row(chk, kernels, gen, n0 + 1, s_view, *heads, tag)
     _set_launches(g, counts_q["ragged_decode_attn"])
     rows = [e, b, g] + [x for n in ("flash_attn_fwd", "gemv_stacked", "gemv_gateup")
                         for x in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"]
-                        if x.get("path") == "internvl"]
+                        if x.get("path") == tag]
     chk.expect(all(r["launches"] > 0 for r in rows),
-               f"internvl: every row's shape was launched on this phase's path "
+               f"{tag}: every row's shape was launched on this phase's path "
                f"({[(r.get('regime', r.get('shape')), r['launches']) for r in rows]})")
+
+
+# -- NVILA-8B and MiniCPM-V 2.6 (phases 5d, 13 and 14) ----------------------------------
+
+# NVILA-8B at 64 frames: SigLIP-so400m at 448 px (32 x 32 patches, kernel E
+# at (16, 1,024, 16, 72) over 26 layers: feature_layer -2) and the
+# mlp_downsample connector (2 x 2 space-to-channel: 4,608 -> 3,584 ->
+# 3,584), 256 tokens a frame: a 16,384-token video span, the dense prefill
+# in kernel A's blocked regime. MiniCPM-V 2.6: SigLIP at its checkpoint's
+# native 980 px (70 x 70 = 4,900 patches, E at (16, 4,900, 16, 72) over all
+# 27 layers) and the resampler (64 queries, 28 heads of 128), 64 + 2
+# separator rows a frame: a 4,224-row span at patch_num 66. Both on the
+# Qwen2-7B backbone at the families' published S_th of 0.7.
+NVILA_FRAMES = MINICPMV_FRAMES = 64
+NVILA_E_SHAPE = (16, 1024, 16, 72)
+MINICPMV_E_SHAPE = (16, 4900, 16, 72)
+FAMILY_KNOBS = (0.3, 0.7, 0.1)
+
+
+def phase_nvila(chk: Checks, kernels: dict, ctx: dict) -> None:
+    """NVILA-8B at full width: pixels to answer, the coherent prompt that
+    prunes, the int8 decode graph and the kernel rows (``_family_phase``)."""
+    from framefusion_tpu_torch import native
+    from framefusion_tpu_torch.config import qwen2_7b_config
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.adapters.common import build_video_prompt
+    from framefusion_tpu_torch.models.vision import nvila_frontend, siglip
+    from framefusion_tpu_torch.pipeline import TextPipeline
+
+    ctx.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    native.load(required=True)
+    cfg = qwen2_7b_config()
+    vcfg = siglip.ViTConfig(image_size=448, dtype=torch.bfloat16)  # so400m: 27 layers, 1152 wide, 16 heads of 72
+    pcfg = nvila_frontend.NvilaProjectorConfig(vision_dim=vcfg.hidden_size, llm_dim=cfg.hidden_size)
+    t0 = time.perf_counter()
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))  # phase 4's weights
+    vit = siglip.init_params(vcfg, torch.Generator(device="cuda").manual_seed(1))
+    proj = nvila_frontend.init_projector(pcfg, torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    log(f"  random NVILA-8B: Qwen2-7B (phase 4's weights), SigLIP-so400m at 448 px and the mlp_downsample "
+        f"connector ({proj['w1'].shape[0]} -> {pcfg.llm_dim} -> {pcfg.llm_dim}, fp32) on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    model = apply_framefusion(FrameFusionModel(family="nvila", cfg=cfg, params=params), *FAMILY_KNOBS)
+    pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg,
+                        projector={"params": proj, "cfg": pcfg})
+    del model, params
+    n_img = NVILA_FRAMES * 256
+
+    def check_inputs(inputs):
+        s_prompt = int(inputs.input_embeds.shape[0])
+        return (inputs.patch_num == 256 and inputs.image_token_length == n_img > 8192
+                and int((inputs.patch_type >= 0).sum()) == n_img and inputs.num_importance_queries == 1,
+                f"{n_img} video tokens (64 x 256, space-to-channel of 32 x 32) of {s_prompt}, 1 importance row")
+
+    h, _, _, _ = build_video_prompt(np.random.default_rng(13), cfg.hidden_size, n_frames=NVILA_FRAMES,
+                                    patch_num=256, n_pre=0, n_post=0, coherent=0.45)
+    pipe.nvila_num_frames = NVILA_FRAMES  # beside precomputed features (the coherent prompt)
+    _family_phase(chk, kernels, tag="nvila", pipe=pipe,
+                  frames=coherent_frames(np.random.default_rng(0), NVILA_FRAMES, 360, 480),
+                  pre_shape=(NVILA_FRAMES, 448, 448, 3),
+                  encode=lambda px: nvila_frontend.encode_video(vit, vcfg, proj, pcfg, px),
+                  encode_label="64 preprocessed frames, 65,536 tower tokens to layer -2, the connector",
+                  e_shape=NVILA_E_SHAPE, e_launches=(vcfg.num_layers - 1) * NVILA_FRAMES // 16,
+                  e_label="26 layers x 4 batches of 16", check_inputs=check_inputs, coherent=torch.from_numpy(h))
+
+
+def phase_minicpmv(chk: Checks, kernels: dict, ctx: dict) -> None:
+    """MiniCPM-V 2.6 at full width: pixels to answer at 980 px (patch_num
+    66: the separators carry patch ids), the coherent prompt that prunes,
+    the int8 decode graph and the kernel rows (``_family_phase``)."""
+    from framefusion_tpu_torch import native
+    from framefusion_tpu_torch.config import qwen2_7b_config
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.adapters.common import build_video_prompt
+    from framefusion_tpu_torch.models.vision import minicpmv_frontend, siglip
+    from framefusion_tpu_torch.pipeline import TextPipeline
+
+    ctx.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    native.load(required=True)
+    cfg = qwen2_7b_config()
+    vcfg = siglip.ViTConfig(image_size=980, dtype=torch.bfloat16)  # 70 x 70 patches, 27 layers
+    rcfg = minicpmv_frontend.ResamplerConfig(embed_dim=cfg.hidden_size, num_heads=cfg.hidden_size // 128,
+                                             kv_dim=vcfg.hidden_size)  # 64 queries, 28 heads of 128, fp32
+    t0 = time.perf_counter()
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))  # phase 4's weights
+    vit = siglip.init_params(vcfg, torch.Generator(device="cuda").manual_seed(1))
+    res_params = minicpmv_frontend.init_params(rcfg, torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    log(f"  random MiniCPM-V 2.6: Qwen2-7B (phase 4's weights), SigLIP at 980 px and the resampler "
+        f"({rcfg.num_queries} queries, {rcfg.num_heads} heads, fp32) on the card in {time.perf_counter() - t0:.1f} s")
+    model = apply_framefusion(FrameFusionModel(family="minicpmv", cfg=cfg, params=params,
+                                               vision={"kind": "minicpmv", "cfg": vcfg, "params": vit,
+                                                       "projector": {"params": res_params, "cfg": rcfg}}),
+                              *FAMILY_KNOBS)
+    pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg,
+                        projector={"params": res_params, "cfg": rcfg})
+    del model, params
+    tpf = rcfg.num_queries + 2
+
+    def check_inputs(inputs):
+        s_prompt = int(inputs.input_embeds.shape[0])
+        span = inputs.patch_type[inputs.image_token_start:inputs.image_token_start + inputs.image_token_length]
+        return (inputs.patch_num == tpf and inputs.image_token_length == MINICPMV_FRAMES * tpf
+                and np.array_equal(span, np.tile(np.arange(tpf), MINICPMV_FRAMES)),
+                f"{inputs.image_token_length} span rows (64 x (64 resampled + 2 separators), the separators' patch "
+                f"ids 64 and 65), patch_num {inputs.patch_num}, of {s_prompt}")
+
+    h, _, _, _ = build_video_prompt(np.random.default_rng(14), cfg.hidden_size, n_frames=MINICPMV_FRAMES,
+                                    patch_num=rcfg.num_queries, n_pre=0, n_post=0, coherent=0.45)
+    _family_phase(chk, kernels, tag="minicpmv", pipe=pipe,
+                  frames=coherent_frames(np.random.default_rng(0), MINICPMV_FRAMES, 360, 480),
+                  pre_shape=(MINICPMV_FRAMES, 980, 980, 3),
+                  encode=lambda px: minicpmv_frontend.encode_video(vit, vcfg, res_params, rcfg, px),
+                  encode_label="64 preprocessed frames, 313,600 tower tokens, the resampler",
+                  e_shape=MINICPMV_E_SHAPE, e_launches=vcfg.num_layers * MINICPMV_FRAMES // 16,
+                  e_label="27 layers x 4 batches of 16", check_inputs=check_inputs,
+                  coherent=torch.from_numpy(h).reshape(MINICPMV_FRAMES, rcfg.num_queries, h.shape[1]))
+
+
+def numpy_nvila_projector(vision_dim: int, llm_dim: int, seed: int, scale: float) -> dict:
+    """Random mlp_downsample connector (LayerNorm, Linear, GELU, Linear) drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    din = vision_dim * 4
+    return {"ln_w": np.ones(din, np.float32), "ln_b": np.zeros(din, np.float32),
+            "w1": rng.standard_normal((din, llm_dim), dtype=np.float32) * np.float32(scale),
+            "b1": np.zeros(llm_dim, np.float32),
+            "w2": rng.standard_normal((llm_dim, llm_dim), dtype=np.float32) * np.float32(scale),
+            "b2": np.zeros(llm_dim, np.float32)}
+
+
+def numpy_resampler_params(rcfg, seed: int, scale: float) -> dict:
+    """Random MiniCPM-V resampler drawn with numpy (LayerNorms at 1 / 0, biases 0)."""
+    rng = np.random.default_rng(seed)
+    d = rcfg.embed_dim
+
+    def norm(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    out = {"query": norm(rcfg.num_queries, d), "w_kv": norm(rcfg.kv_dim, d), "proj": norm(d, d)}
+    for name in ("q", "k", "v", "o"):
+        out[f"w_{name}"], out[f"b_{name}"] = norm(d, d), np.zeros(d, np.float32)
+    for ln in ("ln_q", "ln_kv", "ln_post"):
+        out[f"{ln}_w"], out[f"{ln}_b"] = np.ones(d, np.float32), np.zeros(d, np.float32)
+    return out
+
+
+def block_images(rng: np.random.Generator, n: int, side: int, block: int) -> np.ndarray:
+    """uint8 (n, side, side, 3) images of ``block``-pixel noise blocks: each
+    block, in raster order across the images, copies the one before it with
+    probability 1/2 and is new noise otherwise. With ``block`` the
+    connector's 2 x 2 patches, a token then equals the token before it up
+    to its position embedding, or is unrelated: the similarities of a
+    multi-image prompt (``patch_num = 1``) fall far from the threshold."""
+    per = side // block
+    tiles, prev = [], None
+    for _ in range(n * per * per):
+        prev = prev if prev is not None and rng.random() < 0.5 else rng.integers(0, 256, (block, block, 3))
+        tiles.append(prev)
+    grid = np.asarray(tiles).reshape(n, per, per, block, block, 3).transpose(0, 1, 3, 2, 4, 5)
+    return grid.reshape(n, side, side, 3).astype(np.uint8)
+
+
+def tiny_families_run(device: str, dtype: torch.dtype) -> dict:
+    """The tiny runs of phase 5d on one device, weights drawn with numpy: a
+    6-layer Qwen2 LLM (``readout_params``; 4 / 2 heads of 128) and a SigLIP
+    tower of head dim 72 (288 wide, 4 heads, 3 layers, 56 px: 8 x 8
+    patches) through each family's frontend and prompt:
+
+    * ``nvila_video``: TextPipeline.ask on 12 uint8 frames (the connector's
+      16 tokens a frame);
+    * ``nvila_multi_image``: 8 block images, each through the connector,
+      spliced by ``build_prefill_inputs_multi_image`` (patch_num 1), then
+      ``generate``;
+    * ``minicpmv``: TextPipeline.ask on 12 frames that repeat or change
+      whole (the resampler's 8 tokens + 2 separators a frame);
+    * ``llava_next_video``: 12 half-static frames through the tower, the
+      LLaVA projector and 2 x 2 pooling (16 tokens a frame, no newline
+      rows), patch ids from the family's own adapter
+      (``llava_next_video.build_prefill_inputs``: ViT patches / pool
+      kernel^2 a frame), then ``generate``.
+
+    Returns per run the features, events, cache lengths, tokens, prefill
+    logits and layer 0's cached keys (fp32 on the CPU), and E's and B's
+    launches."""
+    from framefusion_tpu_torch.config import tiny_llm_config
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.adapters import llava_next_video, nvila
+    from framefusion_tpu_torch.models.adapters.common import splice_embeddings
+    from framefusion_tpu_torch.models.vision import llava_frontend, minicpmv_frontend, nvila_frontend, siglip
+    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.pipeline import DEFAULT_TEMPLATE, TextPipeline
+
+    cfg = tiny_llm_config(num_layers=6, hidden_size=512, intermediate_size=1024, num_heads=4, num_kv_heads=2,
+                          dtype=dtype)
+    vcfg = siglip.ViTConfig(image_size=56, patch_size=7, hidden_size=288, intermediate_size=576, num_layers=3,
+                            num_heads=4, dtype=dtype)
+    params = _cast_floats(qwen2.params_from_numpy(readout_params(cfg, seed=0, resid_scale=0.03), device), dtype)
+    vit = _cast_floats(siglip.params_from_numpy(numpy_vit_params(vcfg, seed=1, scale=0.05, resid_scale=0.005),
+                                                device), dtype)
+    pcfg = nvila_frontend.NvilaProjectorConfig(vision_dim=vcfg.hidden_size, llm_dim=cfg.hidden_size)
+    proj = nvila_frontend.projector_from_numpy(numpy_nvila_projector(vcfg.hidden_size, cfg.hidden_size, 2, 0.05),
+                                               device)
+    rcfg = minicpmv_frontend.ResamplerConfig(num_queries=8, embed_dim=cfg.hidden_size, num_heads=4,
+                                             kv_dim=vcfg.hidden_size)
+    res_params = minicpmv_frontend.params_from_numpy(numpy_resampler_params(rcfg, 3, 0.05), device)
+
+    def model_of(family, s_th=0.95):
+        m = apply_framefusion(FrameFusionModel(family=family, cfg=cfg, params=params), 0.3, s_th, 0.1)
+        m.ff = m.ff.replace(schedule_num_layers=cfg.num_layers, bucket=32)
+        return m
+
+    def launches():
+        return ba.bidir_attn_fwd.launches, fp.attn_importance_rows.launches
+
+    def result(feats, res, toks, before):
+        k0, _, n0 = res.layer_caches[0]
+        after = launches()
+        return dict(feats=feats.float().cpu(), events=[(e.layer, e.kind, e.tokens_removed)
+                                                       for e in res.telemetry.events],
+                    lens=[c[2] for c in res.layer_caches], tokens=toks, logits=res.logits.float().cpu(),
+                    keys=k0[:n0].float().cpu(), e=after[0] - before[0], b=after[1] - before[1])
+
+    out = {}
+    pipe = TextPipeline(model=model_of("nvila"), tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg,
+                        projector={"params": proj, "cfg": pcfg})
+    frames = half_static_frames(np.random.default_rng(8), 12, 112, 140)
+    before = launches()
+    feats = nvila_frontend.encode_video(vit, vcfg, proj, pcfg, pipe._prepare_frames(frames))
+    toks = [int(t) for t in pipe.ask(QUESTION, frames=frames, max_new_tokens=8).split()]
+    out["nvila_video"] = result(feats, pipe.last_result, toks, before)
+
+    images = pipe._prepare_frames(block_images(np.random.default_rng(9), 8, vcfg.image_size, 2 * vcfg.patch_size))
+    before = launches()
+    per_image = [nvila_frontend.encode_video(vit, vcfg, proj, pcfg, images[i:i + 1]).float() for i in range(8)]
+    pre, _, post = DEFAULT_TEMPLATE.format(question=QUESTION).partition("<image>")
+    ids_pre = StubTokenizer().encode(pre)
+    text = pipe._embed_ids(ids_pre + [TextPipeline.PLACEHOLDER_ID] + StubTokenizer().encode(post))
+    inputs = nvila.build_prefill_inputs_multi_image(text, per_image, len(ids_pre))
+    # A copied block's token sits near 0.97 from the one before it, a new one near 0.
+    toks, res = model_of("nvila", s_th=0.8).generate(inputs, max_new_tokens=8)
+    out["nvila_multi_image"] = result(torch.cat(per_image), res, toks, before)
+
+    rng = np.random.default_rng(10)
+    scenes = [rng.integers(0, 256, (vcfg.image_size, vcfg.image_size, 3)) for _ in range(6)]
+    frames = np.stack([scenes[i] for i in (0, 0, 1, 1, 1, 2, 3, 3, 4, 4, 4, 5)]).astype(np.uint8)
+    pipe = TextPipeline(model=model_of("minicpmv"), tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg,
+                        projector={"params": res_params, "cfg": rcfg})
+    before = launches()
+    feats = minicpmv_frontend.encode_video(vit, vcfg, res_params, rcfg, pipe._prepare_frames(frames))
+    toks = [int(t) for t in pipe.ask(QUESTION, frames=frames, max_new_tokens=8).split()]
+    out["minicpmv"] = result(feats, pipe.last_result, toks, before)
+    out["minicpmv"]["patch_num"] = pipe.build_inputs(QUESTION, frames=frames).patch_num
+
+    lproj = _cast_floats(llava_frontend.params_from_numpy(
+        numpy_projector(vcfg.hidden_size, cfg.hidden_size, seed=4, scale=0.05), device), dtype)
+    pipe = TextPipeline(model=model_of("llava_next_video"), tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg)
+    pixels = pipe._prepare_frames(half_static_frames(np.random.default_rng(11), 12, 112, 140))
+    before = launches()
+    tower = llava_frontend.project(lproj, siglip.encode(vit, pixels, vcfg, feature_layer=-2))
+    grid, _ = llava_frontend.pool_2d(tower, vcfg.patches_per_side)
+    feats = grid.reshape(-1, cfg.hidden_size)
+    ids = ids_pre + [TextPipeline.PLACEHOLDER_ID] + StubTokenizer().encode(post)
+    embeds = splice_embeddings(pipe._embed_ids(ids), len(ids_pre), feats.to(torch.float32))
+    mask = np.zeros(embeds.shape[0], bool)
+    mask[len(ids_pre):len(ids_pre) + feats.shape[0]] = True
+    inputs = llava_next_video.build_prefill_inputs(embeds, mask, num_vit_patches=vcfg.patches_per_side ** 2)
+    toks, res = pipe.model.generate(inputs, max_new_tokens=8)
+    out["llava_next_video"] = result(feats, res, toks, before)
+    out["llava_next_video"]["patch_num"] = inputs.patch_num
+    return out
+
+
+def phase_cross_families(chk: Checks) -> None:
+    cpu = tiny_families_run("cpu", torch.bfloat16)
+    gpu = tiny_families_run("cuda", torch.bfloat16)
+    chk.expect(cpu["minicpmv"]["patch_num"] == gpu["minicpmv"]["patch_num"] == 10,
+               "cross minicpmv: patch_num 10 (8 resampled tokens + 2 separators a frame)")
+    chk.expect(cpu["llava_next_video"]["patch_num"] == gpu["llava_next_video"]["patch_num"] == 16,
+               "cross llava_next_video: patch_num 16 (64 ViT patches / a 2 x 2 pool kernel)")
+    for name in cpu:
+        c, g = cpu[name], gpu[name]
+        log(f"  {name}: cpu events {c['events']} tokens {c['tokens']}; cuda events {g['events']} tokens {g['tokens']}")
+        for what, label, bound in (("feats", "frontend features (SigLIP at head dim 72)", FEATURE_RTOL),
+                                   ("logits", "prefill logits", LOGIT_RTOL),
+                                   ("keys", "layer 0's cached keys (the merge's keep set, in order)", LOGIT_RTOL)):
+            same = c[what].shape == g[what].shape
+            rel = float((c[what] - g[what]).abs().max() / c[what].abs().max()) if same else math.inf
+            chk.expect(rel <= bound, f"cross {name}: {label} differ by {rel:.3e} of their largest <= {bound}")
+        chk.expect(c["events"] == g["events"] and c["lens"] == g["lens"],
+                   f"cross {name}: events and cache lengths equal")
+        chk.expect(c["tokens"] == g["tokens"], f"cross {name}: greedy tokens equal")
+        chk.expect(len(set(g["tokens"])) >= 3, f"cross {name}: the tokens vary ({len(set(g['tokens']))} distinct)")
+        chk.expect(any(e[1].startswith("merge") and e[2] for e in c["events"]),
+                   f"cross {name}: the scenario merges ({c['events']})")
+        chk.expect(c["e"] == 0 and g["e"] > 0, f"cross {name}: kernel E launched on the card only "
+                                               f"({g['e']} launches)")
+        if c["b"] is not None and any(e[1] == "prune" for e in c["events"]):
+            chk.expect(c["b"] == 0 and g["b"] > 0, f"cross {name}: kernel B launched on the card only "
+                                                   f"({g['b']} launches)")
 
 
 def _shape_entry(kernel: dict, tag: str) -> dict:
@@ -2924,9 +3306,10 @@ def kernels_table() -> dict:
     kernels["flash_attn_fwd"]["regimes"] = []
     kernels["gemv_stacked"]["shapes"] = []
     kernels["gemv_gateup"]["shapes"] = []  # its rows at the batched decode's B
-    kernels["bidir_attn_fwd"]["shapes"] = []  # the Qwen2-VL-7B (phase 11) and InternViT-300M (phase 12) towers
-    kernels["attn_importance_rows"]["shapes"] = []  # Qwen2-VL's 4 capture rows (11), InternLM2's one (12)
-    kernels["ragged_decode_attn"]["shapes"] = []  # InternLM2's 8 KV heads (phase 12)
+    # The towers of phases 11-14: Qwen2-VL-7B's, InternViT-300M's, SigLIP at 448 and 980 px.
+    kernels["bidir_attn_fwd"]["shapes"] = []
+    kernels["attn_importance_rows"]["shapes"] = []  # Qwen2-VL's 4 capture rows (11), one in phases 12-14
+    kernels["ragged_decode_attn"]["shapes"] = []  # the decodes of phases 12-14
     return kernels
 
 
@@ -2955,12 +3338,14 @@ def main() -> int:
               "decode": lambda: phase_decode(chk, kernels, ctx), "graph": lambda: phase_graph(chk, kernels, ctx),
               "cross_vision": lambda: phase_cross_vision(chk), "cross_qwen2vl": lambda: phase_cross_qwen2vl(chk),
               "cross_internvl": lambda: phase_cross_internvl(chk),
+              "cross_families": lambda: phase_cross_families(chk),
               "pixels": lambda: phase_pixels(chk, kernels),
               "cross_baselines": lambda: phase_cross_baselines(chk),
               "baselines": lambda: phase_baselines(chk, kernels), "batch": lambda: phase_batch(chk, kernels, ctx),
               "spec_serve": lambda: phase_spec_serve(chk, kernels, ctx),
               "qwen2vl": lambda: phase_qwen2vl(chk, kernels, ctx),
-              "internvl": lambda: phase_internvl(chk, kernels, ctx)}
+              "internvl": lambda: phase_internvl(chk, kernels, ctx),
+              "nvila": lambda: phase_nvila(chk, kernels, ctx), "minicpmv": lambda: phase_minicpmv(chk, kernels, ctx)}
     t_start = time.perf_counter()
     for phase, run in phases.items():
         log(f"== {phase} ({time.perf_counter() - t_start:.1f} s)")
@@ -2980,11 +3365,12 @@ def main() -> int:
                              "ragged_decode_attn")
                    for e in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"] for f, v in e.items()
                    if v is None and not (f == "library_ms" and (n in no_library or "int8" in str(e.get("shape"))))]
-    unmeasured += [f"{n}.{path} shape" for n, paths in (("bidir_attn_fwd", ("qwen2vl", "internvl")),
-                                                        ("attn_importance_rows", ("qwen2vl", "internvl")),
-                                                        ("flash_attn_fwd", ("internvl",)), ("gemv_stacked", ("internvl",)),
-                                                        ("gemv_gateup", ("internvl",)),
-                                                        ("ragged_decode_attn", ("internvl",)))
+    family_paths = ("internvl", "nvila", "minicpmv")
+    unmeasured += [f"{n}.{path} shape" for n, paths in (("bidir_attn_fwd", ("qwen2vl",) + family_paths),
+                                                        ("attn_importance_rows", ("qwen2vl",) + family_paths),
+                                                        ("flash_attn_fwd", family_paths), ("gemv_stacked", family_paths),
+                                                        ("gemv_gateup", family_paths),
+                                                        ("ragged_decode_attn", family_paths))
                    for path in paths
                    if not any(e.get("path") == path for e in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"])]
     unmeasured += [f"{n}.batch_launches" for n in ("flash_attn_fwd", "attn_importance_rows", "gemv_stacked",

@@ -2,10 +2,10 @@
 
 Port of ``framefusion_tpu.interface``: ``apply_framefusion`` returns a new,
 configured ``FrameFusionModel`` whose engine runs the compressed prefill —
-the reference's three knobs, no mutation. This package runs the LLaVA-Video /
-Qwen2 families (1D RoPE), Qwen2-VL (mRoPE: (3, S) position ids, 4
-importance rows) and InternVL (the InternLM2 backbone: no qkv bias); the
-other families' adapters are refused.
+the reference's three knobs, no mutation. Every family of ``FAMILIES`` has
+its adapter: the Qwen2-backed LLaVA-Video, LLaVA-NeXT-Video, MiniCPM-V and
+NVILA (1D RoPE), Qwen2-VL (mRoPE: (3, S) position ids, 4 importance rows)
+and InternVL (the InternLM2 backbone: no qkv bias).
 """
 
 from __future__ import annotations
@@ -154,10 +154,6 @@ def _check_speculative(speculative: bool, sampler) -> None:
         raise ValueError("speculative decoding is greedy only: pass no sampler")
 
 
-# Adapters ported so far; the others wait for ROADMAP item "The other families".
-_PORTED_ADAPTERS = ("llava_video", "qwen2_vl", "internvl")
-
-
 def get_token_type(family: str):
     """The family's prompt-metadata module: the adapter, whose
     ``build_prefill_inputs`` derives the patch types without enabling
@@ -166,11 +162,7 @@ def get_token_type(family: str):
 
     if family not in FAMILIES:
         raise NotImplementedError(f"Model family not supported: {family}")
-    module = FAMILIES[family].adapter_module
-    if module not in _PORTED_ADAPTERS:
-        raise NotImplementedError(f"{family}: its adapter is not ported to PyTorch yet "
-                                  '(ROADMAP item "The other families")')
-    return importlib.import_module(f".models.adapters.{module}", __package__)
+    return importlib.import_module(f".models.adapters.{FAMILIES[family].adapter_module}", __package__)
 
 
 def apply_framefusion(model, cost, similarity_lower_bound, ratio_lower_bound):

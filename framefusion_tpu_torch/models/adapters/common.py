@@ -45,6 +45,16 @@ def contiguous_patch_type(total_len: int, start: int, patch_num: int, n_frames: 
     return pt
 
 
+def image_span(patch_type: np.ndarray):
+    """(start, end, length) of the image-token span: the first and last
+    non-negative patch ids (the argmax over the flipped mask of the
+    MiniCPM-V and NVILA hooks)."""
+    is_img = np.asarray(patch_type) >= 0
+    start = int(np.argmax(is_img))
+    end = len(is_img) - 1 - int(np.argmax(is_img[::-1]))
+    return start, end, end - start + 1
+
+
 def build_video_prompt(rng: np.random.Generator, hidden: int, n_frames: int = 64, patch_num: int = 182,
                        n_pre: int = 35, n_post: int = 14, coherent: float = 0.45):
     """Synthetic LLaVA-Video-style prompt (numpy copy of ``bench.build_video_prompt``).

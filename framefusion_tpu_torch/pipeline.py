@@ -1,10 +1,10 @@
 """Text-level pipeline: checkpoint + tokenizer + frames -> answer text
-(port of ``framefusion_tpu.pipeline``, the LLaVA-Video / Qwen2, Qwen2-VL
-and InternVL families).
+(port of ``framefusion_tpu.pipeline``, every family of ``FAMILIES``).
 
 Given a tokenizer (HF AutoTokenizer or anything with encode/decode), LLM
 params, a vision tower and frames, it builds the family's chat prompt,
-encodes the frames (preprocess -> SigLIP -> LLaVA frontend; preprocess at
+encodes the frames (preprocess -> SigLIP -> the LLaVA frontend, NVILA's
+``mlp_downsample`` connector or MiniCPM-V's resampler; preprocess at
 ``smart_resize``'s geometry -> the Qwen2-VL tower; or preprocess to 448x448
 -> InternViT -> pixel shuffle -> ``mlp1``), splices the video features at
 the media placeholders, runs the (compressed) prefill and greedy decode,
@@ -21,7 +21,7 @@ import torch
 
 from .interface import FrameFusionModel
 from .models import qwen2
-from .models.adapters import internvl, llava_video, qwen2_vl
+from .models.adapters import internvl, llava_video, minicpmv, nvila, qwen2_vl
 
 DEFAULT_TEMPLATE = (
     "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n"
@@ -43,19 +43,18 @@ INTERNVL_TEMPLATE = "<|im_start|>user\n{video_prefix}{question}<|im_end|>\n<|im_
 
 FAMILY_TEMPLATES = {"qwen2_vl": QWEN2_VL_TEMPLATE, "internvl": INTERNVL_TEMPLATE}
 
-# Families whose prompt building the JAX pipeline has and this one does not yet.
-_NOT_PORTED = {
-    "minicpmv": 'ROADMAP item "The other families" (minicpmv and its frontend)',
-    "nvila": 'ROADMAP item "The other families" (nvila and its frontend)',
-}
-
 
 @dataclasses.dataclass
 class TextPipeline:
     """End-to-end video QA. Prompt building dispatches on ``model.family``:
 
-      * LLaVA-Video / Qwen2-stack families: chat template with one
-        ``<image>`` placeholder, frame-major feature block;
+      * LLaVA-Video / LLaVA-NeXT-Video: chat template with one ``<image>``
+        placeholder, frame-major feature block;
+      * ``nvila``: the same one block (SigLIP + the ``mlp_downsample``
+        connector's tokens, or precomputed features with the
+        ``nvila_num_frames`` attribute set);
+      * ``minicpmv``: each frame's resampled block followed by two separator
+        rows, the frames' bounds giving the adapter its geometry;
       * ``qwen2_vl``: the vision span at ``<|video_pad|>`` with 3D mRoPE
         position ids from the video grid (the tower's, or ``video_grid_thw``
         beside precomputed features);
@@ -140,9 +139,6 @@ class TextPipeline:
         geometry in-repo (preprocess.py); float frames are taken as already
         preprocessed. ``video_grid_thw`` goes with precomputed Qwen2-VL
         ``video_features``."""
-        if self.model.family in _NOT_PORTED:
-            raise NotImplementedError(f"{self.model.family}: prompt building is not ported to PyTorch yet "
-                                      f"({_NOT_PORTED[self.model.family]})")
         self._prompt_ids_acc = []
         try:
             frames = self._prepare_frames(frames)
@@ -150,6 +146,10 @@ class TextPipeline:
                 inputs = self._build_qwen2_vl_inputs(question, frames, video_features, video_grid_thw)
             elif self.model.family == "internvl":
                 inputs = self._build_internvl_inputs(question, frames, video_features)
+            elif self.model.family == "minicpmv":
+                inputs = self._build_minicpmv_inputs(question, frames, video_features)
+            elif self.model.family == "nvila":
+                inputs = self._build_nvila_inputs(question, frames, video_features)
             else:
                 inputs = self._build_llava_inputs(question, frames, video_features)
         finally:
@@ -267,6 +267,71 @@ class TextPipeline:
                 embeds.append(feats[i])
                 mask.append(np.ones(tpf, bool))
         return internvl.build_prefill_inputs(torch.cat(embeds), np.concatenate(mask), tokens_per_frame=tpf)
+
+    def _build_minicpmv_inputs(self, question: str, frames, video_features):
+        """MiniCPM-V: each frame's resampled block at the ``<image>`` line,
+        followed by two separator rows (the first two ids of ``")\\n"``, the
+        ``(<image>./</image>)\\n`` suffix, padded with placeholders), one
+        bound a frame (reference modeling_minicpmv.py:80-107). Frames run
+        through SigLIP and the resampler (``projector={"params", "cfg"}``;
+        kernel E under ``attn_impl="flash"``); precomputed
+        ``video_features`` are (n_frames, tokens_per_frame, D)."""
+        if video_features is None:
+            from .models.vision.minicpmv_frontend import encode_video
+
+            if frames is None or self.vit_params is None or not self.projector:
+                raise ValueError("minicpmv needs frames with SigLIP (vit_params/vit_cfg) and a resampler "
+                                 "(projector={'params', 'cfg'}), or (n_frames, tokens_per_frame, D) video_features")
+            video_features = encode_video(self.vit_params, self.vit_cfg, self.projector["params"],
+                                          self.projector["cfg"], np.asarray(frames, np.float32),
+                                          attn_impl=self.model.attn_impl)
+        feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
+        if feats.ndim != 3:
+            raise ValueError(f"minicpmv video_features must be (n_frames, tokens_per_frame, D), got "
+                             f"{tuple(feats.shape)}")
+        n_frames, tpf, _ = feats.shape
+        prompt = self._render_prompt(f"{self.image_token}\n", question, self._template().format(question=question))
+        before, _, after = prompt.partition(self.image_token)
+        emb_before = self._embed_ids(list(self.tokenizer.encode(before)))
+        emb_after = self._embed_ids(list(self.tokenizer.encode(after)))
+        sep = self._embed_ids((list(self.tokenizer.encode(")\n")) + [self.PLACEHOLDER_ID] * 2)[:2])
+        chunks, bounds, cursor = [emb_before], [], emb_before.shape[0]
+        for f in range(n_frames):
+            chunks += [feats[f], sep]
+            bounds.append([cursor, cursor + tpf])
+            cursor += tpf + 2
+        chunks.append(emb_after)
+        return minicpmv.build_prefill_inputs(torch.cat(chunks), np.asarray(bounds), num_frames=n_frames)
+
+    def _build_nvila_inputs(self, question: str, frames, video_features):
+        """NVILA: one contiguous media block at the ``<image>`` placeholder
+        (reference llava_arch.py:85-104). Frames run through SigLIP to its
+        penultimate layer and the ``mlp_downsample`` connector
+        (``projector={"params", "cfg"}``; kernel E under
+        ``attn_impl="flash"``); precomputed (n_frames * patch_num, D)
+        ``video_features`` need the ``nvila_num_frames`` attribute."""
+        if video_features is None:
+            from .models.vision.nvila_frontend import encode_video
+
+            if frames is None or self.vit_params is None or not self.projector:
+                raise ValueError("nvila needs frames with SigLIP (vit_params/vit_cfg) and a connector "
+                                 "(projector={'params', 'cfg'}), or video_features with nvila_num_frames set")
+            frames = np.asarray(frames, np.float32)
+            video_features = encode_video(self.vit_params, self.vit_cfg, self.projector["params"],
+                                          self.projector["cfg"], frames, attn_impl=self.model.attn_impl)
+            n_frames = frames.shape[0]
+        else:
+            n_frames = getattr(self, "nvila_num_frames", None)
+            if not n_frames:
+                raise ValueError("set pipeline.nvila_num_frames with precomputed nvila video_features")
+        prompt = self._render_prompt(f"{self.image_token}\n", question, self._template().format(question=question))
+        before, _, after = prompt.partition(self.image_token)
+        ids_before = list(self.tokenizer.encode(before))
+        ids_after = list(self.tokenizer.encode(after))
+        text_embeds = self._embed_ids(ids_before + [self.PLACEHOLDER_ID] + ids_after)
+        feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
+        return nvila.build_prefill_inputs_video(text_embeds, feats, media_token_pos=len(ids_before),
+                                                num_frames=n_frames)
 
     def ask(self, question: str, frames=None, video_features=None, max_new_tokens: int = 64,
             eos_token_id: Optional[int] = None, video_grid_thw=None,

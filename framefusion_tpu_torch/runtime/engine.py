@@ -268,6 +268,29 @@ def _merge_decision(st: _PhaseState, count: int, ff: FrameFusionConfig):
     return k_marked, kind, above, budget
 
 
+def _host_merge_decision(st: _PhaseState, count: int, ff: FrameFusionConfig):
+    """The fused executor's layer -1 decision, in JAX's host arithmetic
+    (``_prefill_fused``'s pre-event compaction, ``compact_pre_event``; the
+    port's fused executor always compacts it): ``count / frame_tok`` and its
+    comparisons in float64 against the fp32 budget, the capped count
+    ``int(f32(budget) * f32(frame_tok))``, the fp32 ratio into the history.
+    It parts from the fp32 twin only where the fp32 ratio rounds onto the
+    budget: 18 / 30 against cost 0.4's budget of f32(0.6), say, a merge here
+    and capped in fp32."""
+    budget, infeasible = pruning_ratio_flagged(st.sparsity, ff.cost, ff.schedule_num_layers)
+    st.infeasible |= infeasible
+    above = count / st.frame_tok
+    if above < budget:
+        k_marked, kind = count, "merge"
+        st.sparsity.append(float(f32(above)))  # the history JAX hands its device phase: fp32
+        if above < ff.ratio_lower_bound:
+            st.fm = True
+    else:
+        k_marked, kind = int(f32(budget) * f32(st.frame_tok)), "merge_capped"
+        st.fm = st.fp = True
+    return k_marked, kind, above, budget
+
+
 class SegmentedEventState:
     """Merge/prune decisions of the segmented executor (JAX's class of the
     same name). Its merge arithmetic is Python float, as JAX's segmented
@@ -398,17 +421,20 @@ class CompressionEngine:
 
     # -- the phase -----------------------------------------------------------
 
-    def _pre_event(self, h, pt, pos, valid: int, st: _PhaseState, patch_num: int, new_len=None):
+    def _pre_event(self, h, pt, pos, valid: int, st: _PhaseState, patch_num: int, new_len=None,
+                   decide=_merge_decision):
         """Layer-0 pre-attention merge, compacted: returns (h, pt, pos, bucket).
 
         ``new_len`` is the planned executors' static bucket; None picks the
         bucket of the survivor count. Survivors past ``new_len`` are cut off
         (``st.n_live > new_len`` tells the caller, which falls back; the
-        lockstep batch runs such a sequence on, as JAX's does)."""
+        lockstep batch runs such a sequence on, as JAX's does). ``decide``:
+        the fp32 twin (the planned executors, as JAX's device programs) or
+        the fused executor's ``_host_merge_decision``."""
         ff = self.ff
         live = torch.arange(h.shape[0], device=h.device) < valid
         sim, order, count = _sim_count(h, pt, live, patch_num, ff.similarity_lower_bound)
-        k_marked, kind, above, budget = _merge_decision(st, count, ff)
+        k_marked, kind, above, budget = decide(st, count, ff)
         new_valid = valid - k_marked
         if new_len is None:
             new_len = bucket_length(new_valid, ff.bucket)
@@ -682,7 +708,7 @@ class CompressionEngine:
         if frame_tok0 > 0 and patch_num > 0:
             # The layer-0 merge is usually the largest single shrink: compact
             # after it so every phase layer runs at the smaller bucket.
-            h, pt, pos, _ = self._pre_event(h, pt, pos, orig_len, st, patch_num)
+            h, pt, pos, _ = self._pre_event(h, pt, pos, orig_len, st, patch_num, decide=_host_merge_decision)
             include_pre = False
         live = torch.arange(h.shape[0], device=h.device) < st.n_live
         h, live, layer_end, caches, _ = self._phase(

@@ -1,6 +1,7 @@
 """Weight import: HuggingFace hub checkpoints -> this package's params
-(port of ``framefusion_tpu.weights``, the ``llava_video``, ``qwen2_vl`` and
-``internvl`` families).
+(port of ``framefusion_tpu.weights``: the ``llava_video``,
+``llava_next_video``, ``minicpmv``, ``nvila``, ``qwen2_vl`` and ``internvl``
+families).
 
 Linear weights transpose from HF's (out, in) to (in, out), so the forward
 is plain ``x @ w``; layer weights stack along a leading layer axis. Entry
@@ -8,8 +9,9 @@ points: ``params_from_state_dict`` (any mapping name -> numpy array or
 tensor), ``params_from_state_dict_internlm2`` (InternLM2's fused ``wqkv``),
 ``load_state`` (safetensors shards of a checkpoint directory) and
 ``load_checkpoint`` (config.json + shards -> a ``FrameFusionModel`` with its
-vision tower attached: SigLIP and the LLaVA projector, the Qwen2-VL tower,
-or InternViT and the ``mlp1`` projector).
+vision tower attached: SigLIP and the LLaVA projector, MiniCPM-V's SigLIP
+and resampler, the Qwen2-VL tower, or InternViT and the ``mlp1`` projector;
+an NVILA checkpoint loads its LLM only, as in JAX).
 
 One difference from the JAX loader: the towers (and InternVL's projector)
 are loaded in the requested ``dtype`` (bf16 by default, which kernel E
@@ -43,14 +45,17 @@ _QWEN2_LAYER_KEYS = {
     "mlp.down_proj.weight": ("w_down", True),
 }
 
-# Architecture string (config.json ``architectures[0]``) -> family. The
-# llava_video, qwen2_vl and internvl families are ported; the others, and
-# Qwen2.5-VL (its window-attention tower), wait for
-# ROADMAP item "The other families".
-_ARCH_TO_FAMILY = {"LlavaQwenForCausalLM": "llava_video", "Qwen2VLForConditionalGeneration": "qwen2_vl",
+# Architecture string (config.json ``architectures[0]``) -> family. Qwen2.5-VL
+# (its window-attention tower) waits for ROADMAP item "The other families",
+# the MoE backbone (which the JAX map sends to llava_video) for ROADMAP item
+# "models/moe.py".
+_ARCH_TO_FAMILY = {"LlavaQwenForCausalLM": "llava_video",
+                   "LlavaNextVideoForConditionalGeneration": "llava_next_video", "MiniCPMV": "minicpmv",
+                   "LlavaLlamaModel": "nvila", "Qwen2VLForConditionalGeneration": "qwen2_vl",
                    "InternVLChatModel": "internvl"}
-_PORTED_FAMILIES = ("llava_video", "qwen2_vl", "internvl")
+_PORTED_FAMILIES = ("llava_video", "llava_next_video", "minicpmv", "nvila", "qwen2_vl", "internvl")
 _NOT_PORTED = 'is not ported to PyTorch yet (ROADMAP item "The other families")'
+_NOT_PORTED_ARCH = {"Qwen2MoeForCausalLM": 'is not ported to PyTorch yet (ROADMAP item "models/moe.py")'}
 
 
 def to_numpy(t) -> np.ndarray:
@@ -224,7 +229,8 @@ def llm_config_from_hf(cfg_dict: dict, dtype=torch.bfloat16):
     arch = (cfg_dict.get("architectures") or ["?"])[0]
     family = _ARCH_TO_FAMILY.get(arch)
     if family is None:
-        raise NotImplementedError(f"Model not supported\nArchitecture: {arch} {_NOT_PORTED}")
+        raise NotImplementedError(f"Model not supported\nArchitecture: {arch} "
+                                  f"{_NOT_PORTED_ARCH.get(arch, _NOT_PORTED)}")
     text = next((cfg_dict[key] for key in ("text_config", "llm_config") if isinstance(cfg_dict.get(key), dict)),
                 cfg_dict)
     rope_scaling = text.get("rope_scaling") or {}
@@ -309,11 +315,52 @@ def _load_internvl_vision(state: dict, cfg_dict: dict, llm_cfg: LLMConfig, devic
     return {"kind": "internvl_vit", "cfg": vit_cfg, "params": params, "projector": proj}
 
 
+def _siglip_config(vis_cfg: dict, default_image_size: int, dtype) -> "siglip.ViTConfig":
+    from .models.vision import siglip
+
+    img = vis_cfg.get("image_size", default_image_size)
+    return siglip.ViTConfig(
+        image_size=img if isinstance(img, int) else img[0],
+        patch_size=vis_cfg.get("patch_size", 14),
+        hidden_size=vis_cfg.get("hidden_size", 1152),
+        intermediate_size=vis_cfg.get("intermediate_size", 4304),
+        num_layers=vis_cfg.get("num_hidden_layers", 27),
+        num_heads=vis_cfg.get("num_attention_heads", 16),
+        dtype=dtype,
+    )
+
+
+def _load_minicpmv_vision(state: dict, cfg_dict: dict, llm_cfg: LLMConfig, device):
+    """MiniCPM-V's SigLIP tower (``vpm.``, in ``llm_cfg.dtype``) at the
+    checkpoint's own ``image_size`` (980 by default: the position table is
+    not interpolated, so frames take that one size) and its perceiver
+    ``resampler.`` (fp32, as in the JAX loader: ``query_num`` queries, the
+    LLM width, heads of 128); None when the checkpoint carries none or only
+    part of them (an LLM-only load)."""
+    from .models.vision import minicpmv_frontend, siglip
+
+    if not any(k.startswith("vpm.") for k in state):
+        return None
+    vit_cfg = _siglip_config(cfg_dict.get("vision_config") or {}, 980, llm_cfg.dtype)
+    res_cfg = minicpmv_frontend.ResamplerConfig(num_queries=cfg_dict.get("query_num", 64),
+                                                embed_dim=llm_cfg.hidden_size,
+                                                num_heads=max(llm_cfg.hidden_size // 128, 1),
+                                                kv_dim=vit_cfg.hidden_size)
+    try:
+        vit = siglip.params_from_hf(state, vit_cfg, prefix="vpm.", device=device)
+        res = minicpmv_frontend.params_from_remote(state, res_cfg, device=device)
+    except (KeyError, ValueError):
+        return None  # partial/unrecognized vision weights: LLM-only load
+    return {"kind": "minicpmv", "cfg": vit_cfg, "params": vit, "projector": {"params": res, "cfg": res_cfg}}
+
+
 def _load_vision(family: str, state: dict, cfg_dict: dict, llm_cfg: LLMConfig, device):
     """The family's vision tower: SigLIP and the LLaVA projector for
-    llava_video, the Qwen2-VL tower for qwen2_vl, InternViT and its
-    projector for internvl; None when the checkpoint carries no
-    (recognizable) vision weights."""
+    llava_video and llava_next_video, SigLIP and the resampler for minicpmv,
+    the Qwen2-VL tower for qwen2_vl, InternViT and its projector for
+    internvl; None when the checkpoint carries no (recognizable) vision
+    weights, and for nvila, whose connector the JAX loader does not load
+    either (its caller passes the tower and connector)."""
     from .models.vision import siglip
 
     vis_cfg = cfg_dict.get("vision_config") or {}
@@ -321,20 +368,14 @@ def _load_vision(family: str, state: dict, cfg_dict: dict, llm_cfg: LLMConfig, d
         return _load_qwen2_vl_vision(state, vis_cfg, llm_cfg, device)
     if family == "internvl":
         return _load_internvl_vision(state, cfg_dict, llm_cfg, device)
-    if not any("vision_tower" in k for k in state):
+    if family == "minicpmv":
+        return _load_minicpmv_vision(state, cfg_dict, llm_cfg, device)
+    if family not in ("llava_video", "llava_next_video") or not any("vision_tower" in k for k in state):
         return None
     try:
         tower_prefix = next(p for p in ("model.vision_tower.vision_tower.vision_model.", "vision_tower.vision_model.")
                             if any(k.startswith(p) for k in state))
-        vit_cfg = siglip.ViTConfig(
-            image_size=vis_cfg.get("image_size", 384),
-            patch_size=vis_cfg.get("patch_size", 14),
-            hidden_size=vis_cfg.get("hidden_size", 1152),
-            intermediate_size=vis_cfg.get("intermediate_size", 4304),
-            num_layers=vis_cfg.get("num_hidden_layers", 27),
-            num_heads=vis_cfg.get("num_attention_heads", 16),
-            dtype=llm_cfg.dtype,
-        )
+        vit_cfg = _siglip_config(vis_cfg, 384, llm_cfg.dtype)
         vit = siglip.params_from_hf(state, vit_cfg, prefix=tower_prefix, device=device)
         proj = None
         if "model.mm_projector.0.weight" in state:
@@ -359,11 +400,12 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
     ``quantize="int8"``: decoder matmul weights are quantized on the host
     during import, so the device never holds the bf16 originals. The vision
     tower, embeddings, norms and lm_head keep ``dtype``; the LLaVA projector
-    is fp32, as in the JAX loader, InternVL's ``mlp1`` takes ``dtype``. An
-    InternVL checkpoint's InternLM2 goes through
-    ``params_from_state_dict_internlm2``. ``Qwen2_5_VLForConditionalGeneration``
-    and a Qwen2.5-VL tower raise NotImplementedError. ``device=None`` loads onto the card and
-    raises without one; ``device="cpu"`` asks for the CPU.
+    and MiniCPM-V's resampler are fp32, as in the JAX loader, InternVL's
+    ``mlp1`` takes ``dtype``. An InternVL checkpoint's InternLM2 goes through
+    ``params_from_state_dict_internlm2``. ``Qwen2_5_VLForConditionalGeneration``,
+    a Qwen2.5-VL tower and ``Qwen2MoeForCausalLM`` raise NotImplementedError.
+    ``device=None`` loads onto the card and raises without one;
+    ``device="cpu"`` asks for the CPU.
     """
     from .interface import FAMILIES, FrameFusionModel
 

@@ -213,7 +213,9 @@ def test_port_imports_no_jax():
     code = ("import sys, framefusion_tpu_torch.interface, framefusion_tpu_torch.runtime.engine, "
             "framefusion_tpu_torch._build, framefusion_tpu_torch.config, framefusion_tpu_torch.weights, "
             "framefusion_tpu_torch.pipeline, framefusion_tpu_torch.models.vision.internvl_vit, "
-            "framefusion_tpu_torch.models.adapters.internvl; "
+            "framefusion_tpu_torch.models.adapters.internvl, framefusion_tpu_torch.models.vision.nvila_frontend, "
+            "framefusion_tpu_torch.models.vision.minicpmv_frontend, framefusion_tpu_torch.models.adapters.nvila, "
+            "framefusion_tpu_torch.models.adapters.minicpmv, framefusion_tpu_torch.models.adapters.llava_next_video; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'framefusion_tpu.')) or m == 'framefusion_tpu' "
             "for m in sys.modules), 'jax or the JAX package imported'")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -182,8 +182,12 @@ def test_public_entry_matches_jax(stacks):
     toks_t, res_t = tm.generate(PrefillInputs(**kw), max_new_tokens=5)
     assert toks_t == toks_j
     assert events(res_t) == events(res_j)
-    with pytest.raises(NotImplementedError, match='ROADMAP item "The other families"'):
-        get_token_type("minicpmv")
+    # Every family of FAMILIES has its adapter now; a name outside it is refused.
+    assert get_token_type("minicpmv").__name__ == "framefusion_tpu_torch.models.adapters.minicpmv"
+    with pytest.raises(NotImplementedError, match="not supported"):
+        get_token_type("gpt2")
+    with pytest.raises(NotImplementedError, match="not supported"):
+        FrameFusionModel(family="gpt2", cfg=tcfg, params=tp)
 
 
 def test_video_prompt_equals_bench():

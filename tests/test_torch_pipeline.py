@@ -133,35 +133,46 @@ def test_tokenizer_chat_template_matches_jax(pipes):
         "\nWhy?</user><bot>")
 
 
-def test_from_checkpoint_matches_jax(tmp_path):
+def test_from_checkpoint_matches_jax(tmp_path, monkeypatch):
     """Hub dir -> ask() in one call (AutoTokenizer over the fixture's
-    tokenizer.json, no network), fp32 on both sides."""
+    tokenizer.json, no network), fp32 on both sides. The fixture draws its
+    weights from ``hash(family)``, which changes with every process; a
+    module-level ``hash`` pins it, so the test runs on the same weights in
+    every process."""
     import jax.numpy as jnp
 
+    import checkpoint_fixtures
+
+    monkeypatch.setattr(checkpoint_fixtures, "hash", lambda s: 12345, raising=False)
     path = write_fixture(tmp_path, "llava_video")
     jpipe = JaxPipeline.from_checkpoint(path, cost=0.8, dtype=jnp.float32)
     tpipe = TextPipeline.from_checkpoint(path, cost=0.8, dtype=torch.float32, device="cpu")
     for pipe in (jpipe, tpipe):
         pipe.model.ff = pipe.model.ff.replace(schedule_num_layers=pipe.model.cfg.num_layers)
     assert tpipe.model.family == "llava_video" and tpipe.vit_params is not None
-    assert tpipe.model.ff.similarity_lower_bound == 0.6
+    assert tpipe.model.ff.similarity_lower_bound == 0.6 and tpipe.model.attn_impl == "flash"
     rng = np.random.default_rng(0)
     base = rng.standard_normal((1, 28, 28, 3)).astype(np.float32)
     frames = np.concatenate([base + 0.02 * rng.standard_normal(base.shape) for _ in range(4)]).astype(np.float32)
     assert_same_answer(jpipe, tpipe, frames=frames)
 
 
-def test_unported_paths_raise(pipes):
-    """The other families still raise; speculative decoding is ported: the
-    same answer as JAX's speculative ask and as the plain ask."""
+def test_unported_paths_raise(pipes, tmp_path):
+    """What stays refused still raises: a Qwen2.5-VL checkpoint at
+    ``from_checkpoint`` (ROADMAP item "The other families"); the families
+    this package now takes check their own inputs (MiniCPM-V's features are
+    per frame). Speculative decoding is ported: the same answer as JAX's
+    speculative ask and as the plain ask."""
     jpipe, tpipe = pipes
     feats = np.random.default_rng(3).standard_normal((18, 128)).astype(np.float32)
     answer = tpipe.ask("Q?", video_features=feats, max_new_tokens=8, speculative=True)
     assert answer == jpipe.ask("Q?", video_features=feats, max_new_tokens=8, speculative=True)
     assert answer == tpipe.ask("Q?", video_features=feats, max_new_tokens=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP item \"The other families\""):
+        TextPipeline.from_checkpoint(write_fixture(tmp_path, "qwen25_vl"), tokenizer=StubTokenizer(), device="cpu")
     other = TextPipeline(model=FrameFusionModel(family="minicpmv", cfg=tpipe.model.cfg, params=tpipe.model.params),
                          tokenizer=StubTokenizer())
-    with pytest.raises(NotImplementedError, match="ROADMAP item \"The other families\""):
+    with pytest.raises(ValueError, match="n_frames, tokens_per_frame"):
         other.ask("Q?", video_features=np.zeros((18, 128), np.float32))
     with pytest.raises(ValueError, match="vision tower"):
         TextPipeline(model=tpipe.model, tokenizer=StubTokenizer()).ask("Q?", frames=_uint8_frames(0, n=2))
