@@ -104,6 +104,17 @@ Phases, each printed as it runs; every run makes all of them:
              logits and layer 0's cached keys within the bf16 bounds; events,
              cache lengths and tokens equal; E (and B where it prunes)
              launched on the card only.
+5e. cross_qwen25vl — a tiny Qwen2.5-VL tower of head dim 80 (hidden 160,
+             2 heads, depth 3, block 1 full attention, the published patch
+             14 and window 112: on 12 frames of 112 x 140, grid (6, 8, 10),
+             a full and a ragged window a frame) and phase 5b's 6-layer
+             mRoPE LLM (``readout_params``), weights drawn with numpy,
+             through TextPipeline.ask on uint8 frames: plain versions on the
+             CPU, kernels on the card. Tower features, prefill logits and
+             layer 0's cached keys within the bf16 bounds of 5b / 5c;
+             events, cache lengths, the decode base and tokens equal; E
+             (once a full-attention block an encode) and B launched on the
+             card only.
 6. pixels  — pixels to answer at full width: random SigLIP-so400m tower,
              projector and Qwen2-7B (bf16), 64 uint8 frames at 360x480
              through the native preprocessing, the tower (kernel E), the
@@ -210,6 +221,29 @@ Phases, each printed as it runs; every run makes all of them:
              28 heads of 128, fp32); 64 frames -> a 4,224-row span (64
              resampled + 2 separator rows a frame, patch_num 66, the
              separators' ids 64 and 65); the rows ``"path": "minicpmv"``.
+15. qwen25vl — Qwen2.5-VL-7B at full size, as phases 12-14 run their
+             families: the published tower (depth 32, hidden 1280, 16 heads
+             of 80, intermediate 3420, patch 14, temporal patch 2, merge 2,
+             window 112, full attention at 7 / 15 / 23 / 31, out 3584) and
+             phase 4's Qwen2-7B weights with mRoPE (16, 24, 24); 64 uint8
+             frames at 360x480 (grid (32, 26, 34), 7,072 video tokens, the
+             temporal stream at 4 a frame) through TextPipeline.ask at cost
+             0.3, S_th 0.5, r_min 0.1 (E at (32, 884, 16, 80), 4 launches);
+             the coherent prompt (B at 4 capture rows, 28 / 4), the int8
+             decode graph, the kernel rows (``"path": "qwen25vl"``), then
+             the encode split into E's launches, the 28 window blocks'
+             attention (timed alone on the tower's window layout) and the
+             rest.
+16. qwen25vl_72b — Qwen2.5-VL-72B's widths on 256 frames, likewise: the LLM
+             at ``qwen25_vl_72b_config(num_layers=16)`` (hidden 8192, 64 / 8
+             heads of 128, intermediate 29,568, vocab 152,064; the depth
+             cut from 80 to fit one card: 16 layers take 28.1 GB in bf16,
+             the embedding and head 5.0 GB), the same tower with out 8192;
+             256 frames (grid (128, 26, 34): 113,152 tower tokens, 28,288
+             video tokens; E at (128, 884, 16, 80)); the dense prefill in
+             A's blocked regime at the longest prompt of the run, B at 64 /
+             8 heads (groups of 8), C and D at K 8192 and 29,568, G at
+             groups of 8; the rows ``"path": "qwen25vl_72b"``.
 
 The line before the last is a JSON object with one entry per kernel, built
 from ``framefusion_tpu_torch.ops.kernels`` (the TPU functions each stands
@@ -232,8 +266,9 @@ answer, B around its coherent prompt's prefill). Entries with ``"path":
 "internvl"`` (A's regimes, B's, C's, D's, E's and G's shapes) are phase
 12's rows, with its launches: A's from its prefills by (S, mask), C's and
 D's bf16 from the pixels-to-answer decode and int8 from the int8 decode
-graph; ``"path": "nvila"`` and ``"minicpmv"`` are phases 13's and 14's,
-alike. The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+graph; ``"path": "nvila"``, ``"minicpmv"``, ``"qwen25vl"`` and
+``"qwen25vl_72b"`` are phases 13's to 16's, alike. The last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. The script never runs on the CPU: without a CUDA device
 it exits at once.
 """
@@ -1542,7 +1577,8 @@ def tiny_vision_run(device: str, dtype: torch.dtype):
                                                 device), dtype)
     proj = _cast_floats(llava_frontend.params_from_numpy(
         numpy_projector(vcfg.hidden_size, cfg.hidden_size, seed=2, scale=0.05), device), dtype)
-    model = apply_framefusion(FrameFusionModel(family="llava_video", cfg=cfg, params=params), 0.3, 0.95, 0.1)
+    model = apply_framefusion(FrameFusionModel(family="llava_video", cfg=cfg, params=params, attn_impl="flash"),
+                              0.3, 0.95, 0.1)
     model.ff = model.ff.replace(schedule_num_layers=cfg.num_layers, bucket=32)
     pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg, projector=proj)
     frames = half_static_frames(np.random.default_rng(6), 12, 45, 61)
@@ -1713,7 +1749,7 @@ def tiny_baselines_run(device: str, dtype: torch.dtype = torch.bfloat16) -> dict
     h[-1] = tree["embed"][7]
     inputs = PrefillInputs(input_embeds=torch.from_numpy(h), patch_type=pt, position_ids=np.arange(len(pt)),
                            patch_num=8, image_token_start=img_start, image_token_length=n_img)
-    model = FrameFusionModel(family="llava_video", cfg=cfg, params=params)
+    model = FrameFusionModel(family="llava_video", cfg=cfg, params=params, attn_impl="flash")
     launches = sp.sink_attn_fwd.launches
     out = {}
     for name, (mode, kw) in baseline_methods(cfg.num_layers).items():
@@ -1786,7 +1822,8 @@ def tiny_qwen2vl_run(device: str, dtype: torch.dtype):
     params = _cast_floats(qwen2.params_from_numpy(readout_params(cfg, seed=0, resid_scale=0.03), device), dtype)
     vit = _cast_floats(qwen2.params_from_numpy(numpy_qwen2vl_vit_params(vcfg, seed=1, scale=0.05,
                                                                         resid_scale=0.005), device), dtype)
-    model = apply_framefusion(FrameFusionModel(family="qwen2_vl", cfg=cfg, params=params), 0.3, 0.95, 0.1)
+    model = apply_framefusion(FrameFusionModel(family="qwen2_vl", cfg=cfg, params=params, attn_impl="flash"),
+                              0.3, 0.95, 0.1)
     model.ff = model.ff.replace(schedule_num_layers=cfg.num_layers, bucket=32)
     pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg)
     frames = half_static_frames(np.random.default_rng(7), 12, 112, 140)
@@ -2047,7 +2084,8 @@ def tiny_internvl_run(device: str, dtype: torch.dtype) -> dict:
     vit = _cast_floats(qwen2.params_from_numpy(numpy_internvit_params(vcfg, seed=1, scale=0.05, resid_scale=0.005),
                                                device), dtype)
     proj = _cast_floats(qwen2.params_from_numpy(numpy_internvl_projector(vcfg, seed=2, scale=0.05), device), dtype)
-    model = apply_framefusion(FrameFusionModel(family="internvl", cfg=cfg, params=params), 0.3, 0.95, 0.1)
+    model = apply_framefusion(FrameFusionModel(family="internvl", cfg=cfg, params=params, attn_impl="flash"),
+                              0.3, 0.95, 0.1)
     model.ff = model.ff.replace(schedule_num_layers=cfg.num_layers, bucket=32)
     pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg, projector=proj)
     frames = half_static_frames(np.random.default_rng(8), 12, 112, 140)
@@ -2138,25 +2176,27 @@ def phase_internvl(chk: Checks, kernels: dict, ctx: dict) -> None:
                   encode_label="64 preprocessed frames, 65,600 tower tokens, pixel shuffle and mlp1",
                   e_shape=INTERNVL_E_SHAPE, e_launches=vcfg.num_layers, e_label="once a tower layer",
                   check_inputs=check_inputs,
-                  coherent=torch.from_numpy(h).reshape(INTERNVL_FRAMES, -1, h.shape[1]))
+                  coherent=dict(video_features=torch.from_numpy(h).reshape(INTERNVL_FRAMES, -1, h.shape[1])))
 
 
 def _family_phase(chk: Checks, kernels: dict, *, tag: str, pipe, frames, pre_shape: tuple, encode,
-                  encode_label: str, e_shape: tuple, e_launches: int, e_label: str, check_inputs, coherent) -> None:
+                  encode_label: str, e_shape: tuple, e_launches: int, e_label: str, check_inputs,
+                  coherent: dict) -> dict:
     """One family at full width through ``pipe`` (its model on the card,
-    FrameFusion applied), as phases 12-14 run it: pixels to answer (8
+    FrameFusion applied), as phases 12-16 run it: pixels to answer (8
     greedy tokens, the bf16 decode graph) with the launches of A-G counted
     around it (E ``e_launches`` times), the prompt held by
     ``check_inputs(inputs) -> (ok, text)``; encode (``encode(pixels on the
     card)``), fused / planned / dense prefill and pixels-to-answer ms and
     the device idle share; then the LLM on the ``coherent`` video features
-    spliced into the family's prompt, which must prune with kernel B at one
-    capture row, its events equal through the planned and segmented
-    executors; the int8 decode graph's ms/step beside its weight-stream
-    floor; last, each kernel against its plain version at the shapes these
-    runs gave it, with the launches counted here (entries with ``"path":
-    tag``). The model's weights are quantized in place and then dropped:
-    the phase ends with the model gone."""
+    (``build_inputs``' keyword arguments) spliced into the family's prompt,
+    which must prune with kernel B at the family's capture rows, its events
+    equal through the planned and segmented executors; the int8 decode
+    graph's ms/step beside its weight-stream floor; last, each kernel
+    against its plain version at the shapes these runs gave it, with the
+    launches counted here (entries with ``"path": tag``). The model's
+    weights are quantized in place and then dropped: the phase ends with
+    the model gone. Returns the encode ms and E's row."""
     from framefusion_tpu_torch import kernel_bench
     from framefusion_tpu_torch.core import bucket_length
     from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
@@ -2231,7 +2271,7 @@ def _family_phase(chk: Checks, kernels: dict, *, tag: str, pipe, frames, pre_sha
         f"{prof['launches']} device operations")
     chk.expect(prof["launches"] > 0, f"{tag}: the profiler saw the pixels-to-answer run's device operations")
 
-    inp_c = pipe.build_inputs(QUESTION, video_features=coherent)
+    inp_c = pipe.build_inputs(QUESTION, **coherent)
     args_c = (inp_c.input_embeds, inp_c.patch_type, inp_c.position_ids, inp_c.patch_num, inp_c.image_token_start,
               inp_c.image_token_length)
     b_log = CallLog(fp, {"flash_causal_attention_importance":
@@ -2253,11 +2293,11 @@ def _family_phase(chk: Checks, kernels: dict, *, tag: str, pipe, frames, pre_sha
         f"S, Hq, Hk) {b_rows}; kernel A by (S, mask) {c_log.counts()}; launches {counts_c}")
     phase_s = bucket_length(merge0[3], eng.ff.bucket)
     chk.expect(prune is not None, f"{tag} coherent prompt: the prefill prunes")
-    heads = (cfg.num_heads, cfg.num_kv_heads)
+    heads, num = (cfg.num_heads, cfg.num_kv_heads), eng.ff.num_importance_queries
     chk.expect(counts_c["attn_importance_rows"] >= 1 and sum(b_rows.values()) == counts_c["attn_importance_rows"]
-               and all(k == (1, phase_s) + heads for k in b_rows),
-               f"{tag} coherent prompt: kernel B launched with 1 capture row, Hq {heads[0]} / Hk {heads[1]}, at the "
-               f"phase length {phase_s} ({b_rows})")
+               and all(k == (num, phase_s) + heads for k in b_rows),
+               f"{tag} coherent prompt: kernel B launched with {num} capture rows, Hq {heads[0]} / Hk {heads[1]}, at "
+               f"the phase length {phase_s} ({b_rows})")
     for mode in ("planned", "segmented"):
         res_m = eng.prefill(*args_c, mode=mode)
         chk.expect(_events(res_m) == ev_c and res_m.mode == mode,
@@ -2324,7 +2364,7 @@ def _family_phase(chk: Checks, kernels: dict, *, tag: str, pipe, frames, pre_sha
         regime, _ = _a_regime(chk, kernels, gen, s, *heads, dead, label)
         regime.update(path=tag)
         _set_launches(regime, n)
-    b = _b_row(chk, kernels, gen, phase_s, merge0[3], 1, *heads, trailing, tag)
+    b = _b_row(chk, kernels, gen, phase_s, merge0[3], num, *heads, trailing, tag)
     _set_launches(b, counts_c["attn_importance_rows"])
     hid, inter, kv_w = cfg.hidden_size, cfg.intermediate_size, cfg.num_kv_heads * cfg.head_dim_
     widths = {"qkv": (hid, [hid, kv_w, kv_w]), "wo": (hid, [hid]), "w_down": (inter, [hid]),
@@ -2345,6 +2385,7 @@ def _family_phase(chk: Checks, kernels: dict, *, tag: str, pipe, frames, pre_sha
     chk.expect(all(r["launches"] > 0 for r in rows),
                f"{tag}: every row's shape was launched on this phase's path "
                f"({[(r.get('regime', r.get('shape')), r['launches']) for r in rows]})")
+    return {"encode_ms": t_enc, "e_row": e}
 
 
 # -- NVILA-8B and MiniCPM-V 2.6 (phases 5d, 13 and 14) ----------------------------------
@@ -2411,7 +2452,8 @@ def phase_nvila(chk: Checks, kernels: dict, ctx: dict) -> None:
                   encode=lambda px: nvila_frontend.encode_video(vit, vcfg, proj, pcfg, px),
                   encode_label="64 preprocessed frames, 65,536 tower tokens to layer -2, the connector",
                   e_shape=NVILA_E_SHAPE, e_launches=(vcfg.num_layers - 1) * NVILA_FRAMES // 16,
-                  e_label="26 layers x 4 batches of 16", check_inputs=check_inputs, coherent=torch.from_numpy(h))
+                  e_label="26 layers x 4 batches of 16", check_inputs=check_inputs,
+                  coherent=dict(video_features=torch.from_numpy(h)))
 
 
 def phase_minicpmv(chk: Checks, kernels: dict, ctx: dict) -> None:
@@ -2467,7 +2509,8 @@ def phase_minicpmv(chk: Checks, kernels: dict, ctx: dict) -> None:
                   encode_label="64 preprocessed frames, 313,600 tower tokens, the resampler",
                   e_shape=MINICPMV_E_SHAPE, e_launches=vcfg.num_layers * MINICPMV_FRAMES // 16,
                   e_label="27 layers x 4 batches of 16", check_inputs=check_inputs,
-                  coherent=torch.from_numpy(h).reshape(MINICPMV_FRAMES, rcfg.num_queries, h.shape[1]))
+                  coherent=dict(video_features=torch.from_numpy(h).reshape(MINICPMV_FRAMES, rcfg.num_queries,
+                                                                           h.shape[1])))
 
 
 def numpy_nvila_projector(vision_dim: int, llm_dim: int, seed: int, scale: float) -> dict:
@@ -2560,7 +2603,8 @@ def tiny_families_run(device: str, dtype: torch.dtype) -> dict:
     res_params = minicpmv_frontend.params_from_numpy(numpy_resampler_params(rcfg, 3, 0.05), device)
 
     def model_of(family, s_th=0.95):
-        m = apply_framefusion(FrameFusionModel(family=family, cfg=cfg, params=params), 0.3, s_th, 0.1)
+        m = apply_framefusion(FrameFusionModel(family=family, cfg=cfg, params=params, attn_impl="flash"),
+                              0.3, s_th, 0.1)
         m.ff = m.ff.replace(schedule_num_layers=cfg.num_layers, bucket=32)
         return m
 
@@ -2652,6 +2696,229 @@ def phase_cross_families(chk: Checks) -> None:
         if c["b"] is not None and any(e[1] == "prune" for e in c["events"]):
             chk.expect(c["b"] == 0 and g["b"] > 0, f"cross {name}: kernel B launched on the card only "
                                                    f"({g['b']} launches)")
+
+
+# -- Qwen2.5-VL (phases 5e, 15 and 16) ---------------------------------------------------
+
+# Qwen2.5-VL at 360 x 480 frames: the Qwen2-VL geometry (smart_resize to 364
+# x 476, 26 x 34 patches, 221 merged patches a temporal frame); the tower's
+# four full-attention blocks run kernel E at B = grid_t, N = 884, its 28
+# window blocks attend within 112-pixel windows (4 x 4 merge units, ragged
+# at the grid's right and bottom edges: 20 windows of up to 64 tokens a
+# frame). Qwen2.5-VL-7B: 64 frames, grid (32, 26, 34), 7,072 video tokens.
+# Qwen2.5-VL-72B: 256 frames, grid (128, 26, 34), 113,152 tower tokens and
+# 28,288 video tokens; its LLM's 80 layers (~145 GB in bf16) are cut to 16
+# (28.1 GB of blocks + 5.0 GB of embedding and head) to fit one card.
+QWEN25VL_GRID = (32, 26, 34)
+QWEN25VL_E_SHAPE = (32, 884, 16, 80)
+QWEN25VL_72B_FRAMES, QWEN25VL_72B_LAYERS = 256, 16
+QWEN25VL_72B_GRID = (128, 26, 34)
+QWEN25VL_72B_E_SHAPE = (128, 884, 16, 80)
+# * The cross-device Qwen2.5-VL run holds the tower's features, the prefill
+#   logits and layer 0's cached keys (the merge's keep set) to the bounds of
+#   phases 5b and 5c: FEATURE_RTOL and LOGIT_RTOL.
+
+
+def numpy_qwen25vl_vit_params(vcfg, seed: int, scale: float, resid_scale: float) -> dict:
+    """Random Qwen2.5-VL tower weights in the JAX package's pytree layout,
+    drawn with numpy; the blocks write to the residual stream at
+    ``resid_scale``."""
+    rng = np.random.default_rng(seed)
+    n_l, d, i, mu = vcfg.depth, vcfg.hidden_size, vcfg.intermediate_size, vcfg.merge_unit
+
+    def norm(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    layers = {"ln1_w": 1 + norm(n_l, d), "ln2_w": 1 + norm(n_l, d), "w_qkv": norm(n_l, d, 3 * d),
+              "b_qkv": norm(n_l, 3 * d), "wo": norm(n_l, d, d), "bo": norm(n_l, d), "w_gate": norm(n_l, d, i),
+              "b_gate": norm(n_l, i), "w_up": norm(n_l, d, i), "b_up": norm(n_l, i), "w_down": norm(n_l, i, d),
+              "b_down": norm(n_l, d)}
+    for name in ("wo", "bo", "w_down", "b_down"):
+        layers[name] *= np.float32(resid_scale / scale)
+    return {"patch_proj": norm(vcfg.patch_dim, d), "layers": layers, "merger_ln_w": np.ones(d, np.float32),
+            "merger_w0": norm(mu * d, mu * d), "merger_b0": np.zeros(mu * d, np.float32),
+            "merger_w1": norm(mu * d, vcfg.out_hidden_size),
+            "merger_b1": np.zeros(vcfg.out_hidden_size, np.float32)}
+
+
+def tiny_qwen25vl_run(device: str, dtype: torch.dtype) -> dict:
+    """The tiny Qwen2.5-VL pixels-to-answer run of phase 5e on one device: a
+    tower of head dim 80 (hidden 160, 2 heads, depth 3, block 1 full
+    attention, the published patch 14 and window 112) and phase 5b's 6-layer
+    mRoPE LLM (``readout_params``), weights drawn with numpy, through
+    TextPipeline.ask on 12 uint8 frames of 112 x 140 (grid (6, 8, 10): a
+    full and a ragged window a frame, the always-pad quirk's empty row
+    dropped). Returns the tower features, events, cache lengths, decode
+    base, tokens, prefill logits and layer 0's cached keys (fp32 on the
+    CPU), and E's and B's launches."""
+    from framefusion_tpu_torch.config import tiny_llm_config
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.vision import qwen25_vl_vit
+    from framefusion_tpu_torch.models.vision.qwen2_vl_vit import pixels_to_patches
+    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.pipeline import TextPipeline
+
+    cfg = tiny_llm_config(num_layers=6, hidden_size=512, intermediate_size=1024, num_heads=4, num_kv_heads=2,
+                          mrope_section=(16, 24, 24), dtype=dtype)
+    vcfg = qwen25_vl_vit.Qwen25VLViTConfig(hidden_size=160, depth=3, num_heads=2, intermediate_size=320,
+                                           fullatt_block_indexes=(1,), out_hidden_size=cfg.hidden_size, dtype=dtype)
+    params = _cast_floats(qwen2.params_from_numpy(readout_params(cfg, seed=0, resid_scale=0.03), device), dtype)
+    vit = _cast_floats(qwen2.params_from_numpy(numpy_qwen25vl_vit_params(vcfg, seed=1, scale=0.05,
+                                                                         resid_scale=0.005), device), dtype)
+    model = apply_framefusion(FrameFusionModel(family="qwen2_vl", cfg=cfg, params=params, attn_impl="flash"),
+                              0.3, 0.95, 0.1)
+    model.ff = model.ff.replace(schedule_num_layers=cfg.num_layers, bucket=32)
+    pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg)
+    frames = half_static_frames(np.random.default_rng(7), 12, 112, 140)
+    patches, grid = pixels_to_patches(pipe._prepare_frames(frames), vcfg)
+    launches = ba.bidir_attn_fwd.launches, fp.attn_importance_rows.launches
+    feats = qwen25_vl_vit.encode_video(vit, patches, *grid, vcfg)
+    toks = [int(t) for t in pipe.ask(QUESTION, frames=frames, max_new_tokens=8).split()]
+    res = pipe.last_result
+    k0, _, n0 = res.layer_caches[0]
+    return dict(grid=grid, feats=feats.float().cpu(), events=[(e.layer, e.kind, e.tokens_removed)
+                                                              for e in res.telemetry.events],
+                lens=[c[2] for c in res.layer_caches], base=res.decode_pos_base, tokens=toks,
+                logits=res.logits.float().cpu(), keys=k0[:n0].float().cpu(),
+                e=ba.bidir_attn_fwd.launches - launches[0], b=fp.attn_importance_rows.launches - launches[1])
+
+
+def phase_cross_qwen25vl(chk: Checks) -> None:
+    cpu = tiny_qwen25vl_run("cpu", torch.bfloat16)
+    gpu = tiny_qwen25vl_run("cuda", torch.bfloat16)
+    log(f"  grid {cpu['grid']}; cpu events {cpu['events']} decode base {cpu['base']} tokens {cpu['tokens']}; cuda "
+        f"events {gpu['events']} decode base {gpu['base']} tokens {gpu['tokens']}")
+    for what, label, bound in (("feats", "tower features (head dim 80, window and full-attention blocks)",
+                                FEATURE_RTOL), ("logits", "prefill logits", LOGIT_RTOL),
+                               ("keys", "layer 0's cached keys (the merge's keep set, in order)", LOGIT_RTOL)):
+        same = cpu[what].shape == gpu[what].shape
+        rel = float((cpu[what] - gpu[what]).abs().max() / cpu[what].abs().max()) if same else math.inf
+        chk.expect(rel <= bound, f"cross qwen25vl: {label} differ by {rel:.3e} of their largest <= {bound}")
+    chk.expect(cpu["grid"] == (6, 8, 10), f"cross qwen25vl: grid {cpu['grid']} (ragged edge windows)")
+    chk.expect((cpu["events"], cpu["lens"], cpu["base"]) == (gpu["events"], gpu["lens"], gpu["base"]),
+               "cross qwen25vl: events, cache lengths and decode base equal")
+    chk.expect(cpu["tokens"] == gpu["tokens"], "cross qwen25vl: greedy tokens equal")
+    chk.expect(len(set(gpu["tokens"])) >= 3, f"cross qwen25vl: the tokens vary ({len(set(gpu['tokens']))} distinct)")
+    chk.expect(any(e[1] == "prune" for e in cpu["events"]),
+               f"cross qwen25vl: the scenario merges and prunes ({cpu['events']})")
+    chk.expect(cpu["e"] == cpu["b"] == 0 and gpu["e"] == 2 and gpu["b"] > 0,
+               f"cross qwen25vl: kernels E (once a full-attention block an encode) and B launched on the card only "
+               f"(E {gpu['e']}, B {gpu['b']} launches)")
+
+
+def _qwen25vl_family(chk: Checks, kernels: dict, tag: str, cfg, vcfg, n_frames: int, grid: tuple,
+                     e_shape: tuple, seed: int) -> None:
+    """Phases 15 and 16: a Qwen2.5-VL model at full width (random weights
+    made on the card, the LLM's the seed-0 draw of its geometry) through
+    ``_family_phase``: pixels to answer on ``n_frames`` uint8 frames of 360
+    x 480 at the published knobs, the coherent prompt that prunes (B at 4
+    capture rows), the int8 decode graph and the kernel rows (``"path":
+    tag``); then the encode split into E's launches (one a full-attention
+    block), the window blocks' attention (timed alone on the tower's own
+    window layout) and the rest."""
+    from framefusion_tpu_torch import native
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.adapters.common import build_video_prompt
+    from framefusion_tpu_torch.models.vision import qwen25_vl_vit
+    from framefusion_tpu_torch.models.vision.qwen2_vl_vit import pixels_to_patches
+    from framefusion_tpu_torch.pipeline import TextPipeline
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    native.load(required=True)
+    t0 = time.perf_counter()
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    vit = qwen25_vl_vit.init_params(vcfg, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    log(f"  random {tag}: LLM ({cfg.num_layers} layers, hidden {cfg.hidden_size}, {cfg.num_heads} / "
+        f"{cfg.num_kv_heads} heads, {sum(t.numel() for t in params['layers'].values()) / 1e9:.2f} B block params) "
+        f"and the Qwen2.5-VL tower (depth {vcfg.depth}, {vcfg.num_heads} heads of {vcfg.head_dim}, full attention at "
+        f"{vcfg.fullatt_block_indexes}, out {vcfg.out_hidden_size}) on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    model = apply_framefusion(FrameFusionModel(family="qwen2_vl", cfg=cfg, params=params,
+                                               vision={"kind": "qwen25_vl_vit", "cfg": vcfg, "params": vit}),
+                              *QWEN2VL_KNOBS)
+    pipe = TextPipeline(model=model, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg)
+    del model, params
+    frames = coherent_frames(np.random.default_rng(0), n_frames, 360, 480)
+    patches, got_grid = pixels_to_patches(pipe._prepare_frames(frames), vcfg)
+    chk.expect(got_grid == grid, f"{tag}: {n_frames} frames 360x480 -> grid {got_grid}")
+    patches = torch.from_numpy(patches).cuda()
+    grid_t, grid_h, grid_w = grid
+    patch_num = grid_h * grid_w // vcfg.merge_unit
+    n_video = grid_t * patch_num
+
+    def check_inputs(inputs):
+        s_prompt = int(inputs.input_embeds.shape[0])
+        start = inputs.image_token_start
+        step = int(inputs.position_ids[0, start + patch_num] - inputs.position_ids[0, start])
+        return (inputs.patch_num == patch_num and inputs.image_token_length == n_video
+                and inputs.num_importance_queries == 4 and inputs.position_ids.shape == (3, s_prompt)
+                and step == vcfg.tokens_per_second,
+                f"{n_video} video tokens ({grid_t} x {patch_num}) of {s_prompt}, (3, S) positions whose temporal "
+                f"stream steps by {step} a frame (second_per_grid_ts 1.0 x tokens_per_second "
+                f"{vcfg.tokens_per_second}), 4 importance rows")
+
+    h, _, _, _ = build_video_prompt(np.random.default_rng(seed), cfg.hidden_size, n_frames=grid_t,
+                                    patch_num=patch_num, n_pre=0, n_post=0, coherent=0.45)
+    n_full = len(vcfg.fullatt_block_indexes)
+    out = _family_phase(chk, kernels, tag=tag, pipe=pipe, frames=frames, pre_shape=(n_frames, 364, 476, 3),
+                        encode=lambda _px: qwen25_vl_vit.encode_video(vit, patches, *grid, vcfg),
+                        encode_label=f"{n_frames} preprocessed frames, {patches.shape[0]:,} tower tokens",
+                        e_shape=e_shape, e_launches=n_full, e_label="once a full-attention block",
+                        check_inputs=check_inputs,
+                        coherent=dict(video_features=torch.from_numpy(h), video_grid_thw=grid))
+    del h
+    # The encode's split: E's launches at its row's time, the window blocks'
+    # attention timed alone on the tower's window layout at its shape.
+    wg, wv, back = qwen25_vl_vit.padded_window_layout(*grid, vcfg)
+    layout = (torch.from_numpy(wg.reshape(-1)).cuda(), torch.from_numpy(wv).cuda()[:, None, None, :],
+              torch.from_numpy(back).cuda())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (_rand(gen, (patches.shape[0], vcfg.num_heads, vcfg.head_dim)) for _ in range(3))
+    t_win = cuda_time_ms(lambda: qwen25_vl_vit.window_attention(q, k, v, *layout, vcfg.head_dim ** -0.5), iters=5)
+    n_win = vcfg.depth - n_full
+    t_e, t_enc = out["e_row"]["ms"], out["encode_ms"]
+    rest = t_enc - n_full * t_e - n_win * t_win
+    log(f"  encode split: {t_enc:.2f} ms = E {n_full} x {t_e:.4f} ({n_full * t_e:.2f} ms) + window attention "
+        f"{n_win} x {t_win:.3f} ({n_win * t_win:.2f} ms; {wv.shape[0]} windows of {wv.shape[1]} slots, "
+        f"{wv.mean():.3f} of them tokens) + the rest {rest:.2f} ms (GEMMs, norms, rotary, gathers, the merger)")
+    chk.expect(rest > 0, f"{tag}: the encode's parts sum within its time ({rest:.2f} ms left)")
+
+
+def phase_qwen25vl(chk: Checks, kernels: dict, ctx: dict) -> None:
+    """Qwen2.5-VL-7B at full size: the published tower (depth 32, hidden
+    1280, 16 heads of 80, intermediate 3420, window 112, full attention at
+    7 / 15 / 23 / 31, out 3584) and phase 4's Qwen2-7B weights with mRoPE
+    (16, 24, 24); 64 frames (grid (32, 26, 34), 7,072 video tokens)."""
+    from framefusion_tpu_torch.config import qwen2_vl_7b_config
+    from framefusion_tpu_torch.models.vision import qwen25_vl_vit
+
+    ctx.clear()
+    _qwen25vl_family(chk, kernels, "qwen25vl", qwen2_vl_7b_config(),
+                     qwen25_vl_vit.Qwen25VLViTConfig(dtype=torch.bfloat16), 64, QWEN25VL_GRID, QWEN25VL_E_SHAPE,
+                     seed=15)
+
+
+def phase_qwen25vl_72b(chk: Checks, kernels: dict, ctx: dict) -> None:
+    """Qwen2.5-VL-72B's widths on 256 frames: the LLM at
+    ``qwen25_vl_72b_config(num_layers=16)`` (hidden 8192, 64 / 8 heads of
+    128, intermediate 29,568, vocab 152,064; the depth cut from 80 to fit
+    one card), the same tower with out 8192; 256 frames (grid (128, 26,
+    34): 113,152 tower tokens, 28,288 video tokens)."""
+    from framefusion_tpu_torch.config import qwen25_vl_72b_config
+    from framefusion_tpu_torch.models.vision import qwen25_vl_vit
+
+    ctx.clear()
+    cfg = qwen25_vl_72b_config(num_layers=QWEN25VL_72B_LAYERS)
+    log(f"  depth cut: {QWEN25VL_72B_LAYERS} of the published 80 layers (~1.756 GB a layer in bf16; 80 layers and "
+        f"the 2.49 GB embedding and head would take ~145 GB of the card's 80)")
+    _qwen25vl_family(chk, kernels, "qwen25vl_72b", cfg,
+                     qwen25_vl_vit.Qwen25VLViTConfig(out_hidden_size=cfg.hidden_size, dtype=torch.bfloat16),
+                     QWEN25VL_72B_FRAMES, QWEN25VL_72B_GRID, QWEN25VL_72B_E_SHAPE, seed=16)
 
 
 def _shape_entry(kernel: dict, tag: str) -> dict:
@@ -3306,10 +3573,10 @@ def kernels_table() -> dict:
     kernels["flash_attn_fwd"]["regimes"] = []
     kernels["gemv_stacked"]["shapes"] = []
     kernels["gemv_gateup"]["shapes"] = []  # its rows at the batched decode's B
-    # The towers of phases 11-14: Qwen2-VL-7B's, InternViT-300M's, SigLIP at 448 and 980 px.
+    # The towers of phases 11-16: Qwen2-VL-7B's, InternViT-300M's, SigLIP at 448 and 980 px, Qwen2.5-VL's.
     kernels["bidir_attn_fwd"]["shapes"] = []
-    kernels["attn_importance_rows"]["shapes"] = []  # Qwen2-VL's 4 capture rows (11), one in phases 12-14
-    kernels["ragged_decode_attn"]["shapes"] = []  # the decodes of phases 12-14
+    kernels["attn_importance_rows"]["shapes"] = []  # Qwen2-VL's 4 capture rows (11, 15, 16), one in 12-14
+    kernels["ragged_decode_attn"]["shapes"] = []  # the decodes of phases 12-16
     return kernels
 
 
@@ -3339,13 +3606,16 @@ def main() -> int:
               "cross_vision": lambda: phase_cross_vision(chk), "cross_qwen2vl": lambda: phase_cross_qwen2vl(chk),
               "cross_internvl": lambda: phase_cross_internvl(chk),
               "cross_families": lambda: phase_cross_families(chk),
+              "cross_qwen25vl": lambda: phase_cross_qwen25vl(chk),
               "pixels": lambda: phase_pixels(chk, kernels),
               "cross_baselines": lambda: phase_cross_baselines(chk),
               "baselines": lambda: phase_baselines(chk, kernels), "batch": lambda: phase_batch(chk, kernels, ctx),
               "spec_serve": lambda: phase_spec_serve(chk, kernels, ctx),
               "qwen2vl": lambda: phase_qwen2vl(chk, kernels, ctx),
               "internvl": lambda: phase_internvl(chk, kernels, ctx),
-              "nvila": lambda: phase_nvila(chk, kernels, ctx), "minicpmv": lambda: phase_minicpmv(chk, kernels, ctx)}
+              "nvila": lambda: phase_nvila(chk, kernels, ctx), "minicpmv": lambda: phase_minicpmv(chk, kernels, ctx),
+              "qwen25vl": lambda: phase_qwen25vl(chk, kernels, ctx),
+              "qwen25vl_72b": lambda: phase_qwen25vl_72b(chk, kernels, ctx)}
     t_start = time.perf_counter()
     for phase, run in phases.items():
         log(f"== {phase} ({time.perf_counter() - t_start:.1f} s)")
@@ -3365,7 +3635,7 @@ def main() -> int:
                              "ragged_decode_attn")
                    for e in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"] for f, v in e.items()
                    if v is None and not (f == "library_ms" and (n in no_library or "int8" in str(e.get("shape"))))]
-    family_paths = ("internvl", "nvila", "minicpmv")
+    family_paths = ("internvl", "nvila", "minicpmv", "qwen25vl", "qwen25vl_72b")
     unmeasured += [f"{n}.{path} shape" for n, paths in (("bidir_attn_fwd", ("qwen2vl",) + family_paths),
                                                         ("attn_importance_rows", ("qwen2vl",) + family_paths),
                                                         ("flash_attn_fwd", family_paths), ("gemv_stacked", family_paths),

@@ -489,7 +489,7 @@ def replace_forward(model, mode: str = "fastv", **kwargs):
 
     if not isinstance(model, FrameFusionModel):
         raise TypeError(f"replace_forward expects a framefusion_tpu_torch FrameFusionModel, got {type(model)}")
-    engine = BaselineEngine(model.params, model.cfg, mode, kwargs, attn_impl=model.attn_impl)
+    engine = BaselineEngine(model.params, model.cfg, mode, kwargs, attn_impl=model.resolved_attn_impl())
     return dataclasses.replace(model, ff=None, _engine=engine)
 
 

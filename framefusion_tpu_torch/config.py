@@ -109,6 +109,26 @@ def qwen2_vl_7b_config(**kw) -> LLMConfig:
     return LLMConfig(**base)
 
 
+def qwen25_vl_72b_config(**kw) -> LLMConfig:
+    """Qwen2.5-VL-72B-Instruct LLM geometry: 80 layers, hidden 8192, GQA 64
+    / 8 (head dim 128), intermediate 29568, mRoPE t16 / h24 / w24. Its bf16
+    weights (~145 GB) exceed one card: pass ``num_layers`` to cut the depth.
+    Qwen2.5-VL-7B has no preset of its own: its LLM is
+    ``qwen2_vl_7b_config()``, its tower ``Qwen25VLViTConfig()``."""
+    base = dict(
+        vocab_size=152064,
+        hidden_size=8192,
+        intermediate_size=29568,
+        num_layers=80,
+        num_heads=64,
+        num_kv_heads=8,
+        rope_theta=1e6,
+        mrope_section=(16, 24, 24),
+    )
+    base.update(kw)
+    return LLMConfig(**base)
+
+
 def internlm2_8b_config(**kw) -> LLMConfig:
     """InternLM2.5-7B geometry (the InternVL2.5-8B backbone): 32 layers,
     hidden 4096, GQA 32 / 8 (head dim 128), intermediate 14336, vocab 92553,

@@ -4,8 +4,9 @@ Port of ``framefusion_tpu.interface``: ``apply_framefusion`` returns a new,
 configured ``FrameFusionModel`` whose engine runs the compressed prefill —
 the reference's three knobs, no mutation. Every family of ``FAMILIES`` has
 its adapter: the Qwen2-backed LLaVA-Video, LLaVA-NeXT-Video, MiniCPM-V and
-NVILA (1D RoPE), Qwen2-VL (mRoPE: (3, S) position ids, 4 importance rows)
-and InternVL (the InternLM2 backbone: no qkv bias).
+NVILA (1D RoPE), Qwen2-VL and Qwen2.5-VL (mRoPE: (3, S) position ids, 4
+importance rows; either tower) and InternVL (the InternLM2 backbone: no qkv
+bias).
 """
 
 from __future__ import annotations
@@ -13,9 +14,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 from .config import FrameFusionConfig, LLMConfig
 from .models.adapters.common import PrefillInputs
 from .runtime.engine import CompressionEngine, PrefillResult
+
+
+# The model's attention choices: the engine's two and the default.
+ATTN_IMPLS = ("auto", "einsum", "flash")
 
 
 @dataclasses.dataclass
@@ -45,30 +52,43 @@ class FrameFusionModel:
     config. ``vision`` may hold a vision tower for pixels-to-answer
     pipelines (``{"kind", "cfg", "params", "projector"}``, as
     ``weights.load_checkpoint`` attaches it). ``attn_impl`` is "flash"
-    (hand-written kernels; plain versions for CPU tensors) or "einsum"
-    (plain reference), for the decoder and the tower alike."""
+    (hand-written kernels; plain versions for CPU tensors), "einsum" (the
+    plain reference in the model's own dtype) or "auto" (the default, as
+    JAX's: "flash" when the params lie on the card, "einsum" otherwise), for
+    the decoder and the tower alike (``resolved_attn_impl``)."""
 
     family: str
     cfg: LLMConfig
     params: dict
     ff: Optional[FrameFusionConfig] = None
     vision: Optional[dict] = None
-    attn_impl: str = "flash"
+    attn_impl: str = "auto"
     pool_layers: int = 8
     _engine: Optional[CompressionEngine] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         if self.family not in FAMILIES:
             raise NotImplementedError(f"Model family not supported: {self.family}")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
 
     @property
     def spec(self) -> FamilySpec:
         return FAMILIES[self.family]
 
+    def resolved_attn_impl(self) -> str:
+        """``attn_impl`` with "auto" resolved (JAX's ``_resolved_attn_impl``):
+        "flash" for params on the card, "einsum" for params on the CPU, where
+        JAX's "auto" takes its plain "chunked" path. "auto" never picks the
+        plain path for CUDA params: there a kernel that fails raises."""
+        if self.attn_impl != "auto":
+            return self.attn_impl
+        return "flash" if _params_device(self.params).type == "cuda" else "einsum"
+
     def engine(self) -> CompressionEngine:
         if self._engine is None:
             ff = self.ff or FrameFusionConfig(cost=1.0)  # dense placeholder
-            self._engine = CompressionEngine(self.params, self.cfg, ff, attn_impl=self.attn_impl,
+            self._engine = CompressionEngine(self.params, self.cfg, ff, attn_impl=self.resolved_attn_impl(),
                                              pool_layers=self.pool_layers)
         return self._engine
 
@@ -147,6 +167,16 @@ class FrameFusionModel:
         from .runtime.serving import ServingLoop
 
         return ServingLoop(self.engine(), **kwargs)
+
+
+def _params_device(params) -> torch.device:
+    """The device of the first tensor in a params tree (the CPU for none)."""
+    for value in params.values():
+        if isinstance(value, torch.Tensor):
+            return value.device
+        if isinstance(value, dict) and value:
+            return _params_device(value)
+    return torch.device("cpu")
 
 
 def _check_speculative(speculative: bool, sampler) -> None:

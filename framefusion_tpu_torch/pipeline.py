@@ -5,10 +5,10 @@ Given a tokenizer (HF AutoTokenizer or anything with encode/decode), LLM
 params, a vision tower and frames, it builds the family's chat prompt,
 encodes the frames (preprocess -> SigLIP -> the LLaVA frontend, NVILA's
 ``mlp_downsample`` connector or MiniCPM-V's resampler; preprocess at
-``smart_resize``'s geometry -> the Qwen2-VL tower; or preprocess to 448x448
--> InternViT -> pixel shuffle -> ``mlp1``), splices the video features at
-the media placeholders, runs the (compressed) prefill and greedy decode,
-and decodes text. Embeddings stay on the model's device.
+``smart_resize``'s geometry -> the Qwen2-VL or Qwen2.5-VL tower; or
+preprocess to 448x448 -> InternViT -> pixel shuffle -> ``mlp1``), splices
+the video features at the media placeholders, runs the (compressed) prefill
+and greedy decode, and decodes text. Embeddings stay on the model's device.
 """
 
 from __future__ import annotations
@@ -57,7 +57,9 @@ class TextPipeline:
         rows, the frames' bounds giving the adapter its geometry;
       * ``qwen2_vl``: the vision span at ``<|video_pad|>`` with 3D mRoPE
         position ids from the video grid (the tower's, or ``video_grid_thw``
-        beside precomputed features);
+        beside precomputed features); with a Qwen2.5-VL tower the temporal
+        stream advances by ``second_per_grid_ts`` x its
+        ``tokens_per_second``;
       * ``internvl``: an interleaved ``FrameN: <image>`` line a frame, each
         frame's features at its ``<image>`` (InternViT's, or precomputed
         (n_frames, tokens_per_frame, D) features).
@@ -130,7 +132,8 @@ class TextPipeline:
         rows = torch.as_tensor(np.where(ids < 0, 0, ids), device=self.device)
         return qwen2.embed(self.model.params, rows).to(torch.float32)
 
-    def build_inputs(self, question: str, frames=None, video_features=None, video_grid_thw=None):
+    def build_inputs(self, question: str, frames=None, video_features=None, video_grid_thw=None,
+                     second_per_grid_ts=None):
         """Tokenize the family's chat prompt and splice the video features.
 
         Also records ``last_prompt_ids``, the prompt's text token ids
@@ -138,12 +141,14 @@ class TextPipeline:
         video frames: they are resized and normalized to the tower's
         geometry in-repo (preprocess.py); float frames are taken as already
         preprocessed. ``video_grid_thw`` goes with precomputed Qwen2-VL
-        ``video_features``."""
+        ``video_features``; ``second_per_grid_ts`` is Qwen2.5-VL's seconds a
+        temporal grid step (1.0 when None)."""
         self._prompt_ids_acc = []
         try:
             frames = self._prepare_frames(frames)
             if self.model.family == "qwen2_vl":
-                inputs = self._build_qwen2_vl_inputs(question, frames, video_features, video_grid_thw)
+                inputs = self._build_qwen2_vl_inputs(question, frames, video_features, video_grid_thw,
+                                                     second_per_grid_ts)
             elif self.model.family == "internvl":
                 inputs = self._build_internvl_inputs(question, frames, video_features)
             elif self.model.family == "minicpmv":
@@ -192,7 +197,7 @@ class TextPipeline:
             if frames is None or self.vit_params is None:
                 raise ValueError("pass frames with a vision tower (vit_params/vit_cfg/projector), or video_features")
             video_features = encode_video(self.vit_params, self.vit_cfg, self.projector, frames,
-                                          attn_impl=self.model.attn_impl)
+                                          attn_impl=self.model.resolved_attn_impl())
 
         ids = ids_before + [self.PLACEHOLDER_ID] + ids_after
         text_embeds = self._embed_ids(ids)
@@ -201,21 +206,29 @@ class TextPipeline:
         return llava_video.build_prefill_inputs(text_embeds, feats, image_token_pos=len(ids_before),
                                                 num_patches_per_side=pps)
 
-    def _build_qwen2_vl_inputs(self, question: str, frames, video_features, video_grid_thw):
-        """Qwen2-VL: one vision span at ``<|video_pad|>``, 3D mRoPE ids from
-        the video grid. Frames run through the Qwen2-VL tower
-        (``pixels_to_patches`` -> ``encode_video``, kernel E under
+    def _build_qwen2_vl_inputs(self, question: str, frames, video_features, video_grid_thw,
+                               second_per_grid_ts=None):
+        """Qwen2-VL and Qwen2.5-VL: one vision span at ``<|video_pad|>``, 3D
+        mRoPE ids from the video grid. Frames run through the tower that
+        ``vit_cfg`` names (``pixels_to_patches``, one patch layout for both,
+        -> that tower's ``encode_video``, kernel E under
         ``attn_impl="flash"``); precomputed ``video_features`` need
-        ``video_grid_thw``."""
-        if video_features is None:
-            from .models.vision.qwen2_vl_vit import encode_video, pixels_to_patches
+        ``video_grid_thw``. With a Qwen2.5-VL tower the temporal stream
+        advances by absolute time: ``second_per_grid_ts`` (1.0 when None:
+        temporal patch 2 at 2 fps, the HF processor's default) times the
+        tower's ``tokens_per_second``; the Qwen2-VL rule steps by one (the
+        adapter's ``tokens_per_second`` 2 is then unused)."""
+        from .models.vision import qwen2_vl_vit, qwen25_vl_vit
 
+        is_qwen25 = isinstance(self.vit_cfg, qwen25_vl_vit.Qwen25VLViTConfig)
+        if video_features is None:
             if frames is None or self.vit_params is None:
-                raise ValueError("qwen2_vl needs frames with a Qwen2-VL tower (vit_params/vit_cfg), or "
-                                 "video_features with video_grid_thw")
-            patches, video_grid_thw = pixels_to_patches(np.asarray(frames, np.float32), self.vit_cfg)
-            video_features = encode_video(self.vit_params, patches, *video_grid_thw, self.vit_cfg,
-                                          attn_impl=self.model.attn_impl)
+                raise ValueError("qwen2_vl needs frames with a Qwen2-VL or Qwen2.5-VL tower (vit_params/vit_cfg), "
+                                 "or video_features with video_grid_thw")
+            patches, video_grid_thw = qwen2_vl_vit.pixels_to_patches(np.asarray(frames, np.float32), self.vit_cfg)
+            tower = qwen25_vl_vit if is_qwen25 else qwen2_vl_vit
+            video_features = tower.encode_video(self.vit_params, patches, *video_grid_thw, self.vit_cfg,
+                                                attn_impl=self.model.resolved_attn_impl())
         if video_grid_thw is None:
             raise ValueError("qwen2_vl video_features need video_grid_thw")
         grid_t, grid_h, grid_w = (int(x) for x in video_grid_thw)
@@ -227,8 +240,12 @@ class TextPipeline:
         text_embeds = self._embed_ids(ids_before + [self.PLACEHOLDER_ID] + ids_after)
         feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
         merge = getattr(self.vit_cfg, "spatial_merge_size", 2)
+        if is_qwen25 and second_per_grid_ts is None:
+            second_per_grid_ts = 1.0
         return qwen2_vl.build_prefill_inputs(text_embeds, feats, video_token_pos=len(ids_before), grid_t=grid_t,
-                                             grid_h=grid_h, grid_w=grid_w, spatial_merge_size=merge)
+                                             grid_h=grid_h, grid_w=grid_w, spatial_merge_size=merge,
+                                             second_per_grid_ts=second_per_grid_ts,
+                                             tokens_per_second=self.vit_cfg.tokens_per_second if is_qwen25 else 2)
 
     def _build_internvl_inputs(self, question: str, frames, video_features):
         """InternVL: a ``FrameN: <image>`` line a frame, each frame's features
@@ -244,7 +261,7 @@ class TextPipeline:
                 raise ValueError("internvl needs frames with an InternViT tower (vit_params/vit_cfg/projector), "
                                  "or per-frame video_features")
             video_features = extract_features(self.vit_params, self.projector, np.asarray(frames, np.float32),
-                                              self.vit_cfg, attn_impl=self.model.attn_impl)
+                                              self.vit_cfg, attn_impl=self.model.resolved_attn_impl())
         feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
         if feats.ndim != 3:
             raise ValueError(f"internvl video_features must be (n_frames, tokens_per_frame, D), got "
@@ -284,7 +301,7 @@ class TextPipeline:
                                  "(projector={'params', 'cfg'}), or (n_frames, tokens_per_frame, D) video_features")
             video_features = encode_video(self.vit_params, self.vit_cfg, self.projector["params"],
                                           self.projector["cfg"], np.asarray(frames, np.float32),
-                                          attn_impl=self.model.attn_impl)
+                                          attn_impl=self.model.resolved_attn_impl())
         feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
         if feats.ndim != 3:
             raise ValueError(f"minicpmv video_features must be (n_frames, tokens_per_frame, D), got "
@@ -318,7 +335,7 @@ class TextPipeline:
                                  "(projector={'params', 'cfg'}), or video_features with nvila_num_frames set")
             frames = np.asarray(frames, np.float32)
             video_features = encode_video(self.vit_params, self.vit_cfg, self.projector["params"],
-                                          self.projector["cfg"], frames, attn_impl=self.model.attn_impl)
+                                          self.projector["cfg"], frames, attn_impl=self.model.resolved_attn_impl())
             n_frames = frames.shape[0]
         else:
             n_frames = getattr(self, "nvila_num_frames", None)
@@ -334,15 +351,16 @@ class TextPipeline:
                                                 num_frames=n_frames)
 
     def ask(self, question: str, frames=None, video_features=None, max_new_tokens: int = 64,
-            eos_token_id: Optional[int] = None, video_grid_thw=None,
+            eos_token_id: Optional[int] = None, video_grid_thw=None, second_per_grid_ts=None,
             speculative: bool = False, draft_len: int = 4) -> str:
         """Answer ``question`` about the video (frames, or precomputed
-        features with ``video_grid_thw`` for Qwen2-VL) with greedy decoding;
+        features with ``video_grid_thw`` for Qwen2-VL; ``second_per_grid_ts``
+        for a Qwen2.5-VL tower, as in ``build_inputs``) with greedy decoding;
         the prefill result is kept in ``last_result``. ``speculative=True``
         decodes by draft-and-verify with the prompt's text ids
         (``last_prompt_ids``) seeding the drafts: the same answer."""
         inputs = self.build_inputs(question, frames=frames, video_features=video_features,
-                                   video_grid_thw=video_grid_thw)
+                                   video_grid_thw=video_grid_thw, second_per_grid_ts=second_per_grid_ts)
         eos = eos_token_id if eos_token_id is not None else getattr(self.tokenizer, "eos_token_id", None)
         tokens, result = self.model.generate(inputs, max_new_tokens, eos_token_id=eos, speculative=speculative,
                                              draft_len=draft_len,

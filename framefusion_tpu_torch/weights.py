@@ -10,8 +10,8 @@ tensor), ``params_from_state_dict_internlm2`` (InternLM2's fused ``wqkv``),
 ``load_state`` (safetensors shards of a checkpoint directory) and
 ``load_checkpoint`` (config.json + shards -> a ``FrameFusionModel`` with its
 vision tower attached: SigLIP and the LLaVA projector, MiniCPM-V's SigLIP
-and resampler, the Qwen2-VL tower, or InternViT and the ``mlp1`` projector;
-an NVILA checkpoint loads its LLM only, as in JAX).
+and resampler, the Qwen2-VL or Qwen2.5-VL tower, or InternViT and the
+``mlp1`` projector; an NVILA checkpoint loads its LLM only, as in JAX).
 
 One difference from the JAX loader: the towers (and InternVL's projector)
 are loaded in the requested ``dtype`` (bf16 by default, which kernel E
@@ -45,14 +45,13 @@ _QWEN2_LAYER_KEYS = {
     "mlp.down_proj.weight": ("w_down", True),
 }
 
-# Architecture string (config.json ``architectures[0]``) -> family. Qwen2.5-VL
-# (its window-attention tower) waits for ROADMAP item "The other families",
-# the MoE backbone (which the JAX map sends to llava_video) for ROADMAP item
+# Architecture string (config.json ``architectures[0]``) -> family. The MoE
+# backbone (which the JAX map sends to llava_video) waits for ROADMAP item
 # "models/moe.py".
 _ARCH_TO_FAMILY = {"LlavaQwenForCausalLM": "llava_video",
                    "LlavaNextVideoForConditionalGeneration": "llava_next_video", "MiniCPMV": "minicpmv",
                    "LlavaLlamaModel": "nvila", "Qwen2VLForConditionalGeneration": "qwen2_vl",
-                   "InternVLChatModel": "internvl"}
+                   "Qwen2_5_VLForConditionalGeneration": "qwen2_vl", "InternVLChatModel": "internvl"}
 _PORTED_FAMILIES = ("llava_video", "llava_next_video", "minicpmv", "nvila", "qwen2_vl", "internvl")
 _NOT_PORTED = 'is not ported to PyTorch yet (ROADMAP item "The other families")'
 _NOT_PORTED_ARCH = {"Qwen2MoeForCausalLM": 'is not ported to PyTorch yet (ROADMAP item "models/moe.py")'}
@@ -257,31 +256,49 @@ def llm_config_from_hf(cfg_dict: dict, dtype=torch.bfloat16):
 
 
 def _load_qwen2_vl_vision(state: dict, vis_cfg: dict, llm_cfg: LLMConfig, device):
-    """The Qwen2-VL tower of a ``qwen2_vl`` checkpoint in ``llm_cfg.dtype``,
-    or None when it carries none. A Qwen2.5-VL tower (its config has
-    ``out_hidden_size``) raises: it is not ported."""
-    from .models.vision import qwen2_vl_vit
+    """The tower of a ``qwen2_vl`` checkpoint in ``llm_cfg.dtype``, or None
+    when it carries none: the Qwen2.5-VL tower when its config has
+    ``out_hidden_size`` (window attention, RMSNorm, SwiGLU; JAX's defaults
+    for ``tokens_per_second`` and ``fullatt_block_indexes``), else the
+    Qwen2-VL tower."""
+    from .models.vision import qwen2_vl_vit, qwen25_vl_vit
 
     if not any(k.startswith("visual.") for k in state):
         return None
     if "out_hidden_size" in vis_cfg:
-        raise NotImplementedError(f"the Qwen2.5-VL vision tower {_NOT_PORTED}")
-    vit_cfg = qwen2_vl_vit.Qwen2VLViTConfig(
-        embed_dim=vis_cfg.get("embed_dim", 1280),
-        depth=vis_cfg.get("depth", 32),
-        num_heads=vis_cfg.get("num_heads", 16),
-        patch_size=vis_cfg.get("patch_size", 14),
-        temporal_patch_size=vis_cfg.get("temporal_patch_size", 2),
-        spatial_merge_size=vis_cfg.get("spatial_merge_size", 2),
-        mlp_ratio=vis_cfg.get("mlp_ratio", 4.0),
-        hidden_size=llm_cfg.hidden_size,
-        dtype=llm_cfg.dtype,
-    )
+        kind, module = "qwen25_vl_vit", qwen25_vl_vit
+        vit_cfg = qwen25_vl_vit.Qwen25VLViTConfig(
+            hidden_size=vis_cfg.get("hidden_size", 1280),
+            depth=vis_cfg.get("depth", 32),
+            num_heads=vis_cfg.get("num_heads", 16),
+            intermediate_size=vis_cfg.get("intermediate_size", 3420),
+            patch_size=vis_cfg.get("patch_size", 14),
+            temporal_patch_size=vis_cfg.get("temporal_patch_size", 2),
+            spatial_merge_size=vis_cfg.get("spatial_merge_size", 2),
+            window_size=vis_cfg.get("window_size", 112),
+            fullatt_block_indexes=tuple(vis_cfg.get("fullatt_block_indexes", (7, 15, 23, 31))),
+            out_hidden_size=vis_cfg.get("out_hidden_size", llm_cfg.hidden_size),
+            tokens_per_second=vis_cfg.get("tokens_per_second", 4),
+            dtype=llm_cfg.dtype,
+        )
+    else:
+        kind, module = "qwen2_vl_vit", qwen2_vl_vit
+        vit_cfg = qwen2_vl_vit.Qwen2VLViTConfig(
+            embed_dim=vis_cfg.get("embed_dim", 1280),
+            depth=vis_cfg.get("depth", 32),
+            num_heads=vis_cfg.get("num_heads", 16),
+            patch_size=vis_cfg.get("patch_size", 14),
+            temporal_patch_size=vis_cfg.get("temporal_patch_size", 2),
+            spatial_merge_size=vis_cfg.get("spatial_merge_size", 2),
+            mlp_ratio=vis_cfg.get("mlp_ratio", 4.0),
+            hidden_size=llm_cfg.hidden_size,
+            dtype=llm_cfg.dtype,
+        )
     try:
-        params = qwen2_vl_vit.params_from_hf(state, vit_cfg, prefix="visual.", device=device)
+        params = module.params_from_hf(state, vit_cfg, prefix="visual.", device=device)
     except (KeyError, ValueError):
         return None  # partial/unrecognized vision weights: LLM-only load
-    return {"kind": "qwen2_vl_vit", "cfg": vit_cfg, "params": params}
+    return {"kind": kind, "cfg": vit_cfg, "params": params}
 
 
 def _load_internvl_vision(state: dict, cfg_dict: dict, llm_cfg: LLMConfig, device):
@@ -357,7 +374,7 @@ def _load_minicpmv_vision(state: dict, cfg_dict: dict, llm_cfg: LLMConfig, devic
 def _load_vision(family: str, state: dict, cfg_dict: dict, llm_cfg: LLMConfig, device):
     """The family's vision tower: SigLIP and the LLaVA projector for
     llava_video and llava_next_video, SigLIP and the resampler for minicpmv,
-    the Qwen2-VL tower for qwen2_vl, InternViT and its projector for
+    the Qwen2-VL or Qwen2.5-VL tower for qwen2_vl, InternViT and its projector for
     internvl; None when the checkpoint carries no (recognizable) vision
     weights, and for nvila, whose connector the JAX loader does not load
     either (its caller passes the tower and connector)."""
@@ -402,8 +419,9 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
     tower, embeddings, norms and lm_head keep ``dtype``; the LLaVA projector
     and MiniCPM-V's resampler are fp32, as in the JAX loader, InternVL's
     ``mlp1`` takes ``dtype``. An InternVL checkpoint's InternLM2 goes through
-    ``params_from_state_dict_internlm2``. ``Qwen2_5_VLForConditionalGeneration``,
-    a Qwen2.5-VL tower and ``Qwen2MoeForCausalLM`` raise NotImplementedError.
+    ``params_from_state_dict_internlm2``. A ``Qwen2_5_VLForConditionalGeneration``
+    checkpoint loads as the ``qwen2_vl`` family with its Qwen2.5-VL tower;
+    ``Qwen2MoeForCausalLM`` raises NotImplementedError.
     ``device=None`` loads onto the card and raises without one;
     ``device="cpu"`` asks for the CPU.
     """

@@ -29,6 +29,7 @@ from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
 from framefusion_tpu_torch.models import qwen2 as tq
 from framefusion_tpu_torch.models.vision import llava_frontend as tlf
 from framefusion_tpu_torch.models.vision import siglip as ts
+from framefusion_tpu_torch.models.vision.qwen25_vl_vit import Qwen25VLViTConfig
 from framefusion_tpu_torch.pipeline import DEFAULT_TEMPLATE, TextPipeline
 from test_pipeline import StubTokenizer
 
@@ -133,43 +134,90 @@ def test_tokenizer_chat_template_matches_jax(pipes):
         "\nWhy?</user><bot>")
 
 
-def test_from_checkpoint_matches_jax(tmp_path, monkeypatch):
+# The fixture's weights come from ``hash(family)``; two pinned values. "pinned"
+# is the long-standing one. "near_tie" is hash("llava_video") under
+# PYTHONHASHSEED=606: there the random model's 4th greedy token is a near tie
+# that kernels C's and D's plain versions (bf16 products, as JAX's Pallas
+# matvecs) break otherwise than fp32 does.
+FIXTURE_HASHES = {"pinned": 12345, "near_tie": -6408491346635262382}
+
+
+@pytest.mark.parametrize("pin", list(FIXTURE_HASHES))
+def test_from_checkpoint_matches_jax(tmp_path, monkeypatch, pin):
     """Hub dir -> ask() in one call (AutoTokenizer over the fixture's
     tokenizer.json, no network), fp32 on both sides. The fixture draws its
     weights from ``hash(family)``, which changes with every process; a
     module-level ``hash`` pins it, so the test runs on the same weights in
-    every process."""
+    every process. The model's default ``attn_impl="auto"`` resolves to
+    the plain fp32 path for CPU params, as JAX's "auto" resolves to its
+    "chunked" one, so the default pipeline gives JAX's default answer, the
+    near tie included. At the long-standing pin the explicit "flash"
+    pipeline (the kernels' plain versions) gives it too."""
+    import dataclasses
+
     import jax.numpy as jnp
 
     import checkpoint_fixtures
 
-    monkeypatch.setattr(checkpoint_fixtures, "hash", lambda s: 12345, raising=False)
+    monkeypatch.setattr(checkpoint_fixtures, "hash", lambda s: FIXTURE_HASHES[pin], raising=False)
     path = write_fixture(tmp_path, "llava_video")
     jpipe = JaxPipeline.from_checkpoint(path, cost=0.8, dtype=jnp.float32)
     tpipe = TextPipeline.from_checkpoint(path, cost=0.8, dtype=torch.float32, device="cpu")
     for pipe in (jpipe, tpipe):
         pipe.model.ff = pipe.model.ff.replace(schedule_num_layers=pipe.model.cfg.num_layers)
     assert tpipe.model.family == "llava_video" and tpipe.vit_params is not None
-    assert tpipe.model.ff.similarity_lower_bound == 0.6 and tpipe.model.attn_impl == "flash"
+    assert tpipe.model.ff.similarity_lower_bound == 0.6 and tpipe.model.attn_impl == jpipe.model.attn_impl == "auto"
+    assert tpipe.model.resolved_attn_impl() == "einsum" and tpipe.model.engine().attn_impl == "einsum"
     rng = np.random.default_rng(0)
     base = rng.standard_normal((1, 28, 28, 3)).astype(np.float32)
     frames = np.concatenate([base + 0.02 * rng.standard_normal(base.shape) for _ in range(4)]).astype(np.float32)
-    assert_same_answer(jpipe, tpipe, frames=frames)
+    answer = assert_same_answer(jpipe, tpipe, frames=frames)
+    if pin == "pinned":
+        fpipe = dataclasses.replace(tpipe, model=dataclasses.replace(tpipe.model, attn_impl="flash", _engine=None))
+        assert fpipe.model.engine().attn_impl == "flash"
+        assert assert_same_answer(jpipe, fpipe, frames=frames) == answer
+
+
+def test_auto_attention_follows_the_params_device(pipes, monkeypatch):
+    """The model's default ``attn_impl="auto"`` (JAX's default) resolves in
+    one place, ``resolved_attn_impl``, for the engine, the baselines and
+    the towers: the plain fp32 path for CPU params, the kernels for CUDA
+    params (never the plain path there); an explicit choice stands, any
+    other raises."""
+    import dataclasses
+
+    from framefusion_tpu_torch import interface
+    from framefusion_tpu_torch.baselines import replace_forward
+
+    _, tpipe = pipes
+    m = FrameFusionModel(family="llava_video", cfg=tpipe.model.cfg, params=tpipe.model.params)
+    assert m.attn_impl == "auto" and m.resolved_attn_impl() == "einsum" and m.engine().attn_impl == "einsum"
+    assert replace_forward(m, "fastv", fastv_k=2, fastv_r=0.5).engine().attn_impl == "einsum"
+    assert dataclasses.replace(m, attn_impl="flash", _engine=None).engine().attn_impl == "flash"
+    monkeypatch.setattr(interface, "_params_device", lambda params: torch.device("cuda"))
+    on_card = dataclasses.replace(m, _engine=None)
+    assert on_card.resolved_attn_impl() == "flash" and on_card.engine().attn_impl == "flash"
+    assert replace_forward(on_card, "fastv", fastv_k=2, fastv_r=0.5).engine().attn_impl == "flash"
+    assert dataclasses.replace(m, attn_impl="einsum", _engine=None).resolved_attn_impl() == "einsum"
+    with pytest.raises(ValueError, match="attn_impl"):
+        FrameFusionModel(family="llava_video", cfg=m.cfg, params=m.params, attn_impl="chunked")
 
 
 def test_unported_paths_raise(pipes, tmp_path):
-    """What stays refused still raises: a Qwen2.5-VL checkpoint at
-    ``from_checkpoint`` (ROADMAP item "The other families"); the families
-    this package now takes check their own inputs (MiniCPM-V's features are
-    per frame). Speculative decoding is ported: the same answer as JAX's
-    speculative ask and as the plain ask."""
+    """A Qwen2.5-VL checkpoint, once refused, now loads at
+    ``from_checkpoint``: the ``qwen2_vl`` family with its Qwen2.5-VL tower
+    (tests/test_torch_qwen25vl_io.py holds its answer against JAX's). The
+    families this package takes check their own inputs (MiniCPM-V's
+    features are per frame). Speculative decoding is ported: the same answer
+    as JAX's speculative ask and as the plain ask."""
     jpipe, tpipe = pipes
     feats = np.random.default_rng(3).standard_normal((18, 128)).astype(np.float32)
     answer = tpipe.ask("Q?", video_features=feats, max_new_tokens=8, speculative=True)
     assert answer == jpipe.ask("Q?", video_features=feats, max_new_tokens=8, speculative=True)
     assert answer == tpipe.ask("Q?", video_features=feats, max_new_tokens=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP item \"The other families\""):
-        TextPipeline.from_checkpoint(write_fixture(tmp_path, "qwen25_vl"), tokenizer=StubTokenizer(), device="cpu")
+    q25 = TextPipeline.from_checkpoint(write_fixture(tmp_path, "qwen25_vl"), tokenizer=StubTokenizer(), device="cpu")
+    assert q25.model.family == "qwen2_vl" and q25.model.vision["kind"] == "qwen25_vl_vit"
+    assert isinstance(q25.vit_cfg, Qwen25VLViTConfig) and q25.vit_cfg.fullatt_block_indexes == (1,)
     other = TextPipeline(model=FrameFusionModel(family="minicpmv", cfg=tpipe.model.cfg, params=tpipe.model.params),
                          tokenizer=StubTokenizer())
     with pytest.raises(ValueError, match="n_frames, tokens_per_frame"):

@@ -12,7 +12,7 @@ family's entry points (pixels to answer, checkpoints) and the card.
   checkpoint is bf16: the port loads the tower in fp32 or bf16 as asked,
   JAX keeps fp32, both exact); the tower's features within ``EMB_TOL`` of
   JAX's at fp32 and ``BF16_TOL`` at bf16; ``TextPipeline.from_checkpoint``
-  gives JAX's answer. Qwen2.5-VL is refused.
+  gives JAX's answer. A Qwen2.5-VL checkpoint loads with its own tower.
 * HF ``Qwen2VLForConditionalGeneration`` from a random tiny config (the
   pattern of tests/test_qwen2vl_vs_hf.py): prefill logits within 2e-4
   (that file's bound), greedy tokens EQUAL; the tower against HF's vision
@@ -48,7 +48,7 @@ from framefusion_tpu_torch.ops.kernels import bidir_attention as tba
 from framefusion_tpu_torch.ops.kernels import flash_prefill as tfp
 from framefusion_tpu_torch.pipeline import QWEN2_VL_TEMPLATE, TextPipeline
 from framefusion_tpu_torch.runtime.engine import CompressionEngine
-from framefusion_tpu_torch.weights import llm_config_from_hf, load_checkpoint, params_from_state_dict
+from framefusion_tpu_torch.weights import load_checkpoint, params_from_state_dict
 from test_pipeline import StubTokenizer
 
 # Tiny shapes: one intra-op thread each. pytest-xdist workers share the cores, and
@@ -176,10 +176,11 @@ def test_from_checkpoint_matches_jax_and_qwen25_is_refused(tmp_path):
     frames = uint8_frames(2, n=4, h=30, w=30)
     assert tpipe.ask("Q?", frames=frames, max_new_tokens=5) == jpipe.ask("Q?", frames=frames, max_new_tokens=5)
     assert events(tpipe.last_result) == events(jpipe.last_result)
-    with pytest.raises(NotImplementedError, match='ROADMAP item "The other families"'):
-        llm_config_from_hf({"architectures": ["Qwen2_5_VLForConditionalGeneration"]})
-    with pytest.raises(NotImplementedError, match="Qwen2_5_VL.*ROADMAP item \"The other families\""):
-        load_checkpoint(write_fixture(tmp_path / "q25", "qwen25_vl"), device="cpu")
+    # Qwen2.5-VL, once refused here, now loads: the qwen2_vl family with its
+    # own tower (tests/test_torch_qwen25vl_io.py holds it against JAX).
+    q25 = load_checkpoint(write_fixture(tmp_path / "q25", "qwen25_vl"), device="cpu")
+    assert q25.family == "qwen2_vl" and q25.vision["kind"] == "qwen25_vl_vit"
+    assert q25.vision["cfg"].tokens_per_second == 4 and q25.vision["cfg"].out_hidden_size == q25.cfg.hidden_size
 
 
 # -- against HF transformers ------------------------------------------------------------

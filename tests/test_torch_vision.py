@@ -222,19 +222,18 @@ def test_load_checkpoint_matches_jax(tmp_path, quantize):
 
 
 def test_other_families_are_not_ported(tmp_path):
-    """What stays refused, each naming its ROADMAP item: Qwen2.5-VL (its
-    architecture and its hub checkpoint) and the MoE backbone, which the
-    JAX map sends to llava_video; a family outside FAMILIES. The families
-    this package now takes map as JAX's do."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item \"The other families\""):
-        llm_config_from_hf({"architectures": ["Qwen2_5_VLForConditionalGeneration"]})
-    with pytest.raises(NotImplementedError, match="ROADMAP item \"The other families\""):
-        load_checkpoint(write_fixture(tmp_path, "qwen25_vl"), device="cpu")
+    """What stays refused, naming its ROADMAP item: the MoE backbone, which
+    the JAX map sends to llava_video. The families this package takes map
+    as JAX's do; Qwen2.5-VL, once refused, now maps to ``qwen2_vl`` and its
+    hub checkpoint loads with its Qwen2.5-VL tower."""
+    text = {"vocab_size": 8, "hidden_size": 8, "intermediate_size": 8, "num_hidden_layers": 1,
+            "num_attention_heads": 1}
+    assert llm_config_from_hf({"architectures": ["Qwen2_5_VLForConditionalGeneration"], **text})[0] == "qwen2_vl"
+    q25 = load_checkpoint(write_fixture(tmp_path, "qwen25_vl"), device="cpu")
+    assert q25.family == "qwen2_vl" and q25.vision["kind"] == "qwen25_vl_vit"
     with pytest.raises(NotImplementedError, match="ROADMAP item \"models/moe.py\""):
         llm_config_from_hf({"architectures": ["Qwen2MoeForCausalLM"], "vocab_size": 8, "hidden_size": 8,
                             "intermediate_size": 8, "num_hidden_layers": 1, "num_attention_heads": 1})
-    text = {"vocab_size": 8, "hidden_size": 8, "intermediate_size": 8, "num_hidden_layers": 1,
-            "num_attention_heads": 1}
     for arch, family in (("MiniCPMV", "minicpmv"), ("LlavaLlamaModel", "nvila"),
                          ("LlavaNextVideoForConditionalGeneration", "llava_next_video")):
         assert llm_config_from_hf({"architectures": [arch], **text})[0] == family
