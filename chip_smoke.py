@@ -40,6 +40,16 @@ Phases, each printed as it runs; every run makes all of them:
              prefill_planned_batch and generate_batch (the batched step eagerly
              on the CPU, its captured graph on the card): modes, events, cache
              lengths and tokens equal, logits within the bound.
+3b. cross_moe — a tiny bf16 Qwen2-MoE model (6 layers, hidden 512, 4 / 2
+             heads, 8 experts top-2 of width 256, a shared expert of 512, the
+             capacity factor 1.25; ``moe_cross_params``: its router reads a
+             signature in each row, so routing holds under bf16 rounding)
+             through the fused, planned and segmented prefill and 8 greedy
+             tokens: plain versions on the CPU, kernels on the card (the
+             routed experts of each decode step on C and D with a stack
+             index a row, inside the captured decode graph). Events, cache
+             lengths, each MLP call's capacity and dropped choices (some
+             must drop) and tokens equal; logits within LOGIT_RTOL.
 4. full    — random Qwen2-7B weights (bf16 on the card) and the 64-frame
              LLaVA-Video prompt: apply_framefusion + generate (fused; the
              decode is a CUDA graph of the step, captured in this run), the
@@ -245,6 +255,29 @@ Phases, each printed as it runs; every run makes all of them:
              8 heads (groups of 8), C and D at K 8192 and 29,568, G at
              groups of 8; the rows ``"path": "qwen25vl_72b"``.
 
+17. moe_57b — Qwen2-57B-A14B at full size (all 28 layers, hidden 3,584, 28 /
+             4 heads, 64 experts top-8 of width 2,560, a shared expert of
+             20,480, vocab 151,936) on one card, weight-only int8 with the
+             int8 LM head, built on the card a layer at a time from a seeded
+             generator (``moe_57b_params``), through FrameFusionModel +
+             apply_framefusion on the main path's 64-frame prompt (11,697
+             tokens; cost 0.3, S_th 0.6, r_min 0.1): generate(8) (the fused
+             prefill, the int8 decode graph) with the launches of A-D and G
+             and of the routed calls counted around it and every MLP call's
+             capacity drops; the planned and dense prefills; fused / planned
+             / dense ms, the fused prefill's device idle share; the decode
+             graph's ms/step beside its bytes floor; generate_batch at B = 1,
+             4, 8 (ms/step, tokens/s); a K = 5 speculative macro step; a
+             2-slot ServingLoop over 2 requests; peak memory. Last, the rows
+             ``"path": "moe_57b"``: D and C over routed rows (8 and 64, the
+             indices of random top-8 routings at layers 27, 24, ..., 6 of
+             the model's whole 28-layer stacks) against their plain
+             versions beside their bound over the distinct experts read and
+             ``torch.bmm`` on the routed matrices gathered beforehand; C as
+             the 151,936-wide int8 head beside ``torch.matmul`` on the head
+             cast beforehand; D and C at the shared expert's widths (3,584
+             -> 2 x 20,480 and 20,480 -> 3,584, int8, one row).
+
 The line before the last is a JSON object with one entry per kernel, built
 from ``framefusion_tpu_torch.ops.kernels`` (the TPU functions each stands
 for, its source): error, kernel / plain / library ms, bound_ms and what sets
@@ -267,7 +300,10 @@ answer, B around its coherent prompt's prefill). Entries with ``"path":
 12's rows, with its launches: A's from its prefills by (S, mask), C's and
 D's bf16 from the pixels-to-answer decode and int8 from the int8 decode
 graph; ``"path": "nvila"``, ``"minicpmv"``, ``"qwen25vl"`` and
-``"qwen25vl_72b"`` are phases 13's to 16's, alike. The last line is
+``"qwen25vl_72b"`` are phases 13's to 16's, alike; ``"path": "moe_57b"``
+(C's and D's routed rows and C's head row) are phase 17's, with the
+launches of its decode graph (8 routed rows, the head) and of its B = 8
+generate_batch (64 routed rows). The last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. The script never runs on the CPU: without a CUDA device
 it exits at once.
@@ -300,8 +336,9 @@ STAT_RTOL = 1e-3
 #   fp32 rounding only, relative to the largest importance.
 IMP_RTOL = 1e-4
 # * Kernels C/D accumulate bf16 x bf16/int8 products in fp32 in another order
-#   than cuBLAS: fp32 rounding over K <= 18944 terms, relative to the
-#   output's largest magnitude.
+#   than cuBLAS: fp32 rounding over K <= 29568 terms (Qwen2.5-VL-72B's MLP;
+#   20480 at Qwen2-57B-A14B's shared expert), relative to the output's
+#   largest magnitude.
 GEMV_RTOL = 1e-4
 # * Kernel E (bidirectional attention) rounds its probabilities and outputs
 #   to bf16 like kernel A, and is held per (row, head) to ATTN_ROW_RTOL too;
@@ -2921,6 +2958,515 @@ def phase_qwen25vl_72b(chk: Checks, kernels: dict, ctx: dict) -> None:
                      QWEN25VL_72B_FRAMES, QWEN25VL_72B_GRID, QWEN25VL_72B_E_SHAPE, seed=16)
 
 
+# -- Qwen2-MoE (phases 3b and 17) -------------------------------------------------------
+
+# Phase 3b's MoE stack: 8 experts, top-2, at the run's capacity factor 1.25.
+# Its router reads a signature: the last 8 columns of every embedding and
+# prompt row hold a permutation of 0..7 (one patch's rows the same one in
+# every frame), and the blocks write to the residual stream at 0.003, so each
+# token's expert order holds by margins (1 in units of the row's rms, ~1)
+# far above any bf16 rounding and the card and the CPU route alike; the
+# experts that several patches share overflow the capacity, so tokens drop.
+MOE_CROSS_EXPERTS = 8
+# Phase 17: Qwen2-57B-A14B's prompt knobs (the main path's) and its decode
+# batch sizes (B = 8: 64 routed rows, kernel C's and D's limit a launch).
+MOE_KNOBS = (0.3, 0.6, 0.1)
+MOE_BATCH = (1, 4, 8)
+
+
+def moe_cross_params(cfg, seed: int, resid_scale: float) -> dict:
+    """``readout_params``'s attention, embeddings and decisive head on a MoE
+    stack: a signature (a permutation of 0..E-1) in the last E columns of
+    every embedding row, a router that reads those columns, experts and a
+    shared expert; attention, experts and shared expert write to the
+    residual stream at ``resid_scale``."""
+    e, d = cfg.num_experts, cfg.hidden_size
+    rng = np.random.default_rng(seed + 2)
+    dense = cfg.replace(num_experts=0, intermediate_size=cfg.moe_intermediate_size)
+    tree = numpy_params(dense, seed=seed, scale=0.05)
+    for name in ("w_gate", "w_up", "w_down"):
+        del tree["layers"][name]
+    tree["embed"] *= np.float32(20.0)
+    tree["embed"][:, d - e:] = np.stack([rng.permutation(e) for _ in range(cfg.vocab_size)]).astype(np.float32)
+    tree["lm_head"] = np.ascontiguousarray(tree["embed"][rng.permutation(cfg.vocab_size)].T) / np.float32(20.0)
+    tree["layers"]["wo"] *= np.float32(resid_scale / 0.05)  # as readout_params scales its blocks' outputs
+    n_l, mi, si = cfg.num_layers, cfg.moe_intermediate_size, cfg.shared_expert_intermediate_size
+
+    def norm(*shape, scale=0.05):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    router = np.zeros((n_l, d, e), np.float32)
+    router[:, d - e:, :] = np.eye(e, dtype=np.float32)
+    tree["layers"].update(router=router, w_gate=norm(n_l, e, d, mi), w_up=norm(n_l, e, d, mi),
+                          w_down=norm(n_l, e, mi, d, scale=resid_scale), sw_gate=norm(n_l, d, si),
+                          sw_up=norm(n_l, d, si), sw_down=norm(n_l, si, d, scale=resid_scale),
+                          shared_gate=norm(n_l, d, 1))
+    return tree
+
+
+def tiny_moe_run(device: str, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Phase 3b's bf16 MoE model (6 layers, hidden 512, 4 / 2 heads, 8
+    experts top-2 of width 256, shared expert 512, factor 1.25) through the
+    fused, planned and segmented prefill (the drops of every MLP call
+    recorded) and 8 greedy tokens each (the decode graph on the card, its
+    step eagerly on the CPU): mode -> (events, cache lengths, drops, tokens,
+    prefill logits fp32 on the CPU); and the routed kernels' launches."""
+    from framefusion_tpu_torch.config import FrameFusionConfig, tiny_moe_llm_config
+    from framefusion_tpu_torch.models import moe, qwen2
+    from framefusion_tpu_torch.models.adapters.common import build_video_prompt
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+    from framefusion_tpu_torch.runtime.engine import CompressionEngine
+
+    cfg = tiny_moe_llm_config(num_layers=6, hidden_size=512, num_heads=4, num_kv_heads=2, num_experts=MOE_CROSS_EXPERTS,
+                              num_experts_per_tok=2, moe_intermediate_size=256, shared_expert_intermediate_size=512,
+                              moe_capacity_factor=1.25, dtype=dtype)
+    ff = FrameFusionConfig(cost=0.3, similarity_lower_bound=0.6, ratio_lower_bound=0.1, schedule_num_layers=6,
+                           bucket=32)
+    patch_num, e = 8, cfg.num_experts
+    rng = np.random.default_rng(7)
+    tree = moe_cross_params(cfg, seed=0, resid_scale=0.003)
+    h, pt, img_start, n_img = build_video_prompt(np.random.default_rng(5), cfg.hidden_size, n_frames=12,
+                                                 patch_num=patch_num, n_pre=6, n_post=5)
+    h *= np.float32(20.0)  # the embeddings' unit scale
+    h[:, -e:] = np.stack([rng.permutation(e) for _ in range(len(pt))])
+    patch_sig = np.stack([rng.permutation(e) for _ in range(patch_num)])
+    vision = np.arange(img_start, img_start + n_img)
+    h[vision, -e:] = patch_sig[pt[vision]]
+    h[-1] = tree["embed"][7]
+    params = _cast_floats(qwen2.params_from_numpy(tree, device), cfg.dtype)
+    eng = CompressionEngine(params, cfg, ff, attn_impl="flash")
+    routed = (mv.gemv_stacked.launches, mv.gemv_gateup.launches)
+    out = {}
+    for mode in ("fused", "planned", "segmented"):
+        with moe.record_drops() as drops:
+            res = eng.prefill(h, pt, np.arange(len(pt)), patch_num, img_start, n_img, mode=mode)
+        toks = eng.generate(res, 8)
+        out[mode] = ([(ev.layer, ev.kind, ev.tokens_removed) for ev in res.telemetry.events],
+                     [c[2] for c in res.layer_caches], [(s, c, int(d)) for s, c, d in drops], toks,
+                     res.logits.float().cpu(), res.mode)
+    out["launches"] = (mv.gemv_stacked.launches - routed[0], mv.gemv_gateup.launches - routed[1])
+    return out
+
+
+def phase_cross_moe(chk: Checks) -> None:
+    """Phase 3b: the tiny MoE model on the CPU (plain versions) and on the
+    card (kernels, the routed decode on C and D as a captured graph)."""
+    got = {dev: tiny_moe_run(dev) for dev in ("cpu", "cuda")}
+    for mode in ("fused", "planned", "segmented"):
+        cpu, gpu = got["cpu"][mode], got["cuda"][mode]
+        rel = float((cpu[4] - gpu[4]).abs().max() / cpu[4].abs().max())
+        log(f"  moe {mode} ({gpu[5]}): events {gpu[0]}, drops (rows, capacity, dropped) {gpu[2]}, tokens cpu "
+            f"{cpu[3]} cuda {gpu[3]}")
+        chk.expect(cpu[0] == gpu[0] and cpu[1] == gpu[1] and cpu[5] == gpu[5],
+                   f"cross moe {mode}: events, cache lengths and mode equal")
+        chk.expect(cpu[2] == gpu[2], f"cross moe {mode}: every MLP call's capacity and drops equal")
+        chk.expect(sum(d for _, _, d in gpu[2]) > 0, f"cross moe {mode}: the experts overflow at factor 1.25")
+        chk.expect(cpu[3] == gpu[3] and len(set(gpu[3])) >= 3, f"cross moe {mode}: greedy tokens equal and varied")
+        chk.expect(rel <= LOGIT_RTOL, f"cross moe {mode}: prefill logits differ by {rel:.3e} of their largest "
+                                      f"<= {LOGIT_RTOL}")
+        chk.expect(len(gpu[0]) > 1, f"cross moe {mode}: the scenario compresses ({len(gpu[0])} events)")
+    chk.expect(got["cpu"]["launches"] == (0, 0) and min(got["cuda"]["launches"]) > 0,
+               f"cross moe: C and D launched on the card only ({got['cuda']['launches']})")
+
+
+def moe_57b_params(cfg, seed: int) -> dict:
+    """Random Qwen2-57B-A14B weights, weight-only int8 with the int8 LM head,
+    built on the card from a seeded generator one layer at a time: each
+    layer's bf16 matrices (the experts' ~3.5 GB) are drawn, quantized with
+    ``quantize_weight`` into the int8 stacks and dropped; the head is drawn
+    in bf16 and quantized with ``quantize_head``. The router and the shared
+    expert's gate stay bf16, as ``quantize_params_int8`` leaves them."""
+    from framefusion_tpu_torch.ops.quant import quantize_head, quantize_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_l, d, e, hd = cfg.num_layers, cfg.hidden_size, cfg.num_experts, cfg.head_dim_
+    nq, nk, mi, si = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.moe_intermediate_size, \
+        cfg.shared_expert_intermediate_size
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16).mul_(0.02)
+
+    shapes = {"wq": (d, nq), "wk": (d, nk), "wv": (d, nk), "wo": (nq, d), "w_gate": (e, d, mi), "w_up": (e, d, mi),
+              "w_down": (e, mi, d), "sw_gate": (d, si), "sw_up": (d, si), "sw_down": (si, d)}
+    layers = {name: {"q8": torch.empty((n_l,) + shape, dtype=torch.int8, device="cuda"),
+                     "scale": torch.empty((n_l,) + shape[:-2] + shape[-1:], dtype=torch.float32, device="cuda")}
+              for name, shape in shapes.items()}
+    layers.update(ln1=torch.ones((n_l, d), dtype=torch.bfloat16, device="cuda"),
+                  ln2=torch.ones((n_l, d), dtype=torch.bfloat16, device="cuda"),
+                  router=torch.empty((n_l, d, e), dtype=torch.bfloat16, device="cuda"),
+                  shared_gate=torch.empty((n_l, d, 1), dtype=torch.bfloat16, device="cuda"),
+                  bq=torch.zeros((n_l, nq), dtype=torch.bfloat16, device="cuda"),
+                  bk=torch.zeros((n_l, nk), dtype=torch.bfloat16, device="cuda"),
+                  bv=torch.zeros((n_l, nk), dtype=torch.bfloat16, device="cuda"))
+    for l in range(n_l):
+        for name, shape in shapes.items():
+            q = quantize_weight(draw(*shape))
+            layers[name]["q8"][l], layers[name]["scale"][l] = q["q8"], q["scale"]
+            del q
+        layers["router"][l], layers["shared_gate"][l] = draw(d, e), draw(d, 1)
+    return {"embed": draw(cfg.vocab_size, d), "layers": layers,
+            "final_norm": torch.ones((d,), dtype=torch.bfloat16, device="cuda"),
+            "lm_head": quantize_head(draw(d, cfg.vocab_size))}
+
+
+def moe_decode_bytes(params: dict, cfg) -> dict:
+    """The bytes one decode step must read, by part: the attention's int8
+    matrices and scales, the k routed experts' (k / E of the expert stacks),
+    the shared expert's, the router and shared gate, the norms, the head."""
+    def nbytes(t):
+        return sum(nbytes(v) for v in t.values()) if isinstance(t, dict) else t.numel() * t.element_size()
+
+    lay = params["layers"]
+    routed = sum(nbytes(lay[n]) for n in ("w_gate", "w_up", "w_down")) * cfg.num_experts_per_tok / cfg.num_experts
+    return {"attention": sum(nbytes(lay[n]) for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")),
+            "routed experts": routed, "shared expert": sum(nbytes(lay[n]) for n in ("sw_gate", "sw_up", "sw_down")),
+            "router, gate, norms": sum(nbytes(lay[n]) for n in ("router", "shared_gate", "ln1", "ln2"))
+            + nbytes(params["final_norm"]),
+            "head": nbytes(params["lm_head"])}
+
+
+def _routed_row(chk, kernels, gen, name: str, w, scales, idx_sets, path: str) -> dict:
+    """Kernel C (``name`` "down") or D ("gateup") over routed rows: row r
+    reads matrix idx[r] of the model's whole (L, E, K, N) int8 stack(s)
+    ``w``; against its plain version (``w.view(L * E, K, N)[idx]``
+    products), timed from graph replays cycling the index sets ``idx_sets``
+    (each a (rows,) int32 set of one decode step's routing, ``l * E + e``),
+    beside its bound (the distinct experts' bytes this run's indices read)
+    and ``torch.bmm`` on the routed matrices gathered and cast to bf16
+    beforehand (the gather not timed)."""
+    from framefusion_tpu_torch.kernel_bench import graph_time_ms
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+
+    key = "gemv_gateup" if name == "gateup" else "gemv_stacked"
+    rows = int(idx_sets[0].shape[0])
+    k, n = w[0].shape[-2:]
+    x = _rand(gen, (rows, k))
+    cur = [0]
+
+    def idx():
+        cur[0] = (cur[0] + 1) % len(idx_sets)
+        return idx_sets[cur[0]]
+
+    if name == "gateup":
+        out = mv.matvec_routed_gateup(x, w[0], w[1], scales[0], scales[1], idx_sets[0])
+        ref = mv.gemv_gateup_plain(x, w[0].flatten(0, 1), w[1].flatten(0, 1), scales[0].flatten(0, 1),
+                                   scales[1].flatten(0, 1), 0, idx_sets[0])
+        run_k = lambda: mv.matvec_routed_gateup(x, w[0], w[1], scales[0], scales[1], idx())  # noqa: E731
+        run_p = lambda: mv.gemv_gateup_plain(x, w[0].flatten(0, 1), w[1].flatten(0, 1),  # noqa: E731
+                                             scales[0].flatten(0, 1), scales[1].flatten(0, 1), 0, idx())
+    else:
+        out = mv.matvec_routed(x, w[0], idx_sets[0])
+        ref = mv.gemv_stacked_plain(x, [w[0].flatten(0, 1)], 0, idx_sets[0])[0]
+        run_k = lambda: mv.matvec_routed(x, w[0], idx())  # noqa: E731
+        run_p = lambda: mv.gemv_stacked_plain(x, [w[0].flatten(0, 1)], 0, idx())[0]  # noqa: E731
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    shape = f"routed {name} int8 B={rows} K={k} N={n}{'x2' if name == 'gateup' else ''}"
+    chk.expect(rel <= GEMV_RTOL, f"{key} {shape}: max_abs_err {err:.3e} (rel {rel:.3e}) <= {GEMV_RTOL}")
+    _max_err(kernels[key], err)
+    # The yardstick: one bmm over the routed matrices, gathered and cast first.
+    gathered = [torch.cat([wi.flatten(0, 1)[s.long()] for wi in w], dim=-1).to(torch.bfloat16) for s in idx_sets[:2]]
+    lib = [0]
+
+    def run_l():
+        lib[0] ^= 1
+        return torch.bmm(x[:, None, :], gathered[lib[0]])
+
+    t_k, t_p, t_l = graph_time_ms(run_k, iters=20), graph_time_ms(run_p, iters=3), graph_time_ms(run_l, iters=20)
+    distinct = sum(len(torch.unique(s)) for s in idx_sets) / len(idx_sets)
+    entry = {"path": path, "shape": shape, "launches": None, "distinct_experts": distinct}
+    per_expert = k * n * len(w) + (n * 4 * len(w) if name == "gateup" else 0)  # D reads the scales, C's caller
+    t_b = _bound(entry, distinct * per_expert + rows * (k * 2 + n * 4 + 4), 2 * rows * k * n * len(w))
+    entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+    log(f"  {key} {shape}: kernel {t_k:.4f} ms ({t_b / t_k:.3f} of the bound {t_b:.4f} ms over {distinct:.1f} "
+        f"distinct experts, {entry['bound_by']}), plain {t_p:.4f} ms, torch.bmm on pre-gathered bf16 {t_l:.4f} ms "
+        f"(kernel / library {t_k / t_l:.3f})")
+    return entry
+
+
+def _head_row(chk, kernels, gen, head: dict, rows: int, path: str) -> dict:
+    """Kernel C as a one-layer stack over the int8 LM head (``matvec_q8``),
+    against its plain version, beside its bound and ``torch.matmul`` on the
+    head cast to bf16 beforehand."""
+    from framefusion_tpu_torch.kernel_bench import graph_time_ms
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+
+    k, n = head["q8"].shape
+    x = _rand(gen, (rows, k))
+    out = mv.matvec_q8(x, head["q8"], head["scale"])
+    ref = mv.gemv_stacked_plain(x, [head["q8"][None]], 0)[0] * head["scale"]
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    shape = f"lm_head int8 B={rows} K={k} N={n}"
+    chk.expect(rel <= GEMV_RTOL, f"gemv_stacked {shape}: max_abs_err {err:.3e} (rel {rel:.3e}) <= {GEMV_RTOL}")
+    _max_err(kernels["gemv_stacked"], err)
+    w_bf16 = (head["q8"].to(torch.float32) * head["scale"]).to(torch.bfloat16)
+    t_k = graph_time_ms(lambda: mv.matvec_q8(x, head["q8"], head["scale"]), iters=20)
+    t_p = graph_time_ms(lambda: mv.gemv_stacked_plain(x, [head["q8"][None]], 0)[0] * head["scale"], iters=5)
+    t_l = graph_time_ms(lambda: torch.matmul(x, w_bf16), iters=20)
+    del w_bf16
+    entry = {"path": path, "shape": shape, "launches": None}
+    t_b = _bound(entry, k * n + n * 4 + rows * (k * 2 + n * 4), 2 * rows * k * n)
+    entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+    log(f"  gemv_stacked {shape}: kernel {t_k:.4f} ms ({t_b / t_k:.3f} of the bound {t_b:.4f} ms, "
+        f"{entry['bound_by']}), plain {t_p:.4f} ms, torch.matmul on the bf16 head {t_l:.4f} ms "
+        f"(kernel / library {t_k / t_l:.3f})")
+    return entry
+
+
+def _routed_log(mv):
+    """The MoE decode's C and D calls: the routed experts' and the head's by
+    (entry point, rows), the stacked matvecs' (the shared expert, the
+    attention) by (entry point, K, N)."""
+    return CallLog(mv, {"matvec_routed": lambda x, w, index: ("down", x.shape[0]),
+                        "matvec_routed_gateup": lambda x, wg, wu, sg, su, index: ("gateup", x.shape[0]),
+                        "matvec_q8": lambda x, w8, scale: ("lm_head", x.shape[0]),
+                        "matvec_stacked": lambda x, w, layer: ("stacked", x.shape[1], w.shape[2]),
+                        "matvec_stacked_gateup": lambda x, wg, wu, sg, su, layer: (
+                            "stacked gateup", x.shape[1], wg.shape[2])})
+
+
+def phase_moe_57b(chk: Checks, kernels: dict, ctx: dict) -> None:
+    """Phase 17: Qwen2-57B-A14B at full size on one card, int8 with the int8
+    head (``moe_57b_params``), through FrameFusionModel + apply_framefusion
+    on the main path's 64-frame prompt."""
+    from framefusion_tpu_torch import kernel_bench
+    from framefusion_tpu_torch.config import qwen2_moe_a14b_config
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import moe
+    from framefusion_tpu_torch.models.adapters.common import PrefillInputs, build_video_prompt
+    from framefusion_tpu_torch.ops.kernels import decode_attention as da
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+    from framefusion_tpu_torch.runtime import spec_decode
+    from framefusion_tpu_torch.runtime.decode_graph import DecodeGraph
+    from framefusion_tpu_torch.runtime.serving import ServeRequest
+
+    tag = "moe_57b"
+    ctx.clear()
+    torch.cuda.empty_cache()
+    cfg = qwen2_moe_a14b_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = moe_57b_params(cfg, seed=17)
+    torch.cuda.synchronize()
+    parts = moe_decode_bytes(params, cfg)
+    floor_ms = sum(parts.values()) / kernel_bench.H100_BYTES_PER_S * 1e3
+    held = torch.cuda.memory_allocated()
+    log(f"  random Qwen2-57B-A14B, int8 with the int8 head, built on the card in {time.perf_counter() - t0:.1f} s: "
+        f"{held / 1e9:.2f} GB held ({held / 2**30:.2f} GiB); a decode step reads "
+        f"{ {k: round(v / 1e9, 3) for k, v in parts.items()} } GB: {sum(parts.values()) / 1e9:.3f} GB, floor "
+        f"{floor_ms:.3f} ms at 3.35 TB/s")
+    h, pt, img_start, n_img = build_video_prompt(np.random.default_rng(0), cfg.hidden_size)
+    inputs = PrefillInputs(input_embeds=torch.from_numpy(h).to("cuda", torch.bfloat16), patch_type=pt,
+                           position_ids=np.arange(len(pt)), patch_num=182, image_token_start=img_start,
+                           image_token_length=n_img)
+    model = apply_framefusion(FrameFusionModel(family="llava_video", cfg=cfg, params=params), *MOE_KNOBS)
+    wrappers = {"flash_attn_fwd": fp.flash_attn_fwd, "attn_importance_rows": fp.attn_importance_rows,
+                "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup,
+                "ragged_decode_attn": da.ragged_decode_attn}
+
+    # The main path: the fused prefill and 8 tokens through the int8 decode graph.
+    _zero_counts(wrappers)
+    with moe.record_drops() as drops, _routed_log(mv) as r_log:
+        toks, res = model.generate(inputs, max_new_tokens=8)
+        torch.cuda.synchronize()
+    ran, replays = _ran(wrappers), DecodeGraph.replays
+    routed = r_log.counts(replays)
+    drops = [(s, c, int(d)) for s, c, d in drops]
+    ev = _events(res)
+    log(f"  fused + generate(8): launches that ran {ran} ({replays} decode-graph replays); routed C / D and the "
+        f"head by (call, rows) {routed}; events {ev}, final length {res.valid_len} of {len(pt)}, tail from layer "
+        f"{res.telemetry.tail_start_layer}, tokens {toks}")
+    log(f"  capacity drops by MLP call (rows, capacity, (token, rank) choices dropped of rows x 8): {drops}")
+    chk.expect(all(ran[n] > 0 for n in wrappers if n != "attn_importance_rows" or any(e[1] == "prune" for e in ev)),
+               f"{tag}: A{', B' if any(e[1] == 'prune' for e in ev) else ''}, C, D and G ran on the main path ({ran})")
+    chk.expect(routed.get(("gateup", cfg.num_experts_per_tok), 0) == replays * cfg.num_layers + cfg.num_layers
+               and routed.get(("down", cfg.num_experts_per_tok), 0) == routed[("gateup", cfg.num_experts_per_tok)]
+               and routed.get(("lm_head", 1), 0) == replays + 1,
+               f"{tag}: every decode step ran the routed experts on D and C ({cfg.num_experts_per_tok} rows, once a "
+               f"layer) and the head on C, in the warm-up step and each replay")
+    chk.expect(len(drops) == cfg.num_layers and all(s >= res.valid_len for s, _, _ in drops),
+               f"{tag}: one routed MLP call a layer, at the rows the executor holds")
+    chk.expect(bool(torch.isfinite(res.logits).all()) and res.logits.shape == (cfg.vocab_size,) and len(toks) == 8
+               and all(0 <= t < cfg.vocab_size for t in toks), f"{tag}: logits finite (vocab,), 8 tokens")
+    chk.expect(res.valid_len < len(pt), f"{tag}: the prompt was compressed ({res.valid_len} of {len(pt)})")
+
+    eng = model.engine()
+    args = (inputs.input_embeds, pt, inputs.position_ids, 182, img_start, n_img)
+    res_p = eng.prefill(*args, mode="planned")
+    res_d = eng.dense_prefill(inputs.input_embeds, inputs.position_ids)
+    chk.expect(res_p.mode == "planned" and bool(torch.isfinite(res_p.logits).all()),
+               f"{tag}: planned prefill ({res_p.mode}, {res_p.plan_source}): events {_events(res_p)}")
+    chk.expect(bool(torch.isfinite(res_d.logits).all()), f"{tag}: dense prefill logits finite")
+    del res_d
+    t_pre = {mode: cuda_time_ms(lambda mode=mode: eng.prefill(*args, mode=mode), iters=2, warmup=1)
+             for mode in ("fused", "planned", "dense")}
+    prof = kernel_bench.device_profile(lambda: eng.prefill(*args, mode="fused"))
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:10]
+    log(f"  prefill ms at {len(pt)} tokens (CUDA events, mean of 2): fused {t_pre['fused']:.2f}, planned "
+        f"{t_pre['planned']:.2f}, dense {t_pre['dense']:.2f}, dense / fused {t_pre['dense'] / t_pre['fused']:.3f}; "
+        f"fused under the profiler: device idle share {prof['idle_share']:.4f} of {prof['window_us'] / 1e3:.2f} ms, "
+        f"{prof['launches']} device operations; top device kernels (ms) "
+        f"{ {k[:70]: round(v / 1e3, 2) for k, v in top} }")
+    chk.expect(prof["launches"] > 0, f"{tag}: the profiler saw the fused prefill's device operations")
+
+    # The decode step as one captured graph: ms/step over 32 replays.
+    steps = 32
+    graph = eng.decode_graph(res, steps + 1)
+    _, _, lens = eng.make_decode_state(res, steps + 1, pools=(graph.k_pool, graph.v_pool))
+    readings = []
+    for _ in range(2):
+        graph.start(lens, res.decode_pos_base, res.logits)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.run(steps)
+        e1.record()
+        torch.cuda.synchronize()
+        readings.append(e0.elapsed_time(e1) / steps)
+    graph.start(lens, res.decode_pos_base, res.logits)
+    dprof = kernel_bench.device_profile(lambda: graph.run(8))
+    per_step = {k: v / 8 for k, v in sorted(dprof["by_name"].items(), key=lambda kv: -kv[1])}
+    graph.busy = False
+    ms_step = sum(readings) / 2
+    log(f"  int8 decode graph: {ms_step:.3f} ms/step over {steps} replays ({readings[0]:.3f}, {readings[1]:.3f}), "
+        f"{ms_step / floor_ms:.2f}x the {floor_ms:.3f} ms floor; profiler over 8 replays: device idle share "
+        f"{dprof['idle_share']:.4f}, {dprof['launches'] / 8:.0f} device operations a step; top kernels a step (us) "
+        f"{ {k[:60]: round(v, 2) for k, v in list(per_step.items())[:8]} }")
+
+    # generate_batch at B = 1, 4, 8 over 8 distinct prompts' fused prefills.
+    eng._graphs.clear()
+    batch = batch_prompts(cfg.hidden_size, max(MOE_BATCH), seed0=0)
+    res_b = [eng.prefill(h_, pt_, pos_, 182, s_, n_) for h_, pt_, pos_, s_, n_ in batch]
+    b_launch = {}
+    for bsz in MOE_BATCH:
+        rs = res_b[:bsz]
+        _zero_counts(wrappers)
+        with _routed_log(mv) as b_log:
+            toks_b = eng.generate_batch(rs, 8)
+            torch.cuda.synchronize()
+        b_launch[bsz] = b_log.counts(DecodeGraph.replays)
+        g32 = eng._start_batch_decode(rs, steps + 1, None, None)
+        lens_b = [[int(r.layer_caches[l][2]) for r in rs] for l in range(cfg.num_layers)]
+        start = (lens_b, [r.decode_pos_base for r in rs], torch.stack([r.logits for r in rs]))
+        rd = []
+        for _ in range(2):
+            g32.start(*start)
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            g32.run(steps)
+            e1.record()
+            torch.cuda.synchronize()
+            rd.append(e0.elapsed_time(e1) / steps)
+        g32.busy = False
+        del g32
+        ms_b = sum(rd) / 2
+        ctx.setdefault("moe_batch", {})[bsz] = ms_b
+        log(f"  generate_batch B={bsz}: {ms_b:.3f} ms/step over {steps} replays ({rd[0]:.3f}, {rd[1]:.3f}), "
+            f"{bsz * 1e3 / ms_b:.1f} tokens/s; routed calls by (call, rows) {b_launch[bsz]}")
+        chk.expect(len(toks_b) == bsz and all(len(t) == 8 and all(0 <= x < cfg.vocab_size for x in t) for t in toks_b)
+                   and b_launch[bsz].get(("gateup", bsz * cfg.num_experts_per_tok), 0) > 0,
+                   f"{tag}: generate_batch B={bsz}: rows of 8 tokens, the routed experts on D at "
+                   f"{bsz * cfg.num_experts_per_tok} rows")
+
+    # One speculative macro step at K = 5, then a 2-slot serving loop.
+    n_spec, kq = 16, SPEC_DRAFT + 1
+    out_s = eng.generate_spec(res, n_spec, draft_len=SPEC_DRAFT)
+    plain = eng.generate(res, n_spec)
+    agree = next((j for j, (a, b) in enumerate(zip(out_s, plain)) if a != b), n_spec)
+    sgraph = eng.spec_graph(res, n_spec, SPEC_DRAFT, spec_decode.history_cap([0], n_spec, SPEC_DRAFT))
+    _, _, lens_s = eng.make_decode_state(res, 0, pools=(sgraph.k_pool, sgraph.v_pool))
+    rd = []
+    for _ in range(2):
+        sgraph.start(lens_s, res.decode_pos_base, res.logits, [[]], n_spec)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        sgraph.run(4)
+        e1.record()
+        torch.cuda.synchronize()
+        rd.append(e0.elapsed_time(e1) / 4)
+    sgraph.busy = False
+    del sgraph
+    log(f"  generate_spec({n_spec}, K={kq}): agreement with generate({n_spec}) before the first difference (not "
+        f"gated: bf16 ties) {agree} of {n_spec}; macro step {sum(rd) / 2:.3f} ms over 4 replays ({rd[0]:.3f}, "
+        f"{rd[1]:.3f}), {sum(rd) / 2 / ms_step:.2f}x the decode step")
+    chk.expect(len(out_s) == n_spec and all(0 <= t < cfg.vocab_size for t in out_s),
+               f"{tag}: generate_spec at K = {kq} gives {n_spec} tokens in the vocabulary")
+    eng._graphs.clear()
+    solo = [eng.generate_greedy(r, 8) for r in res_b[:2]]
+    eng._graphs.clear()
+    loop = model.serving_loop(max_slots=2, max_new_cap=8, chunk_steps=4,
+                              prefix_cap=max(int(c[2]) for r in res_b[:2] for c in r.layer_caches))
+    reqs = [PrefillInputs(torch.from_numpy(h_).to("cuda", torch.bfloat16), pt_, pos_, 182, s_, n_)
+            for h_, pt_, pos_, s_, n_ in batch[:2]]
+    ids = [loop.submit(ServeRequest(r, max_new_tokens=8)) for r in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = loop.run()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    got = [served[i].tokens for i in ids]
+    log(f"  ServingLoop (2 slots, 2 requests of 8 tokens): {t_serve * 1e3:.1f} ms wall, tokens {got}; agreement "
+        f"with each request's solo generate_greedy before the first difference (not gated: bf16 ties) "
+        f"{[next((j for j, (a, b) in enumerate(zip(g, s_)) if a != b), 8) for g, s_ in zip(got, solo)]} of 8")
+    chk.expect(all(len(t) == 8 and all(0 <= x < cfg.vocab_size for x in t) for t in got),
+               f"{tag}: the serving loop ended both requests with 8 tokens in the vocabulary")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  max_memory_allocated: {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)")
+    del loop, served, res_b, res_p, res, graph, eng, model
+    head = params["lm_head"]
+    w_routed = [params["layers"][n] for n in ("w_gate", "w_up", "w_down")]  # the whole 28-layer stacks
+    params.clear()
+    torch.cuda.empty_cache()
+
+    # The kernel rows at the routed shapes and the head: the index sets are
+    # random top-8 routings (distinct experts within a token), ``l * E + e``
+    # into the whole (L * E, K, N) view as the model reads it; one call's
+    # tokens share its layer, as a decode step's do, and set i is at layer
+    # L - 1 - 3i (27, 24, ..., 6); 8 rows a call for one token, 64 for B = 8.
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    n_l, n_e, top_k = cfg.num_layers, cfg.num_experts, cfg.num_experts_per_tok
+
+    def idx_sets(tokens: int):
+        return [torch.cat([(n_l - 1 - 3 * i) * n_e + torch.randperm(n_e, generator=gen, device="cuda")[:top_k]
+                           for _ in range(tokens)]).to(torch.int32) for i in range(8)]
+
+    for tokens in (1, 8):
+        sets = idx_sets(tokens)
+        d_row = _routed_row(chk, kernels, gen, "gateup", [w_routed[0]["q8"], w_routed[1]["q8"]],
+                            [w_routed[0]["scale"], w_routed[1]["scale"]], sets, tag)
+        c_row = _routed_row(chk, kernels, gen, "down", [w_routed[2]["q8"]], [None], sets, tag)
+        rows = tokens * cfg.num_experts_per_tok
+        counts = routed if tokens == 1 else b_launch[8]
+        _set_launches(d_row, counts.get(("gateup", rows), 0))
+        _set_launches(c_row, counts.get(("down", rows), 0))
+        kernels["gemv_gateup"]["shapes"].append(d_row)
+        kernels["gemv_stacked"]["shapes"].append(c_row)
+    del w_routed
+    torch.cuda.empty_cache()
+    h_row = _head_row(chk, kernels, gen, head, 1, tag)
+    _set_launches(h_row, routed.get(("lm_head", 1), 0))
+    kernels["gemv_stacked"]["shapes"].append(h_row)
+    # The shared expert, one decode row: D at 3,584 -> 2 x 20,480 and C down
+    # at K 20,480, int8 (no earlier phase runs these widths).
+    hid, si = cfg.hidden_size, cfg.shared_expert_intermediate_size
+    for name, kdim, ns, key in (("gateup", hid, [si, si], ("stacked gateup", hid, si)),
+                                ("w_down", si, [hid], ("stacked", si, hid))):
+        (row,) = _cd_rows(chk, kernels, gen, name, "int8", kdim, ns, (1,), path=tag)
+        _set_launches(row, routed.get(key, 0))
+        kernels["gemv_gateup" if name == "gateup" else "gemv_stacked"]["shapes"].append(row)
+    rows = [e for n in ("gemv_stacked", "gemv_gateup") for e in kernels[n]["shapes"] if e.get("path") == tag]
+    chk.expect(all(r["launches"] > 0 for r in rows), f"{tag}: every row's shape ran on this phase's path "
+                                                     f"({[(r['shape'], r['launches']) for r in rows]})")
+    del head
+    torch.cuda.empty_cache()
+
+
 def _shape_entry(kernel: dict, tag: str) -> dict:
     """The entry of ``kernel``'s ``shapes`` that phase 2 made for ``tag``."""
     return next(e for e in kernel["shapes"] if e.get("path") == tag)
@@ -3601,7 +4147,8 @@ def main() -> int:
     ctx: dict = {}
     phases = {"device": lambda: phase_device(chk), "kernels": lambda: phase_kernels(chk, kernels),
               "kernel_check": lambda: phase_kernel_check(chk),
-              "cross": lambda: phase_cross(chk), "full": lambda: phase_full(chk, kernels, ctx),
+              "cross": lambda: phase_cross(chk), "cross_moe": lambda: phase_cross_moe(chk),
+              "full": lambda: phase_full(chk, kernels, ctx),
               "decode": lambda: phase_decode(chk, kernels, ctx), "graph": lambda: phase_graph(chk, kernels, ctx),
               "cross_vision": lambda: phase_cross_vision(chk), "cross_qwen2vl": lambda: phase_cross_qwen2vl(chk),
               "cross_internvl": lambda: phase_cross_internvl(chk),
@@ -3615,7 +4162,8 @@ def main() -> int:
               "internvl": lambda: phase_internvl(chk, kernels, ctx),
               "nvila": lambda: phase_nvila(chk, kernels, ctx), "minicpmv": lambda: phase_minicpmv(chk, kernels, ctx),
               "qwen25vl": lambda: phase_qwen25vl(chk, kernels, ctx),
-              "qwen25vl_72b": lambda: phase_qwen25vl_72b(chk, kernels, ctx)}
+              "qwen25vl_72b": lambda: phase_qwen25vl_72b(chk, kernels, ctx),
+              "moe_57b": lambda: phase_moe_57b(chk, kernels, ctx)}
     t_start = time.perf_counter()
     for phase, run in phases.items():
         log(f"== {phase} ({time.perf_counter() - t_start:.1f} s)")
@@ -3638,8 +4186,9 @@ def main() -> int:
     family_paths = ("internvl", "nvila", "minicpmv", "qwen25vl", "qwen25vl_72b")
     unmeasured += [f"{n}.{path} shape" for n, paths in (("bidir_attn_fwd", ("qwen2vl",) + family_paths),
                                                         ("attn_importance_rows", ("qwen2vl",) + family_paths),
-                                                        ("flash_attn_fwd", family_paths), ("gemv_stacked", family_paths),
-                                                        ("gemv_gateup", family_paths),
+                                                        ("flash_attn_fwd", family_paths),
+                                                        ("gemv_stacked", family_paths + ("moe_57b",)),
+                                                        ("gemv_gateup", family_paths + ("moe_57b",)),
                                                         ("ragged_decode_attn", family_paths))
                    for path in paths
                    if not any(e.get("path") == path for e in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"])]

@@ -257,6 +257,10 @@ class BaselineEngine(CompressionEngine):
     """
 
     def __init__(self, params, cfg, mode: str, kwargs: dict, *, attn_impl: str = "flash", bucket: int = 128):
+        if cfg.is_moe:
+            # As JAX's: the baseline programs keep dead rows in place with no
+            # live mask on the MLP, so they would claim expert capacity.
+            raise NotImplementedError("baseline methods do not support MoE stacks yet")
         super().__init__(params, cfg, FrameFusionConfig(), attn_impl=attn_impl)
         self.mode = mode
         self.kwargs = kwargs

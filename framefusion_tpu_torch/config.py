@@ -5,7 +5,8 @@
 plus the static planning knobs (shape buckets, importance rows, the
 scheduler's layer count). ``LLMConfig`` describes the Qwen2-family decoder
 stack (``mrope_section`` set for Qwen2-VL's multimodal rotary; no qkv bias
-for InternLM2); its ``dtype`` is a ``torch.dtype``.
+for InternLM2; ``num_experts > 0`` for the Qwen2-MoE sparse MLP); its
+``dtype`` is a ``torch.dtype``.
 """
 
 from __future__ import annotations
@@ -52,6 +53,22 @@ class LLMConfig:
     # mRoPE section sizes over the head_dim/2 frequency slots (Qwen2-VL);
     # None: standard 1D RoPE.
     mrope_section: Optional[tuple] = None
+    # Qwen2-MoE sparse MLP (num_experts == 0: the dense SwiGLU MLP), as HF
+    # Qwen2MoeConfig: softmax router, top-k experts (optionally
+    # renormalised) and a shared expert behind a sigmoid gate.
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: int = 0
+    shared_expert_intermediate_size: int = 0
+    norm_topk_prob: bool = False
+    # Prefill's per-expert token budget: ceil(S * top_k / E) times this
+    # (models/moe.moe_prefill_capacity); decode reads the routed experts'
+    # weights and has no capacity.
+    moe_capacity_factor: float = 1.25
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     @property
     def head_dim_(self) -> int:
@@ -72,6 +89,48 @@ def tiny_llm_config(**kw) -> LLMConfig:
         num_kv_heads=2,
         rope_theta=1e4,
         dtype=torch.float32,
+    )
+    base.update(kw)
+    return LLMConfig(**base)
+
+
+def tiny_moe_llm_config(**kw) -> LLMConfig:
+    """Small Qwen2-MoE stack for tests: 4 experts, top-2, a shared expert."""
+    base = dict(
+        vocab_size=512,
+        hidden_size=128,
+        intermediate_size=0,
+        num_layers=4,
+        num_heads=4,
+        num_kv_heads=2,
+        rope_theta=1e4,
+        dtype=torch.float32,
+        num_experts=4,
+        num_experts_per_tok=2,
+        moe_intermediate_size=96,
+        shared_expert_intermediate_size=160,
+    )
+    base.update(kw)
+    return LLMConfig(**base)
+
+
+def qwen2_moe_a14b_config(**kw) -> LLMConfig:
+    """Qwen2-57B-A14B geometry (``Qwen/Qwen2-57B-A14B`` config.json): 28
+    layers, hidden 3584, GQA 28 / 4, 64 experts of width 2560, top-8
+    softmax routing, a shared expert of width 20480, vocab 151936."""
+    base = dict(
+        vocab_size=151936,
+        hidden_size=3584,
+        intermediate_size=0,
+        num_layers=28,
+        num_heads=28,
+        num_kv_heads=4,
+        rope_theta=1e6,
+        num_experts=64,
+        num_experts_per_tok=8,
+        moe_intermediate_size=2560,
+        shared_expert_intermediate_size=20480,
+        norm_topk_prob=False,
     )
     base.update(kw)
     return LLMConfig(**base)

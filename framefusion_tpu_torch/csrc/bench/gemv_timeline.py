@@ -89,7 +89,7 @@ def run(lib, x, stacks, layer, counters) -> None:
     status = lib.ff_gemv_stacked(x.data_ptr(), 1, x.shape[1], layer, wtype,
                                  *([w.data_ptr() for w in stacks] + [None] * pad), *(ns + [0] * pad),
                                  *([o.data_ptr() for o in outs] + [None] * pad), ws.data_ptr(), counters.data_ptr(),
-                                 chunks, kchunk, _build.stream_ptr(x.device))
+                                 chunks, kchunk, None, _build.stream_ptr(x.device))
     _build.check(status, "gemv_stacked (instrumented)")
 
 

@@ -10,6 +10,13 @@
 // D. ff_gemv_gateup — the same pass over the gate and up stacks with the
 //    epilogue silu(g * sg) * (u * su) in a second launch. Replaces
 //    matvec_stacked_gateup.
+// Routed rows (Qwen2-MoE decode): both take an optional device array of
+// int32 stack indices, one an activation row; row b then reads matrix
+// row_idx[b] of the stacks viewed as (L * E, K, N) in place of the host
+// `layer`, and kernel D's epilogue reads that matrix's scales from the
+// (L * E, N) tables. The index never leaves the card, so a decode step that
+// routes on the device stays one capturable graph. A null array is the
+// unrouted path, unchanged.
 //
 // Bound on the card: weight bytes. A decode step at B = 1 reads every
 // weight once and does two operations per weight byte (int8) or one (bf16),
@@ -165,7 +172,8 @@ __device__ __forceinline__ void cta_sums(float* red, float (&part)[V], int warp,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gemv_kernel(const uint16_t* __restrict__ x, int B, int K, size_t layer_off, Stacks st,
-            float* __restrict__ ws, int n_total, int kchunk, int n_chunks, unsigned int* __restrict__ counters) {
+            float* __restrict__ ws, int n_total, int kchunk, int n_chunks, unsigned int* __restrict__ counters,
+            const int* __restrict__ row_idx) {
   constexpr int V = WeightVec<T>::kN;
   constexpr int kTile = 32 * V;  // columns of a tile: kSeg bytes
   extern __shared__ __align__(128) uint8_t smem[];
@@ -188,9 +196,10 @@ gemv_kernel(const uint16_t* __restrict__ x, int B, int K, size_t layer_off, Stac
     }
   }
   const int n = s == 0 ? st.n[0] : s == 1 ? st.n[1] : st.n[2];
+  const int b = blockIdx.z;
+  if (row_idx != nullptr) layer_off = static_cast<size_t>(__ldg(row_idx + b)) * K;  // this row's matrix
   const T* w = static_cast<const T*>(s == 0 ? st.w[0] : s == 1 ? st.w[1] : st.w[2]) + static_cast<size_t>(n) * layer_off;
   float* out = static_cast<float*>(s == 0 ? st.out[0] : s == 1 ? st.out[1] : st.out[2]);
-  const int b = blockIdx.z;
   const int k0 = blockIdx.y * kchunk;
   const int k1 = min(K, k0 + kchunk);
   const int n_stages = (k1 - k0 + kRows - 1) / kRows;
@@ -326,21 +335,23 @@ gemv_kernel(const uint16_t* __restrict__ x, int B, int K, size_t layer_off, Stac
 }
 
 // out[b, c] = silu(g * sg[c]) * (u * su[c]); g, u are the two stacks' sums.
+// With row_idx the scales are row row_idx[b] of (L * E, n) tables.
 __global__ void gateup_reduce_kernel(const float* __restrict__ ws, int n_chunks, int B, int n,
                                      const float* __restrict__ sg, const float* __restrict__ su,
-                                     float* __restrict__ out) {
+                                     float* __restrict__ out, const int* __restrict__ row_idx) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= B * n) return;
-  const int b = idx / n, c = idx % n;
+  const int b = idx / n;
+  const size_t c = static_cast<size_t>(idx % n) + (row_idx != nullptr ? static_cast<size_t>(row_idx[b]) * n : 0);
   float gs = 0.f, us = 0.f;
   for (int y = 0; y < n_chunks; ++y) {
     const float* row = ws + ((size_t)y * B + b) * 2 * n;
-    gs += row[c];
-    us += row[n + c];
+    gs += row[idx % n];
+    us += row[n + idx % n];
   }
   if (sg != nullptr) gs *= sg[c];
   if (su != nullptr) us *= su[c];
-  out[(size_t)b * n + c] = gs / (1.f + expf(-gs)) * us;
+  out[idx] = gs / (1.f + expf(-gs)) * us;
 }
 
 Stacks make_stacks(int vec, const void* w0, const void* w1, const void* w2, void* o0, void* o1, void* o2,
@@ -363,7 +374,7 @@ Stacks make_stacks(int vec, const void* w0, const void* w1, const void* w2, void
 
 template <typename T>
 int launch_typed(const void* x, int B, int K, int layer, const Stacks& st, int n_tiles, float* ws, int n_total,
-                 int n_chunks, int kchunk, unsigned int* counters, cudaStream_t stream) {
+                 int n_chunks, int kchunk, unsigned int* counters, const int* row_idx, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -377,15 +388,17 @@ int launch_typed(const void* x, int B, int K, int layer, const Stacks& st, int n
   const dim3 grid(n_tiles, n_chunks, B);
   gemv_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(static_cast<const uint16_t*>(x), B, K,
                                                          static_cast<size_t>(layer) * K, st, ws, n_total, kchunk,
-                                                         n_chunks, counters);
+                                                         n_chunks, counters, row_idx);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_gemv(int wtype, const void* x, int B, int K, int layer, const Stacks& st, int n_tiles, float* ws,
-                int n_total, int n_chunks, int kchunk, unsigned int* counters, cudaStream_t stream) {
-  return wtype == 1 ? launch_typed<int8_t>(x, B, K, layer, st, n_tiles, ws, n_total, n_chunks, kchunk, counters, stream)
+                int n_total, int n_chunks, int kchunk, unsigned int* counters, const int* row_idx,
+                cudaStream_t stream) {
+  return wtype == 1 ? launch_typed<int8_t>(x, B, K, layer, st, n_tiles, ws, n_total, n_chunks, kchunk, counters,
+                                           row_idx, stream)
                     : launch_typed<uint16_t>(x, B, K, layer, st, n_tiles, ws, n_total, n_chunks, kchunk, counters,
-                                             stream);
+                                             row_idx, stream);
 }
 
 bool plan_ok(int K, int n_chunks, int kchunk) {
@@ -398,31 +411,38 @@ bool plan_ok(int K, int n_chunks, int kchunk) {
 // wtype: 0 = bf16 stacks, 1 = int8 stacks. Unused stacks pass nullptr / 0.
 // ws: (n_chunks, B, n0 + n1 + n2) fp32 scratch; counters: B * (column
 // tiles) uint32, zero, owned by the calling stream (left at zero).
+// row_idx: nullptr, or B int32 stack indices on the device (then `layer`
+// is unused).
 extern "C" int ff_gemv_stacked(const void* x, int B, int K, int layer, int wtype,
                                const void* w0, const void* w1, const void* w2,
                                int n0, int n1, int n2, void* o0, void* o1, void* o2,
-                               void* ws, void* counters, int n_chunks, int kchunk, void* stream) {
+                               void* ws, void* counters, int n_chunks, int kchunk, const void* row_idx,
+                               void* stream) {
   if (!plan_ok(K, n_chunks, kchunk) || counters == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int n_tiles = 0;
   const Stacks st = make_stacks(wtype == 1 ? 16 : 8, w0, w1, w2, o0, o1, o2, n0, n1, n2, &n_tiles);
   return launch_gemv(wtype, x, B, K, layer, st, n_tiles, static_cast<float*>(ws), n0 + n1 + n2, n_chunks, kchunk,
-                     static_cast<unsigned int*>(counters), static_cast<cudaStream_t>(stream));
+                     static_cast<unsigned int*>(counters), static_cast<const int*>(row_idx),
+                     static_cast<cudaStream_t>(stream));
 }
 
+// sg, su: (n,) fp32 scales of `layer`, or with row_idx the whole (L * E,
+// n) tables; nullptr for bf16 stacks.
 extern "C" int ff_gemv_gateup(const void* x, int B, int K, int layer, int wtype,
                               const void* wg, const void* wu, int n, const void* sg,
                               const void* su, void* out, void* ws, int n_chunks, int kchunk,
-                              void* stream) {
+                              const void* row_idx, void* stream) {
   if (!plan_ok(K, n_chunks, kchunk)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int n_tiles = 0;
   const Stacks st = make_stacks(wtype == 1 ? 16 : 8, wg, wu, nullptr, nullptr, nullptr, nullptr, n, n, 0, &n_tiles);
+  const int* rows = static_cast<const int*>(row_idx);
   const int status = launch_gemv(wtype, x, B, K, layer, st, n_tiles, static_cast<float*>(ws), 2 * n, n_chunks, kchunk,
-                                 nullptr, s);
+                                 nullptr, rows, s);
   if (status != 0) return status;
   const int total = B * n;
   gateup_reduce_kernel<<<(total + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(ws), n_chunks, B, n, static_cast<const float*>(sg),
-      static_cast<const float*>(su), static_cast<float*>(out));
+      static_cast<const float*>(su), static_cast<float*>(out), rows);
   return static_cast<int>(cudaGetLastError());
 }

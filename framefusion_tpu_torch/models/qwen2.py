@@ -8,7 +8,18 @@ and applied as ``x @ w``, and an int8 weight-only matrix is the pair
 its merge/prune events.
 
 Architecture: RMSNorm, GQA attention with q/k/v bias, 1D rotary
-embeddings, SwiGLU MLP, optional tied embeddings.
+embeddings, SwiGLU MLP, optional tied embeddings. A Qwen2-MoE stack
+(``cfg.is_moe``) carries per layer a router, (E, K, N) expert stacks and a
+shared expert: the prefill routes through ``models/moe.sparse_mlp`` at the
+capacity of each call's physical row count, and every decode-side program
+runs ``moe_decode_mlp``, which reads the k routed experts' weights in place
+(kernels C and D with a stack index a row, on the card) instead of
+dispatching the token.
+
+An int8 ``lm_head`` (``ops/quant.quantize_head``, padded to a multiple of
+16 columns) is read by kernel C as a one-layer stack in the decode-side
+programs; the prefill takes ``mm``, as JAX does. The logits are sliced back
+to ``vocab_size`` either way.
 
 ``attn_impl`` selects the prefill attention: ``"einsum"`` is the plain
 reference; ``"flash"`` goes through the hand-written kernels
@@ -47,6 +58,7 @@ from ..ops.kernels import flash_prefill, matvec_q8
 from ..ops.kernels.decode_attention import ragged_decode_attention
 from ..ops.rope import apply_rope, mrope_cos_sin, rope_cos_sin
 from ..weights import resolve_device
+from . import moe
 
 ATTN_IMPLS = ("einsum", "flash")  # prefill, the engines, verify and batched decode
 DECODE_ATTN_IMPLS = ATTN_IMPLS + ("ragged",)  # decode_step
@@ -81,10 +93,15 @@ def init_params(cfg: LLMConfig, generator: torch.Generator, device=None) -> dict
         "wk": norm(n_l, d, hk * hd),
         "wv": norm(n_l, d, hk * hd),
         "wo": norm(n_l, hq * hd, d),
-        "w_gate": norm(n_l, d, i),
-        "w_up": norm(n_l, d, i),
-        "w_down": norm(n_l, i, d),
     }
+    if cfg.is_moe:
+        # JAX's layout: the layer axis, then the expert axis.
+        e, mi, si = cfg.num_experts, cfg.moe_intermediate_size, cfg.shared_expert_intermediate_size
+        layers.update({"router": norm(n_l, d, e), "w_gate": norm(n_l, e, d, mi), "w_up": norm(n_l, e, d, mi),
+                       "w_down": norm(n_l, e, mi, d), "sw_gate": norm(n_l, d, si), "sw_up": norm(n_l, d, si),
+                       "sw_down": norm(n_l, si, d), "shared_gate": norm(n_l, d, 1)})
+    else:
+        layers.update({"w_gate": norm(n_l, d, i), "w_up": norm(n_l, d, i), "w_down": norm(n_l, i, d)})
     if cfg.qkv_bias:
         layers["bq"] = zeros(n_l, hq * hd)
         layers["bk"] = zeros(n_l, hk * hd)
@@ -263,11 +280,69 @@ def layer_attention(lp: dict, h, cos, sin, cfg: LLMConfig, *, attn_impl: str = "
     return h_out, k, v, importance
 
 
-def layer_mlp(lp: dict, h: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
-    """Pre-norm SwiGLU MLP block with residual."""
+def layer_mlp(lp: dict, h: torch.Tensor, cfg: LLMConfig, live=None) -> torch.Tensor:
+    """Pre-norm MLP block with residual: SwiGLU, or the Qwen2-MoE sparse
+    block when the layer carries a router.
+
+    ``live`` (bool (S,), or (B, S) for a batched (B, S, D) ``h``) keeps dead
+    and pad rows out of the expert routing, so they claim no capacity slot;
+    the capacity comes from the rows ``h`` physically holds (JAX's
+    ``layer_mlp``). A batch routes each sequence on its own. The dense MLP
+    is per token and ignores ``live``."""
+    if "router" in lp:
+        if h.ndim == 3:
+            return torch.stack([layer_mlp(lp, h[i], cfg, None if live is None else live[i])
+                                for i in range(h.shape[0])])
+        x = rmsnorm(h, lp["ln2"], cfg.rms_norm_eps)
+        y, _ = moe.sparse_mlp(lp, x, num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+                              norm_topk_prob=cfg.norm_topk_prob,
+                              capacity=moe.moe_prefill_capacity(x.shape[0], cfg), live=live)
+        return h + y
     x = rmsnorm(h, lp["ln2"], cfg.rms_norm_eps)
     gated = torch.nn.functional.silu(mm(x, lp["w_gate"])) * mm(x, lp["w_up"])
     return h + mm(gated, lp["w_down"])
+
+
+def _gather_expert(w, idx):
+    """The experts ``idx`` (any shape) of one layer's (E, K, O) stack, or of
+    both members of an int8 pair: (..., K, O) (and scales (..., O))."""
+    if isinstance(w, dict):
+        return {"q8": w["q8"][idx], "scale": w["scale"][idx]}
+    return w[idx]
+
+
+def moe_decode_mlp(lp: dict, h: torch.Tensor, cfg: LLMConfig, layers=None, l: int = 0) -> torch.Tensor:
+    """The MoE MLP block of R decode rows h (R, D), each row exact (no
+    capacity): the router's top-k experts' weights are read, not the token
+    dispatched, as JAX's ``moe_decode_mlp`` (vmapped over the rows) does.
+
+    With ``layers`` (the whole stacks) and ``l``, the routed experts run on
+    kernels C and D with a device stack index a row (``l * E + expert``),
+    so the weights are read in place and nothing is read back to the host;
+    the shared expert takes the stacked matvecs. Without, the plain path
+    gathers the experts (JAX's arithmetic)."""
+    x = rmsnorm(h, lp["ln2"], cfg.rms_norm_eps)
+    r, k = x.shape[0], cfg.num_experts_per_tok
+    weights, idx, _ = moe.top_k_experts(x, lp["router"], k, cfg.norm_topk_prob)  # (R, k)
+    if layers is None:
+        xe = x[:, None, None, :]
+        gated = (torch.nn.functional.silu(moe.expert_matmul(xe, _gather_expert(lp["w_gate"], idx)))
+                 * moe.expert_matmul(xe, _gather_expert(lp["w_up"], idx)))
+        ye = moe.expert_matmul(gated, _gather_expert(lp["w_down"], idx))[:, :, 0]  # (R, k, D)
+        shared = mm(torch.nn.functional.silu(mm(x, lp["sw_gate"])) * mm(x, lp["sw_up"]), lp["sw_down"])
+    else:
+        rows = (idx + l * cfg.num_experts).reshape(-1).to(torch.int32)  # row r * k + j: expert idx[r, j]
+        xr = x[:, None, :].repeat(1, k, 1).reshape(r * k, -1)  # a copy: the kernels take contiguous rows
+        wg, wu, wd = layers["w_gate"], layers["w_up"], layers["w_down"]
+        sg, su = (w["scale"] if isinstance(w, dict) else None for w in (wg, wu))
+        gated = matvec_q8.matvec_routed_gateup(xr, _stack(wg), _stack(wu), sg, su, rows)
+        yd = matvec_q8.matvec_routed(gated.to(x.dtype), _stack(wd), rows)
+        if isinstance(wd, dict):
+            yd = yd * wd["scale"].reshape(-1, wd["scale"].shape[-1])[rows.long()]
+        ye = yd.to(x.dtype).reshape(r, k, -1)
+        shared = mv_stacked(mv_stacked_gateup(x, layers["sw_gate"], layers["sw_up"], l), layers["sw_down"], l)
+    y = (ye * weights[..., None]).sum(dim=1)
+    return h + (y + torch.sigmoid(x @ lp["shared_gate"]) * shared)
 
 
 def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
@@ -278,11 +353,19 @@ def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][input_ids]
 
 
-def final_logits(params: dict, h: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
+def final_logits(params: dict, h: torch.Tensor, cfg: LLMConfig, use_mv: bool = False) -> torch.Tensor:
+    """fp32 logits of the rows of ``h``. ``use_mv`` (the decode-side
+    programs, (R, D) rows) reads an int8 head with kernel C as a one-layer
+    stack; a padded head's extra columns are cut."""
     x = rmsnorm(h, params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_word_embeddings:
         return (x @ params["embed"].T).to(torch.float32)
-    return mm(x, params["lm_head"]).to(torch.float32)
+    head = params["lm_head"]
+    if isinstance(head, dict) and use_mv:
+        logits = matvec_q8.matvec_q8(x.to(torch.bfloat16), head["q8"], head["scale"])
+    else:
+        logits = mm(x, head).to(torch.float32)
+    return logits[..., :cfg.vocab_size]
 
 
 # ---------------------------------------------------------------------------
@@ -290,14 +373,19 @@ def final_logits(params: dict, h: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
 
 
 def run_layers(params: dict, h, cos, sin, cfg: LLMConfig, *, start_layer: int = 0,
-               stop_layer=None, attn_impl: str = "einsum", want_caches: bool = True):
+               stop_layer=None, attn_impl: str = "einsum", want_caches: bool = True, valid_len=None):
     """Run layers [start_layer, stop_layer) over ``h``; returns (h, k_all, v_all).
 
     ``k_all``/``v_all`` are (L, S, Hk, hd) with zeros outside the range, or
-    None with ``want_caches=False``.
+    None with ``want_caches=False``. ``valid_len`` marks trailing pad rows
+    (a compacted bucket); only a MoE stack reads it: pad rows claim no
+    expert slot.
     """
     s = h.shape[0]
     stop_layer = cfg.num_layers if stop_layer is None else stop_layer
+    live = None
+    if cfg.is_moe and valid_len is not None:
+        live = torch.arange(s, device=h.device) < valid_len
     k_all = v_all = None
     if want_caches:
         k_all = torch.zeros((cfg.num_layers, s, cfg.num_kv_heads, cfg.head_dim_), dtype=cfg.dtype, device=h.device)
@@ -305,7 +393,7 @@ def run_layers(params: dict, h, cos, sin, cfg: LLMConfig, *, start_layer: int = 
     for l in range(start_layer, stop_layer):
         lp = layer_slice(params["layers"], l)
         h, k, v, _ = layer_attention(lp, h, cos, sin, cfg, attn_impl=attn_impl)
-        h = layer_mlp(lp, h, cfg)
+        h = layer_mlp(lp, h, cfg, live=live)
         if want_caches:
             k_all[l] = k
             v_all[l] = v
@@ -367,14 +455,17 @@ def _rows_qkv(layers: dict, lp: dict, x, l: int, cfg: LLMConfig, use_mv: bool):
 
 def _rows_out_mlp(layers: dict, lp: dict, h, attn, l: int, cfg: LLMConfig, use_mv: bool):
     """``h + attn @ wo``, then the MLP block, for the rows of ``h`` (R, D);
-    ``attn`` is (R, Hq * hd). ``use_mv`` streams every matvec (kernels C, D)."""
+    ``attn`` is (R, Hq * hd). ``use_mv`` streams every matvec (kernels C, D);
+    a MoE stack takes ``moe_decode_mlp`` (its routed rows on C and D too)."""
     if use_mv:
         h = h + mv_stacked(attn.to(h.dtype), layers["wo"], l)
+        if cfg.is_moe:
+            return moe_decode_mlp(lp, h, cfg, layers, l)
         x2 = rmsnorm(h, lp["ln2"], cfg.rms_norm_eps)
         gated = mv_stacked_gateup(x2, layers["w_gate"], layers["w_up"], l)
         return h + mv_stacked(gated.to(h.dtype), layers["w_down"], l)
     h = h + mm(attn.to(h.dtype), lp["wo"])
-    return layer_mlp(lp, h, cfg)
+    return moe_decode_mlp(lp, h, cfg) if cfg.is_moe else layer_mlp(lp, h, cfg)
 
 
 def decode_step(params: dict, token_embed, position_id, k_pool, v_pool, cache_lens,
@@ -435,7 +526,7 @@ def decode_step(params: dict, token_embed, position_id, k_pool, v_pool, cache_le
             length = row + 1
         attn = attend(q[0], _pool_view(k_pool, l, s_view), _pool_view(v_pool, l, s_view), length)
         h = _rows_out_mlp(layers, lp, h, attn.reshape(1, -1), l, cfg, use_mv)
-    logits = final_logits(params, h, cfg)[0]
+    logits = final_logits(params, h, cfg, use_mv)[0]
     new_lens = lens_after if on_device else [int(n) + 1 for n in cache_lens]
     return logits, k_pool, v_pool, new_lens
 
@@ -506,7 +597,7 @@ def verify_step(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_
             v_pool[l, length:length + kq] = v.to(v_pool.dtype)
         attn = verify_attention(q, _pool_view(k_pool, l, s_view), _pool_view(v_pool, l, s_view), length)
         h = _rows_out_mlp(layers, lp, h, attn.reshape(kq, -1), l, cfg, use_mv)
-    return final_logits(params, h, cfg), k_pool, v_pool
+    return final_logits(params, h, cfg, use_mv), k_pool, v_pool
 
 
 # Masked pool rows in the batched programs (the JAX package's value).
@@ -640,7 +731,7 @@ def decode_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
     row = torch.as_tensor(write_pos + step, device=dev).reshape(1)
     k_pool.index_copy_(2, row, k_new[:, :, None])
     v_pool.index_copy_(2, row, v_new[:, :, None])
-    return final_logits(params, h, cfg), k_pool, v_pool
+    return final_logits(params, h, cfg, use_mv), k_pool, v_pool
 
 
 def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_lens, decode_mask,
@@ -667,7 +758,9 @@ def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
             arange(K)``), so it can be captured in a CUDA graph; it computes
             what the host-int form computes, bit for bit.
         attn_impl: "flash" streams the projections through kernels C/D when
-            B * K <= 64 rows; "einsum" is the plain path.
+            B * K <= 64 rows; a MoE stack's rows, and an int8 head's, at any
+            B * K, in blocks of 64 rows (the routed experts are never
+            gathered); "einsum" is the plain path.
         tail_split: optional ``(P, tail_s, region_start)`` as in
             :func:`decode_step_batch`.
         k_tail, v_tail, phys: physically split tail pools ``(L - P, B,
@@ -696,7 +789,9 @@ def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
     pos_iota = torch.arange(s_pool, device=dev)
     tril = torch.tril(torch.ones((kq, kq), dtype=torch.bool, device=dev))
     scale = 1.0 / math.sqrt(hd)
-    use_mv = attn_impl == "flash" and b * kq <= matvec_q8.MAX_ROWS
+    use_mv = attn_impl == "flash" and (cfg.is_moe or b * kq <= matvec_q8.MAX_ROWS)
+    block = matvec_q8.MAX_ROWS if use_mv else b * kq  # a MoE stack's rows past 64 go in blocks
+    head_mv = attn_impl == "flash" and isinstance(params.get("lm_head"), dict)
     layers = params["layers"]
     on_device = isinstance(write_pos, torch.Tensor) or isinstance(step, torch.Tensor)
     if gate is not None and not on_device:
@@ -721,7 +816,8 @@ def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
             k_l, v_l = k_pool[l], v_pool[l]
         lp = layer_slice(layers, l)
         x = rmsnorm(h, lp["ln1"], cfg.rms_norm_eps)
-        q, k, v = _rows_qkv(layers, lp, x.reshape(b * kq, -1), l, cfg, use_mv)
+        q, k, v = matvec_q8.by_row_blocks(lambda xb: _rows_qkv(layers, lp, xb, l, cfg, use_mv),
+                                          x.reshape(b * kq, -1), block=block)
         q, k = apply_rope(q, k, cos, sin)
         k = k.reshape(b, kq, hk, hd)
         v = v.reshape(b, kq, hk, hd)
@@ -741,7 +837,8 @@ def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
         out = _attend_segments(qf, segments, s_cur, lambda p: torch.einsum("bhgnm,bmhd->bhgnd", p, vf_cur),
                                "bnhgd,bshd->bhgns", "bhgns,bshd->bhgnd", scale)
         out = out.permute(0, 3, 1, 2, 4).reshape(b * kq, hk * g * hd)
-        h = _rows_out_mlp(layers, lp, h.reshape(b * kq, -1), out, l, cfg, use_mv).reshape(b, kq, -1)
+        h = matvec_q8.by_row_blocks(lambda hb, ab: _rows_out_mlp(layers, lp, hb, ab, l, cfg, use_mv),
+                                    h.reshape(b * kq, -1), out, block=block).reshape(b, kq, -1)
         k_new[l] = k.to(k_pool.dtype)
         v_new[l] = v.to(v_pool.dtype)
     if on_device:
@@ -762,5 +859,6 @@ def verify_step_batch(params: dict, token_embeds, position_ids, k_pool, v_pool, 
     else:
         put(k_pool, k_new)
         put(v_pool, v_new)
-    logits = final_logits(params, h.reshape(b * kq, -1), cfg).reshape(b, kq, -1)
+    logits = matvec_q8.by_row_blocks(lambda hb: final_logits(params, hb, cfg, head_mv), h.reshape(b * kq, -1),
+                                     block=matvec_q8.MAX_ROWS if head_mv else b * kq).reshape(b, kq, -1)
     return logits, k_pool, v_pool, k_tail, v_tail

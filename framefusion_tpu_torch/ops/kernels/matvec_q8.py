@@ -16,6 +16,12 @@ it):
 * ``matvec_q8`` / ``matvec_bf16`` keep the JAX entry points of the plain
   (K, N) matvec (``_matvec``): kernel C with the weight viewed as a one-layer
   stack, so no kernel of their own.
+* ``matvec_routed`` / ``matvec_routed_gateup`` — kernels C and D over routed
+  rows (the Qwen2-MoE decode): each row reads its own matrix of a stack
+  viewed as (L * E, K, N), chosen by a device ``int32`` index a row
+  (``index=``), so the routed experts' weights are read in place, never
+  gathered; more than ``MAX_ROWS`` rows go as several launches
+  (``by_row_blocks``).
 
 Like the TPU kernels, the activation row is rounded to bf16 and the weights
 are read as bf16 or int8 (a float weight stack is rounded to bf16 by the
@@ -45,7 +51,7 @@ TILE_BYTES = 512  # bytes of each weight row a CTA reads (the kernel's kSeg)
 ROW_STEP = 8  # K-chunks are whole multiples of the CTA's eight warps
 
 
-def _check_stacks(name, x, stacks, layer):
+def _check_stacks(name, x, stacks, layer, index=None):
     if x.ndim != 2 or x.shape[0] > MAX_ROWS:
         raise ValueError(f"{name}: x must be (B <= {MAX_ROWS}, K), got {tuple(x.shape)}")
     k = x.shape[1]
@@ -54,12 +60,20 @@ def _check_stacks(name, x, stacks, layer):
             raise ValueError(f"{name}: weight stack {tuple(w.shape)} does not match x {tuple(x.shape)}")
         if w.device != x.device:
             raise ValueError(f"{name}: inputs on several devices")
-    if not 0 <= layer < stacks[0].shape[0]:
+    if index is not None:
+        # The values stay on the device (reading them would break a graph
+        # capture): the plain version's indexing checks their range.
+        if index.shape != (x.shape[0],) or index.dtype != torch.int32 or index.device != x.device:
+            raise ValueError(f"{name}: index must be ({x.shape[0]},) int32 on x's device")
+    elif not 0 <= layer < stacks[0].shape[0]:
         raise IndexError(f"{name}: layer {layer} out of range")
 
 
-def _plain_product(x, w, layer):
-    return x.to(torch.bfloat16).to(torch.float32) @ w[layer].to(torch.bfloat16).to(torch.float32)
+def _plain_product(x, w, layer, index=None):
+    xf = x.to(torch.bfloat16).to(torch.float32)
+    if index is None:
+        return xf @ w[layer].to(torch.bfloat16).to(torch.float32)
+    return (xf[:, None, :] @ w[index.long()].to(torch.bfloat16).to(torch.float32))[:, 0]
 
 
 def column_tiles(ns, int8: bool) -> int:
@@ -103,18 +117,21 @@ def _kernel_plan(x, stacks):
     return (1 if dtype == torch.int8 else 0), tiles, chunks, kchunk
 
 
-def gemv_stacked_plain(x, stacks, layer: int):
+def gemv_stacked_plain(x, stacks, layer: int, index=None):
     """Plain version of kernel C."""
-    return [_plain_product(x, w, layer) for w in stacks]
+    return [_plain_product(x, w, layer, index) for w in stacks]
 
 
-def gemv_stacked(x, stacks, layer: int):
-    """Kernel C: ``x @ w[layer]`` for each of 1-3 (L, K, N) stacks -> list of (B, N) fp32."""
+def gemv_stacked(x, stacks, layer: int, index=None):
+    """Kernel C: ``x @ w[layer]`` for each of 1-3 (L, K, N) stacks -> list of (B, N) fp32.
+
+    ``index`` (optional, (B,) int32 on the device): row b takes ``w[index[b]]``
+    in place of ``w[layer]`` (the routed rows)."""
     if not 1 <= len(stacks) <= 3:
         raise ValueError("gemv_stacked takes one to three weight stacks")
-    _check_stacks("gemv_stacked", x, stacks, layer)
+    _check_stacks("gemv_stacked", x, stacks, layer, index)
     if not _device_route("gemv_stacked", x):
-        return gemv_stacked_plain(x, stacks, layer)
+        return gemv_stacked_plain(x, stacks, layer, index)
     from ... import _build
 
     lib = _build.load_library()
@@ -129,7 +146,7 @@ def gemv_stacked(x, stacks, layer: int):
     o_ptrs = [o.data_ptr() for o in outs] + [None] * pad
     status = lib.ff_gemv_stacked(
         x.data_ptr(), b, k, layer, wtype, *w_ptrs, *(ns + [0] * pad), *o_ptrs,
-        ws.data_ptr(), counters.data_ptr(), chunks, kchunk, _build.stream_ptr(x.device),
+        ws.data_ptr(), counters.data_ptr(), chunks, kchunk, _index_ptr(index), _build.stream_ptr(x.device),
     )
     _build.check(status, "gemv_stacked")
     _count_launch(gemv_stacked)
@@ -139,23 +156,30 @@ def gemv_stacked(x, stacks, layer: int):
 gemv_stacked.launches = gemv_stacked.captured = 0
 
 
-def gemv_gateup_plain(x, wg, wu, sg, su, layer: int):
+def _index_ptr(index):
+    return index.data_ptr() if index is not None else None
+
+
+def gemv_gateup_plain(x, wg, wu, sg, su, layer: int, index=None):
     """Plain version of kernel D."""
-    g = _plain_product(x, wg, layer)
-    u = _plain_product(x, wu, layer)
+    g = _plain_product(x, wg, layer, index)
+    u = _plain_product(x, wu, layer, index)
+    rows = layer if index is None else index.long()
     if sg is not None:
-        g = g * sg[layer]
+        g = g * sg[rows]
     if su is not None:
-        u = u * su[layer]
+        u = u * su[rows]
     return torch.nn.functional.silu(g) * u
 
 
-def gemv_gateup(x, wg, wu, sg, su, layer: int):
+def gemv_gateup(x, wg, wu, sg, su, layer: int, index=None):
     """Kernel D: ``silu(x@wg[l] * sg[l]) * (x@wu[l] * su[l])`` -> (B, N) fp32.
 
     ``sg``/``su`` are (L, N) fp32 per-channel scales, or None (bf16 stacks).
+    ``index`` as in ``gemv_stacked``: row b takes matrix ``index[b]`` and its
+    scales.
     """
-    _check_stacks("gemv_gateup", x, [wg, wu], layer)
+    _check_stacks("gemv_gateup", x, [wg, wu], layer, index)
     if wg.shape != wu.shape:
         raise ValueError("gemv_gateup: gate and up stacks differ in shape")
     scales = [s for s in (sg, su) if s is not None]
@@ -163,22 +187,23 @@ def gemv_gateup(x, wg, wu, sg, su, layer: int):
         if s.shape != (wg.shape[0], wg.shape[2]) or s.dtype != torch.float32 or s.device != x.device:
             raise ValueError("gemv_gateup: scales must be (L, N) fp32 on x's device")
     if not _device_route("gemv_gateup", x):
-        return gemv_gateup_plain(x, wg, wu, sg, su, layer)
+        return gemv_gateup_plain(x, wg, wu, sg, su, layer, index)
     from ... import _build
 
     lib = _build.load_library()
     wtype, _, chunks, kchunk = _kernel_plan(x, [wg, wu])
     b, k = x.shape
     n = wg.shape[2]
-    sg_l = sg[layer].contiguous() if sg is not None else None
-    su_l = su[layer].contiguous() if su is not None else None
+    # Routed rows read their scales from the whole tables in the epilogue.
+    sg_l = (sg if index is not None else sg[layer]).contiguous() if sg is not None else None
+    su_l = (su if index is not None else su[layer]).contiguous() if su is not None else None
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     ws = torch.empty((chunks, b, 2 * n), dtype=torch.float32, device=x.device)
     status = lib.ff_gemv_gateup(
         x.data_ptr(), b, k, layer, wtype, wg.data_ptr(), wu.data_ptr(), n,
         sg_l.data_ptr() if sg_l is not None else None,
         su_l.data_ptr() if su_l is not None else None,
-        out.data_ptr(), ws.data_ptr(), chunks, kchunk, _build.stream_ptr(x.device),
+        out.data_ptr(), ws.data_ptr(), chunks, kchunk, _index_ptr(index), _build.stream_ptr(x.device),
     )
     _build.check(status, "gemv_gateup")
     _count_launch(gemv_gateup)
@@ -186,6 +211,19 @@ def gemv_gateup(x, wg, wu, sg, su, layer: int):
 
 
 gemv_gateup.launches = gemv_gateup.captured = 0
+
+
+def by_row_blocks(call, *rows, block: int = MAX_ROWS):
+    """``call`` over blocks of ``block`` rows of the row-aligned tensors
+    ``rows`` (None passes as None), its outputs (a tensor or a tuple of
+    them) joined by row; up to ``block`` rows, one call."""
+    n = rows[0].shape[0]
+    if n <= block:
+        return call(*rows)
+    outs = [call(*(None if t is None else t[i:i + block] for t in rows)) for i in range(0, n, block)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs)
+    return tuple(torch.cat(part) for part in zip(*outs))
 
 
 def matvec_stacked(x, w_stack, layer: int):
@@ -219,3 +257,28 @@ def matvec_bf16(x, w):
     """(B, K) bf16 @ (K, N) bf16 -> (B, N) fp32; on the card N must be a
     multiple of 8."""
     return matvec_stacked(x, _one_layer("matvec_bf16", w), 0)
+
+
+def _flat(name, w):
+    """An (L, E, K, N) expert stack as the (L * E, K, N) view routed rows index."""
+    if w.ndim != 4:
+        raise ValueError(f"{name}: routed rows take an (L, E, K, N) stack, got {tuple(w.shape)}")
+    return w.reshape(-1, *w.shape[2:])
+
+
+def matvec_routed(x, w_stack, index):
+    """(R, K) rows times their own matrices of an (L, E, K, N) int8/bf16
+    stack: row r takes ``w_stack.view(L * E, K, N)[index[r]]`` -> (R, N) fp32
+    (kernel C; ``MAX_ROWS`` rows a launch)."""
+    w = _flat("matvec_routed", w_stack)
+    return by_row_blocks(lambda xb, ib: gemv_stacked(xb, [w], 0, ib)[0], x, index)
+
+
+def matvec_routed_gateup(x, wg_stack, wu_stack, sg, su, index):
+    """``silu(x@wg*sg) * (x@wu*su)`` with each row's own expert of (L, E, K,
+    N) stacks and (L, E, N) scales (or None) -> (R, N) fp32 (kernel D;
+    ``MAX_ROWS`` rows a launch)."""
+    wg, wu = _flat("matvec_routed_gateup", wg_stack), _flat("matvec_routed_gateup", wu_stack)
+    sg = sg.reshape(-1, sg.shape[-1]) if sg is not None else None
+    su = su.reshape(-1, su.shape[-1]) if su is not None else None
+    return by_row_blocks(lambda xb, ib: gemv_gateup(xb, wg, wu, sg, su, 0, ib), x, index)

@@ -333,6 +333,11 @@ class SegmentedEventState:
         return ratio, cur_img_len, k_keep, cur_img_len - k_keep
 
 
+def _prefix_live(n_rows: int, valid_len: int, device) -> torch.Tensor:
+    """The live mask of a compacted bucket: its first ``valid_len`` rows."""
+    return torch.arange(n_rows, device=device) < valid_len
+
+
 def _sim_count(h, pt, live, patch_num: int, s_th: float):
     """Patch-major order, similarities and the above-threshold count (host int)."""
     order, n_img = order_by_patch(pt, live, patch_num)
@@ -481,7 +486,7 @@ class CompressionEngine:
             if defer_final_mlp and st.done:
                 pending = layer
             else:
-                h = qwen2.layer_mlp(lp, h, cfg)
+                h = qwen2.layer_mlp(lp, h, cfg, live=live)
             layer += 1
         return h, live, layer, caches, pending
 
@@ -524,13 +529,15 @@ class CompressionEngine:
 
     def _tail(self, h, pos, valid_len: int, start_layer: int, pending_mlp_layer: int = -1):
         """Remaining layers at the compacted bucket (the deferred MLP first);
-        returns (last live row's logits, k_all, v_all)."""
+        returns (last live row's logits, k_all, v_all). The pad rows past
+        ``valid_len`` are kept out of a MoE stack's routing."""
         cfg = self.cfg
         if pending_mlp_layer >= 0:
-            h = qwen2.layer_mlp(qwen2.layer_slice(self.params["layers"], pending_mlp_layer), h, cfg)
+            h = qwen2.layer_mlp(qwen2.layer_slice(self.params["layers"], pending_mlp_layer), h, cfg,
+                                live=_prefix_live(h.shape[0], valid_len, h.device))
         cos, sin = qwen2.token_cos_sin(pos, cfg)
         h, k_all, v_all = qwen2.run_layers(self.params, h, cos, sin, cfg, start_layer=start_layer,
-                                           attn_impl=self.attn_impl)
+                                           attn_impl=self.attn_impl, valid_len=valid_len)
         logits = qwen2.final_logits(self.params, h[valid_len - 1 : valid_len], cfg)[0]
         return logits, k_all, v_all
 
@@ -599,7 +606,7 @@ class CompressionEngine:
             if all(st.done for st in states):
                 pending = layer
             else:
-                h = qwen2.layer_mlp(lp, h, cfg)
+                h = qwen2.layer_mlp(lp, h, cfg, live=live)
             layer += 1
         return h, live, layer, caches, pending
 
@@ -610,16 +617,17 @@ class CompressionEngine:
         own ``valid_len - 1``. Returns (logits (B, V), k_all, v_all (L, B,
         S, Hk, hd))."""
         cfg = self.cfg
-        if pending_mlp_layer >= 0:
-            h = qwen2.layer_mlp(qwen2.layer_slice(self.params["layers"], pending_mlp_layer), h, cfg)
-        cos, sin = qwen2.token_cos_sin(pos, cfg)
         b, s, _ = h.shape
+        live = torch.arange(s, device=h.device)[None, :] < torch.tensor(valid_lens, device=h.device)[:, None]
+        if pending_mlp_layer >= 0:
+            h = qwen2.layer_mlp(qwen2.layer_slice(self.params["layers"], pending_mlp_layer), h, cfg, live=live)
+        cos, sin = qwen2.token_cos_sin(pos, cfg)
         k_all = torch.zeros((cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim_), dtype=cfg.dtype, device=h.device)
         v_all = torch.zeros_like(k_all)
         for l in range(start_layer, cfg.num_layers):
             lp = qwen2.layer_slice(self.params["layers"], l)
             h, k_all[l], v_all[l], _ = self._attn_core_batch(lp, h, cos, sin)
-            h = qwen2.layer_mlp(lp, h, cfg)
+            h = qwen2.layer_mlp(lp, h, cfg, live=live)
         last = torch.stack([h[i, n - 1] for i, n in enumerate(valid_lens)])
         return qwen2.final_logits(self.params, last, cfg), k_all, v_all
 
@@ -912,11 +920,9 @@ class CompressionEngine:
         valid, frame_tok = orig_len, self._frame_tokens(patch_type)
         layer_caches: list = [None] * cfg.num_layers
 
-        def prefix(n_rows: int, n: int):
-            return torch.arange(n_rows, device=self.device) < n
-
         def merge_event(h, pt, pos, valid, frame_tok, layer: int, do_mlp: bool):
-            sim, order, count = _sim_count(h, pt, prefix(h.shape[0], valid), patch_num, ff.similarity_lower_bound)
+            sim, order, count = _sim_count(h, pt, _prefix_live(h.shape[0], valid, self.device), patch_num,
+                                           ff.similarity_lower_bound)
             k_marked, kind, above, budget = state.merge_decision(count, frame_tok)
             new_valid = valid - k_marked
             new_len = bucket_length(new_valid, ff.bucket)
@@ -925,7 +931,8 @@ class CompressionEngine:
                 out, _ = compact_tokens(keep, new_len, new_valid, {"h": merged, "pos": pos, "patch_type": pt})
                 h, pos, pt = out["h"], out["pos"], out["patch_type"]
                 if do_mlp:
-                    h = qwen2.layer_mlp(qwen2.layer_slice(self.params["layers"], layer), h, cfg)
+                    h = qwen2.layer_mlp(qwen2.layer_slice(self.params["layers"], layer), h, cfg,
+                                        live=_prefix_live(new_len, new_valid, self.device))
             telemetry.events.append(CompressionEvent(layer=layer, kind=kind, tokens_removed=k_marked,
                                                      tokens_after=new_valid, above_ratio=above, budget=budget,
                                                      bucket=new_len))
@@ -949,9 +956,10 @@ class CompressionEngine:
                 new_valid = valid - removed
                 new_len = bucket_length(new_valid, ff.bucket)
                 keep = prune_keep_mask(importance, image_token_start, cur_img_len, k_keep,
-                                       prefix(h_mid.shape[0], valid))
+                                       _prefix_live(h_mid.shape[0], valid, self.device))
                 out, _ = compact_tokens(keep, new_len, new_valid, {"h": h_mid, "pos": pos, "patch_type": pt})
-                h, pos, pt = qwen2.layer_mlp(lp, out["h"], cfg), out["pos"], out["patch_type"]
+                h = qwen2.layer_mlp(lp, out["h"], cfg, live=_prefix_live(new_len, new_valid, self.device))
+                pos, pt = out["pos"], out["patch_type"]
                 telemetry.events.append(CompressionEvent(layer=layer, kind="prune", tokens_removed=removed,
                                                          tokens_after=new_valid, budget=ratio, bucket=new_len))
                 valid = new_valid

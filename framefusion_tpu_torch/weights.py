@@ -1,7 +1,7 @@
 """Weight import: HuggingFace hub checkpoints -> this package's params
 (port of ``framefusion_tpu.weights``: the ``llava_video``,
 ``llava_next_video``, ``minicpmv``, ``nvila``, ``qwen2_vl`` and ``internvl``
-families).
+families, and the Qwen2-MoE backbone).
 
 Linear weights transpose from HF's (out, in) to (in, out), so the forward
 is plain ``x @ w``; layer weights stack along a leading layer axis. Entry
@@ -45,16 +45,27 @@ _QWEN2_LAYER_KEYS = {
     "mlp.down_proj.weight": ("w_down", True),
 }
 
+# Qwen2-MoE (Qwen2MoeForCausalLM) per-layer sparse-MLP names; the experts'
+# weights (_QWEN2_MOE_EXPERT_RE) stack into (L, E, in, out).
+_QWEN2_MOE_LAYER_KEYS = {
+    "mlp.gate.weight": ("router", True),
+    "mlp.shared_expert.gate_proj.weight": ("sw_gate", True),
+    "mlp.shared_expert.up_proj.weight": ("sw_up", True),
+    "mlp.shared_expert.down_proj.weight": ("sw_down", True),
+    "mlp.shared_expert_gate.weight": ("shared_gate", True),
+}
+_QWEN2_MOE_EXPERT_RE = re.compile(r"mlp\.experts\.(\d+)\.(gate_proj|up_proj|down_proj)\.weight")
+_EXPERT_NAME = {"gate_proj": "w_gate", "up_proj": "w_up", "down_proj": "w_down"}
+
 # Architecture string (config.json ``architectures[0]``) -> family. The MoE
-# backbone (which the JAX map sends to llava_video) waits for ROADMAP item
-# "models/moe.py".
+# backbone goes through the llava_video interface defaults, as in JAX.
 _ARCH_TO_FAMILY = {"LlavaQwenForCausalLM": "llava_video",
                    "LlavaNextVideoForConditionalGeneration": "llava_next_video", "MiniCPMV": "minicpmv",
                    "LlavaLlamaModel": "nvila", "Qwen2VLForConditionalGeneration": "qwen2_vl",
-                   "Qwen2_5_VLForConditionalGeneration": "qwen2_vl", "InternVLChatModel": "internvl"}
+                   "Qwen2_5_VLForConditionalGeneration": "qwen2_vl", "InternVLChatModel": "internvl",
+                   "Qwen2MoeForCausalLM": "llava_video"}
 _PORTED_FAMILIES = ("llava_video", "llava_next_video", "minicpmv", "nvila", "qwen2_vl", "internvl")
 _NOT_PORTED = 'is not ported to PyTorch yet (ROADMAP item "The other families")'
-_NOT_PORTED_ARCH = {"Qwen2MoeForCausalLM": 'is not ported to PyTorch yet (ROADMAP item "models/moe.py")'}
 
 
 def to_numpy(t) -> np.ndarray:
@@ -98,14 +109,17 @@ def resolve_device(device=None) -> torch.device:
 
 def params_from_state_dict(state_dict, cfg: LLMConfig, prefix: str = "model.", quantize=None,
                            device=None) -> dict:
-    """The stacked-parameter dict from an HF Qwen2-style state dict.
+    """The stacked-parameter dict from an HF Qwen2-style state dict (a
+    Qwen2-MoE one when ``cfg.is_moe``: the router, the shared expert and the
+    experts' weights stacked per (layer, expert)).
 
     Args:
         state_dict: mapping of HF parameter names to numpy arrays or tensors.
         prefix: path of the language model inside the checkpoint
             (``"model."`` for LLaVA-Video).
         quantize: ``"int8"`` quantizes the decoder matmul weights on the
-            host during import.
+            host during import (the expert stacks a (layer, expert) at a
+            time).
         device: where the params go: the card when None (which raises
             without one); ``"cpu"`` for the CPU.
     """
@@ -113,20 +127,39 @@ def params_from_state_dict(state_dict, cfg: LLMConfig, prefix: str = "model.", q
         raise ValueError(f"unknown quantize={quantize!r} (None or 'int8')")
     device = resolve_device(device)
     layer_re = re.compile(re.escape(prefix) + r"layers\.(\d+)\.(.+)")
+    key_table = dict(_QWEN2_LAYER_KEYS)
+    if cfg.is_moe:
+        key_table.update(_QWEN2_MOE_LAYER_KEYS)
+        for k in ("mlp.gate_proj.weight", "mlp.up_proj.weight", "mlp.down_proj.weight"):
+            key_table.pop(k)
     per_layer: dict[str, dict[int, torch.Tensor]] = {}
+    per_expert: dict[str, dict[tuple, torch.Tensor]] = {}
     for name, tensor in state_dict.items():
         m = layer_re.match(name)
-        if not m or m.group(2) not in _QWEN2_LAYER_KEYS:
+        if not m:
             continue
-        ours, transpose = _QWEN2_LAYER_KEYS[m.group(2)]
+        idx, sub = int(m.group(1)), m.group(2)
+        em = _QWEN2_MOE_EXPERT_RE.fullmatch(sub) if cfg.is_moe else None
+        if em:
+            per_expert.setdefault(_EXPERT_NAME[em.group(2)], {})[(idx, int(em.group(1)))] = _to_tensor(tensor).T
+            continue
+        if sub not in key_table:
+            continue
+        ours, transpose = key_table[sub]
         t = _to_tensor(tensor)
-        per_layer.setdefault(ours, {})[int(m.group(1))] = t.T if transpose else t
+        per_layer.setdefault(ours, {})[idx] = t.T if transpose else t
 
     layers = {}
     for ours, by_idx in per_layer.items():
         if len(by_idx) != cfg.num_layers:
             raise ValueError(f"{ours}: got {len(by_idx)} layers, want {cfg.num_layers}")
         stacked = torch.stack([by_idx[i] for i in range(cfg.num_layers)])
+        layers[ours] = _stack_layer_weight(ours, stacked, cfg, quantize, device)
+    for ours, by_le in per_expert.items():
+        if len(by_le) != cfg.num_layers * cfg.num_experts:
+            raise ValueError(f"{ours}: got {len(by_le)} expert matrices, want {cfg.num_layers}x{cfg.num_experts}")
+        stacked = torch.stack([torch.stack([by_le[(l, e)] for e in range(cfg.num_experts)])
+                               for l in range(cfg.num_layers)])
         layers[ours] = _stack_layer_weight(ours, stacked, cfg, quantize, device)
 
     def plain(key):
@@ -219,7 +252,9 @@ def llm_config_from_hf(cfg_dict: dict, dtype=torch.bfloat16):
     the top level, under ``text_config`` or under ``llm_config``
     (InternVL); Qwen2-VL's mRoPE sections come from
     ``rope_scaling.mrope_section``; InternLM2 has no qkv bias (its config's
-    ``bias`` flag, or the family). Other architectures raise.
+    ``bias`` flag, or the family); a Qwen2-MoE config brings its expert
+    fields (``num_experts`` and the rest, as JAX's ``moe_kw``). Other
+    architectures raise.
 
     InternLM2.5's config may carry a dynamic NTK ``rope_scaling``: it acts
     only past its 32,768 trained positions and, as in the JAX loader, is not
@@ -228,8 +263,7 @@ def llm_config_from_hf(cfg_dict: dict, dtype=torch.bfloat16):
     arch = (cfg_dict.get("architectures") or ["?"])[0]
     family = _ARCH_TO_FAMILY.get(arch)
     if family is None:
-        raise NotImplementedError(f"Model not supported\nArchitecture: {arch} "
-                                  f"{_NOT_PORTED_ARCH.get(arch, _NOT_PORTED)}")
+        raise NotImplementedError(f"Model not supported\nArchitecture: {arch}")
     text = next((cfg_dict[key] for key in ("text_config", "llm_config") if isinstance(cfg_dict.get(key), dict)),
                 cfg_dict)
     rope_scaling = text.get("rope_scaling") or {}
@@ -238,6 +272,13 @@ def llm_config_from_hf(cfg_dict: dict, dtype=torch.bfloat16):
         mrope_section = tuple(int(x) for x in rope_scaling["mrope_section"])
     text_arch = (text.get("architectures") or [arch])[0]
     qkv_bias = bool(text.get("bias", not (family == "internvl" or "InternLM2" in text_arch)))
+    moe_kw = {}
+    if text.get("num_experts"):
+        moe_kw = dict(num_experts=int(text["num_experts"]),
+                      num_experts_per_tok=int(text.get("num_experts_per_tok", 2)),
+                      moe_intermediate_size=int(text["moe_intermediate_size"]),
+                      shared_expert_intermediate_size=int(text.get("shared_expert_intermediate_size", 0)),
+                      norm_topk_prob=bool(text.get("norm_topk_prob", False)))
     llm = LLMConfig(
         vocab_size=text["vocab_size"],
         hidden_size=text["hidden_size"],
@@ -251,6 +292,7 @@ def llm_config_from_hf(cfg_dict: dict, dtype=torch.bfloat16):
         qkv_bias=qkv_bias,
         mrope_section=mrope_section,
         dtype=dtype,
+        **moe_kw,
     )
     return family, llm
 
@@ -420,8 +462,9 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
     and MiniCPM-V's resampler are fp32, as in the JAX loader, InternVL's
     ``mlp1`` takes ``dtype``. An InternVL checkpoint's InternLM2 goes through
     ``params_from_state_dict_internlm2``. A ``Qwen2_5_VLForConditionalGeneration``
-    checkpoint loads as the ``qwen2_vl`` family with its Qwen2.5-VL tower;
-    ``Qwen2MoeForCausalLM`` raises NotImplementedError.
+    checkpoint loads as the ``qwen2_vl`` family with its Qwen2.5-VL tower; a
+    ``Qwen2MoeForCausalLM`` one as ``llava_video`` with its MoE stacks (no
+    tower).
     ``device=None`` loads onto the card and raises without one;
     ``device="cpu"`` asks for the CPU.
     """

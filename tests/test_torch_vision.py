@@ -222,18 +222,21 @@ def test_load_checkpoint_matches_jax(tmp_path, quantize):
 
 
 def test_other_families_are_not_ported(tmp_path):
-    """What stays refused, naming its ROADMAP item: the MoE backbone, which
-    the JAX map sends to llava_video. The families this package takes map
-    as JAX's do; Qwen2.5-VL, once refused, now maps to ``qwen2_vl`` and its
-    hub checkpoint loads with its Qwen2.5-VL tower."""
+    """No family or backbone of the JAX map stays refused: the families
+    this package takes map as JAX's do; Qwen2.5-VL, once refused, maps to
+    ``qwen2_vl`` and its hub checkpoint loads with its Qwen2.5-VL tower; the
+    MoE backbone, once refused, maps to llava_video with its expert fields,
+    as in JAX. An architecture outside the map still raises."""
     text = {"vocab_size": 8, "hidden_size": 8, "intermediate_size": 8, "num_hidden_layers": 1,
             "num_attention_heads": 1}
     assert llm_config_from_hf({"architectures": ["Qwen2_5_VLForConditionalGeneration"], **text})[0] == "qwen2_vl"
     q25 = load_checkpoint(write_fixture(tmp_path, "qwen25_vl"), device="cpu")
     assert q25.family == "qwen2_vl" and q25.vision["kind"] == "qwen25_vl_vit"
-    with pytest.raises(NotImplementedError, match="ROADMAP item \"models/moe.py\""):
-        llm_config_from_hf({"architectures": ["Qwen2MoeForCausalLM"], "vocab_size": 8, "hidden_size": 8,
-                            "intermediate_size": 8, "num_hidden_layers": 1, "num_attention_heads": 1})
+    family, moe_cfg = llm_config_from_hf({"architectures": ["Qwen2MoeForCausalLM"], **text, "num_experts": 4,
+                                          "moe_intermediate_size": 8})
+    assert family == "llava_video" and moe_cfg.is_moe and moe_cfg.num_experts == 4
+    with pytest.raises(NotImplementedError, match="Model not supported"):
+        llm_config_from_hf({"architectures": ["GPT2LMHeadModel"], **text})
     for arch, family in (("MiniCPMV", "minicpmv"), ("LlavaLlamaModel", "nvila"),
                          ("LlavaNextVideoForConditionalGeneration", "llava_next_video")):
         assert llm_config_from_hf({"architectures": [arch], **text})[0] == family
