@@ -179,6 +179,27 @@ Phases, each printed as it runs; every run makes all of them:
              reported, chunk and admission ms, captures, compactions,
              requests/s and tokens/s. C's and D's launches on these paths
              (eager, captured, replayed: ``spec_launches``).
+10b. eval  — ``evaluation.run_offline_eval`` on a full-width Qwen2-7B built
+             for the phase (bf16, random weights drawn on the card from seed
+             0) over 3 main-path prompts (``build_video_prompt`` seeds 0-2,
+             11,697 tokens), dense against FrameFusion at cost 0.3, S_th 0.6,
+             r_min 0.1, 16 greedy tokens each: the report strict-parses
+             (``allow_nan=False``), each prompt's final_tokens and reduction
+             are its own fused prefill's, A, B, C, D and G launched; the wall
+             time, each prompt's ``evaluate_pair`` ms and the first-token KL.
+10c. scripts — each of ``framefusion_tpu_torch.scripts``' ``main(argv)`` in
+             process on the card, its output contract checked (table columns,
+             tokens kept, strict JSON, the demo's streams): at full width
+             ``example_llava --full-size``, ``example_baselines --full``,
+             ``example_longvideo`` (128 frames, int8: a 23,345-token dense
+             prefill), ``example_batched --int8`` (B = 4, 16 frames) and
+             ``example_serving --int8 --speculative`` (8 requests, 4 slots,
+             16 frames); at their defaults the four family examples and
+             ``demo_compare --selftest`` (two replicas streaming at once on
+             two CUDA streams). Each script's table, wall time and launches;
+             then kernel A at the long video's dense shape (S 23,345, 28 / 4
+             heads, no mask) against its plain version, an A regime with
+             ``"path": "scripts"`` and the launches of the script's run.
 11. qwen2vl — the Qwen2-VL family at full width: a random Qwen2-VL tower of
              the published geometry (depth 32, embed 1280, 16 heads of 80,
              patch 14, temporal patch 2, merge 2, MLP ratio 4, out 3584) and
@@ -300,7 +321,8 @@ answer, B around its coherent prompt's prefill). Entries with ``"path":
 12's rows, with its launches: A's from its prefills by (S, mask), C's and
 D's bf16 from the pixels-to-answer decode and int8 from the int8 decode
 graph; ``"path": "nvila"``, ``"minicpmv"``, ``"qwen25vl"`` and
-``"qwen25vl_72b"`` are phases 13's to 16's, alike; ``"path": "moe_57b"``
+``"qwen25vl_72b"`` are phases 13's to 16's, alike; A's regime with
+``"path": "scripts"`` is phase 10c's long video; ``"path": "moe_57b"``
 (C's and D's routed rows and C's head row) are phase 17's, with the
 launches of its decode graph (8 routed rows, the head) and of its B = 8
 generate_batch (64 routed rows). The last line is
@@ -313,6 +335,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -4101,6 +4124,233 @@ def phase_spec_serve(chk: Checks, kernels: dict, ctx: dict) -> None:
     ctx.clear()
 
 
+# The long video's dense prefill (example_longvideo at 128 frames): kernel A
+# over the whole 23,345-token prompt, no mask, Qwen2-7B's 28 / 4 heads.
+LONGVIDEO_S = 35 + 128 * 182 + 14
+REGIME_LONGVIDEO = "long video's dense prefill: S 23,345, no mask"
+
+
+def _all_wrappers() -> dict:
+    from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
+    from framefusion_tpu_torch.ops.kernels import decode_attention as da
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+    from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
+    from framefusion_tpu_torch.ops.kernels import sink_prefill as sp
+
+    return {"flash_attn_fwd": fp.flash_attn_fwd, "attn_importance_rows": fp.attn_importance_rows,
+            "gemv_stacked": mv.gemv_stacked, "gemv_gateup": mv.gemv_gateup, "bidir_attn_fwd": ba.bidir_attn_fwd,
+            "sink_attn_fwd": sp.sink_attn_fwd, "ragged_decode_attn": da.ragged_decode_attn}
+
+
+def phase_eval(chk: Checks) -> None:
+    """``evaluation.run_offline_eval`` on a full-width Qwen2-7B built here
+    (bf16, random weights drawn on the card from seed 0) over 3 prompts of the
+    main path (64 frames x 182 patches, ``build_video_prompt`` seeds 0-2),
+    dense against FrameFusion at cost 0.3, S_th 0.6, r_min 0.1, 16 tokens."""
+    import gc
+
+    from framefusion_tpu_torch.config import qwen2_7b_config
+    from framefusion_tpu_torch.evaluation import evaluate_pair, run_offline_eval
+    from framefusion_tpu_torch.interface import FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.adapters.common import PrefillInputs, build_video_prompt
+
+    cfg = qwen2_7b_config()
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    dense = FrameFusionModel(family="llava_video", cfg=cfg, params=params)
+    ff = apply_framefusion(dense, 0.3, 0.6, 0.1)
+    prompts = []
+    for seed in range(3):
+        h, pt, img_start, n_img = build_video_prompt(np.random.default_rng(seed), cfg.hidden_size)
+        prompts.append(PrefillInputs(torch.from_numpy(h).to("cuda", cfg.dtype), pt, np.arange(len(pt)), 182,
+                                     img_start, n_img))
+    wrappers = _all_wrappers()
+    _zero_counts(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = run_offline_eval(dense, ff, prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = _ran(wrappers)
+    text = json.dumps(report, allow_nan=False)
+    chk.expect(json.loads(text) == report and report["num_prompts"] == 3,
+               f"eval: the report strict-parses ({len(text)} bytes, allow_nan=False), 3 prompts")
+    log(f"  eval: run_offline_eval over 3 main-path prompts (11,697 tokens each, 16 tokens): {wall:.2f} s wall "
+        f"(graph captures included); mean reduction {report['mean_reduction']:.4f}, greedy agreement "
+        f"{report['mean_greedy_agreement']:.4f}, first-token match {report['first_token_match_rate']:.4f}, "
+        f"mean first-token KL {report['mean_kl_first_token']:.6g}; launches that ran {ran}")
+    for name in ("flash_attn_fwd", "attn_importance_rows", "gemv_stacked", "gemv_gateup", "ragged_decode_attn"):
+        chk.expect(ran[name] > 0, f"eval: {name} launched {ran[name]} times")
+    for i, (p, row) in enumerate(zip(prompts, report["per_prompt"])):
+        res = ff.prefill(p)
+        chk.expect(row["final_tokens"] == res.valid_len
+                   and row["vision_token_reduction"] == res.telemetry.vision_token_reduction
+                   and row["prompt_tokens"] == p.input_embeds.shape[0],
+                   f"eval prompt {i}: final_tokens {row['final_tokens']} and reduction "
+                   f"{row['vision_token_reduction']:.4f} are its fused prefill's ({res.valid_len}, "
+                   f"{res.telemetry.vision_token_reduction:.4f})")
+        del res
+        chk.expect(math.isfinite(row["kl_first_token"]) and row["kl_first_token"] >= -1e-6,
+                   f"eval prompt {i}: KL {row['kl_first_token']:.6g} finite and not below 0")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        again = evaluate_pair(dense, ff, p, max_new_tokens=16)
+        torch.cuda.synchronize()
+        log(f"  eval prompt {i}: evaluate_pair {(time.perf_counter() - t1) * 1e3:.2f} ms wall (dense and fused "
+            f"prefill, two 16-token graph decodes; captured before), final {again.final_tokens} of "
+            f"{again.prompt_tokens}, greedy match {again.greedy_match_len} / agreement {again.greedy_agreement:.4f}, "
+            f"top-1 {again.top1_logit_match}, KL {again.kl_first_token:.6g}")
+    t_dense = cuda_time_ms(lambda: dense.prefill(prompts[0]), iters=3, warmup=1)
+    t_ff = cuda_time_ms(lambda: ff.prefill(prompts[0]), iters=3, warmup=1)
+    log(f"  eval prompt 0: dense prefill {t_dense:.2f} ms, FrameFusion prefill {t_ff:.2f} ms (CUDA events, mean of 3)")
+    del dense, ff, params, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _run_script(name: str, argv: list):
+    """``framefusion_tpu_torch.scripts.<name>.main(argv)`` in this process,
+    its standard output captured. Returns (main's result, the output, seconds)."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"framefusion_tpu_torch.scripts.{name}")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    torch.cuda.synchronize()
+    return out, buf.getvalue(), time.perf_counter() - t0
+
+
+def _table(text: str, first: str = "method") -> list:
+    """The last table of a script's output whose header starts with ``first``:
+    its header and rows, as lines."""
+    lines = text.splitlines()
+    starts = [i for i, l in enumerate(lines) if l.split()[:1] == [first]]
+    if not starts:
+        return []
+    out = []
+    for line in lines[starts[-1]:]:
+        if not line.strip() or line.startswith("("):
+            break
+        out.append(line)
+    return out
+
+
+def _refuse_constant(name: str):
+    raise ValueError(f"not strict JSON: {name}")
+
+
+def phase_scripts(chk: Checks, kernels: dict) -> None:
+    """Each ported script's ``main(argv)`` in process on the card, its output
+    contract checked; then kernel A at the long video's dense shape against
+    its plain version."""
+    import gc
+    import tempfile
+
+    from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
+
+    wrappers = _all_wrappers()
+    runs = [
+        ("example_llava", ["--full-size"]),
+        ("example_baselines", ["--full"]),
+        ("example_longvideo", []),
+        ("example_batched", ["--int8", "--batch", "4", "--frames", "16"]),
+        ("example_serving", ["--int8", "--speculative", "--requests", "8", "--slots", "4", "--frames", "16"]),
+        ("example_qwen2vl", []),
+        ("example_internvl", []),
+        ("example_minicpmv", []),
+        ("example_nvila", []),
+        ("demo_compare", ["--selftest"]),
+    ]
+    longvideo_a = 0
+    tmp = tempfile.TemporaryDirectory()
+    json_path = os.path.join(tmp.name, "serving.json")
+    for name, argv in runs:
+        if name == "example_serving":
+            argv = argv + ["--json", json_path]
+        _zero_counts(wrappers)
+        with _a_log(fp) as a_log:
+            try:
+                out, text, wall = _run_script(name, argv)
+            except Exception as exc:  # noqa: BLE001 - reported as this script's failure, the phase goes on
+                import traceback
+
+                traceback.print_exc()
+                chk.expect(False, f"scripts: {name} {' '.join(argv)} raised {type(exc).__name__}: {exc}")
+                gc.collect()
+                torch.cuda.empty_cache()
+                continue
+        ran = {k: v for k, v in _ran(wrappers).items() if v}
+        table = _table(text)
+        log(f"  {name} {' '.join(argv)}: {wall:.2f} s wall; launches that ran {ran}")
+        for line in table:
+            log(f"    | {line}")
+        for line in text.splitlines():
+            if line.startswith(("speedup", "decode ", "served ", "  latency", "  oracle", "parity", "sanity",
+                                "  B=", "tail pool", "prompt:", "batched[0]", "4 compressed", "  sequential")):
+                log(f"    {line.strip()}")
+        if name in ("example_llava", "example_qwen2vl", "example_internvl", "example_minicpmv", "example_nvila"):
+            cols = table[0].split() if table else []
+            want = ["method", "prefill_ms", "tokens_kept"] + (["first_tokens"] if name == "example_llava" else [])
+            dense, ffr = out["dense"], out["ff"]
+            ok = (cols == want and ffr.valid_len < dense.valid_len and bool(torch.isfinite(ffr.logits).all())
+                  and bool(torch.isfinite(dense.logits).all()) and "speedup:" in text and "CUDA events" in text)
+            if name == "example_llava":
+                ok = ok and len(out["dense_tokens"]) == len(out["ff_tokens"]) == 16
+                chk.expect(dense.valid_len == 64 * 182 + 39,
+                           f"scripts: example_llava --full-size: a {dense.valid_len}-token prompt (64 x 182 video "
+                           f"rows in place of 1 of 40 text rows), compressed to {ffr.valid_len}")
+            chk.expect(ok, f"scripts: {name}: table {cols}, tokens kept {dense.valid_len} -> {ffr.valid_len}, "
+                           f"finite logits, speedup line, CUDA-event times")
+        elif name == "example_baselines":
+            methods = [r["method"] for r in out]
+            chk.expect(methods == ["dense", "framefusion", "fastv", "streamingllm", "prefill_merge",
+                                   "merge_then_fastv", "fastv_then_merge"]
+                       and out[0]["tokens_kept"] == 11697 and all(r["tokens_kept"] <= 11697 for r in out)
+                       and out[1]["tokens_kept"] < 11697 and ran.get("sink_attn_fwd", 0) > 0,
+                       f"scripts: example_baselines --full: 7 methods at 11,697 tokens, kept "
+                       f"{[r['tokens_kept'] for r in out]}; kernel F launched {ran.get('sink_attn_fwd', 0)} times")
+        elif name == "example_longvideo":
+            longvideo_a = a_log.counts().get((LONGVIDEO_S, False), 0)
+            rows = out["rows"]
+            chk.expect(rows[0]["tokens"] == LONGVIDEO_S and out["res"].valid_len < LONGVIDEO_S
+                       and bool(torch.isfinite(out["res"].logits).all()) and longvideo_a > 0
+                       and "weights=int8" in text,
+                       f"scripts: example_longvideo: dense at {rows[0]['tokens']} tokens (kernel A launched "
+                       f"{longvideo_a} times at S {LONGVIDEO_S}), FrameFusion kept {out['res'].valid_len}; int8")
+        elif name == "example_batched":
+            chk.expect(len(out["tokens_batch"]) == 4 and all(len(t) == 32 for t in out["tokens_batch"])
+                       and out["tokens_batch"][0][0] == out["tokens_single"][0],
+                       f"scripts: example_batched --int8: 4 x 32 tokens, the first token equal to the solo decode's")
+        elif name == "example_serving":
+            with open(json_path) as f:
+                rec = json.loads(f.read(), parse_constant=_refuse_constant)
+            chk.expect(rec == out and rec["requests"] == 8 and rec["total_tokens"] > 0
+                       and rec["parity_prefix"] >= 1 and "speculative_agreement" in rec and rec["int8"],
+                       f"scripts: example_serving --int8 --speculative: the JSON strict-parses, "
+                       f"{rec['total_tokens']} tokens at {rec['serving_tokens_per_s']} tokens/s, speculative "
+                       f"{rec['speculative_tokens_per_s']} tokens/s, agreement {rec['speculative_agreement']}, "
+                       f"parity prefix {rec['parity_prefix']}")
+        elif name == "demo_compare":
+            chk.expect(all(len(v) >= 2 for v in out["partials"].values()) and "sanity ok" in text,
+                       f"scripts: demo_compare --selftest: two replicas streamed "
+                       f"{ {k: len(v) for k, v in out['partials'].items()} } updates, each ending with its solo "
+                       f"decode's tokens")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    regime, _ = _a_regime(chk, kernels, gen, LONGVIDEO_S, 28, 4, 0.0, REGIME_LONGVIDEO)
+    regime.update(launches=longvideo_a, path="scripts")
+    torch.cuda.empty_cache()
+
+
 def kernels_table() -> dict:
     """The kernels line's entries, one a kernel of
     ``framefusion_tpu_torch.ops.kernels``, every number still to measure."""
@@ -4158,6 +4408,7 @@ def main() -> int:
               "cross_baselines": lambda: phase_cross_baselines(chk),
               "baselines": lambda: phase_baselines(chk, kernels), "batch": lambda: phase_batch(chk, kernels, ctx),
               "spec_serve": lambda: phase_spec_serve(chk, kernels, ctx),
+              "eval": lambda: phase_eval(chk), "scripts": lambda: phase_scripts(chk, kernels),
               "qwen2vl": lambda: phase_qwen2vl(chk, kernels, ctx),
               "internvl": lambda: phase_internvl(chk, kernels, ctx),
               "nvila": lambda: phase_nvila(chk, kernels, ctx), "minicpmv": lambda: phase_minicpmv(chk, kernels, ctx),
@@ -4192,6 +4443,9 @@ def main() -> int:
                                                         ("ragged_decode_attn", family_paths))
                    for path in paths
                    if not any(e.get("path") == path for e in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"])]
+    unmeasured += [f"flash_attn_fwd.{REGIME_LONGVIDEO}"] if not any(
+        e["regime"] == REGIME_LONGVIDEO and e.get("path") == "scripts" and e["launches"]
+        for e in kernels["flash_attn_fwd"]["regimes"]) else []
     unmeasured += [f"{n}.batch_launches" for n in ("flash_attn_fwd", "attn_importance_rows", "gemv_stacked",
                                                    "gemv_gateup") if "batch_launches" not in kernels[n]]
     unmeasured += [f"{n}.spec_launches" for n in ("gemv_stacked", "gemv_gateup") if "spec_launches" not in kernels[n]]

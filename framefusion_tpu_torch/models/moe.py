@@ -84,9 +84,16 @@ def expert_matmul(a: torch.Tensor, w) -> torch.Tensor:
 
 def top_k_experts(x: torch.Tensor, router: torch.Tensor, top_k: int, norm_topk_prob: bool):
     """fp32 softmax over the experts, top-k, optional renormalisation (HF's
-    order). Returns (weights (S, k) in x's dtype, idx (S, k), probs (S, E))."""
+    order). Returns (weights (S, k) in x's dtype, idx (S, k), probs (S, E)).
+
+    The top k come from a stable descending sort, so equal probabilities
+    (common: the logits are rounded to x's dtype) rank the lower expert
+    first, as ``jax.lax.top_k`` does and ``core.merge.descending_rank``
+    pins; ``torch.topk`` keeps no such order. No host read: it runs inside
+    the captured decode step."""
     probs = torch.softmax((x @ router).to(torch.float32), dim=-1)
-    weights, idx = torch.topk(probs, top_k, dim=-1)
+    idx = torch.argsort(probs, dim=-1, descending=True, stable=True)[..., :top_k]
+    weights = torch.gather(probs, -1, idx)
     if norm_topk_prob:
         weights = weights / weights.sum(dim=-1, keepdim=True)
     return weights.to(x.dtype), idx, probs

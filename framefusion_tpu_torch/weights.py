@@ -64,8 +64,6 @@ _ARCH_TO_FAMILY = {"LlavaQwenForCausalLM": "llava_video",
                    "LlavaLlamaModel": "nvila", "Qwen2VLForConditionalGeneration": "qwen2_vl",
                    "Qwen2_5_VLForConditionalGeneration": "qwen2_vl", "InternVLChatModel": "internvl",
                    "Qwen2MoeForCausalLM": "llava_video"}
-_PORTED_FAMILIES = ("llava_video", "llava_next_video", "minicpmv", "nvila", "qwen2_vl", "internvl")
-_NOT_PORTED = 'is not ported to PyTorch yet (ROADMAP item "The other families")'
 
 
 def to_numpy(t) -> np.ndarray:
@@ -476,8 +474,8 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
         cfg_dict = json.load(f)
     detected, llm_cfg = llm_config_from_hf(cfg_dict, dtype=dtype)
     family = family or detected
-    if family not in _PORTED_FAMILIES:
-        raise NotImplementedError(f"family {family} {_NOT_PORTED}")
+    if family not in FAMILIES:
+        raise NotImplementedError(f"unknown model family {family!r}; the families are {sorted(FAMILIES)}")
     spec = FAMILIES[family]
     if llm_cfg.qkv_bias != spec.qkv_bias:
         raise ValueError(f"config qkv_bias={llm_cfg.qkv_bias} vs family {family}")

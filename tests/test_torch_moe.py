@@ -13,6 +13,7 @@ when its choice of e kept its slot.
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -262,6 +263,64 @@ def test_routed_plain_versions_match_gathered_products(wdtype):
     assert torch.allclose(gu, torch.nn.functional.silu(gate) * up, rtol=1e-5, atol=1e-4)
     with pytest.raises(ValueError, match="index must be"):
         tmv.gemv_stacked(x[:4], [ws[2].reshape(-1, k, n)], 0, idx[:4].long())
+
+
+@pytest.fixture(scope="module")
+def bf16_router():
+    """The bf16 scenario of the tie-break fault: x (2048, 512) standard
+    normal, the router (512, 64) / sqrt(512), both bf16 (numpy seed 0); its
+    logits are rounded to bf16 before the fp32 softmax, so equal
+    probabilities are common."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2048, 512)).astype(np.float32)
+    router = (rng.standard_normal((512, 64)) / np.sqrt(512)).astype(np.float32)
+    cfg = jmoe.MoeConfig(hidden_size=512, moe_intermediate_size=8, shared_expert_intermediate_size=8,
+                         num_experts=64, top_k=8, norm_topk_prob=False, dtype=jnp.bfloat16)
+    jx, jr = jnp.asarray(x, jnp.bfloat16), jnp.asarray(router, jnp.bfloat16)
+    tx, tr = torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(router).to(torch.bfloat16)
+    return cfg, jx, jr, tx, tr
+
+
+def test_bf16_router_ties_break_like_jax(bf16_router):
+    """At bf16 logits the port's top-k equals JAX's ``router_probs`` on all
+    2,048 rows, in set and in order (the rank-major capacity priority reads
+    the order): at a tie the lower expert ranks first, as ``lax.top_k``
+    ranks it (``torch.topk`` ordered 228 rows otherwise, 47 of them with
+    another set). The weights are the probabilities at those indices."""
+    cfg, jx, jr, tx, tr = bf16_router
+    w_j, idx_j, probs_j = jmoe.router_probs({"router": jr}, jx, cfg)
+    w_t, idx_t, probs_t = tmoe.top_k_experts(tx, tr, cfg.top_k, cfg.norm_topk_prob)
+    top = -np.sort(-_np(probs_t), -1)[:, :cfg.top_k + 1]
+    assert int((top[:, 1:] == top[:, :-1]).any(-1).sum()) > 100  # ties inside or at the edge of the top 8
+    assert np.array_equal(idx_t.numpy(), np.asarray(idx_j))
+    assert not np.array_equal(torch.topk(probs_t, cfg.top_k).indices.numpy(), np.asarray(idx_j))
+    # The bf16 logits differ by at most one ulp (2^-7 at |logit| < 2) where
+    # the two products sum in another order: probabilities within 1.6e-2.
+    for got, want in ((probs_t, probs_j), (w_t, w_j)):
+        want = np.asarray(want, np.float32)
+        assert (np.abs(_np(got) - want) / want).max() <= 1.6e-2
+
+
+def test_bf16_capacity_drops_match_jax(bf16_router):
+    """``route`` at factor 1.25 (C 320) drops the same (token, rank)
+    choices as JAX's ``sparse_mlp``. JAX's keep rule (``sparse_mlp``'s
+    one-hot of ``lax.top_k``'s indices, live-masked, rank-major cumulative
+    sum, ``pos < C``) runs here on its own op sequence; its (S, k, E, C)
+    dispatch tensor (670 MB at this size) is not built."""
+    cfg, jx, jr, tx, tr = bf16_router
+    s, k, e = jx.shape[0], cfg.top_k, cfg.num_experts
+    c = math.ceil(s * k / e * 1.25)
+    assert c == 320
+    _, idx_j, _ = jmoe.router_probs({"router": jr}, jx, cfg)
+    oh = jax.nn.one_hot(idx_j, e, dtype=jnp.int32)
+    pos = (jnp.cumsum(oh.transpose(1, 0, 2).reshape(k * s, e), axis=0) - 1).reshape(k, s, e).transpose(1, 0, 2)
+    keep_j = np.asarray(jnp.any((pos < c) & (oh > 0), axis=-1))  # (S, k)
+    with tmoe.record_drops() as drops:
+        _, _, keep_t, c_t, _ = tmoe.route(tx, tr, num_experts=e, top_k=k, norm_topk_prob=False, capacity=c)
+    dropped_j = set(zip(*np.where(~keep_j)))
+    assert c_t == c and dropped_j  # factor 1.25 drops choices here
+    assert set(zip(*np.where(~keep_t.numpy()))) == dropped_j
+    assert [(n, cap, int(d)) for n, cap, d in drops] == [(s, c, len(dropped_j))]
 
 
 # -- on the card ----------------------------------------------------------------
