@@ -50,6 +50,11 @@ Phases, each printed as it runs; every run makes all of them:
              index a row, inside the captured decode graph). Events, cache
              lengths, each MLP call's capacity and dropped choices (some
              must drop) and tokens equal; logits within LOGIT_RTOL.
+3c. cross_train — ``parallel/train.py``'s step on ``tiny_llm_config(num_layers
+             =2)`` in fp32 (weights drawn with numpy, TF32 off): three AdamW
+             steps (lr 1e-3) on the CPU and on the card from the same weights
+             and ids; per-step losses within TRAIN_LOSS_RTOL, every final
+             parameter within TRAIN_PARAM_TOL.
 4. full    — random Qwen2-7B weights (bf16 on the card) and the 64-frame
              LLaVA-Video prompt: apply_framefusion + generate (fused; the
              decode is a CUDA graph of the step, captured in this run), the
@@ -200,6 +205,31 @@ Phases, each printed as it runs; every run makes all of them:
              then kernel A at the long video's dense shape (S 23,345, 28 / 4
              heads, no mask) against its plain version, an A regime with
              ``"path": "scripts"`` and the launches of the script's run.
+10d. train — the training step at Qwen2-7B's widths (hidden 3,584, 28 / 4
+             heads of 128, intermediate 18,944, vocab 152,064, untied head,
+             bf16), its depth cut from 28 to 4 layers (28 take 61 GB of
+             params, gradients and AdamW state before activations): five
+             AdamW steps (lr 1e-4) on one seeded batch of B = 2, T = 2,048.
+             Every loss and gradient norm finite, the first loss within
+             TRAIN_FIRST_LOSS_TOL of ln 152,064, the loss falling, the first
+             step's bf16 loss within TRAIN_BF16_LOSS_TOL of an fp32 forward
+             of the same weights on the card; ms a step (CUDA events, the
+             median of steps 2-5), tokens/s, the peak memory, the GEMMs'
+             share of the bf16 peak, and one more step under torch.profiler
+             (its device time by kind: bf16 and fp32 GEMMs, AdamW, softmax).
+10e. probes — ``scripts.accuracy_probe.main`` and ``scripts.spec_probe.main``
+             on the card at 300 training steps (eval 16 / 8): the training
+             loss falls, every speculative row keeps greedy_match, every
+             serving row's agreement is n/n, both records strict-parse.
+10f. bench_modes — ``kernel_bench``'s modes attn, quant, decode, engine and
+             ledger once each at few repetitions (engine and ledger on one
+             random Qwen2-7B at vocabulary 8,192, built here: phase 4's model
+             is int8 by then): each row's time finite beside its bound;
+             every row that launches a kernel held against its reference
+             first (A against SDPA's output, C and D against their plain
+             versions on the same stacks, each compressed prefill against
+             the fused one's events and logits); each mode's kernels
+             launched in its own run.
 11. qwen2vl — the Qwen2-VL family at full width: a random Qwen2-VL tower of
              the published geometry (depth 32, embed 1280, 16 heads of 80,
              patch 14, temporal patch 2, merge 2, MLP ratio 4, out 3584) and
@@ -4130,6 +4160,209 @@ LONGVIDEO_S = 35 + 128 * 182 + 14
 REGIME_LONGVIDEO = "long video's dense prefill: S 23,345, no mask"
 
 
+# Training (phases 3c, 10d):
+# * the fp32 step on the CPU and on the card: the same ops summed in other
+#   orders, so the loss agrees to fp32 rounding (TRAIN_LOSS_RTOL, as the CPU
+#   test against JAX); Adam divides each gradient by its own running RMS, so
+#   an element whose gradient is tiny moves up to lr a step in a direction
+#   rounding sets: each parameter within 5% of the most three steps can move
+#   it (the CPU test against JAX saw 0.7%).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_LR = 1e-3
+TRAIN_PARAM_TOL = 0.05 * 3 * TRAIN_LR
+# * random weights (std 0.02) give logits of std ~0.02 * sqrt(3,584) = 1.2
+#   after the final norm: the first loss is about ln V + 1.2^2 / 2 = 12.65,
+#   so within 1.5 of ln V = 11.93.
+TRAIN_FIRST_LOSS_TOL = 1.5
+# * bf16 against fp32 forward of the same weights: bf16 rounds each
+#   product's inputs and outputs to 8 bits (2^-9 relative), over 4 layers
+#   and a 152,064-way softmax; 0.05 is ~0.4% of the loss.
+TRAIN_BF16_LOSS_TOL = 0.05
+
+
+def phase_cross_train(chk: Checks) -> None:
+    """Three fp32 AdamW steps of the tiny stack on the CPU and on the card."""
+    from framefusion_tpu_torch.config import tiny_llm_config
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.parallel.train import leaves, make_optimizer, make_train_step
+
+    cfg = tiny_llm_config(num_layers=2)
+    tree = numpy_params(cfg, seed=17, scale=0.05)
+    batches = np.random.default_rng(17).integers(0, cfg.vocab_size, (3, 2, 24))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        step, init = make_train_step(cfg, dev, make_optimizer(TRAIN_LR))
+        params, opt = init(qwen2.params_from_numpy(tree, device=dev))
+        losses = []
+        for b in batches:
+            params, opt, loss = step(params, opt, torch.from_numpy(b))
+            losses.append(loss)
+        runs[dev] = ([float(x) for x in losses], [t.detach().cpu() for t in leaves(params)])
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_gpu))
+    param_err = max((a - b).abs().max().item() for a, b in zip(p_cpu, p_gpu))
+    log(f"  cross_train: losses CPU {l_cpu}, card {l_gpu}; largest parameter difference {param_err:.3e}")
+    chk.expect(loss_err <= TRAIN_LOSS_RTOL, f"cross_train: losses agree ({loss_err:.2e} <= {TRAIN_LOSS_RTOL:.0e})")
+    chk.expect(param_err <= TRAIN_PARAM_TOL,
+               f"cross_train: parameters after 3 steps agree ({param_err:.2e} <= {TRAIN_PARAM_TOL:.1e})")
+
+
+def phase_train(chk: Checks) -> None:
+    """Five AdamW steps at Qwen2-7B's widths, 4 layers, B = 2, T = 2,048."""
+    import gc
+    import statistics
+
+    from framefusion_tpu_torch import kernel_bench
+    from framefusion_tpu_torch.config import qwen2_7b_config
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.parallel.train import (leaves, lm_loss, make_optimizer, make_train_step,
+                                                      step_gemm_flops, tree_map)
+
+    cfg = qwen2_7b_config(num_layers=4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in leaves(params))
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2048))).to("cuda")
+    tokens = ids.numel()
+    with torch.no_grad():  # the fp32 forward of the same weights, before any step
+        loss32 = float(lm_loss(tree_map(torch.Tensor.float, params), ids, cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    step, init = make_train_step(cfg, optimizer=make_optimizer(1e-4))
+    params, opt = init(params)
+    losses, norms, ms = [], [], []
+    for _ in range(5):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, loss = step(params, opt, ids)
+        stop.record()
+        norms.append(torch.linalg.vector_norm(torch.stack([t.grad.float().norm() for t in leaves(params)])))
+        losses.append(loss)
+        stop.synchronize()
+        ms.append(start.elapsed_time(stop))
+    losses, norms = [float(x) for x in losses], [float(x) for x in norms]
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    step_ms = statistics.median(ms[1:])  # steps 2-5: the first allocates the optimizer's state
+    flops = step_gemm_flops(cfg, tokens)
+    log(f"  train: {n_params / 1e9:.3f} B params (4 of 28 layers, bf16), B = 2, T = 2,048; losses {losses}; "
+        f"gradient norms {norms}; fp32 forward loss {loss32:.5f}")
+    log(f"  train: ms a step {[round(x, 2) for x in ms]} -> {step_ms:.2f} ms (median of steps 2-5), "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s, peak {peak:.2f} GB above the {base / 1e9:.2f} GB held before, "
+        f"GEMMs {flops / 1e12:.2f} TFLOP a step = {flops / (step_ms * 1e-3) / 989e12:.3f} of the bf16 peak")
+    # One more step under torch.profiler: where the step's device time goes.
+    prof = kernel_bench.device_profile(lambda: step(params, opt, ids))
+    if prof["window_us"]:
+        # fp32 GEMMs are the einsum attention's (the projections and the head run bf16 on the tensor cores)
+        kinds = {"fp32 GEMM": ("f32f32",), "bf16 GEMM": ("gemm", "xmma", "cutlass", "nvjet"),
+                 "AdamW": ("multi_tensor", "foreach", "adam"), "softmax": ("softmax",), "reduce": ("reduce",)}
+        by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
+        for name, us in prof["by_name"].items():
+            kind = next((k for k, keys in kinds.items() if any(key in name.lower() for key in keys)), "other")
+            by_kind[kind] += us
+        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:6]
+        log(f"  train: profiled step: device window {prof['window_us'] / 1e3:.2f} ms, busy {prof['busy_us'] / 1e3:.2f} "
+            f"ms, idle share {prof['idle_share']:.3f}, {prof['launches']} device operations; ms by kind "
+            f"{ {k: round(v / 1e3, 2) for k, v in by_kind.items()} }; largest: "
+            f"{[(n[:60], round(us / 1e3, 2)) for n, us in top]}")
+    else:
+        log("  train: torch.profiler saw no device operation (not measured)")
+    chk.expect(all(math.isfinite(x) for x in losses + norms), "train: every loss and gradient norm finite")
+    chk.expect(abs(losses[0] - math.log(cfg.vocab_size)) <= TRAIN_FIRST_LOSS_TOL,
+               f"train: first loss {losses[0]:.4f} within {TRAIN_FIRST_LOSS_TOL} of ln V = "
+               f"{math.log(cfg.vocab_size):.4f}")
+    chk.expect(losses[-1] < losses[0], f"train: the loss falls over 5 steps ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    chk.expect(abs(losses[0] - loss32) <= TRAIN_BF16_LOSS_TOL,
+               f"train: first bf16 loss {losses[0]:.5f} within {TRAIN_BF16_LOSS_TOL} of the fp32 forward's "
+               f"{loss32:.5f}")
+    del params, opt, step, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_probes(chk: Checks) -> None:
+    """Both trained-model probes on the card at a short training run."""
+    import tempfile
+
+    from framefusion_tpu_torch.scripts import accuracy_probe, spec_probe
+
+    tmp = tempfile.TemporaryDirectory()
+    for name, mod, argv in (("accuracy_probe", accuracy_probe, ["--steps", "300", "--eval", "16"]),
+                            ("spec_probe", spec_probe, ["--steps", "300", "--eval", "8"])):
+        path = os.path.join(tmp.name, f"{name}.json")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = mod.main(argv + ["--json", path])
+        wall = time.perf_counter() - t0
+        with open(path) as f:
+            parsed = json.loads(f.read(), parse_constant=_refuse_constant)
+        chk.expect(parsed == rec, f"probes: {name}'s record strict-parses")
+        chk.expect(rec["final_loss"] < rec["first_loss"],
+                   f"probes: {name} trained ({rec['first_loss']} -> {rec['final_loss']} in 300 steps), {wall:.1f} s")
+        if name == "accuracy_probe":
+            log(f"  accuracy_probe: dense {rec['dense_accuracy']}, nudged {rec['dense_accuracy_one_ulp_nudge']}, "
+                f"sweep {[(p['cost'], p.get('accuracy'), p.get('token_reduction')) for p in rec['sweep']]}")
+        else:
+            rows = [k for k in rec if isinstance(rec[k], dict) and "greedy_match" in rec[k]]
+            serving = [k for k in rec if k.endswith("_serving")]
+            for k in rows:
+                log(f"  spec_probe {k}: acceptance {rec[k]['acceptance']}, tokens a pass "
+                    f"{rec[k]['tokens_per_weight_pass']}, echo accuracy {rec[k]['echo_accuracy']}")
+            chk.expect(len(rows) == 5 and all(rec[k]["greedy_match"] for k in rows),
+                       "probes: spec_probe keeps greedy_match in every row")
+            n = 8 * 10
+            chk.expect(len(serving) == 3 and all(rec[k]["agreement"] == f"{n}/{n}" for k in serving),
+                       f"probes: serving agreement {[rec[k]['agreement'] for k in serving]}, each {n}/{n}")
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+
+def phase_bench_modes(chk: Checks) -> None:
+    """``kernel_bench``'s five modes once each (engine and ledger on one
+    model): each row finite beside its bound, every row that launches a
+    kernel held against its reference (``kernel_bench.row_failures``), and
+    each mode's kernels launched in its run."""
+    import gc
+
+    from framefusion_tpu_torch import kernel_bench as kb
+
+    model = []
+
+    def engine_rows(fn):
+        if not model:
+            model.extend(kb.engine_model(8192))
+        return fn(*model, log=log)
+
+    modes = (("attn", kb.bench_attention, ("flash_attn_fwd",)), ("quant", kb.bench_quant, ()),
+             ("decode", kb.bench_decode, ("gemv_stacked", "gemv_gateup")),
+             ("engine", lambda log: engine_rows(kb.bench_engine),
+              ("flash_attn_fwd", "attn_importance_rows", "gemv_stacked", "gemv_gateup", "ragged_decode_attn")),
+             ("ledger", lambda log: engine_rows(kb.bench_ledger), ("flash_attn_fwd", "attn_importance_rows")))
+    wrappers = _all_wrappers()
+    t0 = time.perf_counter()
+    for mode, bench, kernels in modes:
+        _zero_counts(wrappers)
+        rows = bench(log=log)
+        ran = _ran(wrappers)
+        bounded = [r for r in rows if "bound_ms" in r]
+        checked = [r for r in rows if "tol" in r]
+        chk.expect(bool(rows) and all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows)
+                   and all(r["bound_ms"] > 0 for r in bounded),
+                   f"bench_modes: {mode}: {len(rows)} rows, each time finite, {len(bounded)} beside a bound")
+        failed = kb.row_failures(rows)
+        chk.expect(not failed and (bool(checked) or not kernels),
+                   f"bench_modes: {mode}: {len(checked)} rows held against their reference, failed {failed}")
+        chk.expect(all(ran[k] > 0 for k in kernels),
+                   f"bench_modes: {mode}: launches {({k: ran[k] for k in kernels})}")
+        torch.cuda.empty_cache()
+    log(f"  bench_modes: {time.perf_counter() - t0:.1f} s")
+    del model[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _all_wrappers() -> dict:
     from framefusion_tpu_torch.ops.kernels import bidir_attention as ba
     from framefusion_tpu_torch.ops.kernels import decode_attention as da
@@ -4398,6 +4631,7 @@ def main() -> int:
     phases = {"device": lambda: phase_device(chk), "kernels": lambda: phase_kernels(chk, kernels),
               "kernel_check": lambda: phase_kernel_check(chk),
               "cross": lambda: phase_cross(chk), "cross_moe": lambda: phase_cross_moe(chk),
+              "cross_train": lambda: phase_cross_train(chk),
               "full": lambda: phase_full(chk, kernels, ctx),
               "decode": lambda: phase_decode(chk, kernels, ctx), "graph": lambda: phase_graph(chk, kernels, ctx),
               "cross_vision": lambda: phase_cross_vision(chk), "cross_qwen2vl": lambda: phase_cross_qwen2vl(chk),
@@ -4409,6 +4643,8 @@ def main() -> int:
               "baselines": lambda: phase_baselines(chk, kernels), "batch": lambda: phase_batch(chk, kernels, ctx),
               "spec_serve": lambda: phase_spec_serve(chk, kernels, ctx),
               "eval": lambda: phase_eval(chk), "scripts": lambda: phase_scripts(chk, kernels),
+              "train": lambda: phase_train(chk), "probes": lambda: phase_probes(chk),
+              "bench_modes": lambda: phase_bench_modes(chk),
               "qwen2vl": lambda: phase_qwen2vl(chk, kernels, ctx),
               "internvl": lambda: phase_internvl(chk, kernels, ctx),
               "nvila": lambda: phase_nvila(chk, kernels, ctx), "minicpmv": lambda: phase_minicpmv(chk, kernels, ctx),

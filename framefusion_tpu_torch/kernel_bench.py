@@ -1,11 +1,11 @@
-"""On-card kernel check and decode-step benchmark of the port.
+"""On-card kernel check and benchmarks of the port.
 
-Counterpart of ``scripts/kernel_bench.py`` in three of its modes; run from the
+Counterpart of ``scripts/kernel_bench.py`` in all of its modes; run from the
 repository root on a machine with a CUDA card:
 
     python -m framefusion_tpu_torch.kernel_bench --check
     python -m framefusion_tpu_torch.kernel_bench --batch-parity
-    python -m framefusion_tpu_torch.kernel_bench --what decodestep
+    python -m framefusion_tpu_torch.kernel_bench --what {attn,quant,decode,engine,ledger,decodestep,all}
 
 ``--check`` (:func:`check_kernels`) runs the JAX check's case matrix on the
 card: every hand-written kernel at each shape regime the TPU kernels had
@@ -33,6 +33,43 @@ and the CUDA launches per step (``torch.profiler``). The same pools also
 run as a captured CUDA graph of the step (``runtime/decode_graph.py``,
 rows ``graph-ragged``, the engine's decode, and ``graph-flash``): replays
 timed between CUDA events, with the kernel launches the graph holds.
+
+The other ``--what`` modes print one row a measurement, its time beside
+the least time the card could take (``bound_ms``: bytes over 3.35 TB/s or
+operations over the peak rate of their type, whichever is larger). A row
+that launches a kernel of the port is first held against a reference on
+the same inputs (``err`` against ``tol``); a mode exits non-zero when one
+is off:
+
+* ``attn`` (:func:`bench_attention`): kernel A at S 3,328-23,552 (28 / 4
+  heads of 128, bf16, causal) against causal SDPA, its output held
+  against SDPA's.
+* ``quant`` (:func:`bench_quant`): at (3,328 x 3,584) . (3,584 x 18,944),
+  bf16 ``torch.matmul`` against int8 x int8 -> int32 (``torch._int_mm``,
+  which ``qwen2._int8_matmul`` calls), the W8A8 epilogue and the W8A8
+  ``qwen2.mm`` with its activation quantization: library calls, measured to
+  answer whether a W8A8 prefill tail would pay.
+* ``decode`` (:func:`bench_decode`): kernels C and D at Qwen2-7B's decode
+  shapes, int8 and bf16, over 8-layer stacks (each call reads another
+  layer, so the weights come from memory, not L2), with effective GB/s,
+  each stack held against the plain version; then the stacked MLP chain the decode graph runs (D then C, layer after
+  layer) and a read of the same stacks by ``torch.sum``.
+* ``engine`` (:func:`bench_engine`): the fused, planned (one- and
+  two-stage), segmented and dense prefill of the 64-frame, 11,697-token
+  prompt at Qwen2-7B width (vocabulary cut to 8,192, as the JAX bench's),
+  each beside the GEMM-and-attention floor of the rows its events kept and
+  each compressed one held against the fused prefill (events and logits);
+  the planned prefill split into its stages (the tail's logits held
+  against a whole planned prefill at the same buckets); the pre-event
+  merge alone, the tail at S 3,328, the cache pack, and 32 greedy decode
+  tokens solo and batched. The JAX mode also compares XLA's loop forms of the tail (scan,
+  fori, unrolled); they have no counterpart here, so the port's own tail
+  is timed once.
+* ``ledger`` (:func:`bench_ledger`): the planned prefill's stages
+  (pre-event merge and compaction, phase, compaction, tail, cache pack)
+  each timed alone at the JAX ledger's buckets (pre-plan 6,528, plan
+  3,328), each beside its floor.
+* ``all``: the five above on one model.
 
 All need a CUDA device and exit non-zero at once without one.
 """
@@ -67,11 +104,17 @@ GEMV_RTOL = 1e-4
 #   6.8e-3 (bf16) and 1.1e-2 (int8) of the largest logit; 3e-2 is about four
 #   ulps of it.
 PROGRAM_RTOL = 3e-2
+# * The benchmark modes' prefills against the fused prefill of the same
+#   prompt on the same weights: bf16 runs that round elsewhere (kernel A at
+#   other padded lengths and masks, other GEMM shapes), so two roundings
+#   of one 28-layer model, as ``chip_smoke.py``'s LOGIT_RTOL reasons.
+ENGINE_RTOL = 6e-2
 
 HD = 128
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense), for the bounds.
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_OPS_PER_S = 989e12
+H100_INT8_OPS_PER_S = 1979e12
 
 
 def _require_cuda() -> None:
@@ -85,12 +128,12 @@ def _rand(gen, shape, scale=1.0, dtype=torch.bfloat16):
     return (torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32) * scale).to(dtype)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = H100_BF16_OPS_PER_S) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes the
     function must move (inputs read once, outputs written once) over the
-    memory rate and its operations over the bf16 tensor-core rate (its
-    inputs' type); and which of the two it is."""
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_BF16_OPS_PER_S * 1e3
+    memory rate and its operations over the peak rate of their type (the
+    bf16 tensor-core rate unless given); and which of the two it is."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -161,8 +204,10 @@ def device_profile(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # A range a ``record_function`` opens (``Optimizer.step``, say) shows on
+    # the device timeline too; it is no device operation.
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
     by_name: dict = {}
     busy, cur_start, cur_end = 0.0, None, None
     for start, end, name in spans:
@@ -701,14 +746,459 @@ def bench_decodestep(params=None, cfg=None, prefill=None, steps: int = 32, log=p
     return out
 
 
+# ---------------------------------------------------------------------------
+# Counts for the bounds of the --what modes (plain functions of shapes)
+
+ATTN_LENGTHS = (3328, 3456, 6656, 11776, 23552)
+QUANT_SHAPE = (3328, 3584, 18944)
+# Qwen2-7B's decode matvecs: (name, K, output widths); "gate-up" is kernel D.
+DECODE_SHAPES = (("qkv", 3584, (3584, 512, 512)), ("wo", 3584, (3584,)), ("w_down", 18944, (3584,)),
+                 ("gate-up", 3584, (18944, 18944)))
+DECODE_LAYERS = 8
+LEDGER_BUCKETS = (6528, 3328)  # the JAX ledger's pre-plan and plan buckets
+
+
+def attn_flops(s: int, hq: int, d: int) -> float:
+    """Causal attention's operations: QK^T and PV over the s(s+1)/2 pairs."""
+    return 4 * hq * d * s * (s + 1) / 2
+
+
+def attn_bytes(s: int, hq: int, hk: int, d: int) -> float:
+    """Kernel A's bytes: q, k, v in (bf16), the output (bf16) and its row
+    statistics m, l (fp32) out."""
+    return (2 * s * hq * d + 2 * s * hk * d) * 2 + 2 * hq * s * 4
+
+
+def gemm_flops(m: int, k: int, n: int) -> float:
+    return 2 * m * k * n
+
+
+def gemm_bytes(m: int, k: int, n: int, in_bytes: int, out_bytes: int) -> float:
+    """(m, k) . (k, n): both inputs read once, the output written once."""
+    return (m * k + k * n) * in_bytes + m * n * out_bytes
+
+
+def matvec_bytes(k: int, ns, w_bytes: int, rows: int = 1) -> float:
+    """One kernel C/D call on ``rows`` bf16 rows: the (k, n) weights of each
+    output width in ``ns`` (and their fp32 scales when int8), the rows in,
+    the fp32 outputs out (kernel D writes one (rows, n) product for its two
+    widths)."""
+    gateup = len(ns) == 2
+    out_cols = ns[0] if gateup else sum(ns)
+    scales = sum(ns) * 4 if w_bytes == 1 else 0
+    return k * sum(ns) * w_bytes + scales + rows * k * 2 + rows * out_cols * 4
+
+
+def layer_params(cfg) -> tuple[int, int]:
+    """One dense layer's GEMM weights: (attention projections q, k, v, o;
+    the MLP's gate, up and down)."""
+    d, hd = cfg.hidden_size, cfg.head_dim_
+    return d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd + cfg.num_heads * hd * d, 3 * d * cfg.intermediate_size
+
+
+def prefill_ops(cfg, orig_len: int, events=(), start_layer: int = 0, stop_layer=None, logits_rows: int = 1) -> float:
+    """The operations a prefill's layers [start_layer, stop_layer) need:
+    GEMMs and causal attention over the rows each layer keeps live (each
+    event's ``tokens_removed`` comes off the rows after its layer's
+    attention, a layer -1 event before layer 0), plus the LM head over
+    ``logits_rows`` rows. ``events``: (layer, tokens_removed) pairs; dead
+    and pad rows cost nothing here."""
+    stop_layer = cfg.num_layers if stop_layer is None else stop_layer
+    p_attn, p_mlp = layer_params(cfg)
+    removed = {}
+    for layer, n in events:
+        removed[layer] = removed.get(layer, 0) + n
+    rows = orig_len - sum(n for layer, n in removed.items() if layer < start_layer)
+    ops = 0.0
+    for l in range(start_layer, stop_layer):
+        ops += 2 * rows * p_attn + attn_flops(rows, cfg.num_heads, cfg.head_dim_)
+        rows -= removed.get(l, 0)
+        ops += 2 * rows * p_mlp
+    return ops + 2 * logits_rows * cfg.hidden_size * cfg.vocab_size
+
+
+def _row(log, name: str, ms: float, nbytes: float, ops: float, ops_per_s: float = H100_BF16_OPS_PER_S,
+         **extra) -> dict:
+    b, by = bound_ms(nbytes, ops, ops_per_s)
+    row = dict(name=name, ms=ms, bound_ms=b, bound_by=by, **extra)
+    rate = f"{ops / ms / 1e9:.1f} T(FL)OP/s" if by == "operations" else f"{nbytes / ms / 1e6:.0f} GB/s"
+    more = "".join(f", {k} {v:.3e}" if k in ("err", "tol") else f", {k} {v:.4f}" if isinstance(v, float)
+                   else f", {k} {v}" for k, v in extra.items())
+    log(f"  {name:52s} {ms:9.4f} ms  bound {b:.4f} ({by}, {b / ms:.3f} of it)  {rate}{more}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# --what attn
+
+
+def row_failures(rows) -> list:
+    """Names of the rows whose check (``err`` against ``tol``) failed."""
+    return [r["name"] for r in rows if "tol" in r and not (math.isfinite(r["err"]) and r["err"] <= r["tol"])]
+
+
+def bench_attention(log=print, reps: int = 5) -> list:
+    """Kernel A (``flash_causal_attention``, the main path's causal call) at
+    each length against causal SDPA, 28 / 4 heads of 128 in bf16; each
+    output held against SDPA's (ATTN_ROW_RTOL of its row's largest)."""
+    _require_cuda()
+    from .ops.kernels import flash_prefill as fp
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    hq, hk = 28, 4
+    rows = []
+    log(f"--- attn: kernel A vs causal SDPA, Hq {hq}, Hk {hk}, D {HD}, bf16")
+    for s in ATTN_LENGTHS:
+        q, k, v = _rand(gen, (s, hq, HD)), _rand(gen, (s, hk, HD)), _rand(gen, (s, hk, HD))
+        err = row_rel_err(fp.flash_causal_attention(q, k, v), sdpa(q, k, v, is_causal=True)[0].transpose(0, 1))
+        t_a = events_time_ms(lambda: fp.flash_causal_attention(q, k, v), reps)
+        t_sdpa = events_time_ms(lambda: sdpa(q, k, v, is_causal=True), reps)
+        rows.append(_row(log, f"A causal S {s}", t_a, attn_bytes(s, hq, hk, HD), attn_flops(s, hq, HD),
+                         s=s, sdpa_ms=t_sdpa, err=err, tol=ATTN_ROW_RTOL))
+        del q, k, v
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# --what quant
+
+
+def bench_quant(log=print, reps: int = 10) -> list:
+    """bf16 against int8 tensor-core GEMMs at the planned tail's MLP shape
+    (library calls; the int8 bound is at the int8 peak)."""
+    _require_cuda()
+    from .models import qwen2
+
+    m, k, n = QUANT_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x_bf, w_bf = _rand(gen, (m, k), 0.1), _rand(gen, (k, n), 0.1)
+    x_i8 = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    w_i8 = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    sx = torch.rand((m, 1), generator=gen, device="cuda") + 0.5
+    sw = torch.rand((n,), generator=gen, device="cuda") + 0.5
+    w_cm = w_i8.t().contiguous().t()
+    pair = {"q8": w_i8, "scale": sw}
+    ops = gemm_flops(m, k, n)
+    log(f"--- quant: ({m} x {k}) . ({k} x {n})")
+    rows = [
+        _row(log, "bf16 x bf16 -> bf16 (torch.matmul)", events_time_ms(lambda: torch.matmul(x_bf, w_bf), reps),
+             gemm_bytes(m, k, n, 2, 2), ops),
+        _row(log, "int8 x int8 -> int32 (torch._int_mm)", events_time_ms(lambda: qwen2._int8_matmul(x_i8, w_i8), reps),
+             gemm_bytes(m, k, n, 1, 4), ops, H100_INT8_OPS_PER_S),
+        # the same weights stored column-major (cuBLASLt's int8 kernels take the second operand so)
+        _row(log, "int8 x int8 -> int32, weights column-major", events_time_ms(lambda: torch._int_mm(x_i8, w_cm), reps),
+             gemm_bytes(m, k, n, 1, 4), ops, H100_INT8_OPS_PER_S),
+        _row(log, "W8A8 epilogue: int32 -> fp32 descale -> bf16",
+             events_time_ms(lambda: (qwen2._int8_matmul(x_i8, w_i8).float() * sx * sw).to(torch.bfloat16), reps),
+             gemm_bytes(m, k, n, 1, 2) + m * 4 + n * 4, ops, H100_INT8_OPS_PER_S),
+        _row(log, "W8A8 qwen2.mm (activations quantized per row)",
+             events_time_ms(lambda: qwen2.mm(x_bf, pair, w8a8=True), reps),
+             m * k * 2 + k * n + n * 4 + m * n * 2, ops, H100_INT8_OPS_PER_S),
+        _row(log, "weight-only int8 qwen2.mm (the prefill's today)", events_time_ms(lambda: qwen2.mm(x_bf, pair), reps),
+             m * k * 2 + k * n + n * 4 + m * n * 2, ops),
+    ]
+    log(f"  int8 / bf16 GEMM time: {rows[1]['ms'] / rows[0]['ms']:.3f} (weights column-major "
+        f"{rows[2]['ms'] / rows[0]['ms']:.3f}); W8A8 mm / bf16: {rows[4]['ms'] / rows[0]['ms']:.3f}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# --what decode
+
+
+def bench_decode(log=print, iters: int = 4) -> list:
+    """Kernels C and D at Qwen2-7B's decode shapes, int8 and bf16, timed
+    from CUDA-graph replays of one call a layer of a ``DECODE_LAYERS``-deep stack
+    (no layer is read twice in a row), with effective GB/s; the stacked MLP
+    chain; ``torch.sum`` over the same int8 stacks as a read-rate yardstick.
+    Each stack's last layer is first held against the plain version
+    (GEMV_RTOL of the largest output)."""
+    _require_cuda()
+    from .ops.kernels import matvec_q8 as mv
+
+    n_l = DECODE_LAYERS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = _rand(gen, (1, 3584), 0.1)
+    rows = []
+
+    def stack(kdim, n, wdtype):
+        if wdtype == "int8":
+            return torch.randint(-127, 128, (n_l, kdim, n), generator=gen, device="cuda", dtype=torch.int8)
+        return _rand(gen, (n_l, kdim, n), 0.01)
+
+    def scales(n, wdtype):
+        return (torch.rand((n_l, n), generator=gen, device="cuda") * 0.01 + 0.005) if wdtype == "int8" else None
+
+    log(f"--- decode: kernels C and D, one row, {n_l}-layer stacks, graph replays")
+    for wdtype in ("int8", "bf16"):
+        wb = 1 if wdtype == "int8" else 2
+        for name, kdim, ns in DECODE_SHAPES:
+            xk = x if kdim == 3584 else _rand(gen, (1, kdim), 0.1)
+            ws = [stack(kdim, n, wdtype) for n in ns]
+            if name == "gate-up":
+                sg, su = scales(ns[0], wdtype), scales(ns[1], wdtype)
+                fn = lambda ws=ws, sg=sg, su=su: [mv.gemv_gateup(xk, ws[0], ws[1], sg, su, l) for l in range(n_l)]
+                err = rel_err(mv.gemv_gateup(xk, ws[0], ws[1], sg, su, n_l - 1),
+                              mv.gemv_gateup_plain(xk, ws[0], ws[1], sg, su, n_l - 1))
+                kernel = "D"
+            else:
+                fn = lambda ws=ws, xk=xk: [mv.gemv_stacked(xk, ws, l) for l in range(n_l)]
+                err = max(rel_err(a, b) for a, b in zip(mv.gemv_stacked(xk, ws, n_l - 1),
+                                                          mv.gemv_stacked_plain(xk, ws, n_l - 1)))
+                kernel = "C"
+            ms = graph_time_ms(fn, iters) / n_l
+            rows.append(_row(log, f"{kernel} {name} {wdtype} {kdim} -> {'+'.join(map(str, ns))}", ms,
+                             matvec_bytes(kdim, ns, wb), 2 * kdim * sum(ns), err=err, tol=GEMV_RTOL))
+            del ws
+        # The decode graph's MLP chain: D (gate-up) then C (down), layer after layer.
+        wg, wu, wd = stack(3584, 18944, wdtype), stack(3584, 18944, wdtype), stack(18944, 3584, wdtype)
+        sg, su = scales(18944, wdtype), scales(18944, wdtype)
+
+        def chain():
+            h = x
+            for l in range(n_l):
+                u = mv.gemv_gateup(h, wg, wu, sg, su, l).to(torch.bfloat16)
+                h = h + (mv.gemv_stacked(u, [wd], l)[0] * 1e-30).to(torch.bfloat16)
+            return h
+
+        u = mv.gemv_gateup_plain(x, wg, wu, sg, su, n_l - 1)
+        err = max(rel_err(mv.gemv_gateup(x, wg, wu, sg, su, n_l - 1), u),
+                  rel_err(mv.gemv_stacked(u.to(torch.bfloat16), [wd], n_l - 1)[0],
+                          mv.gemv_stacked_plain(u.to(torch.bfloat16), [wd], n_l - 1)[0]))
+        nbytes = n_l * (matvec_bytes(3584, (18944, 18944), wb) + matvec_bytes(18944, (3584,), wb))
+        rows.append(_row(log, f"MLP chain {wdtype} ({n_l} layers, D then C)", graph_time_ms(chain, 2), nbytes,
+                         n_l * 6 * 3584 * 18944, err=err, tol=GEMV_RTOL))
+        if wdtype == "int8":
+            rows.append(_row(log, "torch.sum over the same int8 stacks (read rate)",
+                             events_time_ms(lambda: (wg.sum(dtype=torch.int32), wu.sum(dtype=torch.int32),
+                                                     wd.sum(dtype=torch.int32)), 3),
+                             3 * n_l * 3584 * 18944, 0))
+        del wg, wu, wd
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# --what engine and --what ledger
+
+
+def engine_model(vocab_size: int = 8192, seed: int = 0):
+    """Random Qwen2-7B weights (bf16, on the card) at a cut vocabulary, as
+    the JAX bench's engine and ledger modes draw theirs."""
+    _require_cuda()
+    from .config import qwen2_7b_config
+    from .models import qwen2
+
+    cfg = qwen2_7b_config(vocab_size=vocab_size)
+    return qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed)), cfg
+
+
+def _main_prompt(cfg):
+    """The 64-frame x 182-patch prompt (11,697 tokens) on the card."""
+    from .models.adapters.common import build_video_prompt
+
+    h, pt, img_start, n_img = build_video_prompt(np.random.default_rng(0), cfg.hidden_size, n_frames=64)
+    return torch.from_numpy(h).to("cuda", cfg.dtype), pt, np.arange(len(pt)), img_start, n_img
+
+
+def _events(res) -> list:
+    return [(e.layer, e.tokens_removed) for e in res.telemetry.events]
+
+
+def logits_err(logits, events, valid_len: int, ref) -> float:
+    """``logits``' error over the largest of the reference prefill ``ref``'s,
+    or inf when the events or the final length differ from ``ref``'s."""
+    if events != _events(ref) or valid_len != ref.valid_len:
+        return math.inf
+    return rel_err(logits, ref.logits)
+
+
+def planned_stages(engine, prompt, pre_plan: int, plan: int, log=print, reps: int = 3) -> list:
+    """The planned prefill's stages, each timed alone (CUDA events, the
+    state it needs rebuilt untimed around it): the layer-0 merge and its
+    compaction to ``pre_plan``, the mask-only phase, the compaction to
+    ``plan``, the tail (with the phase's deferred MLP), and the pack of the
+    phase layers' caches; each beside its floor (GEMM and attention
+    operations over the live rows; bytes for the compactions and the pack).
+    The tail's logits are held against a whole ``prefill_planned`` at the
+    same buckets (ENGINE_RTOL, the same events)."""
+    import copy
+
+    from .core.compact import bucket_length, compact_tokens
+    from .runtime.engine import _PhaseState
+
+    cfg, ff = engine.cfg, engine.ff
+    h, pt, pos, img_start, n_img = prompt
+    hp, ptp, posp, orig = engine._prep_inputs(h, pt, pos)
+    frame_tok = engine._frame_tokens(pt)
+    d, kv_row = cfg.hidden_size, cfg.num_kv_heads * cfg.head_dim_ * 2
+    p_mlp = layer_params(cfg)[1]
+
+    def pre():
+        st = _PhaseState(n_live=orig, frame_tok=frame_tok)
+        return engine._pre_event(hp, ptp, posp, orig, st, 182, new_len=pre_plan), st
+
+    (h1, pt1, pos1, _), st1 = pre()
+    live1 = torch.arange(pre_plan, device=h1.device) < st1.n_live
+
+    def phase():
+        st = copy.deepcopy(st1)
+        return engine._phase(h1, pt1, pos1, live1, st, orig_len=orig, image_start=img_start, image_len=n_img,
+                             patch_num=182, stop_layer=engine.pool_layers, include_pre_event=False,
+                             defer_final_mlp=True), st
+
+    (h2, live2, layer_end, caches, pending), st2 = phase()
+    plan = max(plan, bucket_length(st2.n_live, ff.bucket))
+
+    def compact():
+        return compact_tokens(live2, plan, st2.n_live, {"h": h2, "pos": pos1})[0]
+
+    out = compact()
+
+    def tail():
+        return engine._tail(out["h"], out["pos"], st2.n_live, layer_end, pending)
+
+    events = [(e.layer, e.tokens_removed) for e in st2.events]
+    err = logits_err(tail()[0], events, st2.n_live,
+                     engine.prefill_planned(h, pt, pos, 182, img_start, n_img, plan_len=plan, pre_plan_len=pre_plan))
+    deferred = 2 * st2.n_live * p_mlp if pending >= 0 else 0  # the phase's last MLP runs in the tail
+    log(f"  stages at pre-plan {pre_plan}, plan {plan}: {st1.n_live} rows after the layer-0 merge, "
+        f"{st2.n_live} after the phase ({layer_end} layers, MLP of layer {pending} deferred), events {events}")
+    rows = [
+        _row(log, f"pre-event merge + compaction ({orig} -> {pre_plan})",
+             events_time_ms(pre, reps, warmup=1), (orig + pre_plan) * d * 2, 0),
+        _row(log, f"phase ({layer_end} layers at {pre_plan})", events_time_ms(phase, reps, warmup=1), 0,
+             prefill_ops(cfg, st1.n_live, [(l, n) for l, n in events if l >= 0], stop_layer=layer_end,
+                         logits_rows=0) - deferred),
+        _row(log, f"compaction ({pre_plan} -> {plan})", events_time_ms(compact, reps, warmup=1),
+             (pre_plan + plan) * d * 2, 0),
+        _row(log, f"tail ({cfg.num_layers - layer_end} layers at {plan})", events_time_ms(tail, reps, warmup=1), 0,
+             prefill_ops(cfg, st2.n_live, start_layer=layer_end) + deferred, err=err, tol=ENGINE_RTOL),
+        _row(log, f"pack of the phase caches ({len(caches)} layers)",
+             events_time_ms(lambda: engine._pack_caches(caches), reps, warmup=1),
+             sum(2 * (pre_plan + int(c[2].sum())) * kv_row for c in caches), 0),
+    ]
+    log(f"  sum of the stages: {sum(r['ms'] for r in rows):.3f} ms (floors {sum(r['bound_ms'] for r in rows):.3f})")
+    return rows
+
+
+def bench_engine(params=None, cfg=None, log=print, reps: int = 2) -> list:
+    """The FrameFusion prefills of the main path's prompt at Qwen2-7B width
+    beside dense, each beside the floor of the rows its events kept and held
+    against the fused prefill (the same events, logits within ENGINE_RTOL);
+    the planned prefill's stage split; the pieces alone; decode tokens/s."""
+    from .config import FrameFusionConfig
+    from .core.compact import bucket_length
+    from .models import qwen2
+    from .runtime.engine import CompressionEngine, PlanHistory
+
+    if params is None:
+        params, cfg = engine_model(8192)
+    _require_cuda()
+    ff = FrameFusionConfig(cost=0.3, similarity_lower_bound=0.6, ratio_lower_bound=0.1)
+    e = CompressionEngine(params, cfg, ff)
+    prompt = _main_prompt(cfg)
+    h, pt, pos, img_start, n_img = prompt
+    s = len(pt)
+    args = (h, pt, pos, 182, img_start, n_img)
+    rows = []
+    log(f"--- engine: the {s}-token prompt at Qwen2-7B width, vocab {cfg.vocab_size}, cost 0.3, S_th 0.6, r_min 0.1")
+    res = e.prefill(*args)
+    log(f"  fused events {[(ev.layer, ev.kind, ev.tokens_removed) for ev in res.telemetry.events]}, "
+        f"final {res.valid_len}, tail from layer {res.telemetry.tail_start_layer}")
+    floor_ops = prefill_ops(cfg, s, _events(res))
+    variants = [("fused prefill", lambda: e.prefill(*args)),
+                ("planned (1-stage, plan 3456)", lambda: e.prefill_planned(*args, plan_len=3456))]
+    variants += [(f"planned (2-stage, pre {pre}, plan 3456)",
+                  lambda pre=pre: e.prefill_planned(*args, plan_len=3456, pre_plan_len=pre))
+                 for pre in (8832, 7680, 6656)]
+    variants += [("planned (PlanHistory's buckets)", lambda: e.prefill(*args, mode="planned")),
+                 ("segmented prefill", lambda: e.prefill(*args, mode="segmented"))]
+    for name, fn in variants:
+        out = fn()
+        err = logits_err(out.logits, _events(out), out.valid_len, res)
+        rows.append(_row(log, name, events_time_ms(fn, reps, warmup=1), 0, floor_ops, mode=out.mode, err=err,
+                         tol=ENGINE_RTOL))
+        del out
+    dense_ops = prefill_ops(cfg, s)
+    pos_t = torch.from_numpy(pos).to("cuda")
+    for want in (False, True):
+        fn = lambda want=want: qwen2.dense_prefill(params, h, pos_t, cfg, attn_impl="flash", want_caches=want)
+        rows.append(_row(log, f"dense prefill ({'with caches' if want else 'logits only'})",
+                         events_time_ms(fn, reps, warmup=1), 0, dense_ops))
+    pre_plan, plan = e.plan_history.suggest(PlanHistory.key(182, 64, ff), ff.bucket)
+    log("  the planned prefill split at PlanHistory's buckets:")
+    rows += planned_stages(e, prompt, pre_plan, plan, log, reps)
+
+    s_small, start, valid = 3328, 2, 3314
+    h2 = _rand(torch.Generator(device="cuda").manual_seed(1), (s_small, cfg.hidden_size), 0.1)
+    pos2 = torch.arange(s_small, device="cuda")[:, None]
+    rows.append(_row(log, f"tail alone: layers {start}-{cfg.num_layers - 1} at S {s_small}",
+                     events_time_ms(lambda: e._tail(h2, pos2, valid, start), reps, warmup=1), 0,
+                     prefill_ops(cfg, valid, start_layer=start)))
+    s_pool = bucket_length(s, ff.bucket)
+    kv = _rand(torch.Generator(device="cuda").manual_seed(2), (s_pool, cfg.num_kv_heads, HD), 0.1)
+    live = torch.ones((s_pool,), dtype=torch.bool, device="cuda")
+    caches = [(kv, kv, live)] * 8
+    rows.append(_row(log, f"pack caches (8 layers at S {s_pool})",
+                     events_time_ms(lambda: e._pack_caches(caches), reps, warmup=1),
+                     8 * 2 * 2 * s_pool * cfg.num_kv_heads * HD * 2, 0))
+
+    n_tok = 32
+    t = events_time_ms(lambda: e.generate(res, n_tok), reps, warmup=1)
+    log(f"  decode {n_tok} tokens, one graph: {t:.2f} ms ({n_tok / t * 1e3:.1f} tokens/s)")
+    rows.append(dict(name=f"decode {n_tok} tokens solo", ms=t, tokens_per_s=n_tok / t * 1e3))
+    for b in (1, 4):
+        t = events_time_ms(lambda b=b: e.generate_batch([res] * b, n_tok), reps, warmup=1)
+        log(f"  decode {n_tok} tokens batched B={b}: {t:.2f} ms ({b * n_tok / t * 1e3:.1f} tokens/s)")
+        rows.append(dict(name=f"decode {n_tok} tokens B={b}", ms=t, tokens_per_s=b * n_tok / t * 1e3))
+    return rows
+
+
+def bench_ledger(params=None, cfg=None, log=print, reps: int = 3) -> list:
+    """The planned prefill's stages alone at the JAX ledger's buckets, each
+    beside its floor."""
+    from .config import FrameFusionConfig
+    from .runtime.engine import CompressionEngine
+
+    if params is None:
+        params, cfg = engine_model(8192)
+    _require_cuda()
+    ff = FrameFusionConfig(cost=0.3, similarity_lower_bound=0.6, ratio_lower_bound=0.1)
+    e = CompressionEngine(params, cfg, ff)
+    log(f"--- ledger: the planned prefill's stages, Qwen2-7B width, vocab {cfg.vocab_size}")
+    return planned_stages(e, _main_prompt(cfg), *LEDGER_BUCKETS, log=log, reps=reps)
+
+
+BENCH_MODES = ("attn", "quant", "decode", "engine", "ledger")
+
+
+def run_modes(modes, log=print) -> dict:
+    """Run the given ``--what`` modes in order (engine and ledger share one
+    model); returns their rows by mode."""
+    out, model = {}, None
+    for mode in modes:
+        if mode == "attn":
+            out[mode] = bench_attention(log)
+        elif mode == "quant":
+            out[mode] = bench_quant(log)
+        elif mode == "decode":
+            out[mode] = bench_decode(log)
+        elif mode in ("engine", "ledger"):
+            model = model or engine_model(8192)
+            out[mode] = (bench_engine if mode == "engine" else bench_ledger)(*model, log=log)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check", action="store_true", help="kernel check on the card")
     ap.add_argument("--batch-parity", action="store_true", help="batched-vs-solo prefill decisions on the card")
-    ap.add_argument("--what", choices=["decodestep"], help="benchmark to run")
+    ap.add_argument("--what", choices=BENCH_MODES + ("decodestep", "all"), help="benchmark to run")
     args = ap.parse_args(argv)
     if not args.check and not args.batch_parity and args.what is None:
-        ap.error("give --check, --batch-parity or --what decodestep")
+        ap.error("give --check, --batch-parity or --what MODE")
     _require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -722,6 +1212,11 @@ def main(argv=None) -> int:
         failures += check_batch_parity()
     if args.what == "decodestep":
         bench_decodestep()
+    elif args.what is not None:
+        out = run_modes(BENCH_MODES if args.what == "all" else (args.what,))
+        failed = [name for rows in out.values() for name in row_failures(rows)]
+        print(f"checked rows failed: {failed}" if failed else "every checked row within its bound")
+        failures += len(failed)
     return 1 if failures else 0
 
 

@@ -94,6 +94,14 @@ def _round_half_even(x: float) -> int:
     return int(round(x))
 
 
+def _device_keep_count(x: float) -> int:
+    """The fused and planned executors' prune keep count: banker's rounding,
+    and 0 for a NaN, as JAX's phase programs convert it (XLA's float to int
+    conversion gives 0 for a NaN). The schedule's ratio is NaN where its
+    events use every scheduled layer and spend the budget exactly (0 / 0)."""
+    return 0 if math.isnan(x) else _round_half_even(x)
+
+
 def plan_length_measured(orig_len: int, frame_token_num: int, first_merge_count: int,
                          ff: FrameFusionConfig) -> tuple[int, int]:
     """``(pre_plan_len, plan_len)`` buckets from the measured first-merge count.
@@ -513,7 +521,7 @@ class CompressionEngine:
         ratio, infeasible = pruning_ratio_flagged(st.sparsity, self.ff.cost, self.ff.schedule_num_layers)
         st.infeasible |= infeasible
         cur_img_len = image_len - (orig_len - st.n_live)
-        k_keep = _round_half_even(float(f32(cur_img_len) * (f32(1.0) - f32(ratio))))
+        k_keep = _device_keep_count(float(f32(cur_img_len) * (f32(1.0) - f32(ratio))))
         live_rank = torch.cumsum(live.to(torch.int64), dim=0) - 1
         in_window = live & (live_rank >= image_start) & (live_rank < image_start + cur_img_len)
         score = torch.where(in_window, importance, torch.full_like(importance, float("-inf")))

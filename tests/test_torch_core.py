@@ -215,9 +215,11 @@ def test_port_imports_no_jax():
             "framefusion_tpu_torch.pipeline, framefusion_tpu_torch.models.vision.internvl_vit, "
             "framefusion_tpu_torch.models.adapters.internvl, framefusion_tpu_torch.models.vision.nvila_frontend, "
             "framefusion_tpu_torch.models.vision.minicpmv_frontend, framefusion_tpu_torch.models.adapters.nvila, "
-            "framefusion_tpu_torch.models.adapters.minicpmv, framefusion_tpu_torch.models.adapters.llava_next_video; "
-            "assert not any(m == 'jax' or m.startswith(('jax.', 'framefusion_tpu.')) or m == 'framefusion_tpu' "
-            "for m in sys.modules), 'jax or the JAX package imported'")
+            "framefusion_tpu_torch.models.adapters.minicpmv, framefusion_tpu_torch.models.adapters.llava_next_video, "
+            "framefusion_tpu_torch.parallel.train, framefusion_tpu_torch.scripts.accuracy_probe, "
+            "framefusion_tpu_torch.scripts.spec_probe, framefusion_tpu_torch.kernel_bench; "
+            "assert not any(m in ('jax', 'optax', 'framefusion_tpu') or m.startswith(('jax.', 'optax.', "
+            "'framefusion_tpu.')) for m in sys.modules), 'jax, optax or the JAX package imported'")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]))
     assert proc.returncode == 0, proc.stderr

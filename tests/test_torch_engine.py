@@ -513,3 +513,44 @@ def test_cuda_graph_sampled_decode_keeps_to_top_k(cuda):
     for step in range(7):
         graph.run(1)
         assert int(graph.out[step + 1]) in torch.topk(graph.logits, 5).indices.tolist()
+
+
+def test_prune_at_a_nan_ratio_keeps_no_image_token_like_jax():
+    """Four events that use every layer of a 4-layer schedule and spend the
+    budget exactly (densities 0.5 + 0.25 + 0.125 + 0.125 = 4 x 0.25) leave
+    the schedule's ratio 0 / 0 = NaN in both packages. JAX's phase program
+    converts the keep count round(NaN) to 0 (XLA's float to int conversion)
+    and prunes every image token of the window; the port's fused and planned
+    executors keep the same tokens (the port's prune used to raise on it)."""
+    from framefusion_tpu.core.schedule import compute_pruning_ratio_device
+    from framefusion_tpu.runtime.engine import _prune_event_step
+    from framefusion_tpu_torch.core.schedule import pruning_ratio_flagged
+    from framefusion_tpu_torch.runtime.engine import _PhaseState
+
+    sparsity, cost = [0.5, 0.5, 0.5, 0.0], 0.25
+    ratio, infeasible = pruning_ratio_flagged(sparsity, cost, 4)
+    j_ratio, j_infeasible = compute_pruning_ratio_device(jnp.asarray(sparsity, jnp.float32), jnp.int32(4),
+                                                         jnp.float32(cost), 4)
+    assert np.isnan(ratio) and np.isnan(float(j_ratio)) and not infeasible and not bool(j_infeasible)
+
+    s, image_start, image_len = 24, 2, 16
+    rng = np.random.default_rng(0)
+    importance = rng.random(s).astype(np.float32)
+    live = np.ones(s, bool)
+    live[[5, 9]] = False  # two tokens merged away before the prune
+    n_live = int(live.sum())
+    j_st = dict(sparsity=jnp.asarray(sparsity, jnp.float32), n_events=jnp.int32(4), n_live=jnp.int32(n_live),
+                live=jnp.asarray(live), infeasible=jnp.bool_(False), fp=jnp.bool_(False),
+                ev_layer=jnp.zeros(8, jnp.int32), ev_kind=jnp.zeros(8, jnp.int32), ev_removed=jnp.zeros(8, jnp.int32),
+                ev_ratio=jnp.zeros(8, jnp.float32), ev_budget=jnp.zeros(8, jnp.float32), ev_n=jnp.int32(4))
+    j_out = _prune_event_step(j_st, None, jnp.asarray(importance), 3, jnp.int32(s), jnp.int32(image_start),
+                              jnp.int32(image_len), jnp.float32(cost), schedule_num_layers=4)
+
+    cfg = tiny_llm_config(num_layers=4)
+    engine = CompressionEngine(tq.init_params(cfg, torch.Generator().manual_seed(0)), cfg,
+                               FrameFusionConfig(cost=cost, schedule_num_layers=4), attn_impl="einsum")
+    st = _PhaseState(n_live=n_live, frame_tok=image_len - 2, sparsity=list(sparsity), fm=True)
+    keep = engine._prune_event(st, torch.from_numpy(importance), torch.from_numpy(live), 3, orig_len=s,
+                               image_start=image_start, image_len=image_len)
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(j_out["live"]))
+    assert st.n_live == int(j_out["n_live"]) == n_live - (image_len - 2) and not st.infeasible
