@@ -328,6 +328,41 @@ Phases, each printed as it runs; every run makes all of them:
              the 151,936-wide int8 head beside ``torch.matmul`` on the head
              cast beforehand; D and C at the shared expert's widths (3,584
              -> 2 x 20,480 and 20,480 -> 3,584, int8, one row).
+18. cross_parallel — serving across ranks (``parallel/launch.spawn``: 4
+             processes, one spawn a device) on tiny bf16 models, the ranks on
+             the CPU over gloo (the kernels' plain versions) and on the card
+             over gloo (every rank on cuda:0, the kernels at the sharded
+             shapes, the collectives staged through the host): tensor
+             parallel at 2 and 4 ranks (6 layers, hidden 512, 8 / 4 heads of
+             128; ``readout_params``), the sequence-sharded prefill at 2
+             ranks (gather and ring) and expert parallelism at 2 ranks
+             (phase 3b's MoE model, 8 experts). Each held against the one-
+             process run on its own device: events equal on every rank,
+             first-token logits within LOGIT_RTOL, greedy tokens equal.
+19. parallel — the same at full width on the card. (a) Qwen2-7B, 28
+             layers, bf16 random weights drawn a (leaf, layer) at a time
+             from a seed (``sharding.init_sharded_params``), the main-path
+             prompt (11,697 tokens): the fused prefill at TP = 4 and TP = 2
+             (gloo ranks on the one card) against the one-process run:
+             events equal, this rank's KV heads of layer 0's and the prune
+             layer's cached keys (the merges' keep set) within LOGIT_RTOL,
+             first-token logits within LOGIT_RTOL; then the int8 decode of
+             16 tokens (the ranks decode eagerly: gloo's reduces cannot be
+             captured); prefill ms and decode ms / step per rank, with the
+             share in collectives (host-staged gloo: not a multi-card
+             speed), the kernel calls per rank by shape. (b) The sequence-
+             sharded prefill at 2 ranks, gather and ring, against the one-
+             process segmented executor: events equal, logits within
+             LOGIT_RTOL. (c) Qwen2-57B-A14B's widths at 14 of 28 layers,
+             int8, experts over 2 ranks (32 each; attention and the shared
+             expert whole on both): the fused prefill and a 16-token int8
+             decode against the one-process run at that depth. (d) NCCL as
+             a world of one: the decode graph captures the all-reduce; its
+             tokens and logits are bitwise the engine's without a mesh.
+             NCCL across ranks runs only with two cards or more. Last, the
+             kernel rows ``"path": "tp2"``, ``"tp4"`` and ``"ep2"`` at the
+             shapes the ranks launched, timed here, with the ranks'
+             launches.
 
 The line before the last is a JSON object with one entry per kernel, built
 from ``framefusion_tpu_torch.ops.kernels`` (the TPU functions each stands
@@ -1172,43 +1207,11 @@ def _ran(wrappers: dict) -> dict:
     return {name: w.launches + DecodeGraph.replayed[name] for name, w in wrappers.items()}
 
 
-class CallLog:
-    """While active, records a key of every call of the entry points
-    ``keys`` names in ``module`` (the functions the model calls, which reach
-    the kernel's wrapper; the wrapper and its launch count are untouched),
-    to split a kernel's launches by regime."""
-
-    def __init__(self, module, keys: dict):
-        self.module, self.key_of, self.keys, self.real = module, keys, [], {}
-
-    def __enter__(self):
-        for name, key in self.key_of.items():
-            real = self.real[name] = getattr(self.module, name)
-
-            def recorded(*args, _real=real, _key=key, **kwargs):
-                self.keys.append((_key(*args, **kwargs), torch.cuda.is_current_stream_capturing()))
-                return _real(*args, **kwargs)
-
-            setattr(self.module, name, recorded)
-        return self
-
-    def __exit__(self, *exc):
-        for name, real in self.real.items():
-            setattr(self.module, name, real)
-
-    def counts(self, replays: int = 0) -> dict:
-        """Launches that ran, by key: a call made eagerly once, a call
-        recorded into the one CUDA graph captured while the log was active
-        once for each of that graph's ``replays``."""
-        out: dict = {}
-        for k, captured in self.keys:
-            out[k] = out.get(k, 0) + (replays if captured else 1)
-        return out
-
-
 def _cd_log(mv):
     """Kernels C's and D's calls from the model, by (kernel, rows, K, the
     stacks' widths)."""
+    from framefusion_tpu_torch.parallel.workers import CallLog
+
     return CallLog(mv, {
         "matvec_stacked": lambda x, w, layer: ("gemv_stacked", x.shape[0], x.shape[1], (w.shape[2],)),
         "matvec_stacked_qkv": lambda x, wq, wk, wv, layer: (
@@ -1218,6 +1221,8 @@ def _cd_log(mv):
 
 def _a_log(fp):
     """Kernel A's calls from the model, by (S, whether a key_valid mask came)."""
+    from framefusion_tpu_torch.parallel.workers import CallLog
+
     return CallLog(fp, {
         "flash_causal_attention": lambda q, k, v, key_valid=None: (q.shape[0], key_valid is not None),
         "flash_causal_attention_importance":
@@ -1226,6 +1231,8 @@ def _a_log(fp):
 
 def _c_log(mv):
     """Kernel C's calls from the model, by (K, the stacks' widths)."""
+    from framefusion_tpu_torch.parallel.workers import CallLog
+
     return CallLog(mv, {
         "matvec_stacked": lambda x, w, layer: (x.shape[1], (w.shape[2],)),
         "matvec_stacked_qkv": lambda x, wq, wk, wv, layer: (x.shape[1], (wq.shape[2], wk.shape[2], wv.shape[2]))})
@@ -1974,6 +1981,7 @@ def phase_qwen2vl(chk: Checks, kernels: dict, ctx: dict) -> None:
     from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
     from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
     from framefusion_tpu_torch.ops.quant import quantize_params_int8
+    from framefusion_tpu_torch.parallel.workers import CallLog
     from framefusion_tpu_torch.pipeline import TextPipeline
     from framefusion_tpu_torch.runtime.engine import CompressionEngine
 
@@ -2294,6 +2302,7 @@ def _family_phase(chk: Checks, kernels: dict, *, tag: str, pipe, frames, pre_sha
     from framefusion_tpu_torch.ops.kernels import flash_prefill as fp
     from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
     from framefusion_tpu_torch.ops.quant import quantize_params_int8
+    from framefusion_tpu_torch.parallel.workers import CallLog
     from framefusion_tpu_torch.runtime.decode_graph import DecodeGraph
     from framefusion_tpu_torch.runtime.engine import CompressionEngine
 
@@ -3273,6 +3282,8 @@ def _routed_log(mv):
     """The MoE decode's C and D calls: the routed experts' and the head's by
     (entry point, rows), the stacked matvecs' (the shared expert, the
     attention) by (entry point, K, N)."""
+    from framefusion_tpu_torch.parallel.workers import CallLog
+
     return CallLog(mv, {"matvec_routed": lambda x, w, index: ("down", x.shape[0]),
                         "matvec_routed_gateup": lambda x, wg, wu, sg, su, index: ("gateup", x.shape[0]),
                         "matvec_q8": lambda x, w8, scale: ("lm_head", x.shape[0]),
@@ -4584,6 +4595,384 @@ def phase_scripts(chk: Checks, kernels: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# Phases 18-19: serving across ranks.
+PAR_SEED = 18
+PAR_DECODE = 16  # tokens of the sharded int8 decodes
+EP_LAYERS = 14  # Qwen2-57B-A14B's depth for expert parallelism on one card (module docstring, 19c)
+PAR_PATHS = ("tp2", "tp4", "ep2")
+
+
+def _par_events_ok(chk, label, got, want) -> None:
+    chk.expect(got == want, f"{label}: events equal the one-process run's ({got})")
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    if a.shape != b.shape:
+        return math.inf
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def tiny_parallel_setup():
+    """Phase 18's models, prompts and rank jobs."""
+    from framefusion_tpu_torch.config import FrameFusionConfig, tiny_llm_config, tiny_moe_llm_config
+    from framefusion_tpu_torch.models.adapters.common import build_video_prompt
+
+    cfg = tiny_llm_config(num_layers=6, hidden_size=512, intermediate_size=1024, num_heads=8, num_kv_heads=4,
+                          head_dim=128, dtype=torch.bfloat16)
+    ff = FrameFusionConfig(cost=0.3, similarity_lower_bound=0.6, ratio_lower_bound=0.1, schedule_num_layers=6,
+                           bucket=32)
+    tree = readout_params(cfg, seed=0, resid_scale=0.03)
+    h, pt, img_start, n_img = build_video_prompt(np.random.default_rng(5), cfg.hidden_size, n_frames=12,
+                                                 patch_num=8, n_pre=6, n_post=5)
+    h[-1] = tree["embed"][7]
+    prompt = (h, pt, np.arange(len(pt)), 8, img_start, n_img)
+    mcfg = tiny_moe_llm_config(num_layers=6, hidden_size=512, num_heads=4, num_kv_heads=2,
+                               num_experts=MOE_CROSS_EXPERTS, num_experts_per_tok=2, moe_intermediate_size=256,
+                               shared_expert_intermediate_size=512, moe_capacity_factor=1.25, dtype=torch.bfloat16)
+    mtree = moe_cross_params(mcfg, seed=0, resid_scale=0.003)
+    rng, e = np.random.default_rng(7), MOE_CROSS_EXPERTS
+    mh = h.copy()
+    mh[:-1] *= np.float32(20.0)
+    mh[:, -e:] = np.stack([rng.permutation(e) for _ in range(len(pt))])
+    patch_sig = np.stack([rng.permutation(e) for _ in range(8)])
+    vision = np.arange(img_start, img_start + n_img)
+    mh[vision, -e:] = patch_sig[pt[vision]]
+    mh[-1] = mtree["embed"][7]
+    mprompt = (mh, pt, np.arange(len(pt)), 8, img_start, n_img)
+    greedy = [dict(op="greedy", prompt=prompt, n=8)]
+    jobs = [dict(kind="tp", cfg=cfg, ff=ff, params=tree, tensor=t, attn_impl="flash", steps=greedy) for t in (2, 4)]
+    jobs += [dict(kind="seq", cfg=cfg, ff=ff, params=tree, seq=2, ring=ring, prompt=prompt) for ring in (False, True)]
+    jobs.append(dict(kind="ep", cfg=mcfg, ff=ff, params=mtree, expert=2, attn_impl="flash",
+                     steps=[dict(op="greedy", prompt=mprompt, n=8)]))
+    return (cfg, ff, tree, prompt), (mcfg, mtree, mprompt), jobs
+
+
+def _one_process(cfg, ff, tree, prompt, device, modes=("fused",)):
+    """The one-process engine's results on ``device``: per mode (events,
+    logits) and the fused run's 8 greedy tokens."""
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.parallel import workers
+    from framefusion_tpu_torch.runtime.engine import CompressionEngine
+
+    eng = CompressionEngine(_cast_floats(qwen2.params_from_numpy(tree, device), cfg.dtype), cfg, ff,
+                            attn_impl="flash")
+    h, pt, pos, pn, s0, n = prompt
+    out = {}
+    for mode in modes:
+        res = eng.prefill(torch.from_numpy(h).to(device, cfg.dtype), pt, pos, pn, s0, n, mode=mode)
+        out[mode] = workers.result_of(res)
+        if mode == "fused":
+            out["tokens"] = eng.generate(res, 8)
+    return out
+
+
+def phase_cross_parallel(chk: Checks) -> None:
+    """Phase 18 (module docstring)."""
+    from framefusion_tpu_torch.parallel import launch, workers
+
+    (cfg, ff, tree, prompt), (mcfg, mtree, mprompt), jobs = tiny_parallel_setup()
+    for dev in ("cpu", "cuda"):
+        ref = _one_process(cfg, ff, tree, prompt, dev, modes=("fused", "segmented"))
+        mref = _one_process(mcfg, ff, mtree, mprompt, dev)
+        t0 = time.perf_counter()
+        outs = launch.spawn(workers.run_jobs, 4, jobs, backend="gloo", device=dev, timeout_s=600)
+        log(f"  {dev}: 4 gloo ranks, {len(jobs)} jobs in {time.perf_counter() - t0:.1f} s; one process: events "
+            f"{ref['fused']['events']}, segmented {ref['segmented']['events']}, tokens {ref['tokens']}")
+        for j, job in enumerate(jobs):
+            ranks = [o[j] for o in outs]
+            if job["kind"] == "seq":
+                label = f"cross_parallel {dev} seq 2 {'ring' if job['ring'] else 'gather'}"
+                want = ref["segmented"]
+                got = ranks[0]
+                chk.expect(all(r["events"] == got["events"] for r in ranks), f"{label}: every rank's events equal")
+                _par_events_ok(chk, label, got["events"], want["events"])
+                rel = _rel(got["logits"], want["logits"])
+                chk.expect(rel <= LOGIT_RTOL, f"{label}: logits differ by {rel:.3e} of their largest <= {LOGIT_RTOL}")
+                continue
+            want = mref if job["kind"] == "ep" else ref
+            width = job.get("tensor", job.get("expert"))
+            label = f"cross_parallel {dev} {job['kind']}{width}"
+            got = ranks[0]["steps"][0]
+            chk.expect(all(r["steps"][0]["events"] == got["events"] and r["steps"][0]["tokens"] == got["tokens"]
+                           for r in ranks), f"{label}: every rank's events and tokens equal")
+            _par_events_ok(chk, label, got["events"], want["fused"]["events"])
+            rel = _rel(got["logits"], want["fused"]["logits"])
+            chk.expect(rel <= LOGIT_RTOL, f"{label}: first-token logits differ by {rel:.3e} of their largest "
+                                          f"<= {LOGIT_RTOL}")
+            chk.expect(got["tokens"] == want["tokens"], f"{label}: greedy tokens equal ({got['tokens']})")
+            ran = ranks[0]["launches"]
+            names = ("flash_attn_fwd", "gemv_stacked", "gemv_gateup", "ragged_decode_attn")
+            if dev == "cuda":
+                chk.expect(all(ran[n] > 0 for n in names), f"{label}: A, C, D and G launched on every rank ({ran})")
+            else:
+                chk.expect(not any(ran.values()), f"{label}: no kernel launched on the CPU")
+        del outs
+
+
+def _ref_full(cfg, ff, prompt_args, n: int, *, int8_prefill: bool = False) -> dict:
+    """The one-process run of a phase 19 model (``init_sharded_params`` with
+    no mesh: the ranks' weights whole): the timed fused prefill's result,
+    keys and (for a dense model) the segmented executor's, then the int8
+    decode of ``n`` tokens from the prefill's caches."""
+    from framefusion_tpu_torch.parallel import workers
+    from framefusion_tpu_torch.parallel.sharding import init_sharded_params
+    from framefusion_tpu_torch.runtime.engine import CompressionEngine
+
+    t0 = time.perf_counter()
+    params = init_sharded_params(cfg, PAR_SEED, None, device="cuda", int8=int8_prefill,
+                                 quantize_lm_head=int8_prefill)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng = CompressionEngine(params, cfg, ff, attn_impl="flash")
+    eng.dense_prefill(prompt_args[0][:256], np.arange(256))  # the warm-up, as the ranks'
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.prefill(*prompt_args)
+    torch.cuda.synchronize()
+    out = {"prefill": workers.result_of(res), "prefill_ms": (time.perf_counter() - t0) * 1e3, "build_s": build_s,
+           "keys0": workers.keys_of(res, 0), "prune_layer": res.telemetry.tail_start_layer - 1}
+    out["keys_prune"] = workers.keys_of(res, out["prune_layer"])
+    if not cfg.is_moe:
+        out["segmented"] = workers.result_of(eng.prefill(*prompt_args, mode="segmented"))
+    if not int8_prefill:
+        del eng, params
+        torch.cuda.empty_cache()
+        params = init_sharded_params(cfg, PAR_SEED, None, device="cuda", int8=True, quantize_lm_head=True)
+        eng = CompressionEngine(params, cfg, ff, attn_impl="flash")
+    graph = eng._start_decode(res, n, None, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.run(n - 1)
+    torch.cuda.synchronize()
+    out.update(decode_ms_step=(time.perf_counter() - t0) * 1e3 / (n - 1), tokens=graph.out[:n].tolist(),
+               decode_logits=graph.logits.float().cpu().numpy())
+    graph.busy = False
+    del graph, eng, params, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_full(chk, label, ranks, ref, hk_local: int, *, heads_split: bool = True) -> None:
+    """Phase 19's checks of one full-width job's ranks against the one-process
+    run; rank i holds KV heads [i * hk_local, (i + 1) * hk_local) when the
+    heads are split, all of them otherwise."""
+    active = [r for r in ranks if r["active"]]
+    r0 = active[0]
+    chk.expect(all(r["prefill"]["events"] == r0["prefill"]["events"] and r["tokens"] == r0["tokens"] for r in active),
+               f"{label}: every rank's events and tokens equal")
+    _par_events_ok(chk, label, r0["prefill"]["events"], ref["prefill"]["events"])
+    for name in ("keys0", "keys_prune"):
+        errs = [_rel(r[name], ref[name][:, (i if heads_split else 0) * hk_local:][:, :hk_local])
+                for i, r in enumerate(active)]
+        layer = "layer 0" if name == "keys0" else f"the prune layer ({ref['prune_layer']})"
+        chk.expect(max(errs) <= LOGIT_RTOL, f"{label}: each rank's KV heads of {layer}'s cached keys (the merges' "
+                                            f"keep set) within {max(errs):.3e} <= {LOGIT_RTOL}")
+    rel = _rel(r0["prefill"]["logits"], ref["prefill"]["logits"])
+    chk.expect(rel <= LOGIT_RTOL, f"{label}: first-token logits differ by {rel:.3e} of their largest <= {LOGIT_RTOL}")
+    agree = next((j for j, (a, b) in enumerate(zip(r0["tokens"], ref["tokens"])) if a != b), len(ref["tokens"]))
+    chk.expect(len(r0["tokens"]) == PAR_DECODE and bool(np.isfinite(r0["decode_logits"]).all()),
+               f"{label}: the int8 decode gave {PAR_DECODE} tokens, finite logits; agreement with the one-process "
+               f"decode before the first difference {agree} of {PAR_DECODE} (not gated: bf16 near-ties of a random "
+               f"model)")
+    log(f"  {label}: prefill {r0['prefill_ms']:.1f} ms (one process {ref['prefill_ms']:.1f}), collectives "
+        f"{r0['prefill_collective_ms']:.1f} ms = {r0['prefill_collective_ms'] / r0['prefill_ms']:.3f} of it; int8 "
+        f"decode {r0['decode_ms_step']:.2f} ms/step eager (gloo: no graph captured, DecodeGraph.replays "
+        f"{r0['replays']}; one process, graph: {ref['decode_ms_step']:.3f}), "
+        f"collectives {r0['decode_collective_ms_step']:.2f} ms/step = "
+        f"{r0['decode_collective_ms_step'] / r0['decode_ms_step']:.3f}; host-staged gloo on one card, not a "
+        f"multi-card speed; peak {max(r['max_memory_gb'] for r in active):.1f} GB a rank")
+    same = all(r["prefill_calls"] == r0["prefill_calls"] and r["decode_calls"] == r0["decode_calls"] for r in active)
+    log(f"  {label}: kernel launches by (kernel, call shape), {'the same on every rank' if same else 'rank 0'}: "
+        f"prefill {r0['prefill_calls']}; decode {r0['decode_calls']}")
+    chk.expect(same, f"{label}: every rank launched the same kernels at the same shapes")
+    # Each rank's wrappers' counts, set to 0 before the prefill and before
+    # the decode: every launch was recorded with its call's shape.
+    recorded = all(_by_kernel(r[f"{run}_calls"]) == {k: n for k, n in r[f"{run}_launches"].items() if n}
+                   for r in active for run in ("prefill", "decode"))
+    chk.expect(recorded, f"{label}: on every rank the launches by call shape sum to each wrapper's own count "
+                         f"(rank 0: prefill {r0['prefill_launches']}, decode {r0['decode_launches']})")
+
+
+def _by_kernel(calls: dict) -> dict:
+    """``KernelLog`` counts summed by kernel."""
+    out: dict = {}
+    for (kernel, _), n in calls.items():
+        out[kernel] = out.get(kernel, 0) + n
+    return out
+    chk.expect(not any(r["captured"] or r["replays"] for r in active),
+               f"{label}: under gloo the decode ran its step eagerly (no graph, 0 replays)")
+
+
+def _par_rows(chk, kernels, gen, tag: str, r0: dict, cfg) -> None:
+    """The kernel rows ``"path": tag`` at the shapes rank 0 launched."""
+    from framefusion_tpu_torch.ops.quant import quantize_head
+
+    calls = dict(r0["prefill_calls"])
+    for k, v in r0["decode_calls"].items():
+        calls[k] = calls.get(k, 0) + v
+    events = r0["prefill"]["events"]
+    live = next((e[3] for e in reversed(events) if e[1] != "prune"), events[-1][3])
+    valid = r0["prefill"]["valid_len"]
+    # A's launches by regime: with or without B behind them, one shape.
+    a_calls: dict = {}
+    for (kernel, key), count in calls.items():
+        if kernel == "flash_attn_fwd":
+            a_calls[key[1:5]] = a_calls.get(key[1:5], 0) + count
+    for (s, hq, hk, masked), count in sorted(a_calls.items()):
+        dead = max(0.0, 1.0 - live / s) if masked else 0.0
+        label = f"{tag}: S {s}, Hq {hq} / Hk {hk}" + (
+            f", key_valid with {dead:.1%} dead keys" if masked else ", no mask")
+        regime, _ = _a_regime(chk, kernels, gen, s, hq, hk, dead, label)
+        regime.update(path=tag, launches=count)
+        torch.cuda.empty_cache()
+    for (kernel, key), count in sorted(calls.items()):
+        if kernel == "flash_attn_fwd":
+            continue
+        if kernel == "attn_importance_rows":
+            _, s, hq, hk, _, num = key
+            entry = _b_row(chk, kernels, gen, s, live, num, hq, hk, 14, tag)
+            entry["launches"] = count
+        elif kernel == "ragged_decode_attn":
+            _, hq, hk, s_view = key
+            entry = _g_row(chk, kernels, gen, min(valid + PAR_DECODE // 2, s_view), s_view, hq, hk, tag)
+            entry["launches"] = count
+        else:
+            entry_kind, b, kdim, ns, wdtype = key
+            if entry_kind == "head":
+                head = quantize_head(torch.randn((kdim, ns[0]), generator=gen, device="cuda").mul_(0.02)
+                                     .to(torch.bfloat16))
+                entry = _head_row(chk, kernels, gen, head, b, tag)
+                del head
+            elif entry_kind.startswith("routed"):
+                continue  # the expert-parallel rows (_ep_rows)
+            else:
+                if kernel == "gemv_gateup":
+                    name, ns = "gateup", (ns[0], ns[0])
+                elif entry_kind == "qkv":
+                    name = "qkv"
+                else:  # the row-split products: wo at K = Hq * hd / n, w_down at the MLP's width / n
+                    name = "wo" if kdim < cfg.hidden_size else "w_down"
+                (entry,) = _cd_rows(chk, kernels, gen, name, wdtype, kdim, list(ns), (b,), path=tag)
+            entry["launches"] = count
+            kernels[kernel]["shapes"].append(entry)
+        torch.cuda.empty_cache()
+
+
+def _ep_rows(chk, kernels, gen, r0: dict, mcfg, width: int) -> None:
+    """C's and D's rows ``"path": "ep2"``: the routed rows of rank 0's
+    decode over its own experts' stacks (the first E / n; a row whose
+    expert lives on the other rank reads local expert 0 and adds zero, as
+    ``qwen2.moe_decode_mlp`` runs it), at random top-k routings."""
+    from framefusion_tpu_torch.ops.quant import quantize_weight
+
+    e_local, k = mcfg.num_experts // width, mcfg.num_experts_per_tok
+    n_l, d, mi = 4, mcfg.hidden_size, mcfg.moe_intermediate_size
+
+    def stack(kdim, ndim):
+        q = [quantize_weight(torch.randn((e_local, kdim, ndim), generator=gen, device="cuda").mul_(0.02)
+                             .to(torch.bfloat16)) for _ in range(n_l)]
+        return torch.stack([x["q8"] for x in q]), torch.stack([x["scale"] for x in q])
+
+    (gq, gs), (uq, us), (dq, _) = stack(d, mi), stack(d, mi), stack(mi, d)
+    sets = []
+    for i in range(8):
+        idx = torch.randperm(mcfg.num_experts, generator=gen, device="cuda")[:k]
+        local = torch.where(idx < e_local, idx, torch.zeros_like(idx))
+        sets.append(((n_l - 1 - i % n_l) * e_local + local).to(torch.int32))
+    calls = r0["decode_calls"]
+    for name, w, sc, kernel in (("gateup", [gq, uq], [gs, us], "gemv_gateup"), ("down", [dq], [None], "gemv_stacked")):
+        row = _routed_row(chk, kernels, gen, name, w, sc, sets, "ep2")
+        row["launches"] = sum(v for (kk, key), v in calls.items() if kk == kernel and key[0].startswith("routed"))
+        kernels[kernel]["shapes"].append(row)
+    del gq, uq, dq
+    torch.cuda.empty_cache()
+
+
+def phase_parallel(chk: Checks, kernels: dict, ctx: dict) -> None:
+    """Phase 19 (module docstring)."""
+    from framefusion_tpu_torch.config import FrameFusionConfig, qwen2_7b_config, qwen2_moe_a14b_config
+    from framefusion_tpu_torch.models.adapters.common import build_video_prompt
+    from framefusion_tpu_torch.parallel import launch, workers
+
+    ctx.clear()
+    torch.cuda.empty_cache()
+    cfg = qwen2_7b_config()
+    mcfg = qwen2_moe_a14b_config(num_layers=EP_LAYERS)
+    ff = FrameFusionConfig(cost=0.3, similarity_lower_bound=0.6, ratio_lower_bound=0.1)
+    mff = FrameFusionConfig(*MOE_KNOBS)
+    h, pt, img_start, n_img = build_video_prompt(np.random.default_rng(0), cfg.hidden_size)
+    args = (torch.from_numpy(h).to("cuda", torch.bfloat16), pt, np.arange(len(pt)), 182, img_start, n_img)
+    prompt = {"video": dict(seed=0)}
+    ref = _ref_full(cfg, ff, args, PAR_DECODE)
+    mref = _ref_full(mcfg, mff, args, PAR_DECODE, int8_prefill=True)
+    log(f"  one process: Qwen2-7B built in {ref['build_s']:.1f} s, fused prefill {ref['prefill_ms']:.1f} ms, events "
+        f"{ref['prefill']['events']}, segmented {ref['segmented']['events']}, int8 decode {ref['decode_ms_step']:.3f} "
+        f"ms/step; Qwen2-57B-A14B at {EP_LAYERS} layers int8 built in {mref['build_s']:.1f} s, fused "
+        f"{mref['prefill_ms']:.1f} ms, events {mref['prefill']['events']}, decode {mref['decode_ms_step']:.3f} ms/step")
+    full = dict(kind="full", cfg=cfg, ff=ff, seed=PAR_SEED, n=PAR_DECODE, prompt=prompt, axis="tensor")
+    jobs = [dict(full, width=4, active=[0, 1, 2, 3]), dict(full, width=2, active=[0, 1]),
+            dict(kind="seq_full", cfg=cfg, ff=ff, seed=PAR_SEED, prompt=prompt, width=2, active=[0, 1]),
+            dict(full, cfg=mcfg, ff=mff, axis="expert", width=2, active=[0, 1], int8_prefill=True)]
+    t0 = time.perf_counter()
+    outs = launch.spawn(workers.run_jobs, 4, jobs, backend="gloo", device="cuda", timeout_s=900)
+    log(f"  4 gloo ranks on the one card: {len(jobs)} jobs in {time.perf_counter() - t0:.1f} s "
+        f"({[round(o[j]['seconds'], 1) for j in range(len(jobs)) for o in outs[:1]]} s a job on rank 0)")
+    by_job = [[o[j] for o in outs] for j in range(len(jobs))]
+    # (a) tensor parallel
+    _check_full(chk, "parallel tp4", by_job[0], ref, cfg.num_kv_heads // 4)
+    _check_full(chk, "parallel tp2", by_job[1], ref, cfg.num_kv_heads // 2)
+    # (b) sequence parallel
+    seq = [r for r in by_job[2] if r["active"]]
+    for mode in ("gather", "ring"):
+        got = seq[0][mode]
+        label = f"parallel seq2 {mode}"
+        chk.expect(all(r[mode]["events"] == got["events"] for r in seq), f"{label}: every rank's events equal")
+        _par_events_ok(chk, label, got["events"], ref["segmented"]["events"])
+        rel = _rel(got["logits"], ref["segmented"]["logits"])
+        chk.expect(rel <= LOGIT_RTOL, f"{label}: logits differ by {rel:.3e} of the segmented executor's largest "
+                                      f"<= {LOGIT_RTOL}")
+        log(f"  {label}: {got['ms']:.1f} ms, collectives {got['collective_ms']:.1f} ms (host-staged gloo)")
+    # (c) expert parallel
+    ep = [r for r in by_job[3] if r["active"]]
+    _check_full(chk, "parallel ep2", by_job[3], mref, mcfg.num_kv_heads, heads_split=False)
+    routed = {r_i: {k: v for k, v in r["decode_calls"].items() if k[1][0].startswith("routed")}
+              for r_i, r in enumerate(ep)}
+    log(f"  parallel ep2: routed C and D calls by rank: {routed}")
+    chk.expect(all(sum(v.values()) > 0 for v in routed.values()), "parallel ep2: every rank ran routed C and D")
+    del outs
+    # (d) NCCL as a world of one
+    one = launch.spawn(workers.run_jobs, 1, [dict(kind="nccl_one", cfg=qwen2_7b_config(num_layers=4), ff=ff,
+                                                  seed=PAR_SEED, n=PAR_DECODE,
+                                                  prompt={"video": dict(seed=0, n_frames=16)})],
+                       backend="nccl", device="cuda", timeout_s=600)[0][0]
+    a, m = one["alone"], one["mesh"]
+    chk.expect(m["captured"] and a["captured"] and m["replays"] == a["replays"] == PAR_DECODE - 1
+               and m["collectives_in_replays"] == 0 and m["collectives"] > 0,
+               f"parallel nccl world of one: both decodes replayed a captured graph ({m['replays']} replays), the "
+               f"mesh's all-reduces inside it ({m['collectives']} reduces recorded, none run outside the replays)")
+    chk.expect(a["tokens"] == m["tokens"] and np.array_equal(a["logits"], m["logits"])
+               and np.array_equal(a["prefill_logits"], m["prefill_logits"]) and a["events"] == m["events"],
+               f"parallel nccl world of one: tokens and logits bitwise the engine's without a mesh ({m['tokens']})")
+    if torch.cuda.device_count() >= 2:
+        nccl = launch.spawn(workers.run_jobs, 2, [dict(full, width=2, active=[0, 1])], backend="nccl",
+                            device="cuda", timeout_s=900)
+        _check_full(chk, "parallel nccl tp2", [o[0] for o in nccl], ref, cfg.num_kv_heads // 2)
+    else:
+        log("  parallel nccl across ranks: not run: one card")
+    # The kernel rows at the sharded shapes, timed here.
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    _par_rows(chk, kernels, gen, "tp4", by_job[0][0], cfg)
+    _par_rows(chk, kernels, gen, "tp2", by_job[1][0], cfg)
+    _ep_rows(chk, kernels, gen, ep[0], mcfg, 2)
+    rows = [e for n in ("flash_attn_fwd", "attn_importance_rows", "gemv_stacked", "gemv_gateup", "ragged_decode_attn")
+            for e in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"] if e.get("path") in PAR_PATHS]
+    chk.expect(all(r["launches"] for r in rows) and {r["path"] for r in rows} == set(PAR_PATHS),
+               f"parallel: every tp2 / tp4 / ep2 row's shape ran on the ranks "
+               f"({[(r['path'], r.get('shape', r.get('regime')), r['launches']) for r in rows]})")
+    torch.cuda.empty_cache()
+
+
 def kernels_table() -> dict:
     """The kernels line's entries, one a kernel of
     ``framefusion_tpu_torch.ops.kernels``, every number still to measure."""
@@ -4650,7 +5039,9 @@ def main() -> int:
               "nvila": lambda: phase_nvila(chk, kernels, ctx), "minicpmv": lambda: phase_minicpmv(chk, kernels, ctx),
               "qwen25vl": lambda: phase_qwen25vl(chk, kernels, ctx),
               "qwen25vl_72b": lambda: phase_qwen25vl_72b(chk, kernels, ctx),
-              "moe_57b": lambda: phase_moe_57b(chk, kernels, ctx)}
+              "moe_57b": lambda: phase_moe_57b(chk, kernels, ctx),
+              "cross_parallel": lambda: phase_cross_parallel(chk),
+              "parallel": lambda: phase_parallel(chk, kernels, ctx)}
     t_start = time.perf_counter()
     for phase, run in phases.items():
         log(f"== {phase} ({time.perf_counter() - t_start:.1f} s)")
@@ -4672,11 +5063,12 @@ def main() -> int:
                    if v is None and not (f == "library_ms" and (n in no_library or "int8" in str(e.get("shape"))))]
     family_paths = ("internvl", "nvila", "minicpmv", "qwen25vl", "qwen25vl_72b")
     unmeasured += [f"{n}.{path} shape" for n, paths in (("bidir_attn_fwd", ("qwen2vl",) + family_paths),
-                                                        ("attn_importance_rows", ("qwen2vl",) + family_paths),
-                                                        ("flash_attn_fwd", family_paths),
-                                                        ("gemv_stacked", family_paths + ("moe_57b",)),
-                                                        ("gemv_gateup", family_paths + ("moe_57b",)),
-                                                        ("ragged_decode_attn", family_paths))
+                                                        ("attn_importance_rows",
+                                                         ("qwen2vl",) + family_paths + PAR_PATHS[:2]),
+                                                        ("flash_attn_fwd", family_paths + PAR_PATHS[:2]),
+                                                        ("gemv_stacked", family_paths + ("moe_57b",) + PAR_PATHS),
+                                                        ("gemv_gateup", family_paths + ("moe_57b",) + PAR_PATHS),
+                                                        ("ragged_decode_attn", family_paths + PAR_PATHS[:2]))
                    for path in paths
                    if not any(e.get("path") == path for e in kernels[n]["regimes" if n == "flash_attn_fwd" else "shapes"])]
     unmeasured += [f"flash_attn_fwd.{REGIME_LONGVIDEO}"] if not any(

@@ -5,7 +5,8 @@ all started together, and links the objects into one shared library with a
 plain C interface in ``_build/`` beside this file (listed in
 ``.gitignore``). The library's name carries a hash of the sources, the
 headers they include (``csrc/*.cuh``) and the flags,
-so an edited source rebuilds and an unchanged one loads at once. The library
+so an edited source rebuilds and an unchanged one loads at once; processes
+that build at once take turns on a file lock in ``_build/``. The library
 is loaded with ``ctypes``; ``ENTRY_POINTS`` declares the argument types of
 the kernels' entry points.
 """
@@ -13,6 +14,7 @@ the kernels' entry points.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -65,6 +67,17 @@ def build() -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Processes that build at once (the ranks of a sharded run) take turns:
+    # the first builds, the others find its library.
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists():
+            return lib, 0.0
+        return lib, _compile(lib)
+
+
+def _compile(lib: Path) -> float:
+    """nvcc every source into ``lib``; returns the seconds it took."""
     t0 = time.perf_counter()
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -85,7 +98,7 @@ def build() -> tuple[Path, float]:
         if failed:
             raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{log_text[-4000:]}")
         os.replace(so, lib)  # atomic: a concurrent loader never sees a partial file
-    return lib, time.perf_counter() - t0
+    return time.perf_counter() - t0
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -55,7 +55,10 @@ class FrameFusionModel:
     (hand-written kernels; plain versions for CPU tensors), "einsum" (the
     plain reference in the model's own dtype) or "auto" (the default, as
     JAX's: "flash" when the params lie on the card, "einsum" otherwise), for
-    the decoder and the tower alike (``resolved_attn_impl``)."""
+    the decoder and the tower alike (``resolved_attn_impl``). ``mesh``: a
+    rank's DeviceMesh when ``params`` is its shard (tensor parallelism,
+    ``parallel.sharding``; expert parallelism, ``models.moe``), passed to
+    the engine; ``cfg`` stays the whole model's."""
 
     family: str
     cfg: LLMConfig
@@ -64,6 +67,7 @@ class FrameFusionModel:
     vision: Optional[dict] = None
     attn_impl: str = "auto"
     pool_layers: int = 8
+    mesh: Optional[object] = None
     _engine: Optional[CompressionEngine] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
@@ -89,7 +93,7 @@ class FrameFusionModel:
         if self._engine is None:
             ff = self.ff or FrameFusionConfig(cost=1.0)  # dense placeholder
             self._engine = CompressionEngine(self.params, self.cfg, ff, attn_impl=self.resolved_attn_impl(),
-                                             pool_layers=self.pool_layers)
+                                             pool_layers=self.pool_layers, mesh=self.mesh)
         return self._engine
 
     def prefill(self, inputs: PrefillInputs, mode: str = "fused") -> PrefillResult:

@@ -25,19 +25,31 @@ token's k outputs are gathered back and summed with its routing weights.
 its capacity and the (token, rank) choices it dropped (a device count,
 read by the caller after the run).
 
-Not ported here: ``moe_pspecs``, ``make_expert_mesh``, ``shard_moe_params``,
-the ``ep=`` sharding flag and ``load_balancing_loss``; they belong to
-expert parallelism and training (ROADMAP item "parallel/").
+Expert parallelism (JAX's ``moe_pspecs``, ``make_expert_mesh``,
+``shard_moe_params`` and ``sparse_mlp(ep=True)``): each rank of an expert
+group holds E / n of the expert stacks; the router and the shared expert
+are whole on every rank. Every rank routes every token over all E experts,
+so the capacity, the rank-major slots and the tie-break are the one-device
+decisions; each rank then computes only its own experts' slots, and the
+combine is summed over the group (``parallel/collectives``). Under tensor
+parallelism the expert axis rides the tensor group and the shared expert
+is split like a dense MLP (``parallel/sharding.param_pspecs``).
+
+Not ported here: ``load_balancing_loss``, which belongs to training across
+ranks (ROADMAP item "parallel/").
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,9 +175,15 @@ def sparse_mlp(mp: dict, x: torch.Tensor, *, num_experts: int, top_k: int, norm_
     ``mp`` holds router / w_gate / w_up / w_down (expert axis first) /
     sw_* / shared_gate, dense or int8 pairs (not the router or the gate)."""
     s, d = x.shape
-    weights, slot, _, c, probs = route(x, mp["router"], num_experts=num_experts, top_k=top_k,
-                                       norm_topk_prob=norm_topk_prob, capacity=capacity, live=live)
+    weights, slot, keep, c, probs = route(x, mp["router"], num_experts=num_experts, top_k=top_k,
+                                          norm_topk_prob=norm_topk_prob, capacity=capacity, live=live)
     e = num_experts
+    shard = collectives.expert_shard(num_experts)
+    if shard is not None:  # this rank's experts [lo, lo + e): the others' choices go to the spare row
+        _, lo, e = shard
+        mine = keep & (slot >= lo * c) & (slot < (lo + e) * c)
+        slot = torch.where(mine, slot - lo * c, torch.full_like(slot, e * c))
+        weights = torch.where(mine, weights, torch.zeros_like(weights))
     xe = x.new_zeros((e * c + 1, d))  # the last row takes every dropped choice and is never read
     tokens = torch.arange(s, device=x.device)[:, None].expand(s, top_k)
     xe.index_copy_(0, slot.reshape(-1), x[tokens.reshape(-1)])
@@ -182,7 +200,21 @@ def sparse_mlp(mp: dict, x: torch.Tensor, *, num_experts: int, top_k: int, norm_
     from .qwen2 import mm
 
     shared = mm(F.silu(mm(x, mp["sw_gate"])) * mm(x, mp["sw_up"]), mp["sw_down"])
-    return y.to(x.dtype) + torch.sigmoid(x @ mp["shared_gate"]) * shared, probs
+    return combine_shared(y, torch.sigmoid(x @ mp["shared_gate"]) * shared), probs
+
+
+def combine_shared(y: torch.Tensor, shared: torch.Tensor) -> torch.Tensor:
+    """The routed experts' weighted sum ``y`` (any float dtype) plus the
+    gated shared expert ``shared``, in ``shared``'s dtype. Under an expert
+    split ``y`` holds this rank's experts only and is summed over the
+    group (in fp32), with the shared expert's partial sum too where the
+    shared expert is split (tensor parallelism)."""
+    scope = collectives.current()
+    if scope is None or scope.expert is None:
+        return y.to(shared.dtype) + shared
+    if collectives.shared_expert_split():
+        return scope.expert.all_reduce(y.to(torch.float32) + shared.to(torch.float32)).to(shared.dtype)
+    return scope.expert.all_reduce(y.to(torch.float32)).to(shared.dtype) + shared
 
 
 def moe_prefill_capacity(s: int, cfg) -> int:
@@ -195,10 +227,52 @@ def moe_prefill_capacity(s: int, cfg) -> int:
     return min(s, max(8, -(-c // 8) * 8))
 
 
-def moe_mlp(mp: dict, x: torch.Tensor, cfg: MoeConfig, *, capacity: int | None = None):
-    """The block alone (``sparse_mlp`` with ``cfg``'s routing)."""
-    return sparse_mlp(mp, x, num_experts=cfg.num_experts, top_k=cfg.top_k, norm_topk_prob=cfg.norm_topk_prob,
-                      capacity=capacity)
+def moe_mlp(mp: dict, x: torch.Tensor, cfg: MoeConfig, *, capacity: int | None = None, ep=None):
+    """The block alone (``sparse_mlp`` with ``cfg``'s routing). ``ep``: an
+    expert mesh (``make_expert_mesh``) whose rank holds ``mp``'s shard
+    (``shard_moe_params``); JAX's ``ep=True`` under an active mesh."""
+    run = functools.partial(sparse_mlp, mp, x, num_experts=cfg.num_experts, top_k=cfg.top_k,
+                            norm_topk_prob=cfg.norm_topk_prob, capacity=capacity)
+    if ep is None:
+        return run()
+    from ..parallel.sharding import mesh_scope
+
+    with collectives.use(mesh_scope(ep)):
+        return run()
+
+
+def moe_pspecs() -> dict:
+    """JAX's ``moe_pspecs``: the expert stacks split over the ``expert``
+    axis, the router and the shared expert whole (tuples of axis names, as
+    ``parallel.sharding.param_pspecs``)."""
+    rep2, rep3 = (None, None), ("expert", None, None)
+    return {"router": rep2, "w_gate": rep3, "w_up": rep3, "w_down": rep3, "sw_gate": rep2, "sw_up": rep2,
+            "sw_down": rep2, "shared_gate": rep2}
+
+
+def make_expert_mesh(world: int | None = None, expert: int | None = None, data: int = 1):
+    """A ``(data, expert)`` DeviceMesh over the process group's ranks
+    (JAX's ``make_expert_mesh``: ``expert`` defaults to the ranks over
+    ``data``), of ``parallel.sharding.mesh_device_type()``'s device type."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ..parallel.sharding import mesh_device_type
+
+    world = dist.get_world_size() if world is None else world
+    expert = world // data if expert is None else expert
+    if data * expert != world:
+        raise ValueError(f"data={data} x expert={expert} is not the {world} ranks")
+    return init_device_mesh(mesh_device_type(), (data, expert), mesh_dim_names=("data", "expert"))
+
+
+def shard_moe_params(params: dict, mesh) -> dict:
+    """This rank's shard of a block's params (``init_moe_params``'s layout)
+    over ``mesh``'s expert axis: the expert stacks' slice, the rest whole."""
+    from ..parallel.sharding import shard_axis, shard_leaf
+
+    ax, specs = shard_axis(mesh), moe_pspecs()
+    return {k: shard_leaf(v, specs[k], ax.rank, ax.width, "expert") for k, v in params.items()}
 
 
 def moe_layer(lp: dict, mp: dict, h: torch.Tensor, cos, sin, cfg, moe_cfg: MoeConfig, *,

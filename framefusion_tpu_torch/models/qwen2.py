@@ -57,6 +57,7 @@ from ..ops.attention import causal_attention_einsum, decode_attention, last_rows
 from ..ops.kernels import flash_prefill, matvec_q8
 from ..ops.kernels.decode_attention import ragged_decode_attention
 from ..ops.rope import apply_rope, mrope_cos_sin, rope_cos_sin
+from ..parallel import collectives
 from ..weights import resolve_device
 from . import moe
 
@@ -250,18 +251,22 @@ def _project_qkv(lp: dict, x: torch.Tensor, cfg: LLMConfig):
 
 def attention_kernel_dispatch(q, k, v, attn_impl: str, capture_num: int, valid_len, key_valid):
     """Attention plus, when ``capture_num > 0``, the prune importance of the
-    last ``capture_num`` live rows. Returns (attn (S, Hq, D), importance-or-None)."""
+    last ``capture_num`` live rows. Returns (attn (S, Hq, D), importance-or-None).
+    Under a tensor group the importance (a mean over this rank's heads) is
+    made the mean over all heads."""
     if attn_impl == "flash":
         if capture_num:
-            return flash_prefill.flash_causal_attention_importance(
+            attn, importance = flash_prefill.flash_causal_attention_importance(
                 q, k, v, valid_len, capture_num, key_valid=key_valid)
+            return attn, collectives.tensor_mean(importance)
         return flash_prefill.flash_causal_attention(q, k, v, key_valid=key_valid), None
     if attn_impl != "einsum":
         raise ValueError(f"unknown attention impl: {attn_impl}")
     attn = causal_attention_einsum(q, k, v, key_valid=key_valid)
     importance = None
     if capture_num:
-        importance = last_rows_importance(q, k, capture_num, valid_len, key_valid=key_valid)
+        importance = collectives.tensor_mean(
+            last_rows_importance(q, k, capture_num, valid_len, key_valid=key_valid))
     return attn, importance
 
 
@@ -276,7 +281,7 @@ def layer_attention(lp: dict, h, cos, sin, cfg: LLMConfig, *, attn_impl: str = "
     q, k, v = _project_qkv(lp, x, cfg)
     q, k = apply_rope(q, k, cos, sin)
     attn, importance = attention_kernel_dispatch(q, k, v, attn_impl, capture_num, valid_len, key_valid)
-    h_out = h + mm(attn.reshape(h.shape[0], -1), lp["wo"])
+    h_out = h + collectives.tensor_sum(mm(attn.reshape(h.shape[0], -1), lp["wo"]))
     return h_out, k, v, importance
 
 
@@ -300,7 +305,7 @@ def layer_mlp(lp: dict, h: torch.Tensor, cfg: LLMConfig, live=None) -> torch.Ten
         return h + y
     x = rmsnorm(h, lp["ln2"], cfg.rms_norm_eps)
     gated = torch.nn.functional.silu(mm(x, lp["w_gate"])) * mm(x, lp["w_up"])
-    return h + mm(gated, lp["w_down"])
+    return h + collectives.tensor_sum(mm(gated, lp["w_down"]))
 
 
 def _gather_expert(w, idx):
@@ -324,14 +329,24 @@ def moe_decode_mlp(lp: dict, h: torch.Tensor, cfg: LLMConfig, layers=None, l: in
     x = rmsnorm(h, lp["ln2"], cfg.rms_norm_eps)
     r, k = x.shape[0], cfg.num_experts_per_tok
     weights, idx, _ = moe.top_k_experts(x, lp["router"], k, cfg.norm_topk_prob)  # (R, k)
+    # Under an expert split every rank routes every row over all E experts
+    # and computes the choices of its own E / n (a stack index local to its
+    # stacks); the others' choices keep their row, so the row count (and a
+    # captured graph) is fixed, and add zero.
+    shard = collectives.expert_shard(cfg.num_experts)
+    n_stack, mine, local = cfg.num_experts, None, idx
+    if shard is not None:
+        _, lo, n_stack = shard
+        mine = (idx >= lo) & (idx < lo + n_stack)
+        local = torch.where(mine, idx - lo, torch.zeros_like(idx))
     if layers is None:
         xe = x[:, None, None, :]
-        gated = (torch.nn.functional.silu(moe.expert_matmul(xe, _gather_expert(lp["w_gate"], idx)))
-                 * moe.expert_matmul(xe, _gather_expert(lp["w_up"], idx)))
-        ye = moe.expert_matmul(gated, _gather_expert(lp["w_down"], idx))[:, :, 0]  # (R, k, D)
+        gated = (torch.nn.functional.silu(moe.expert_matmul(xe, _gather_expert(lp["w_gate"], local)))
+                 * moe.expert_matmul(xe, _gather_expert(lp["w_up"], local)))
+        ye = moe.expert_matmul(gated, _gather_expert(lp["w_down"], local))[:, :, 0]  # (R, k, D)
         shared = mm(torch.nn.functional.silu(mm(x, lp["sw_gate"])) * mm(x, lp["sw_up"]), lp["sw_down"])
     else:
-        rows = (idx + l * cfg.num_experts).reshape(-1).to(torch.int32)  # row r * k + j: expert idx[r, j]
+        rows = (local + l * n_stack).reshape(-1).to(torch.int32)  # row r * k + j: expert idx[r, j]
         xr = x[:, None, :].repeat(1, k, 1).reshape(r * k, -1)  # a copy: the kernels take contiguous rows
         wg, wu, wd = layers["w_gate"], layers["w_up"], layers["w_down"]
         sg, su = (w["scale"] if isinstance(w, dict) else None for w in (wg, wu))
@@ -341,13 +356,17 @@ def moe_decode_mlp(lp: dict, h: torch.Tensor, cfg: LLMConfig, layers=None, l: in
             yd = yd * wd["scale"].reshape(-1, wd["scale"].shape[-1])[rows.long()]
         ye = yd.to(x.dtype).reshape(r, k, -1)
         shared = mv_stacked(mv_stacked_gateup(x, layers["sw_gate"], layers["sw_up"], l), layers["sw_down"], l)
+    if mine is not None:
+        ye = torch.where(mine[..., None], ye, torch.zeros_like(ye))
     y = (ye * weights[..., None]).sum(dim=1)
-    return h + (y + torch.sigmoid(x @ lp["shared_gate"]) * shared)
+    return h + moe.combine_shared(y, torch.sigmoid(x @ lp["shared_gate"]) * shared)
 
 
 def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
     """Embedding rows of ``input_ids``; a 0-d id gives one (D,) row, read
     with ``index_select`` (indexing by a 0-d tensor reads it to the host)."""
+    if collectives.current() is not None:  # a vocabulary split: a masked lookup, then a sum
+        return collectives.embed_rows(params["embed"], torch.as_tensor(input_ids, device=params["embed"].device))
     if isinstance(input_ids, torch.Tensor) and input_ids.ndim == 0:
         return params["embed"].index_select(0, input_ids.reshape(1))[0]
     return params["embed"][input_ids]
@@ -359,13 +378,14 @@ def final_logits(params: dict, h: torch.Tensor, cfg: LLMConfig, use_mv: bool = F
     stack; a padded head's extra columns are cut."""
     x = rmsnorm(h, params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_word_embeddings:
-        return (x @ params["embed"].T).to(torch.float32)
-    head = params["lm_head"]
-    if isinstance(head, dict) and use_mv:
+        logits = (x @ params["embed"].T).to(torch.float32)
+    elif isinstance(params["lm_head"], dict) and use_mv:
+        head = params["lm_head"]
         logits = matvec_q8.matvec_q8(x.to(torch.bfloat16), head["q8"], head["scale"])
     else:
-        logits = mm(x, head).to(torch.float32)
-    return logits[..., :cfg.vocab_size]
+        logits = mm(x, params["lm_head"]).to(torch.float32)
+    # A tensor group's ranks hold the vocabulary's slices: gathered here.
+    return collectives.vocab_gather(logits)[..., :cfg.vocab_size]
 
 
 # ---------------------------------------------------------------------------
@@ -458,13 +478,13 @@ def _rows_out_mlp(layers: dict, lp: dict, h, attn, l: int, cfg: LLMConfig, use_m
     ``attn`` is (R, Hq * hd). ``use_mv`` streams every matvec (kernels C, D);
     a MoE stack takes ``moe_decode_mlp`` (its routed rows on C and D too)."""
     if use_mv:
-        h = h + mv_stacked(attn.to(h.dtype), layers["wo"], l)
+        h = h + collectives.tensor_sum(mv_stacked(attn.to(h.dtype), layers["wo"], l))
         if cfg.is_moe:
             return moe_decode_mlp(lp, h, cfg, layers, l)
         x2 = rmsnorm(h, lp["ln2"], cfg.rms_norm_eps)
         gated = mv_stacked_gateup(x2, layers["w_gate"], layers["w_up"], l)
-        return h + mv_stacked(gated.to(h.dtype), layers["w_down"], l)
-    h = h + mm(attn.to(h.dtype), lp["wo"])
+        return h + collectives.tensor_sum(mv_stacked(gated.to(h.dtype), layers["w_down"], l))
+    h = h + collectives.tensor_sum(mm(attn.to(h.dtype), lp["wo"]))
     return moe_decode_mlp(lp, h, cfg) if cfg.is_moe else layer_mlp(lp, h, cfg)
 
 

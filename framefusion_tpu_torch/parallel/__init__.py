@@ -1,7 +1,11 @@
-"""Training over the Qwen2 stack (counterpart of ``framefusion_tpu.parallel``).
+"""Sharded serving and training over the Qwen2 stack (counterpart of
+``framefusion_tpu.parallel``).
 
-``train.py`` holds the one-card training step: the batched forward, the
-next-token loss and an AdamW step. The JAX package's mesh sharding, its
-pipeline and sequence-sharded prefill run across several cards and are not
-ported yet.
+Serving across ranks on ``torch.distributed``: ``launch.py`` starts the
+ranks, ``sharding.py`` holds JAX's tensor-parallel table and each rank's
+shard, ``collectives.py`` the reduces and gathers an engine makes over its
+groups, ``seq_shard.py`` the sequence-sharded prefill and ``workers.py``
+the rank programs of the tests and the smoke run. ``train.py`` holds the
+one-card training step; the training mesh and the pipeline schedule are
+not ported yet.
 """

@@ -1,0 +1,247 @@
+"""The collectives of a sharded model, scoped to the engine that owns them.
+
+A rank of a tensor-parallel engine holds a slice of every sharded leaf
+(``parallel/sharding.py``): a partial sum after each row-split product, a
+slice of the vocabulary in the embedding and the head, a slice of the heads
+in the prune's importance. The model functions (``models/qwen2.py``,
+``models/moe.py``) call the helpers here at those places; each helper is the
+identity unless a ``Scope`` is active, so a one-device model runs as before.
+
+A ``Scope`` names a ``tensor`` group (heads, MLP inner width, vocabulary;
+JAX's ``"tensor"`` mesh axis) and an ``expert`` group (the MoE expert axis;
+the tensor group itself under tensor parallelism, as JAX's ``param_pspecs``
+puts the expert axis in the tensor slot, or a group of its own under expert
+parallelism, ``moe_pspecs``). The engine enters its scope around its own
+calls (``use``); nothing is set for a whole process, so two engines, or two
+tests in one process, never see each other's groups.
+
+How a collective runs depends on the group's backend, chosen by the caller:
+
+* NCCL: on the tensors in place, on the current stream, so a decode step
+  that reduces is captured into its CUDA graph with the reduce inside it;
+* gloo: gloo takes CPU tensors, so a CUDA tensor is staged through the host
+  (copied to an fp32 CPU tensor, reduced, copied back). Such a collective
+  cannot be captured; ``capturable()`` says so, and the decode graphs run
+  their step eagerly under a gloo group (``runtime/decode_graph.py``).
+
+Every rank of a group gets the same bits from a reduce (gloo and NCCL
+reduce each element on one rank and send it on), so the host decisions that
+read a replicated value (merge counts, keep counts) agree on every rank.
+``record()`` counts the collectives run in a block and the host seconds
+spent in them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import time
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class Record:
+    """The collectives run while ``record()`` was active: their count (a
+    collective recorded into a CUDA graph counts once, at the capture) and
+    the host seconds spent in them."""
+
+    calls: int = 0
+    seconds: float = 0.0
+
+
+_RECORDS: contextvars.ContextVar = contextvars.ContextVar("framefusion_records", default=())
+
+
+@contextlib.contextmanager
+def record():
+    """Count the block's collectives, on any group, in the ``Record`` it
+    yields (records nest: each active one counts)."""
+    rec = Record()
+    token = _RECORDS.set(_RECORDS.get() + (rec,))
+    try:
+        yield rec
+    finally:
+        _RECORDS.reset(token)
+
+
+def _recorded(t0: float) -> None:
+    seconds = time.perf_counter() - t0
+    for rec in _RECORDS.get():
+        rec.calls += 1
+        rec.seconds += seconds
+
+
+class Group:
+    """A process group with its backend and this rank's place in it."""
+
+    def __init__(self, group=None):
+        import torch.distributed as dist
+
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.backend = str(dist.get_backend(group))
+        self.ranks = dist.get_process_group_ranks(group) if group is not None else list(range(self.size))
+
+    def _staged(self, x: torch.Tensor) -> bool:
+        return self.backend == "gloo" and x.device.type != "cpu"
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the group (a new tensor for a staged one,
+        ``x`` reduced in place otherwise)."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        if self._staged(x):
+            host = x.to("cpu", torch.float32)
+            dist.all_reduce(host, group=self.group)
+            x = host.to(x.device, x.dtype)
+        else:
+            dist.all_reduce(x, group=self.group)
+        _recorded(t0)
+        return x
+
+    def broadcast_first(self, x: torch.Tensor) -> torch.Tensor:
+        """The group's first rank's ``x`` on every rank (a sum of it and
+        zeros: the same bits)."""
+        return self.all_reduce(x.clone() if self.rank == 0 else torch.zeros_like(x))
+
+    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Each rank's ``x`` concatenated along ``dim`` in group order."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        x = x.contiguous()
+        if self.backend == "gloo":
+            host = x.to("cpu") if x.device.type != "cpu" else x
+            parts = [torch.empty_like(host) for _ in range(self.size)]
+            dist.all_gather(parts, host, group=self.group)
+            out = torch.cat(parts, dim=dim).to(x.device)
+        else:
+            flat = torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+            dist.all_gather_into_tensor(flat, x, group=self.group)
+            out = torch.cat(flat.unbind(0), dim=dim)
+        _recorded(t0)
+        return out
+
+    def rotate(self, tensors: list) -> list:
+        """Send each tensor to the next rank of the group and receive the
+        previous rank's (one ``batch_isend_irecv`` for all of them): a hop of
+        a ring."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        nxt = self.ranks[(self.rank + 1) % self.size]
+        prv = self.ranks[(self.rank - 1) % self.size]
+        staged = [self._staged(t) for t in tensors]
+        send = [t.to("cpu") if s else t.contiguous() for t, s in zip(tensors, staged)]
+        recv = [torch.empty_like(t) for t in send]
+        ops = [dist.P2POp(dist.isend, t, nxt, group=self.group) for t in send]
+        ops += [dist.P2POp(dist.irecv, t, prv, group=self.group) for t in recv]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        out = [r.to(t.device) if s else r for r, t, s in zip(recv, tensors, staged)]
+        _recorded(t0)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Scope:
+    """The groups a sharded model reduces over. ``tensor``: the heads, the
+    MLP inner width and the vocabulary are split over it. ``expert``: the
+    MoE expert stacks are split over it; when it is ``tensor`` (tensor
+    parallelism) the shared expert is split like a dense MLP, otherwise
+    (expert parallelism) the shared expert and the attention are whole on
+    every rank."""
+
+    tensor: Optional[Group] = None
+    expert: Optional[Group] = None
+
+    def groups(self) -> list:
+        return [g for g in {id(g): g for g in (self.tensor, self.expert) if g is not None}.values()]
+
+
+_SCOPE: contextvars.ContextVar = contextvars.ContextVar("framefusion_scope", default=None)
+
+
+@contextlib.contextmanager
+def use(scope: Optional[Scope]):
+    """Run the block under ``scope`` (None: no sharding)."""
+    token = _SCOPE.set(scope)
+    try:
+        yield scope
+    finally:
+        _SCOPE.reset(token)
+
+
+def current() -> Optional[Scope]:
+    return _SCOPE.get()
+
+
+def capturable() -> bool:
+    """Whether the active scope's collectives can be captured in a CUDA
+    graph: with no scope, or NCCL groups only."""
+    scope = current()
+    return scope is None or all(g.backend == "nccl" for g in scope.groups())
+
+
+def _tensor() -> Optional[Group]:
+    scope = current()
+    return None if scope is None else scope.tensor
+
+
+def tensor_sum(x: torch.Tensor) -> torch.Tensor:
+    """A row-split product's partial sum, summed over the tensor group."""
+    g = _tensor()
+    return x if g is None else g.all_reduce(x)
+
+
+def tensor_mean(x: torch.Tensor) -> torch.Tensor:
+    """A mean over this rank's heads made the mean over all heads (every
+    rank holds as many): the group's sum over its size."""
+    g = _tensor()
+    return x if g is None else g.all_reduce(x) / g.size
+
+
+def vocab_gather(x: torch.Tensor) -> torch.Tensor:
+    """A vocabulary slice of logits (..., V / n) gathered to (..., V)."""
+    g = _tensor()
+    return x if g is None else g.all_gather(x, dim=-1)
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of an embedding ``table``: the whole table, or under a
+    tensor group this rank's vocabulary rows, where ids outside the slice
+    read zero and the group's sum gives each row once."""
+    g = _tensor()
+    n = table.shape[0]
+    if g is None:
+        return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, -1)
+    local = ids - g.rank * n
+    inside = (local >= 0) & (local < n)
+    # index_select: indexing by a 0-d tensor would read it to the host.
+    rows = table.index_select(0, local.clamp(0, n - 1).reshape(-1)).reshape(*ids.shape, -1)
+    return g.all_reduce(rows * inside[..., None].to(table.dtype))
+
+
+def expert_shard(num_experts: int):
+    """``(group, first expert, experts a rank)`` of the active expert
+    split, or None."""
+    scope = current()
+    if scope is None or scope.expert is None:
+        return None
+    g = scope.expert
+    if num_experts % g.size:
+        raise ValueError(f"{num_experts} experts do not split over {g.size} ranks")
+    per = num_experts // g.size
+    return g, g.rank * per, per
+
+
+def shared_expert_split() -> bool:
+    """Whether the shared expert is split over the expert group (tensor
+    parallelism) rather than whole on every rank (expert parallelism)."""
+    scope = current()
+    return scope is not None and scope.expert is not None and scope.expert is scope.tensor

@@ -35,8 +35,12 @@ the same base class (``StepGraph``).
 On the card a step is warmed up on this device's capture stream, then
 captured there; a capture that fails raises, and nothing falls back to
 eager launches. On the CPU the same step body runs eagerly over the same
-tensors (the path the CPU tests drive). What a capture needs from the
-kernels' wrappers:
+tensors (the path the CPU tests drive). A graph keeps the collectives
+scope it was made under (a sharded engine's, ``parallel/collectives``) and
+runs its step under it: NCCL's reduces are captured into the graph; under a
+gloo group, whose reduces are staged through the host and cannot be
+captured, the step runs eagerly on the card too and ``replays`` stays 0.
+What a capture needs from the kernels' wrappers:
 
 * the arrival counters of kernels C and G: each graph owns a zeroed
   buffer (``own_counters`` around its warm-up and capture), whose address
@@ -68,6 +72,7 @@ from ..models import qwen2
 from ..ops.kernels import captured_counts
 from ..ops.kernels.decode_attention import MAX_COUNTERS, own_counters
 from ..ops.sampling import SamplerConfig, sample_token
+from ..parallel import collectives
 from . import spec_decode
 
 _STREAMS: dict = {}
@@ -95,7 +100,10 @@ def capture_graph(body, device, warmup=None) -> "torch.cuda.CUDAGraph":
         (warmup or body)()
     current.wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
+    # Under a collectives scope the NCCL watchdog thread queries its events
+    # while this thread captures: only this thread's calls are checked.
+    mode = "global" if collectives.current() is None else "thread_local"
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode=mode):
         body()
     return graph
 
@@ -131,7 +139,8 @@ class StepGraph:
         self.busy = False  # a decode runs on the graph (set and cleared by its owner)
         self.graph = None
         self.launches_per_step: dict = {}
-        if dev.type != "cuda":
+        self.scope = collectives.current()
+        if dev.type != "cuda" or not collectives.capturable():
             return
         self.counters = torch.zeros(MAX_COUNTERS, dtype=torch.int32, device=dev)
         before = captured_counts()
@@ -144,14 +153,16 @@ class StepGraph:
         raise NotImplementedError
 
     def _replay(self, n: int) -> None:
-        """``n`` steps: replays back to back on the card, eager on the CPU."""
-        for _ in range(n):
-            if self.graph is not None:
-                self.graph.replay()
-                StepGraph.replays += 1
-                StepGraph.replayed.update(self.launches_per_step)
-            else:
-                self._step()
+        """``n`` steps: replays back to back on the card, eager on the CPU
+        (and under a gloo group)."""
+        with collectives.use(self.scope):
+            for _ in range(n):
+                if self.graph is not None:
+                    self.graph.replay()
+                    StepGraph.replays += 1
+                    StepGraph.replayed.update(self.launches_per_step)
+                else:
+                    self._step()
 
 
 class DecodeGraph(StepGraph):

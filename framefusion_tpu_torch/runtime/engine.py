@@ -46,11 +46,21 @@ same for B prefill results with the batched step (one pool column a
 sequence, the decode region at a common offset past every prefix).
 ``generate_spec`` and ``generate_spec_batch`` (runtime/spec_decode.py)
 replay a captured speculative macro step from the same cache.
+
+Tensor and expert parallelism (``CompressionEngine(..., mesh=)``): the
+engine holds this rank's shard of the params (``parallel/sharding``) and
+computes with the local config (heads, KV heads and the MLP width divided by
+the tensor width); it enters its collectives scope (``parallel/collectives``)
+around each of its calls, so the model functions reduce over its groups and
+nothing else's. Every rank makes the same host decisions from replicated
+values. A decode under a gloo group runs its step eagerly, on the card too
+(gloo's host-staged collectives cannot be captured; ``StepGraph``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from collections import OrderedDict
 from typing import Optional
@@ -77,6 +87,7 @@ from ..core import (
 from ..models import qwen2
 from ..ops.rope import apply_rope
 from ..ops.sampling import SamplerConfig, draw_uniforms
+from ..parallel import collectives
 from . import spec_decode
 from .decode_graph import BatchDecodeGraph, DecodeGraph, SpecBatchDecodeGraph, SpecDecodeGraph, slots_for
 from .telemetry import CompressionEvent, PrefillTelemetry
@@ -354,17 +365,77 @@ def _sim_count(h, pt, live, patch_num: int, s_th: float):
     return sim, order, count
 
 
+def segmented_merge(state: SegmentedEventState, h, pt, pos, valid: int, frame_tok: int, layer: int,
+                    patch_num: int, always_compact: bool):
+    """One merge event of the segmented executor (JAX's ``_sim_program`` and
+    ``_merge_compact_program``, less the MLP): the decision on ``h``'s
+    live prefix, the merge and the compaction to the survivors' bucket
+    (skipped when nothing changes, unless ``always_compact``). Returns (h,
+    pt, pos, new_valid, the event)."""
+    ff = state.ff
+    sim, order, count = _sim_count(h, pt, _prefix_live(h.shape[0], valid, h.device), patch_num,
+                                   ff.similarity_lower_bound)
+    k_marked, kind, above, budget = state.merge_decision(count, frame_tok)
+    new_valid = valid - k_marked
+    new_len = bucket_length(new_valid, ff.bucket)
+    if k_marked > 0 or new_len != h.shape[0] or always_compact:
+        merged, keep = apply_merge(h, mark_topk(sim, k_marked), order)
+        out, _ = compact_tokens(keep, new_len, new_valid, {"h": merged, "pos": pos, "patch_type": pt})
+        h, pos, pt = out["h"], out["pos"], out["patch_type"]
+    event = CompressionEvent(layer=layer, kind=kind, tokens_removed=k_marked, tokens_after=new_valid,
+                             above_ratio=above, budget=budget, bucket=new_len)
+    return h, pt, pos, new_valid, event
+
+
+def segmented_prune(state: SegmentedEventState, h, pt, pos, importance, valid: int, layer: int, *, orig_len: int,
+                    image_start: int, image_len: int):
+    """The segmented executor's prune (reference main.py:61-101; JAX's
+    ``_prune_compact_program``, less the MLP): keep the top image tokens by
+    ``importance`` and compact to the survivors' bucket. Returns (h, pt,
+    pos, new_valid, the event)."""
+    ratio, cur_img_len, k_keep, removed = state.prune_decision(image_len, orig_len, valid)
+    new_valid = valid - removed
+    new_len = bucket_length(new_valid, state.ff.bucket)
+    keep = prune_keep_mask(importance, image_start, cur_img_len, k_keep, _prefix_live(h.shape[0], valid, h.device))
+    out, _ = compact_tokens(keep, new_len, new_valid, {"h": h, "pos": pos, "patch_type": pt})
+    event = CompressionEvent(layer=layer, kind="prune", tokens_removed=removed, tokens_after=new_valid, budget=ratio,
+                             bucket=new_len)
+    return out["h"], out["patch_type"], out["pos"], new_valid, event
+
+
+def _scoped(method):
+    """Run an engine method under the engine's collectives scope."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with collectives.use(self.scope):
+            return method(self, *args, **kwargs)
+    return run
+
+
 class CompressionEngine:
-    """FrameFusion compressed prefill + decode for a Qwen2-family stack."""
+    """FrameFusion compressed prefill + decode for a Qwen2-family stack.
+
+    ``mesh``: a ``(data, tensor)`` DeviceMesh (``parallel.sharding.make_mesh``)
+    with ``params`` this rank's ``shard_params`` shard, or a ``(data,
+    expert)`` one (``models.moe.make_expert_mesh``) for a MoE stack whose
+    expert stacks are split; ``cfg`` is the whole model's config either way
+    (``self.cfg`` is the rank's local one)."""
 
     # Decode geometries whose graphs an engine keeps (each graph holds its own pools).
     GRAPH_CACHE_SIZE = 2
 
     def __init__(self, params: dict, cfg: LLMConfig, ff: FrameFusionConfig, *,
-                 attn_impl: str = "flash", pool_layers: int = 8):
+                 attn_impl: str = "flash", pool_layers: int = 8, mesh=None):
         if attn_impl not in qwen2.ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {qwen2.ATTN_IMPLS}, got {attn_impl!r}")
         self.params = params
+        self.mesh, self.scope = mesh, None
+        if mesh is not None:
+            from ..parallel import sharding
+
+            self.scope, ax = sharding.mesh_scope(mesh), sharding.shard_axis(mesh)
+            if ax.axis == "tensor":
+                cfg = sharding.local_config(cfg, ax.width)
         self.cfg = cfg
         self.ff = ff
         self.attn_impl = attn_impl
@@ -580,7 +651,7 @@ class CompressionEngine:
             num = self.ff.num_importance_queries if capture is not None and capture[i] else 0
             kv_i = key_valid[i] if key_valid is not None else None
             attn[i], importance[i] = qwen2.attention_kernel_dispatch(q[i], k[i], v[i], self.attn_impl, num, None, kv_i)
-        h_out = h + qwen2.mm(attn.reshape(b * s, -1), lp["wo"]).reshape(b, s, d)
+        h_out = h + collectives.tensor_sum(qwen2.mm(attn.reshape(b * s, -1), lp["wo"])).reshape(b, s, d)
         return h_out, k, v, importance
 
     def _phase_batch(self, h, pts, pos, live, states, *, orig_lens, image_starts, image_lens, patch_num: int):
@@ -658,6 +729,7 @@ class CompressionEngine:
 
     # -- prefill -----------------------------------------------------------
 
+    @_scoped
     def prefill(self, input_embeds, patch_type, position_ids, patch_num: int,
                 image_token_start: int, image_token_length: int, mode: str = "fused") -> PrefillResult:
         """Run the compressed prefill.
@@ -692,6 +764,7 @@ class CompressionEngine:
             return self._prefill_segmented(*args)
         raise ValueError(f"unknown prefill mode: {mode!r}")
 
+    @_scoped
     def prefill_measured(self, input_embeds, patch_type, position_ids, patch_num: int,
                          image_token_start: int, image_token_length: int) -> PrefillResult:
         """Measure the first-merge count with a similarity pre-pass on the raw
@@ -741,6 +814,7 @@ class CompressionEngine:
                             orig_len=orig_len, image_token_length=image_token_length, patch_num=patch_num,
                             patch_type=patch_type, position_ids=position_ids, mode="fused")
 
+    @_scoped
     def prefill_planned(self, input_embeds, patch_type, position_ids, patch_num: int,
                         image_token_start: int, image_token_length: int,
                         plan_len: Optional[int] = None, pre_plan_len: Optional[int] = None) -> PrefillResult:
@@ -811,6 +885,7 @@ class CompressionEngine:
                             patch_type=patch_type, position_ids=position_ids, mode="planned",
                             plan_source=plan_source)
 
+    @_scoped
     def prefill_planned_batch(self, batch, patch_num: int, plan_len: Optional[int] = None,
                               pre_plan_len: Optional[int] = None) -> list:
         """Lockstep-batched planned prefill (JAX's ``prefill_planned_batch``):
@@ -929,22 +1004,13 @@ class CompressionEngine:
         layer_caches: list = [None] * cfg.num_layers
 
         def merge_event(h, pt, pos, valid, frame_tok, layer: int, do_mlp: bool):
-            sim, order, count = _sim_count(h, pt, _prefix_live(h.shape[0], valid, self.device), patch_num,
-                                           ff.similarity_lower_bound)
-            k_marked, kind, above, budget = state.merge_decision(count, frame_tok)
-            new_valid = valid - k_marked
-            new_len = bucket_length(new_valid, ff.bucket)
-            if k_marked > 0 or new_len != h.shape[0] or do_mlp:
-                merged, keep = apply_merge(h, mark_topk(sim, k_marked), order)
-                out, _ = compact_tokens(keep, new_len, new_valid, {"h": merged, "pos": pos, "patch_type": pt})
-                h, pos, pt = out["h"], out["pos"], out["patch_type"]
-                if do_mlp:
-                    h = qwen2.layer_mlp(qwen2.layer_slice(self.params["layers"], layer), h, cfg,
-                                        live=_prefix_live(new_len, new_valid, self.device))
-            telemetry.events.append(CompressionEvent(layer=layer, kind=kind, tokens_removed=k_marked,
-                                                     tokens_after=new_valid, above_ratio=above, budget=budget,
-                                                     bucket=new_len))
-            return h, pt, pos, new_valid, frame_tok - k_marked
+            h, pt, pos, new_valid, event = segmented_merge(state, h, pt, pos, valid, frame_tok, layer, patch_num,
+                                                           always_compact=do_mlp)
+            if do_mlp:
+                h = qwen2.layer_mlp(qwen2.layer_slice(self.params["layers"], layer), h, cfg,
+                                    live=_prefix_live(h.shape[0], new_valid, self.device))
+            telemetry.events.append(event)
+            return h, pt, pos, new_valid, frame_tok - event.tokens_removed
 
         # The layer-0 pre-attention merge, then one event a layer.
         h, pt, pos, valid, frame_tok = merge_event(h, pt, pos, valid, frame_tok, -1, do_mlp=False)
@@ -960,17 +1026,11 @@ class CompressionEngine:
                 h, pt, pos, valid, frame_tok = merge_event(h_mid, pt, pos, valid, frame_tok, layer, do_mlp=True)
             else:
                 # Prune (reference main.py:61-101) from the captured importance.
-                ratio, cur_img_len, k_keep, removed = state.prune_decision(image_token_length, orig_len, valid)
-                new_valid = valid - removed
-                new_len = bucket_length(new_valid, ff.bucket)
-                keep = prune_keep_mask(importance, image_token_start, cur_img_len, k_keep,
-                                       _prefix_live(h_mid.shape[0], valid, self.device))
-                out, _ = compact_tokens(keep, new_len, new_valid, {"h": h_mid, "pos": pos, "patch_type": pt})
-                h = qwen2.layer_mlp(lp, out["h"], cfg, live=_prefix_live(new_len, new_valid, self.device))
-                pos, pt = out["pos"], out["patch_type"]
-                telemetry.events.append(CompressionEvent(layer=layer, kind="prune", tokens_removed=removed,
-                                                         tokens_after=new_valid, budget=ratio, bucket=new_len))
-                valid = new_valid
+                h, pt, pos, valid, event = segmented_prune(state, h_mid, pt, pos, importance, valid, layer,
+                                                           orig_len=orig_len, image_start=image_token_start,
+                                                           image_len=image_token_length)
+                h = qwen2.layer_mlp(lp, h, cfg, live=_prefix_live(h.shape[0], valid, self.device))
+                telemetry.events.append(event)
             layer += 1
 
         logits, k_tail, v_tail = self._tail(h, pos, valid, layer)
@@ -984,6 +1044,7 @@ class CompressionEngine:
                              decode_pos_base=self._decode_base(position_ids, layer_caches[0][2]),
                              telemetry=telemetry, mode="segmented", pos_dims=_pos_dims(position_ids))
 
+    @_scoped
     def dense_prefill(self, input_embeds, position_ids) -> PrefillResult:
         """Uncompressed prefill (the A/B baseline)."""
         h = torch.as_tensor(input_embeds).to(device=self.device, dtype=self.cfg.dtype)
@@ -1046,6 +1107,7 @@ class CompressionEngine:
             graphs.append(graph)
         return graph
 
+    @_scoped
     def decode_graph(self, result: PrefillResult, max_new_tokens: int,
                      sampler: Optional[SamplerConfig] = None) -> DecodeGraph:
         """A decode graph for ``result``'s geometry that no decode is running
@@ -1062,6 +1124,7 @@ class CompressionEngine:
         return self._free_graph(key, lambda: DecodeGraph(self.params, self.cfg, s_pool, attn_impl=attn,
                                                          tail_split=split, sampler=sampler, n_slots=key[-1]))
 
+    @_scoped
     def batch_decode_graph(self, results: list, max_new_tokens: int,
                            sampler: Optional[SamplerConfig] = None) -> BatchDecodeGraph:
         """A batched decode graph for ``results`` that no decode is running
@@ -1087,6 +1150,7 @@ class CompressionEngine:
         (JAX's default on the TPU), the plain path behind "einsum"."""
         return "flash" if self.attn_impl == "flash" else "einsum"
 
+    @_scoped
     def spec_graph(self, result: PrefillResult, max_new_tokens: int, draft_len: int,
                    hist_cap: int) -> SpecDecodeGraph:
         """A speculative graph for ``result`` that no decode is running on
@@ -1103,6 +1167,7 @@ class CompressionEngine:
                                                              tail_split=split, draft_len=draft_len,
                                                              hist_cap=hist_cap, n_slots=key[5]))
 
+    @_scoped
     def spec_batch_graph(self, results: list, max_new_tokens: int, draft_len: int,
                          hist_cap: int) -> SpecBatchDecodeGraph:
         """A batched speculative graph for ``results`` that no decode is
@@ -1120,6 +1185,7 @@ class CompressionEngine:
             self.params, self.cfg, s_pool, batch=len(results), write_pos=write_pos, attn_impl=attn,
             tail_split=split, draft_len=draft_len, hist_cap=hist_cap, n_slots=key[7]))
 
+    @_scoped
     def _start_decode(self, result: PrefillResult, max_new_tokens: int, sampler, generator) -> DecodeGraph:
         """A free decode graph, loaded with ``result``'s caches and first
         token, marked busy until the caller clears ``busy``."""
@@ -1129,6 +1195,7 @@ class CompressionEngine:
         _, _, lens = self.make_decode_state(result, max_new_tokens, pools=(graph.k_pool, graph.v_pool))
         return self._load(graph, sampler, generator, max_new_tokens, lens, result.decode_pos_base, result.logits)
 
+    @_scoped
     def _start_batch_decode(self, results: list, max_new_tokens: int, sampler, generator) -> BatchDecodeGraph:
         """``_start_decode`` for a batch: a free batched graph, each result's
         caches in its own pool column."""
@@ -1146,10 +1213,16 @@ class CompressionEngine:
         """Start ``graph`` on the loaded pools (the uniforms of a sampled
         decode drawn first, ``draws`` of them) and mark it busy."""
         uniforms = draw_uniforms(draws, generator, self.device) if sampler.temperature else None
+        if uniforms is not None and self.scope is not None:
+            # Every rank samples with the first rank's uniforms, so all of
+            # them feed the same token back.
+            for group in self.scope.groups():
+                uniforms = group.broadcast_first(uniforms)
         graph.start(lens, pos_base, logits, uniforms)
         graph.busy = True
         return graph
 
+    @_scoped
     def generate_device(self, result: PrefillResult, max_new_tokens: int,
                         sampler: Optional[SamplerConfig] = None, generator: Optional[torch.Generator] = None):
         """The generated token ids as an int64 (max_new_tokens,) tensor on the
@@ -1174,6 +1247,7 @@ class CompressionEngine:
             out = out[: out.index(eos_token_id) + 1]
         return out
 
+    @_scoped
     def generate_batch(self, results: list, max_new_tokens: int, eos_token_id: Optional[int] = None,
                        sampler: Optional[SamplerConfig] = None, generator: Optional[torch.Generator] = None):
         """Decode a batch of prefill results together (JAX's
@@ -1203,6 +1277,7 @@ class CompressionEngine:
         """Greedy ``generate`` (the JAX engine's name for it)."""
         return self.generate(result, max_new_tokens, eos_token_id=eos_token_id)
 
+    @_scoped
     def generate_spec(self, result: PrefillResult, max_new_tokens: int, draft_len: int = 4, prompt_ids=None,
                       eos_token_id: Optional[int] = None, return_stats: bool = False):
         """Greedy decode by speculative draft-and-verify (prompt-lookup
@@ -1213,6 +1288,7 @@ class CompressionEngine:
         return spec_decode.generate_spec(self, result, max_new_tokens, draft_len=draft_len, prompt_ids=prompt_ids,
                                          eos_token_id=eos_token_id, return_stats=return_stats)
 
+    @_scoped
     def generate_spec_batch(self, results: list, max_new_tokens: int, draft_len: int = 4, prompt_ids=None,
                             eos_token_id: Optional[int] = None, return_stats: bool = False):
         """Batched speculative greedy decode: every sequence's K candidate

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..core import bucket_length
+from ..parallel import collectives
 from .decode_graph import StepGraph
 from .engine import best_tail_split_batch
 from .spec_decode import spec_macro_step, update_rows
@@ -398,7 +399,12 @@ class ServingLoop:
         self.compactions += 1
 
     def step(self) -> bool:
-        """Admit, one chunk of decode, retire. Returns whether work remains."""
+        """Admit, one chunk of decode, retire. Returns whether work remains.
+        Runs under the engine's collectives scope (a sharded engine's)."""
+        with collectives.use(getattr(self.engine, "scope", None)):
+            return self._step()
+
+    def _step(self) -> bool:
         self._fill_slots()
         if not self.active.any():
             return bool(self._queue)

@@ -450,7 +450,7 @@ def _load_vision(family: str, state: dict, cfg_dict: dict, llm_cfg: LLMConfig, d
     return {"kind": "siglip", "cfg": vit_cfg, "params": vit, "projector": proj}
 
 
-def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quantize=None, device=None):
+def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quantize=None, device=None, mesh=None):
     """config.json-driven geometry + family dispatch -> a ``FrameFusionModel``
     (vision tower attached when the checkpoint carries one).
 
@@ -464,7 +464,14 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
     ``Qwen2MoeForCausalLM`` one as ``llava_video`` with its MoE stacks (no
     tower).
     ``device=None`` loads onto the card and raises without one;
-    ``device="cpu"`` asks for the CPU.
+    ``device="cpu"`` asks for the CPU. ``mesh`` (a rank's DeviceMesh,
+    ``parallel.sharding.make_mesh`` or ``models.moe.make_expert_mesh``): only
+    this rank's shard (``shard_params``) goes to ``device``, and the model
+    carries the mesh. The host cost is not sharded: each rank reads the
+    whole checkpoint and imports the whole decoder on the host before it
+    takes its shard, so while it loads a rank holds about twice the
+    checkpoint's bytes in host memory (the tensors read, and their stacked
+    copy), as a load without a mesh does.
     """
     from .interface import FAMILIES, FrameFusionModel
 
@@ -481,6 +488,19 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
         raise ValueError(f"config qkv_bias={llm_cfg.qkv_bias} vs family {family}")
     state = load_state(checkpoint_dir)
     importer = params_from_state_dict_internlm2 if family == "internvl" else params_from_state_dict
-    params = importer(state, llm_cfg, prefix=spec.llm_prefix, quantize=quantize, device=device)
+    if mesh is None:
+        params = importer(state, llm_cfg, prefix=spec.llm_prefix, quantize=quantize, device=device)
+    else:
+        from .parallel.sharding import shard_params
+
+        whole = importer(state, llm_cfg, prefix=spec.llm_prefix, quantize=quantize, device="cpu")
+        params = _to_device(shard_params(whole, llm_cfg, mesh), device)
+        del whole
     vision = _load_vision(family, state, cfg_dict, llm_cfg, device)
-    return FrameFusionModel(family=family, cfg=llm_cfg, params=params, vision=vision)
+    return FrameFusionModel(family=family, cfg=llm_cfg, params=params, vision=vision, mesh=mesh)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

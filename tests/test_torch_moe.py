@@ -375,3 +375,63 @@ def test_cuda_routed_rows_match_plain_and_repeat(cuda, dtype):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(held["out"], eager)
+
+
+# -- expert parallelism -------------------------------------------------------
+
+EP = 4  # expert ranks: one of the 4 experts each
+EP_CAPS = (None, 8, 3)
+
+
+@pytest.fixture(scope="module")
+def ep_runs(block):
+    """JAX's ``moe_mlp(ep=True)`` over a 4-device expert mesh, and the
+    port's over 4 ``gloo`` CPU ranks (one spawn, started first), on the
+    block's weights and on its probe weights, at each capacity."""
+    import concurrent.futures
+
+    from framefusion_tpu_torch.parallel import launch, workers
+
+    cfg, jp, _, x = block
+    tcfg = tmoe.tiny_moe_config(num_experts=4, top_k=2)
+    trees = {"block": jax.tree.map(lambda a: np.asarray(a, np.float32), jax.device_get(jp)),
+             "probe": _probe(jax.device_get(jp), cfg)}
+    jobs = [dict(kind="moe_block", cfg=tcfg, params=tree, x=x, expert=EP, capacity=cap)
+            for tree in trees.values() for cap in EP_CAPS]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(launch.spawn, workers.run_jobs, EP, jobs, backend="gloo", device="cpu", timeout_s=240)
+        mesh = jmoe.make_expert_mesh(jax.devices()[:EP])
+        want = []
+        with mesh:
+            for tree in trees.values():
+                sharded = jmoe.shard_moe_params({k: jnp.asarray(v) for k, v in tree.items()}, mesh)
+                for cap in EP_CAPS:
+                    y, probs = jax.jit(lambda p, xx, c=cap: jmoe.moe_mlp(p, xx, cfg, capacity=c, ep=True))(
+                        sharded, jnp.asarray(x))
+                    want.append((np.asarray(y), np.asarray(probs)))
+        outs = ranks.result()
+    return want, outs
+
+
+@pytest.mark.parametrize("cap", range(len(EP_CAPS)), ids=["lossless", "tight", "tighter"])
+def test_expert_parallel_block_matches_jax(ep_runs, cap):
+    """Every rank's combined output within 1e-5 of JAX's ``ep=True`` block,
+    the router probabilities within 1e-6, each rank holding one expert."""
+    want, outs = ep_runs
+    y_j, probs_j = want[cap]
+    for rank in outs:
+        got = rank[cap]
+        assert got["experts"] == 1
+        _close(got["y"], y_j, TOL)
+        np.testing.assert_allclose(got["probs"], probs_j, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("cap", range(len(EP_CAPS)), ids=["lossless", "tight", "tighter"])
+def test_expert_parallel_keeps_jax_choices(block, ep_runs, cap):
+    """With probe experts the kept (token, expert) set read from each rank's
+    combined output is JAX's: every rank routes every token, and the
+    capacity decisions are the one-device ones."""
+    cfg = block[0]
+    want, outs = ep_runs
+    kept_j = _kept(want[len(EP_CAPS) + cap][0], cfg)
+    assert all(_kept(rank[len(EP_CAPS) + cap]["y"], cfg) == kept_j for rank in outs)
