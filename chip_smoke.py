@@ -363,6 +363,38 @@ Phases, each printed as it runs; every run makes all of them:
              kernel rows ``"path": "tp2"``, ``"tp4"`` and ``"ep2"`` at the
              shapes the ranks launched, timed here, with the ranks'
              launches.
+20. cross_train_ranks — training across ranks on tiny fp32 stacks, three
+             ways from the same weights and batches: the one-process step on
+             the CPU, 4 gloo ranks on the CPU and 4 gloo ranks on cuda:0:
+             ``make_train_step(mesh=)`` at TP 2 x DP 2 and TP 4 (2 layers,
+             8 / 4 heads), the GPipe step at 2 stages x 2 data ranks and 2
+             microbatches (4 layers) and the tiny Qwen2-MoE stack at TP 2 x
+             DP 2. Losses of 3 AdamW steps within TRAIN_LOSS_RTOL, every
+             rank's parameters within TRAIN_PARAM_TOL of its shard of the
+             one-process step's, the replicated leaves bitwise equal on
+             every rank. Then a world of one over NCCL: the step with a mesh
+             bitwise the step without. NCCL across ranks runs only with two
+             cards or more.
+21. train_ranks — training across ranks at full width on the card, a spawn
+             a run (gloo ranks sharing cuda:0, the collectives staged through
+             the host: not a multi-card speed), each run's ms / step (median
+             of steps 2+), tokens/s, peak GB a rank and collective calls,
+             host seconds and share: (a) Qwen2-7B, all 28 layers, TP 4, B 1
+             x T 2,048, 3 AdamW steps (AdamW fused on the card: no
+             whole-list temporaries):
+             the first loss within TRAIN_BF16_LOSS_TOL of a one-process
+             no-grad forward of the same weights, the loss falls; (b) 4
+             layers, TP 2 x DP 2, B 2 x T 2,048: the replicated leaves
+             bitwise equal on the four ranks; (c) the pipeline, 8 layers, 4
+             stages, 4 microbatches, B 4 x T 1,024: the first loss against
+             the one-process ``lm_loss``, the bubble share (the stages' time
+             in receives) beside GPipe's (S - 1) / (M + S - 1), the
+             embedding, final norm and head bitwise equal on every stage;
+             (d) Qwen2-57B-A14B's widths at 2 of 28 layers, bf16, one
+             process then TP 2 (the experts in the tensor slot), B 1 x T
+             1,024: each layer's ``load_balancing_loss`` and capacity
+             drops, the first losses within TRAIN_BF16_LOSS_TOL, the loss
+             falls over the 3 steps on both.
 
 The line before the last is a JSON object with one entry per kernel, built
 from ``framefusion_tpu_torch.ops.kernels`` (the TPU functions each stands
@@ -4753,7 +4785,7 @@ def _ref_full(cfg, ff, prompt_args, n: int, *, int8_prefill: bool = False) -> di
     return out
 
 
-def _check_full(chk, label, ranks, ref, hk_local: int, *, heads_split: bool = True) -> None:
+def _check_full(chk, label, ranks, ref, hk_local: int, *, heads_split: bool = True, gloo: bool = True) -> None:
     """Phase 19's checks of one full-width job's ranks against the one-process
     run; rank i holds KV heads [i * hk_local, (i + 1) * hk_local) when the
     heads are split, all of them otherwise."""
@@ -4792,6 +4824,9 @@ def _check_full(chk, label, ranks, ref, hk_local: int, *, heads_split: bool = Tr
                    for r in active for run in ("prefill", "decode"))
     chk.expect(recorded, f"{label}: on every rank the launches by call shape sum to each wrapper's own count "
                          f"(rank 0: prefill {r0['prefill_launches']}, decode {r0['decode_launches']})")
+    if gloo:
+        chk.expect(not any(r["captured"] or r["replays"] for r in active),
+                   f"{label}: under gloo the decode ran its step eagerly (no graph, 0 replays)")
 
 
 def _by_kernel(calls: dict) -> dict:
@@ -4800,8 +4835,6 @@ def _by_kernel(calls: dict) -> dict:
     for (kernel, _), n in calls.items():
         out[kernel] = out.get(kernel, 0) + n
     return out
-    chk.expect(not any(r["captured"] or r["replays"] for r in active),
-               f"{label}: under gloo the decode ran its step eagerly (no graph, 0 replays)")
 
 
 def _par_rows(chk, kernels, gen, tag: str, r0: dict, cfg) -> None:
@@ -4957,7 +4990,7 @@ def phase_parallel(chk: Checks, kernels: dict, ctx: dict) -> None:
     if torch.cuda.device_count() >= 2:
         nccl = launch.spawn(workers.run_jobs, 2, [dict(full, width=2, active=[0, 1])], backend="nccl",
                             device="cuda", timeout_s=900)
-        _check_full(chk, "parallel nccl tp2", [o[0] for o in nccl], ref, cfg.num_kv_heads // 2)
+        _check_full(chk, "parallel nccl tp2", [o[0] for o in nccl], ref, cfg.num_kv_heads // 2, gloo=False)
     else:
         log("  parallel nccl across ranks: not run: one card")
     # The kernel rows at the sharded shapes, timed here.
@@ -4971,6 +5004,297 @@ def phase_parallel(chk: Checks, kernels: dict, ctx: dict) -> None:
                f"parallel: every tp2 / tp4 / ep2 row's shape ran on the ranks "
                f"({[(r['path'], r.get('shape', r.get('regime')), r['launches']) for r in rows]})")
     torch.cuda.empty_cache()
+
+
+# Phases 20-21: training across ranks.
+TRAIN_RANK_LAYOUTS = (("tp2dp2", "train", 2), ("tp4", "train", 4), ("pipe", "pipe", 2), ("moe", "train", 2))
+
+
+def tiny_train_setup():
+    """Phase 20's models (fp32, drawn on the CPU from seeds), batches and
+    rank jobs."""
+    from framefusion_tpu_torch.config import tiny_llm_config, tiny_moe_llm_config
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.parallel.workers import numpy_tree
+
+    cfgs = {"tp2dp2": tiny_llm_config(num_layers=2, num_heads=8, num_kv_heads=4),
+            "pipe": tiny_llm_config(num_layers=4), "moe": tiny_moe_llm_config(num_layers=2)}
+    cfgs["tp4"] = cfgs["tp2dp2"]
+    trees = {k: numpy_tree(qwen2.init_params(c, torch.Generator().manual_seed(20 + i)))
+             for i, (k, c) in enumerate(cfgs.items())}
+    trees["tp4"] = trees["tp2dp2"]
+    rng = np.random.default_rng(20)
+    batches = [rng.integers(0, 512, (4, 24)) for _ in range(3)]
+    jobs = []
+    for name, kind, width in TRAIN_RANK_LAYOUTS:
+        job = dict(kind=kind, cfg=cfgs[name], params=trees[name], batches=batches, lr=TRAIN_LR)
+        job.update(dict(stages=width, n_micro=2) if kind == "pipe" else dict(tensor=width))
+        jobs.append(job)
+    return cfgs, trees, batches, jobs
+
+
+def _one_process_train(cfg, tree, batches):
+    """The one-process step on the CPU: losses and final parameters (numpy)."""
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.parallel.train import make_optimizer, make_train_step
+    from framefusion_tpu_torch.parallel.workers import numpy_tree
+
+    step, init = make_train_step(cfg, "cpu", make_optimizer(TRAIN_LR))
+    params, opt = init(qwen2.params_from_numpy(tree, device="cpu"))
+    losses = []
+    for b in batches:
+        params, opt, loss = step(params, opt, torch.from_numpy(b))
+        losses.append(float(loss))
+    return losses, numpy_tree(params)
+
+
+def _rank_shard(tree, cfg, kind, place: dict, width: int):
+    """Rank ``place``'s shard of a whole numpy tree (a tensor or a stage
+    split), as the ranks hold theirs."""
+    from framefusion_tpu_torch.parallel import pipeline, sharding
+    from framefusion_tpu_torch.parallel.train import tree_map
+    from framefusion_tpu_torch.parallel.workers import numpy_tree
+
+    whole = tree_map(torch.from_numpy, tree)
+    if kind == "pipe":
+        return numpy_tree(pipeline.shard_params_pipe(whole, cfg, sharding.ShardAxis("stage", place["stage"], width)))
+    return numpy_tree(sharding.shard_params(whole, cfg, sharding.ShardAxis("tensor", place["tensor"], width)))
+
+
+def _split_axis(cfg, kind):
+    """Each leaf's split axis name, or None for a replicated one."""
+    from framefusion_tpu_torch.parallel import pipeline, sharding
+    from framefusion_tpu_torch.parallel.workers import named_leaves
+
+    specs = pipeline.pipe_param_pspecs(cfg) if kind == "pipe" else sharding.param_pspecs(cfg)
+    return {k: next((a for a in v if a), None) for k, v in named_leaves(specs).items()}
+
+
+def _same_bits_where_replicated(outs, j, cfg, kind, key) -> bool:
+    """Every leaf (``key`` holds each rank's leaves or their digests) the
+    same bits on every rank holding the same part: on all of them for a
+    replicated leaf, on those at the same place of its split axis."""
+    from framefusion_tpu_torch.parallel.workers import named_leaves
+
+    split = _split_axis(cfg, kind)
+    axis = "stage" if kind == "pipe" else "tensor"
+    named = [o[j][key] if key == "digests" else named_leaves(o[j][key]) for o in outs]
+    for leaf in named[0]:
+        for r, o in enumerate(outs):
+            if split.get(leaf) and o[j]["place"][axis] != outs[0][j]["place"][axis]:
+                continue
+            a, b = named[r][leaf], named[0][leaf]
+            if not (a == b if isinstance(a, str) else np.array_equal(a, b)):
+                return False
+    return True
+
+
+def phase_cross_train_ranks(chk: Checks) -> None:
+    """Phase 20 (module docstring)."""
+    import concurrent.futures
+
+    from framefusion_tpu_torch.parallel import launch, workers
+    from framefusion_tpu_torch.parallel.workers import named_leaves
+
+    t_phase = time.perf_counter()
+    cfgs, trees, batches, jobs = tiny_train_setup()
+    # The CPU ranks, the card's ranks and the NCCL world of one run side by side (each spawn is mostly start-up).
+    nccl_job = dict(kind="nccl_train_one", cfg=cfgs["tp2dp2"], params=trees["tp2dp2"], batches=batches, lr=TRAIN_LR)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        spawns = {dev: pool.submit(launch.spawn, workers.run_jobs, 4, jobs, backend="gloo", device=dev, timeout_s=300)
+                  for dev in ("cpu", "cuda")}
+        spawns["nccl"] = pool.submit(launch.spawn, workers.run_jobs, 1, [nccl_job], backend="nccl", device="cuda",
+                                     timeout_s=300)
+        refs = {name: _one_process_train(cfgs[name], trees[name], batches) for name, _, _ in TRAIN_RANK_LAYOUTS}
+        log(f"  one process (CPU): losses {[(k, [round(x, 5) for x in v[0]]) for k, v in refs.items()]}")
+        ranks = {name: run.result() for name, run in spawns.items()}
+    log(f"  the three spawns (4 CPU ranks, 4 ranks on the card, NCCL's one) side by side: "
+        f"{time.perf_counter() - t_phase:.1f} s with the one-process steps")
+    for dev in ("cpu", "cuda"):
+        outs = ranks[dev]
+        for j, (name, kind, width) in enumerate(TRAIN_RANK_LAYOUTS):
+            label = f"cross_train_ranks {dev} {name}"
+            losses, final = refs[name]
+            loss_err = max(abs(a - b) / abs(b) for o in outs for a, b in zip(o[j]["losses"], losses))
+            param_err = 0.0
+            for o in outs:
+                want = named_leaves(_rank_shard(final, cfgs[name], kind, o[j]["place"], width))
+                param_err = max([param_err] + [float(np.abs(got - want[k]).max())
+                                               for k, got in named_leaves(o[j]["params"]).items()])
+            chk.expect(loss_err <= TRAIN_LOSS_RTOL, f"{label}: every rank's 3 losses within {loss_err:.2e} <= "
+                                                    f"{TRAIN_LOSS_RTOL:.0e} of the one-process step's")
+            chk.expect(param_err <= TRAIN_PARAM_TOL, f"{label}: every rank's parameters after 3 steps within "
+                                                     f"{param_err:.2e} <= {TRAIN_PARAM_TOL:.1e} of its shard")
+            chk.expect(_same_bits_where_replicated(outs, j, cfgs[name], kind, "params"),
+                       f"{label}: the replicated leaves bitwise equal on every rank")
+    one = ranks["nccl"][0][0]
+    differ = [k for k, v in one["alone"]["digests"].items() if one["mesh"]["digests"][k] != v]
+    chk.expect(one["alone"]["losses"] == one["mesh"]["losses"] and not differ,
+               f"cross_train_ranks nccl world of one: losses and every leaf bitwise the step without a mesh (losses "
+               f"{one['mesh']['losses']} / {one['alone']['losses']}; leaves that differ: {differ})")
+    if torch.cuda.device_count() >= 2:
+        nccl = launch.spawn(workers.run_jobs, 2, [dict(jobs[0], tensor=2)], backend="nccl", device="cuda",
+                            timeout_s=300)
+        losses = refs["tp2dp2"][0]
+        err = max(abs(a - b) / abs(b) for o in nccl for a, b in zip(o[0]["losses"], losses))
+        chk.expect(err <= TRAIN_LOSS_RTOL, f"cross_train_ranks nccl tp2: losses within {err:.2e}")
+    else:
+        log("  cross_train_ranks nccl across ranks: not run: one card")
+    log(f"  cross_train_ranks: {time.perf_counter() - t_phase:.1f} s")
+
+
+TRAIN_RANKS_SEED = 21
+
+
+def _param_count(cfg) -> int:
+    """A dense Qwen2 stack's parameters (biases, norms, untied head)."""
+    d, hd = cfg.hidden_size, cfg.head_dim_
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+    layer = d * qkv + qkv + cfg.num_heads * hd * d + 3 * d * cfg.intermediate_size + 2 * d
+    return cfg.num_layers * layer + 2 * cfg.vocab_size * d + d
+HOST_STAGED = "gloo ranks sharing one card, collectives staged through the host: not a multi-card speed"
+
+
+def _train_report(label: str, ranks: list, tokens: int) -> list:
+    """Logs a full-width run's numbers from its ranks: ms / step (median of
+    steps 2+, the slowest rank), tokens/s, peak GB a rank, collectives.
+    Returns rank 0's losses."""
+    import statistics
+
+    log(f"  {label}: seconds a rank: job {[round(r['seconds'], 1) for r in ranks]}, drawing the shard "
+        f"{[round(r['init_s'], 1) for r in ranks]}, digests {[round(r['digest_s'], 1) for r in ranks]}")
+    later = range(1, len(ranks[0]["ms"]))
+    ms = statistics.median(max(r["ms"][i] for r in ranks) for i in later)
+    calls = ranks[0]["calls"][1]
+    coll_s = statistics.median(r["collective_s"][i] for r in ranks for i in later)
+    share = statistics.median(r["collective_s"][i] * 1e3 / r["ms"][i] for r in ranks for i in later)
+    peak = max(r["max_memory_gb"] for r in ranks)
+    log(f"  {label}: losses {ranks[0]['losses']}; ms a step by rank 0 {[round(x, 1) for x in ranks[0]['ms']]} -> "
+        f"{ms:.1f} ms/step, {tokens / ms * 1e3:.0f} tokens/s, peak {peak:.2f} GB a rank "
+        f"({[round(r['max_memory_gb'], 2) for r in ranks]}), {calls} collectives a step, {coll_s:.2f} s in them "
+        f"(share {share:.3f} of its step, medians of steps 2+ over the ranks; {HOST_STAGED})")
+    return ranks[0]["losses"]
+
+
+def phase_train_ranks(chk: Checks, ctx: dict) -> None:
+    """Phase 21 (module docstring)."""
+    from framefusion_tpu_torch.config import qwen2_7b_config, qwen2_moe_a14b_config
+    from framefusion_tpu_torch.parallel import launch, workers
+    from framefusion_tpu_torch.parallel.sharding import init_sharded_params
+    from framefusion_tpu_torch.parallel.train import leaves, lm_loss, make_optimizer, make_train_step
+    from framefusion_tpu_torch.parallel.workers import router_stats
+
+    ctx.clear()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+
+    def one_process_loss(cfg, batch):
+        params = init_sharded_params(cfg, TRAIN_RANKS_SEED, None, device="cuda")
+        ids = torch.from_numpy(np.random.default_rng(TRAIN_RANKS_SEED).integers(0, cfg.vocab_size, batch)).to("cuda")
+        with torch.no_grad():
+            loss = float(lm_loss(params, ids, cfg))
+        del params
+        torch.cuda.empty_cache()
+        return loss
+
+    def spawn(job, world):
+        t0 = time.perf_counter()
+        # Expandable segments: four ranks' caching allocators share the card's 80 GB with less slack.
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            outs = launch.spawn(workers.run_jobs, world, [job], backend="gloo", device="cuda", timeout_s=600)
+        finally:
+            if alloc is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        log(f"  {job['kind']} on {world} ranks: {time.perf_counter() - t0:.1f} s with the spawn")
+        return [o[0] for o in outs]
+
+    base = dict(seed=TRAIN_RANKS_SEED, ids_seed=TRAIN_RANKS_SEED, steps=3, lr=1e-4)
+    # (a) Qwen2-7B, 28 layers, TP 4.
+    cfg = qwen2_7b_config()
+    n = _param_count(cfg)
+    state = n * 8 / 1e9
+    stash = cfg.num_layers * 2048 * cfg.hidden_size * 2 / 1e9
+    log(f"  train_ranks 7b tp4 reckoning: {n / 1e9:.3f} B params; params, gradients and two AdamW moments in bf16 "
+        f"{state:.1f} GB in all, {state / 4:.1f} GB a rank; a rank adds the CUDA context ~0.5, the layer-input stash "
+        f"{stash:.2f}, one layer's recomputation ~0.5 (fp32 scores {7 * 2048 ** 2 * 4 / 1e9:.2f} a copy) and the "
+        f"vocabulary-slice loss ~1 GB: ~{state + 4 * (0.5 + stash + 1.5):.0f} GB on the card; fused AdamW (no "
+        f"whole-list temporaries)")
+    ranks = spawn(dict(base, kind="train_full", cfg=cfg, tensor=4, batch=(1, 2048), digests=[]), 4)
+    losses = _train_report("train_ranks 7b tp4 (28 layers)", ranks, 2048)
+    ref = one_process_loss(cfg, (1, 2048))
+    chk.expect(all(math.isfinite(x) for x in losses), "train_ranks 7b tp4: every loss finite")
+    chk.expect(abs(losses[0] - ref) <= TRAIN_BF16_LOSS_TOL,
+               f"train_ranks 7b tp4: first loss {losses[0]:.5f} within {TRAIN_BF16_LOSS_TOL} of the "
+               f"one-process no-grad forward's {ref:.5f}")
+    chk.expect(losses[-1] < losses[0], "train_ranks 7b tp4: the loss falls over 3 steps")
+    chk.expect(all(r["losses"] == ranks[0]["losses"] for r in ranks), "train_ranks 7b tp4: every rank's losses equal")
+    # (b) 4 layers, TP 2 x DP 2.
+    cfg4 = qwen2_7b_config(num_layers=4)
+    ranks = spawn(dict(base, kind="train_full", cfg=cfg4, tensor=2, batch=(2, 2048)), 4)
+    losses = _train_report("train_ranks 7b tp2 x dp2 (4 layers)", ranks, 2 * 2048)
+    chk.expect(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+               f"train_ranks tp2 x dp2: losses finite and falling ({losses})")
+    chk.expect(_same_bits_where_replicated([[r] for r in ranks], 0, cfg4, "train", "digests"),
+               "train_ranks tp2 x dp2: the replicated leaves bitwise equal on the four ranks (the split ones on "
+               "both data replicas)")
+    # (c) The pipeline: 8 layers, 4 stages, 4 microbatches.
+    cfg8 = qwen2_7b_config(num_layers=8)
+    shared = ("/embed", "/final_norm", "/lm_head")
+    ranks = spawn(dict(base, kind="pipe_full", cfg=cfg8, stages=4, n_micro=4, batch=(4, 1024), digests=shared), 4)
+    losses = _train_report("train_ranks pipeline s4 m4 (8 layers)", ranks, 4 * 1024)
+    ref = one_process_loss(cfg8, (4, 1024))
+    shares = [[w / s for w, s in zip(r["wait_s"], r["schedule_s"])] for r in ranks]
+    bubble = float(np.mean([sh[i] for sh in shares for i in range(1, 3)]))
+    log(f"  train_ranks pipeline: bubble share measured {bubble:.3f} (each stage's host time in receives over its "
+        f"forward and backward schedule, steps 2-3, mean of the stages; by stage and step "
+        f"{[[round(x, 3) for x in sh] for sh in shares]}; schedule s {[[round(x, 2) for x in r['schedule_s']] for r in ranks]}) "
+        f"beside GPipe's (S - 1) / (M + S - 1) = {3 / 7:.3f}; {HOST_STAGED}")
+    chk.expect(abs(losses[0] - ref) <= TRAIN_BF16_LOSS_TOL,
+               f"train_ranks pipeline: first loss {losses[0]:.5f} within {TRAIN_BF16_LOSS_TOL} of the "
+               f"one-process lm_loss {ref:.5f}")
+    chk.expect(losses[-1] < losses[0], "train_ranks pipeline: the loss falls over 3 steps")
+    chk.expect(all(r["digests"][k] == ranks[0]["digests"][k] for r in ranks for k in shared),
+               "train_ranks pipeline: embed, final_norm and lm_head bitwise equal on every stage")
+    # (d) Qwen2-57B-A14B's widths, 2 layers: one process, then TP 2.
+    mcfg = qwen2_moe_a14b_config(num_layers=2)
+    ids = torch.from_numpy(np.random.default_rng(TRAIN_RANKS_SEED).integers(0, mcfg.vocab_size, (1, 1024))).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    step, init = make_train_step(mcfg, optimizer=make_optimizer(1e-4))
+    params, opt = init(init_sharded_params(mcfg, TRAIN_RANKS_SEED, None, device="cuda"))
+    one, ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, ids)
+        one.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    stats_one = router_stats(params, ids, mcfg)
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    log(f"  train_ranks 57b one process (2 layers, {sum(t.numel() for t in leaves(params)) / 1e9:.3f} B params): "
+        f"losses {one}; ms a step {[round(x, 1) for x in ms]}; peak {peak:.2f} GB; load_balancing_loss and drops a "
+        f"layer {stats_one}")
+    del params, opt, step, init
+    torch.cuda.empty_cache()
+    whole = [k for k, axis in _split_axis(mcfg, "train").items() if axis is None]
+    ranks = spawn(dict(base, kind="train_full", cfg=mcfg, tensor=2, batch=(1, 1024), digests=whole), 2)
+    losses = _train_report("train_ranks 57b tp2 (2 layers)", ranks, 1024)
+    log(f"  train_ranks 57b tp2: load_balancing_loss and drops a layer {ranks[0]['router']}")
+    chk.expect(all(math.isfinite(x) for x in one + losses), "train_ranks 57b: every loss finite")
+    chk.expect(abs(losses[0] - one[0]) <= TRAIN_BF16_LOSS_TOL,
+               f"train_ranks 57b: TP 2's first loss {losses[0]:.5f} within {TRAIN_BF16_LOSS_TOL} of one "
+               f"process's {one[0]:.5f}")
+    chk.expect(one[-1] < one[0] and losses[-1] < losses[0],
+               f"train_ranks 57b: the loss falls over 3 steps in one process ({one[0]:.4f} -> {one[-1]:.4f}) and "
+               f"at TP 2 ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    chk.expect(all(math.isfinite(s["lb_loss"]) and s["lb_loss"] > 0 for s in stats_one + ranks[0]["router"]),
+               "train_ranks 57b: each layer's load_balancing_loss finite and positive (1 for a balanced router)")
+    chk.expect(_same_bits_where_replicated([[r] for r in ranks], 0, mcfg, "train", "digests"),
+               "train_ranks 57b tp2: the router, the shared gate and the norms bitwise equal on both ranks")
+    log(f"  train_ranks: {time.perf_counter() - t_phase:.1f} s")
 
 
 def kernels_table() -> dict:
@@ -5041,7 +5365,9 @@ def main() -> int:
               "qwen25vl_72b": lambda: phase_qwen25vl_72b(chk, kernels, ctx),
               "moe_57b": lambda: phase_moe_57b(chk, kernels, ctx),
               "cross_parallel": lambda: phase_cross_parallel(chk),
-              "parallel": lambda: phase_parallel(chk, kernels, ctx)}
+              "parallel": lambda: phase_parallel(chk, kernels, ctx),
+              "cross_train_ranks": lambda: phase_cross_train_ranks(chk),
+              "train_ranks": lambda: phase_train_ranks(chk, ctx)}
     t_start = time.perf_counter()
     for phase, run in phases.items():
         log(f"== {phase} ({time.perf_counter() - t_start:.1f} s)")

@@ -35,8 +35,14 @@ combine is summed over the group (``parallel/collectives``). Under tensor
 parallelism the expert axis rides the tensor group and the shared expert
 is split like a dense MLP (``parallel/sharding.param_pspecs``).
 
-Not ported here: ``load_balancing_loss``, which belongs to training across
-ranks (ROADMAP item "parallel/").
+Training differentiates ``sparse_mlp`` as it stands (the copies into the
+buffer and the gathers out of it are permutations). Under tensor
+parallelism a rank's routing weights cover only its own experts and its
+shared-expert gate multiplies only its slice of the shared expert, so the
+router's and the shared gate's gradients are partial on each rank: both are
+read through ``collectives.expert_param``, which sums their gradients over
+the group. ``load_balancing_loss`` is the Switch / GShard auxiliary loss of
+the router's probs (JAX's; no loss of either package adds it).
 """
 
 from __future__ import annotations
@@ -175,7 +181,8 @@ def sparse_mlp(mp: dict, x: torch.Tensor, *, num_experts: int, top_k: int, norm_
     ``mp`` holds router / w_gate / w_up / w_down (expert axis first) /
     sw_* / shared_gate, dense or int8 pairs (not the router or the gate)."""
     s, d = x.shape
-    weights, slot, keep, c, probs = route(x, mp["router"], num_experts=num_experts, top_k=top_k,
+    weights, slot, keep, c, probs = route(x, collectives.expert_param(mp["router"]), num_experts=num_experts,
+                                          top_k=top_k,
                                           norm_topk_prob=norm_topk_prob, capacity=capacity, live=live)
     e = num_experts
     shard = collectives.expert_shard(num_experts)
@@ -200,7 +207,7 @@ def sparse_mlp(mp: dict, x: torch.Tensor, *, num_experts: int, top_k: int, norm_
     from .qwen2 import mm
 
     shared = mm(F.silu(mm(x, mp["sw_gate"])) * mm(x, mp["sw_up"]), mp["sw_down"])
-    return combine_shared(y, torch.sigmoid(x @ mp["shared_gate"]) * shared), probs
+    return combine_shared(y, torch.sigmoid(x @ collectives.expert_param(mp["shared_gate"])) * shared), probs
 
 
 def combine_shared(y: torch.Tensor, shared: torch.Tensor) -> torch.Tensor:
@@ -213,8 +220,8 @@ def combine_shared(y: torch.Tensor, shared: torch.Tensor) -> torch.Tensor:
     if scope is None or scope.expert is None:
         return y.to(shared.dtype) + shared
     if collectives.shared_expert_split():
-        return scope.expert.all_reduce(y.to(torch.float32) + shared.to(torch.float32)).to(shared.dtype)
-    return scope.expert.all_reduce(y.to(torch.float32)).to(shared.dtype) + shared
+        return collectives.group_sum(scope.expert, y.to(torch.float32) + shared.to(torch.float32)).to(shared.dtype)
+    return collectives.group_sum(scope.expert, y.to(torch.float32)).to(shared.dtype) + shared
 
 
 def moe_prefill_capacity(s: int, cfg) -> int:
@@ -239,6 +246,17 @@ def moe_mlp(mp: dict, x: torch.Tensor, cfg: MoeConfig, *, capacity: int | None =
 
     with collectives.use(mesh_scope(ep)):
         return run()
+
+
+def load_balancing_loss(probs: torch.Tensor, idx: torch.Tensor, cfg: MoeConfig) -> torch.Tensor:
+    """The Switch / GShard auxiliary loss of one routed call (JAX's
+    ``load_balancing_loss``, HF ``load_balancing_loss_func``): ``E *
+    sum_e(fraction_e / top_k * mean_prob_e)`` over the router's probs (S,
+    E) and its top-k choices ``idx`` (S, k); 1.0 for a balanced router."""
+    oh = F.one_hot(idx.long(), cfg.num_experts).to(torch.float32)  # (S, k, E)
+    tokens_per_expert = oh.sum(dim=1).mean(dim=0)  # (E,) in [0, k]
+    router_prob = probs.to(torch.float32).mean(dim=0)
+    return cfg.num_experts * (tokens_per_expert / cfg.top_k * router_prob).sum()
 
 
 def moe_pspecs() -> dict:

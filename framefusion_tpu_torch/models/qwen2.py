@@ -237,15 +237,15 @@ def mv_stacked_gateup(x: torch.Tensor, wg, wu, l: int) -> torch.Tensor:
 
 
 def _project_qkv(lp: dict, x: torch.Tensor, cfg: LLMConfig):
-    s = x.shape[0]
+    rows = x.shape[:-1]
     hd = cfg.head_dim_
     q, k, v = mm(x, lp["wq"]), mm(x, lp["wk"]), mm(x, lp["wv"])
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     return (
-        q.reshape(s, cfg.num_heads, hd),
-        k.reshape(s, cfg.num_kv_heads, hd),
-        v.reshape(s, cfg.num_kv_heads, hd),
+        q.reshape(*rows, cfg.num_heads, hd),
+        k.reshape(*rows, cfg.num_kv_heads, hd),
+        v.reshape(*rows, cfg.num_kv_heads, hd),
     )
 
 
@@ -275,13 +275,22 @@ def layer_attention(lp: dict, h, cos, sin, cfg: LLMConfig, *, attn_impl: str = "
     """Pre-norm attention block with residual.
 
     Returns (h_out, k, v, importance-or-None); ``key_valid`` masks dead keys
-    in the mask-only compression phase.
+    in the mask-only compression phase. A batch ``h`` (B, S, D) (the
+    training step) runs its projections batched and the plain ``"einsum"``
+    core per sequence under ``vmap``, which no collective enters. Under a
+    tensor group the normed input's gradient is summed over the group
+    (``collectives.tensor_input``; nothing without autograd).
     """
-    x = rmsnorm(h, lp["ln1"], cfg.rms_norm_eps)
+    x = collectives.tensor_input(rmsnorm(h, lp["ln1"], cfg.rms_norm_eps))
     q, k, v = _project_qkv(lp, x, cfg)
     q, k = apply_rope(q, k, cos, sin)
-    attn, importance = attention_kernel_dispatch(q, k, v, attn_impl, capture_num, valid_len, key_valid)
-    h_out = h + collectives.tensor_sum(mm(attn.reshape(h.shape[0], -1), lp["wo"]))
+    if h.ndim == 3:
+        if attn_impl != "einsum" or capture_num or key_valid is not None:
+            raise ValueError("a batch runs the plain einsum attention, with no capture and no key mask")
+        attn, importance = torch.func.vmap(causal_attention_einsum)(q, k, v), None
+    else:
+        attn, importance = attention_kernel_dispatch(q, k, v, attn_impl, capture_num, valid_len, key_valid)
+    h_out = h + collectives.tensor_sum(mm(attn.reshape(*h.shape[:-1], -1), lp["wo"]))
     return h_out, k, v, importance
 
 
@@ -293,17 +302,18 @@ def layer_mlp(lp: dict, h: torch.Tensor, cfg: LLMConfig, live=None) -> torch.Ten
     and pad rows out of the expert routing, so they claim no capacity slot;
     the capacity comes from the rows ``h`` physically holds (JAX's
     ``layer_mlp``). A batch routes each sequence on its own. The dense MLP
-    is per token and ignores ``live``."""
+    is per token and ignores ``live``. Under a tensor group the normed
+    input's gradient is summed over the group, as in ``layer_attention``."""
     if "router" in lp:
         if h.ndim == 3:
             return torch.stack([layer_mlp(lp, h[i], cfg, None if live is None else live[i])
                                 for i in range(h.shape[0])])
-        x = rmsnorm(h, lp["ln2"], cfg.rms_norm_eps)
+        x = collectives.tensor_input(rmsnorm(h, lp["ln2"], cfg.rms_norm_eps))
         y, _ = moe.sparse_mlp(lp, x, num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
                               norm_topk_prob=cfg.norm_topk_prob,
                               capacity=moe.moe_prefill_capacity(x.shape[0], cfg), live=live)
         return h + y
-    x = rmsnorm(h, lp["ln2"], cfg.rms_norm_eps)
+    x = collectives.tensor_input(rmsnorm(h, lp["ln2"], cfg.rms_norm_eps))
     gated = torch.nn.functional.silu(mm(x, lp["w_gate"])) * mm(x, lp["w_up"])
     return h + collectives.tensor_sum(mm(gated, lp["w_down"]))
 
@@ -372,20 +382,24 @@ def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][input_ids]
 
 
-def final_logits(params: dict, h: torch.Tensor, cfg: LLMConfig, use_mv: bool = False) -> torch.Tensor:
-    """fp32 logits of the rows of ``h``. ``use_mv`` (the decode-side
-    programs, (R, D) rows) reads an int8 head with kernel C as a one-layer
-    stack; a padded head's extra columns are cut."""
-    x = rmsnorm(h, params["final_norm"], cfg.rms_norm_eps)
+def head_logits(params: dict, h: torch.Tensor, cfg: LLMConfig, use_mv: bool = False) -> torch.Tensor:
+    """fp32 logits of the rows of ``h`` over this rank's vocabulary slice
+    (the whole vocabulary without a tensor group; a padded head's columns
+    included). ``use_mv`` (the decode-side programs, (R, D) rows) reads an
+    int8 head with kernel C as a one-layer stack."""
+    x = collectives.tensor_input(rmsnorm(h, params["final_norm"], cfg.rms_norm_eps))
     if cfg.tie_word_embeddings:
-        logits = (x @ params["embed"].T).to(torch.float32)
-    elif isinstance(params["lm_head"], dict) and use_mv:
+        return (x @ params["embed"].T).to(torch.float32)
+    if isinstance(params["lm_head"], dict) and use_mv:
         head = params["lm_head"]
-        logits = matvec_q8.matvec_q8(x.to(torch.bfloat16), head["q8"], head["scale"])
-    else:
-        logits = mm(x, params["lm_head"]).to(torch.float32)
-    # A tensor group's ranks hold the vocabulary's slices: gathered here.
-    return collectives.vocab_gather(logits)[..., :cfg.vocab_size]
+        return matvec_q8.matvec_q8(x.to(torch.bfloat16), head["q8"], head["scale"])
+    return mm(x, params["lm_head"]).to(torch.float32)
+
+
+def final_logits(params: dict, h: torch.Tensor, cfg: LLMConfig, use_mv: bool = False) -> torch.Tensor:
+    """fp32 logits of the rows of ``h`` (``head_logits``), a tensor group's
+    vocabulary slices gathered and a padded head's extra columns cut."""
+    return collectives.vocab_gather(head_logits(params, h, cfg, use_mv))[..., :cfg.vocab_size]
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,26 @@ reduce each element on one rank and send it on), so the host decisions that
 read a replicated value (merge counts, keep counts) agree on every rank.
 ``record()`` counts the collectives run in a block and the host seconds
 spent in them.
+
+Training differentiates through the same helpers. Where the input needs a
+gradient (and grad mode is on) each runs as an ``autograd.Function`` with
+the backward a sharded model needs, Megatron's pairs:
+
+* ``tensor_sum`` / ``embed_rows`` (a row-split product's partial sum, the
+  masked lookup): the sum forward, the identity backward;
+* ``tensor_input`` (the replicated input of column-split products: q / k /
+  v, gate / up, a vocabulary-split head): the identity forward, the sum of
+  the gradient over the group backward, since each rank's products give it
+  only a partial gradient;
+* ``vocab_gather``: the slices concatenated forward, this rank's slice of
+  the gradient backward;
+* ``expert_param`` (the router and the shared gate under tensor
+  parallelism, whose uses on a rank cover only its own experts or its
+  slice of the shared expert): the identity forward, the sum backward.
+
+``Group.send`` / ``Group.recv`` move a pipeline stage's activations and
+gradients; ``Group.all_reduce(op="max")`` is the vocabulary-split loss's
+max.
 """
 
 from __future__ import annotations
@@ -67,6 +87,26 @@ def record():
         _RECORDS.reset(token)
 
 
+def state():
+    """The active scope and records, for ``carried`` on another thread."""
+    return _SCOPE.get(), _RECORDS.get()
+
+
+@contextlib.contextmanager
+def carried(snapshot):
+    """Run the block under a ``state()`` taken on another thread: autograd
+    runs the backward of CUDA tensors (and the recomputation of a
+    checkpointed layer) on its device thread, which sees none of the
+    caller's context."""
+    scope, records = snapshot
+    t_scope, t_records = _SCOPE.set(scope), _RECORDS.set(records)
+    try:
+        yield
+    finally:
+        _RECORDS.reset(t_records)
+        _SCOPE.reset(t_scope)
+
+
 def _recorded(t0: float) -> None:
     seconds = time.perf_counter() - t0
     for rec in _RECORDS.get():
@@ -89,18 +129,20 @@ class Group:
     def _staged(self, x: torch.Tensor) -> bool:
         return self.backend == "gloo" and x.device.type != "cpu"
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the group (a new tensor for a staged one,
-        ``x`` reduced in place otherwise)."""
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (or with ``op="max"`` the largest) of ``x`` over the
+        group (a new tensor for a staged one, ``x`` reduced in place
+        otherwise)."""
         import torch.distributed as dist
 
         t0 = time.perf_counter()
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         if self._staged(x):
             host = x.to("cpu", torch.float32)
-            dist.all_reduce(host, group=self.group)
+            dist.all_reduce(host, op=red, group=self.group)
             x = host.to(x.device, x.dtype)
         else:
-            dist.all_reduce(x, group=self.group)
+            dist.all_reduce(x, op=red, group=self.group)
         _recorded(t0)
         return x
 
@@ -124,6 +166,29 @@ class Group:
             flat = torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
             dist.all_gather_into_tensor(flat, x, group=self.group)
             out = torch.cat(flat.unbind(0), dim=dim)
+        _recorded(t0)
+        return out
+
+    def send(self, x: torch.Tensor, to: int) -> None:
+        """Send ``x`` to the group's rank at place ``to`` (staged through the
+        host in fp32 under gloo, as a reduce is)."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        host = x.to("cpu", torch.float32) if self._staged(x) else x.contiguous()
+        dist.send(host, self.ranks[to], group=self.group)
+        _recorded(t0)
+
+    def recv(self, like: torch.Tensor, frm: int) -> torch.Tensor:
+        """A tensor of ``like``'s shape, dtype and device received from the
+        group's rank at place ``frm``."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        staged = self._staged(like)
+        buf = torch.empty(like.shape, dtype=torch.float32) if staged else torch.empty_like(like)
+        dist.recv(buf, self.ranks[frm], group=self.group)
+        out = buf.to(like.device, like.dtype) if staged else buf
         _recorded(t0)
         return out
 
@@ -193,10 +258,94 @@ def _tensor() -> Optional[Group]:
     return None if scope is None else scope.tensor
 
 
+def _differentiated(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Sum(torch.autograd.Function):
+    """The sum over a group forward, the identity backward: every rank
+    holds the same loss downstream of the sum, so each rank's partial input
+    takes the sum's gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        return g.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity forward, the sum of the gradient over a group backward."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g, ctx.state = g, state()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with carried(ctx.state):
+            return ctx.g.all_reduce(grad.clone()), None
+
+
+class _Gather(torch.autograd.Function):
+    """The ranks' slices concatenated along the last axis forward, this
+    rank's slice of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g, ctx.n = g, x.shape[-1]
+        return g.all_gather(x, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(-1, ctx.g.rank * ctx.n, ctx.n).contiguous(), None
+
+
+def group_sum(g: Group, x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over ``g``: ``g.all_reduce``, or under autograd the sum
+    with the identity backward (``_Sum``)."""
+    return _Sum.apply(x, g) if _differentiated(x) else g.all_reduce(x)
+
+
 def tensor_sum(x: torch.Tensor) -> torch.Tensor:
     """A row-split product's partial sum, summed over the tensor group."""
     g = _tensor()
-    return x if g is None else g.all_reduce(x)
+    return x if g is None else group_sum(g, x)
+
+
+def tensor_input(x: torch.Tensor) -> torch.Tensor:
+    """The replicated input of column-split products: itself forward; under
+    autograd its gradient (each rank's partial one) summed over the tensor
+    group backward."""
+    g = _tensor()
+    return _SumGrad.apply(x, g) if g is not None and _differentiated(x) else x
+
+
+def tensor_max(x: torch.Tensor) -> torch.Tensor:
+    """The largest of ``x`` over the tensor group (no gradient)."""
+    g = _tensor()
+    return x if g is None else g.all_reduce(x.detach().clone(), op="max")
+
+
+def tensor_rank() -> int:
+    """This rank's place in the tensor group (0 without one): its slice of
+    the vocabulary starts at that many slices."""
+    g = _tensor()
+    return 0 if g is None else g.rank
+
+
+def expert_param(w: torch.Tensor) -> torch.Tensor:
+    """A replicated leaf of the MoE block (the router, the shared gate)
+    whose uses on a rank cover only that rank's experts or its slice of the
+    shared expert: under tensor parallelism and autograd, its gradient is
+    summed over the group; the leaf itself otherwise."""
+    scope = current()
+    if scope is None or not shared_expert_split() or not _differentiated(w):
+        return w
+    return _SumGrad.apply(w, scope.expert)
 
 
 def tensor_mean(x: torch.Tensor) -> torch.Tensor:
@@ -209,7 +358,9 @@ def tensor_mean(x: torch.Tensor) -> torch.Tensor:
 def vocab_gather(x: torch.Tensor) -> torch.Tensor:
     """A vocabulary slice of logits (..., V / n) gathered to (..., V)."""
     g = _tensor()
-    return x if g is None else g.all_gather(x, dim=-1)
+    if g is None:
+        return x
+    return _Gather.apply(x, g) if _differentiated(x) else g.all_gather(x, dim=-1)
 
 
 def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -222,9 +373,10 @@ def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, -1)
     local = ids - g.rank * n
     inside = (local >= 0) & (local < n)
-    # index_select: indexing by a 0-d tensor would read it to the host.
-    rows = table.index_select(0, local.clamp(0, n - 1).reshape(-1)).reshape(*ids.shape, -1)
-    return g.all_reduce(rows * inside[..., None].to(table.dtype))
+    # A 1-d index (a 0-d one would read it to the host): the lookup, and its
+    # gradient's accumulation order, of the unsplit table's ``table[ids]``.
+    rows = table[local.clamp(0, n - 1).reshape(-1)].reshape(*ids.shape, -1)
+    return group_sum(g, rows * inside[..., None].to(table.dtype))
 
 
 def expert_shard(num_experts: int):

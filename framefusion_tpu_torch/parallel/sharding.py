@@ -21,6 +21,12 @@ dense MLP and its router and shared gate are whole. An int8 pair ``{"q8",
 "scale"}`` splits its q8 like the dense leaf and its column scales with the
 columns (whole where the rows split).
 
+``pipe_param_pspecs(cfg)`` is JAX's pipeline table: the layer stack split
+over ``stage`` along its layer axis, everything else whole.
+``shard_axis(mesh)`` is the one place a mesh's kind is read: the split
+axis (``tensor``, ``expert`` or ``stage``), this rank's place on it and on
+``data``, the layers it holds and its rows of a batch (``ShardAxis``).
+
 ``init_sharded_params`` draws random weights one (leaf, layer) at a time
 from the shared seed and keeps only the rank's shard, so no rank ever holds
 a whole stack; with no mesh it draws the same weights whole.
@@ -69,33 +75,67 @@ def mesh_device_type() -> str:
 
 @dataclasses.dataclass(frozen=True)
 class ShardAxis:
-    """The axis a mesh splits a model over: ``"tensor"`` (a ``(data,
-    tensor)`` mesh, ``param_pspecs``) or ``"expert"`` (a ``(data, expert)``
-    one, ``moe_pspecs``), this rank's place on it and its width."""
+    """A rank's place on a mesh: the axis the mesh splits the model over,
+    ``"tensor"`` (a ``(data, tensor)`` mesh, ``param_pspecs``), ``"expert"``
+    (a ``(data, expert)`` one, ``moe_pspecs``) or ``"stage"`` (a pipeline's
+    ``(data, stage)`` one, ``pipe_param_pspecs``: a contiguous block of
+    layers), this rank's place on it and its width, and its place on the
+    ``data`` axis. Built by ``shard_axis(mesh)``, or directly for a rank's
+    layout without a process group."""
 
     axis: str
     rank: int
     width: int
+    data_rank: int = 0
+    data_width: int = 1
 
     def specs(self, cfg: LLMConfig) -> dict:
-        """The stack's axis names for this split: ``param_pspecs(cfg)``, or
-        the expert stacks' ``moe_pspecs`` (a layer axis in front), every
-        other leaf whole."""
+        """The stack's axis names for this split: ``param_pspecs(cfg)``, the
+        expert stacks' ``moe_pspecs`` (a layer axis in front, every other
+        leaf whole) or ``pipe_param_pspecs(cfg)``."""
         if self.axis == "tensor":
             return param_pspecs(cfg)
+        if self.axis == "stage":
+            return pipe_param_pspecs(cfg)
         if not cfg.is_moe:
             raise ValueError("an expert mesh shards a MoE stack")
         return {"layers": {k: (None,) + v for k, v in moe_pspecs().items()}}
 
+    def layers(self, cfg: LLMConfig) -> tuple:
+        """``(first layer, layer count)`` this rank holds: its stage's block
+        on a ``stage`` axis, else the whole stack."""
+        if self.axis != "stage":
+            return 0, cfg.num_layers
+        if cfg.num_layers % self.width:
+            raise ValueError(f"{cfg.num_layers} layers do not split over {self.width} stages")
+        per = cfg.num_layers // self.width
+        return self.rank * per, per
+
+    def rows(self, ids: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous block of the rows of ``ids`` over the
+        ``data`` axis (JAX's ``P("data", None)``)."""
+        n = self.data_width
+        if ids.shape[0] % n:
+            raise ValueError(f"a batch of {ids.shape[0]} rows does not split over {n} data ranks")
+        per = ids.shape[0] // n
+        return ids[self.data_rank * per:(self.data_rank + 1) * per]
+
 
 def shard_axis(mesh) -> ShardAxis:
-    """``mesh``'s ``tensor`` or ``expert`` axis (``ShardAxis``)."""
+    """``mesh``'s ``tensor``, ``expert`` or ``stage`` axis and its ``data``
+    axis (``ShardAxis``); a ``ShardAxis`` is returned as it is."""
+    if isinstance(mesh, ShardAxis):
+        return mesh
     names = mesh.mesh_dim_names
-    for axis in ("tensor", "expert"):
+    data = {}
+    if "data" in names:
+        dim = names.index("data")
+        data = dict(data_rank=mesh.get_local_rank(dim), data_width=mesh.size(dim))
+    for axis in ("tensor", "expert", "stage"):
         if axis in names:
             dim = names.index(axis)
-            return ShardAxis(axis, mesh.get_local_rank(dim), mesh.size(dim))
-    raise ValueError(f"a mesh with a 'tensor' or an 'expert' axis, got {names}")
+            return ShardAxis(axis, mesh.get_local_rank(dim), mesh.size(dim), **data)
+    raise ValueError(f"a mesh with a 'tensor', an 'expert' or a 'stage' axis, got {names}")
 
 
 def param_pspecs(cfg: LLMConfig) -> dict:
@@ -115,6 +155,21 @@ def param_pspecs(cfg: LLMConfig) -> dict:
                        "shared_gate": (None, None, None)})
     if cfg.tie_word_embeddings:
         specs.pop("lm_head")
+    return specs
+
+
+def pipe_param_pspecs(cfg: LLMConfig) -> dict:
+    """JAX's ``pipe_param_pspecs``: the layer stack split over ``stage``
+    along its layer axis, everything else whole."""
+    two, three = ("stage", None), ("stage", None, None)
+    layers = {"ln1": two, "ln2": two, "wq": three, "wk": three, "wv": three, "bq": two, "bk": two, "bv": two,
+              "wo": three, "w_gate": three, "w_up": three, "w_down": three}
+    if not cfg.qkv_bias:
+        for k in ("bq", "bk", "bv"):
+            layers.pop(k)
+    specs = {"embed": (None, None), "layers": layers, "final_norm": (None,)}
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = (None, None)
     return specs
 
 
@@ -191,10 +246,13 @@ def _pad_vocab(params: dict, cfg: LLMConfig, n: int) -> dict:
 
 def shard_params(params: dict, cfg: LLMConfig, mesh) -> dict:
     """This rank's shard of ``params`` over ``mesh``'s ``tensor`` axis
-    (``param_pspecs``), or over its ``expert`` axis (``moe_pspecs`` on a
-    MoE stack: the expert stacks split, everything else whole)."""
+    (``param_pspecs``), over its ``expert`` axis (``moe_pspecs`` on a MoE
+    stack: the expert stacks split, everything else whole) or over its
+    ``stage`` axis (``pipe_param_pspecs``: the stage's block of layers,
+    everything else whole). ``mesh`` may be a ``ShardAxis``."""
     ax = shard_axis(mesh)
     specs = ax.specs(cfg)
+    ax.layers(cfg)  # a stage split refuses layers that do not split
     if ax.axis == "tensor":
         params = _pad_vocab(params, cfg, ax.width)
 
@@ -235,9 +293,11 @@ def init_sharded_params(cfg: LLMConfig, seed: int, mesh=None, *, device=None, in
     with ``quantize_lm_head``, padded as ``quantize_head`` pads it): a
     row-split leaf before it is split (its scales need the whole columns),
     any other after.
-    With ``mesh`` only this rank's shard of each matrix is kept
-    (``shard_params``'s split), so the peak beyond the shard is one layer's
-    matrix; without, the whole stack: the same weights on every layout."""
+    With ``mesh`` (or a ``ShardAxis``) only this rank's shard of each
+    matrix is kept (``shard_params``'s split; on a pipeline's ``(data,
+    stage)`` mesh the stage's layers, each drawn by its global index, and
+    the rest whole), so the peak beyond the shard is one layer's matrix;
+    without, the whole stack: the same weights on every layout."""
     from ..ops.quant import quantize_head, quantize_weight
     from ..weights import resolve_device
 
@@ -256,14 +316,14 @@ def init_sharded_params(cfg: LLMConfig, seed: int, mesh=None, *, device=None, in
 
     ax = ShardAxis("tensor", 0, 1) if mesh is None else shard_axis(mesh)
     axis, rank, n = ax.axis, ax.rank, ax.width
-    specs = {} if mesh is None else ax.specs(cfg)
+    first, n_l = ax.layers(cfg)
+    specs = {} if mesh is None or axis == "stage" else ax.specs(cfg)  # a stage's layers are whole
     lspecs = specs.get("layers", {})
 
     def draw(name, layer, shape):
         gen = torch.Generator(device=device).manual_seed(_seed(seed, name, layer))
         return torch.randn(shape, generator=gen, device=device, dtype=cfg.dtype).mul_(0.02)
 
-    n_l = cfg.num_layers
     layers = {}
     for name, shape in shapes.items():
         spec = lspecs.get(name)
@@ -272,7 +332,7 @@ def init_sharded_params(cfg: LLMConfig, seed: int, mesh=None, *, device=None, in
         # A row split needs the whole columns' scales: quantize, then split;
         # any other split quantizes the shard alone (the same numbers).
         rows_split = spec is not None and _axis_of(spec[1:], axis) == len(shape) - 2
-        for l in range(n_l):
+        for l in range(first, first + n_l):
             w = draw(name, l, shape)
             if spec is not None and not (quant and rows_split):
                 w = shard_leaf(w, spec[1:], rank, n, axis)

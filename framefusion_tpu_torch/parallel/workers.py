@@ -21,7 +21,19 @@ with a ``kind``:
   or ``ring``;
 * ``"moe_block"``: ``models/moe.moe_mlp(ep=mesh)`` on a block's shard;
 * ``"hold"``: rank ``rank`` sleeps ``seconds`` before a barrier of all
-  ranks (a slow or hung rank, for ``spawn``'s time limit).
+  ranks (a slow or hung rank, for ``spawn``'s time limit);
+* ``"train"``: ``train.make_train_step`` over a ``(data, tensor)`` mesh of
+  ``tensor`` ranks on the shard of ``params``: its AdamW steps (``lr``) on
+  ``batches`` (global (B, T) ids), returning the losses, the first step's
+  gradients and the final parameters of the rank's shard (numpy); with
+  ``probe`` ((B, T, V) weights), first the gradient of ``sum(probe *
+  forward_batched(batches[0]))``, the gathered logits under the mesh;
+* ``"pipe"``: the same for ``pipeline.make_pipe_train_step`` over a
+  ``(data, stage)`` mesh of ``stages`` stages and ``n_micro`` microbatches,
+  with ``pipeline_forward`` of ``batches[0]`` before the steps;
+* ``"refuse"``: the pipeline's refusals (a batch that does not split into
+  the microbatches, layers that do not split over the stages): their
+  messages.
 
 On the card at full width (each rank draws its own shard from a seed,
 ``sharding.init_sharded_params``; the ranks not in ``active`` only join the
@@ -36,7 +48,16 @@ mesh, so a 4-rank spawn can run a 2-rank job beside idle replicas):
 * ``"seq_full"``: the sequence-sharded prefill, gather then ring, timed;
 * ``"nccl_one"``: a world of one over NCCL: the engine with a mesh of one
   rank against the engine without, the decode graph captured with its
-  all-reduce inside.
+  all-reduce inside;
+* ``"train_full"`` / ``"pipe_full"``: a training step at full width, each
+  rank's shard drawn from ``seed`` (its pipeline stage's layers by their
+  global index): ``steps`` AdamW steps on one batch drawn from
+  ``ids_seed``, each step's loss, ms and collectives (calls and host
+  seconds), the peak memory, a digest of each leaf ``digests`` names
+  (None: every leaf) to hold the replicated ones bitwise equal across
+  ranks, and for a MoE stack ``router_stats`` after the steps;
+* ``"nccl_train_one"``: a world of one over NCCL: the training step with a
+  mesh of one rank against the step without, from the same weights.
 
 A prompt is ``(input_embeds, patch_type, position_ids, patch_num,
 image_token_start, image_token_length)`` as numpy, or ``{"video": kwargs}``:
@@ -58,13 +79,15 @@ class _Meshes(dict):
 
     def get_mesh(self, kind: str, width: int, world: int):
         from ..models.moe import make_expert_mesh
+        from .pipeline import make_pipe_mesh
         from .seq_shard import make_seq_mesh
         from .sharding import make_mesh
 
         if (kind, width) not in self:
             make = {"tensor": lambda: make_mesh(world, width),
                     "expert": lambda: make_expert_mesh(world, width, data=world // width),
-                    "seq": lambda: make_seq_mesh(world, width)}[kind]
+                    "seq": lambda: make_seq_mesh(world, width),
+                    "stage": lambda: make_pipe_mesh(world, width, data=world // width)}[kind]
             self[kind, width] = make()
         return self[kind, width]
 
@@ -461,8 +484,191 @@ def _hold_job(job: dict, world: int, device, meshes: _Meshes) -> dict:
     return {}
 
 
+# ---------------------------------------------------------------------------
+# Training across ranks
+
+
+def numpy_tree(tree):
+    """A params tree's leaves as fp32 numpy arrays."""
+    from .train import tree_map
+
+    return tree_map(lambda t: t.detach().float().cpu().numpy(), tree)
+
+
+def named_leaves(tree, prefix: str = "") -> dict:
+    """``{"/layers/wq": leaf, ...}``: a nested dict's leaves by path."""
+    if isinstance(tree, dict):
+        return {path: leaf for k, v in tree.items() for path, leaf in named_leaves(v, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
+def _grads(params):
+    from .train import tree_map
+
+    return tree_map(lambda t: (t.grad if t.grad is not None else torch.zeros_like(t)).float().cpu().numpy(), params)
+
+
+def _place(mesh) -> dict:
+    return {name: mesh.get_local_rank(i) for i, name in enumerate(mesh.mesh_dim_names)}
+
+
+def _train_job(job: dict, world: int, device, meshes: _Meshes) -> dict:
+    """A tiny step over a (data, tensor) or a (data, stage) mesh (module
+    docstring)."""
+    from . import collectives, pipeline, train
+    from .sharding import shard_params
+
+    cfg, pipe = job["cfg"], job["kind"] == "pipe"
+    mesh = meshes.get_mesh("stage", job["stages"], world) if pipe else meshes.get_mesh("tensor", job["tensor"], world)
+    # A copy: the steps update the leaves in place, and the jobs of one call may share a numpy tree.
+    whole = train.tree_map(torch.clone, _tensors(job["params"], device, cfg.dtype))
+    shard = pipeline.shard_params_pipe(whole, cfg, mesh) if pipe else shard_params(whole, cfg, mesh)
+    opt = train.make_optimizer(job["lr"])
+    out = {"place": _place(mesh)}
+    if pipe:
+        out["logits"] = pipeline.pipeline_forward(shard, job["batches"][0], cfg, mesh,
+                                                  job["n_micro"]).float().cpu().numpy()
+        step, init = pipeline.make_pipe_train_step(cfg, mesh, job["n_micro"], opt, device=device)
+    else:
+        step, init = train.make_train_step(cfg, device, opt, mesh=mesh)
+    params, state = init(shard)
+    if "probe" in job:  # the gradient of sum(forward_batched * probe) over the rank's leaves: through the gather
+        from .sharding import local_config, mesh_scope
+
+        with collectives.use(mesh_scope(mesh)):
+            logits = train.forward_batched(params, torch.from_numpy(job["batches"][0]).to(device),
+                                           local_config(cfg, job["tensor"]))
+            (logits * torch.from_numpy(job["probe"]).to(device)).sum().backward()
+        out["probe_grads"] = _grads(params)
+        state.zero_grad(set_to_none=True)
+    losses = []
+    for i, ids in enumerate(job["batches"]):
+        params, state, loss = step(params, state, torch.from_numpy(ids))
+        losses.append(float(loss))
+        if i == 0:
+            out["grads"] = _grads(params)
+    out.update(losses=losses, params=numpy_tree(params))
+    return out
+
+
+def _refuse_job(job: dict, world: int, device, meshes: _Meshes) -> dict:
+    from . import pipeline
+
+    mesh = meshes.get_mesh("stage", job["stages"], world)
+    cfg, params = job["cfg"], _tensors(job["params"], device, job["cfg"].dtype)
+    out = {}
+    for name, run in (("batch", lambda: pipeline.pipeline_forward(params, job["ids"][:3], cfg, mesh, 2)),
+                      ("layers", lambda: pipeline.pipeline_forward(params, job["ids"], cfg.replace(num_layers=6),
+                                                                   mesh, 2))):
+        try:
+            run()
+            out[name] = None
+        except ValueError as exc:
+            out[name] = str(exc)
+    return out
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def router_stats(params: dict, ids: torch.Tensor, cfg) -> list:
+    """Each MoE layer's ``load_balancing_loss`` over its router's probs and
+    top-k choices in a no-grad forward of ``ids`` (every sequence's tokens
+    together), and its capacity drops (routed rows, capacity, dropped
+    choices a sequence); ``cfg`` is the rank's local config."""
+    from ..models import moe, qwen2
+
+    mcfg = moe.MoeConfig(cfg.hidden_size, cfg.moe_intermediate_size, cfg.shared_expert_intermediate_size,
+                         cfg.num_experts, cfg.num_experts_per_tok, cfg.norm_topk_prob)
+    cos, sin = qwen2.positions_cos_sin(torch.arange(ids.shape[1], device=ids.device), cfg)
+    layers, out = params["layers"], []
+    with torch.no_grad():
+        h = qwen2.embed(params, ids)
+        for l in range(layers["ln1"].shape[0]):
+            lp = qwen2.layer_slice(layers, l)
+            h = qwen2.layer_attention(lp, h, cos, sin, cfg)[0]
+            _, idx, probs = moe.router_probs(lp, qwen2.rmsnorm(h, lp["ln2"], cfg.rms_norm_eps).flatten(0, 1), mcfg)
+            with moe.record_drops() as drops:
+                h = qwen2.layer_mlp(lp, h, cfg)
+            out.append({"lb_loss": float(moe.load_balancing_loss(probs, idx, mcfg)),
+                        "drops": [(rows, c, int(d)) for rows, c, d in drops]})
+    return out
+
+
+def _train_full_job(job: dict, world: int, device, meshes: _Meshes) -> dict:
+    """A full-width step on the card (module docstring)."""
+    from . import collectives, pipeline, train
+    from .sharding import init_sharded_params, local_config, mesh_scope, shard_axis
+
+    cfg, pipe = job["cfg"], job["kind"] == "pipe_full"
+    mesh = meshes.get_mesh("stage", job["stages"], world) if pipe else meshes.get_mesh("tensor", job["tensor"], world)
+    if str(device).startswith("cuda"):
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = _synced(device)
+    params = init_sharded_params(cfg, job["seed"], mesh, device=device)
+    opt = train.make_optimizer(job["lr"])
+    if pipe:
+        step, init = pipeline.make_pipe_train_step(cfg, mesh, job["n_micro"], opt, device=device)
+    else:
+        step, init = train.make_train_step(cfg, device, opt, mesh=mesh)
+    params, state = init(params)
+    ids = torch.from_numpy(np.random.default_rng(job["ids_seed"]).integers(0, cfg.vocab_size, job["batch"]))
+    out = {"place": _place(mesh), "losses": [], "ms": [], "calls": [], "collective_s": [],
+           "wait_s": [], "schedule_s": [], "init_s": _synced(device) - t0}
+    for _ in range(job["steps"]):
+        with collectives.record() as rec:
+            t0 = _synced(device)
+            params, state, loss = step(params, state, ids)
+            t1 = _synced(device)
+        out["losses"].append(float(loss))
+        out["ms"].append((t1 - t0) * 1e3)
+        out["calls"].append(rec.calls)
+        out["collective_s"].append(rec.seconds)
+        if pipe:
+            out["wait_s"].append(step.stats["wait_s"])
+            out["schedule_s"].append(step.stats["schedule_s"])
+    t0 = time.perf_counter()
+    keep = job.get("digests")
+    out["digests"] = {name: _digest(t) for name, t in named_leaves(params).items()
+                      if keep is None or name in keep}
+    out["digest_s"] = time.perf_counter() - t0
+    if cfg.is_moe:
+        rows = shard_axis(mesh).rows(ids.to(device))
+        with collectives.use(mesh_scope(mesh)):
+            out["router"] = router_stats(params, rows, local_config(cfg, job["tensor"]))
+    out["max_memory_gb"] = _max_memory_gb(device)
+    del params, state, step, init
+    _free(device)
+    return out
+
+
+def _nccl_train_one_job(job: dict, world: int, device, meshes: _Meshes) -> dict:
+    """A world of one over NCCL: the step with a one-rank mesh against the
+    step without, from the same weights; every leaf's digest and the
+    losses of each."""
+    from . import train
+
+    cfg = job["cfg"]
+    mesh = meshes.get_mesh("tensor", 1, world)
+    out = {}
+    for name, m in (("alone", None), ("mesh", mesh)):
+        step, init = train.make_train_step(cfg, device, train.make_optimizer(job["lr"]), mesh=m)
+        params, state = init(train.tree_map(torch.clone, _tensors(job["params"], device, cfg.dtype)))
+        losses = []
+        for ids in job["batches"]:
+            params, state, loss = step(params, state, torch.from_numpy(ids))
+            losses.append(float(loss))
+        out[name] = {"losses": losses, "digests": {n: _digest(t) for n, t in named_leaves(params).items()}}
+    return out
+
+
 JOBS = {"tp": _engine_job, "ep": _engine_job, "seq": _seq_job, "moe_block": _moe_block_job, "hold": _hold_job,
-        "full": _full_job, "seq_full": _seq_full_job, "nccl_one": _nccl_one_job}
+        "full": _full_job, "seq_full": _seq_full_job, "nccl_one": _nccl_one_job, "train": _train_job,
+        "pipe": _train_job, "refuse": _refuse_job, "train_full": _train_full_job, "pipe_full": _train_full_job,
+        "nccl_train_one": _nccl_train_one_job}
 
 
 def run_jobs(rank: int, world: int, device: str, jobs: list) -> list:

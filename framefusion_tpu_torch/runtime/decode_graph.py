@@ -63,6 +63,7 @@ the wrappers recorded while it was captured).
 
 from __future__ import annotations
 
+import gc
 from collections import Counter
 
 import numpy as np
@@ -103,8 +104,16 @@ def capture_graph(body, device, warmup=None) -> "torch.cuda.CUDAGraph":
     # Under a collectives scope the NCCL watchdog thread queries its events
     # while this thread captures: only this thread's calls are checked.
     mode = "global" if collectives.current() is None else "thread_local"
-    with torch.cuda.graph(graph, stream=stream, capture_error_mode=mode):
-        body()
+    # No garbage collection inside the capture: freeing an unreachable graph
+    # there (its destructor is a CUDA call) invalidates the capture.
+    collect = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode=mode):
+            body()
+    finally:
+        if collect:
+            gc.enable()
     return graph
 
 

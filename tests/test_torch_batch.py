@@ -377,7 +377,7 @@ def test_roadmap_items_the_port_names_exist():
                 for m in re.findall(r"^\s*\d+\.\s+\*\*(.+?)\*\*", (root / "ROADMAP.md").read_text(), re.M)}
     named = {m for p in (root / "framefusion_tpu_torch").rglob("*.py")
              for m in re.findall(r'ROADMAP item "([^"]+)"', p.read_text())}
-    assert named >= {"parallel/"}
+    assert "A port bench" in headings  # the headings parse (the port names no open item since training ranks)
     assert named <= headings, named - headings
     assert not [p.name for p in (root / "framefusion_tpu_torch").rglob("*.py")
                 if re.search(r"ROADMAP Queue \d+ item \d+", p.read_text())]

@@ -435,3 +435,30 @@ def test_expert_parallel_keeps_jax_choices(block, ep_runs, cap):
     want, outs = ep_runs
     kept_j = _kept(want[len(EP_CAPS) + cap][0], cfg)
     assert all(_kept(rank[len(EP_CAPS) + cap]["y"], cfg) == kept_j for rank in outs)
+
+
+# -- the router's auxiliary loss ---------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_load_balancing_loss_matches_jax(seed):
+    """``load_balancing_loss`` of random router probs and their top-k
+    choices: JAX's within 1e-6."""
+    cfg = jmoe.tiny_moe_config(num_experts=8, top_k=2)
+    rng = np.random.default_rng(seed)
+    probs = rng.dirichlet(np.ones(8), size=S).astype(np.float32)
+    idx = np.argsort(-probs, axis=-1, kind="stable")[:, :2].astype(np.int32)
+    want = float(jmoe.load_balancing_loss(jnp.asarray(probs), jnp.asarray(idx), cfg))
+    tcfg = tmoe.tiny_moe_config(num_experts=8, top_k=2)
+    got = tmoe.load_balancing_loss(torch.from_numpy(probs), torch.from_numpy(idx), tcfg)
+    assert got.dtype == torch.float32 and got.ndim == 0
+    assert abs(float(got) - want) <= 1e-6, (float(got), want)
+
+
+def test_load_balancing_loss_of_a_balanced_router_is_one():
+    """Uniform probs and choices spread evenly over the experts: every
+    expert takes S * k / E choices and mean prob 1 / E, so the loss is 1."""
+    cfg = tmoe.tiny_moe_config(num_experts=4, top_k=2)
+    probs = torch.full((S, 4), 0.25)
+    idx = torch.stack([torch.arange(S) % 4, (torch.arange(S) + 1) % 4], dim=-1)
+    assert abs(float(tmoe.load_balancing_loss(probs, idx, cfg)) - 1.0) <= 1e-6

@@ -17,7 +17,9 @@ builds it. Tolerances:
   gradient is tiny moves by up to lr a step in a direction set by rounding
   (observed 2.1e-5, 0.7% of 3 * lr);
 * the rematerialised forward against the plain one: the same gradients,
-  bitwise (the recomputation repeats the same CPU ops).
+  bitwise (the recomputation repeats the same CPU ops);
+* the tiny Qwen2-MoE stack under the same bounds (its routing and
+  capacity as JAX's).
 """
 
 import jax
@@ -28,6 +30,7 @@ import torch
 from jax.sharding import Mesh
 
 from framefusion_tpu.config import tiny_llm_config as jax_tiny
+from framefusion_tpu.config import tiny_moe_llm_config as jax_tiny_moe
 from framefusion_tpu.models import qwen2 as jq
 from framefusion_tpu.parallel import train as jt
 from framefusion_tpu_torch.config import qwen2_7b_config, tiny_llm_config, tiny_moe_llm_config
@@ -160,15 +163,55 @@ def test_init_makes_every_leaf_trainable():
 
 
 def test_refuses_int8_moe_and_no_card():
+    """int8 pairs and, without a card, the default device are refused (a
+    MoE stack now trains: ``test_moe_step_matches_jax``)."""
     cfg = tiny_llm_config(num_layers=2)
     _, init = tt.make_train_step(cfg, device="cpu")
     with pytest.raises(ValueError, match="int8"):
         init(quantize_params_int8(tq.init_params(cfg, torch.Generator().manual_seed(0))))
-    with pytest.raises(NotImplementedError):
-        tt.make_train_step(tiny_moe_llm_config(num_layers=2), device="cpu")
     if not torch.cuda.is_available():  # the card by default: no quiet fallback to the CPU
         with pytest.raises(RuntimeError, match="CUDA"):
             tt.make_train_step(cfg)
+
+
+def test_moe_step_matches_jax():
+    """The tiny Qwen2-MoE stack (4 experts, top-2, a shared expert; each
+    sequence routed on its own at the capacity of its T, as JAX's vmapped
+    ``layer_mlp``): the first step's gradients, the router's among them,
+    within GRAD_RTOL of ``jax.grad(lm_loss)``; three AdamW steps' losses
+    and parameters within the dense step's bounds."""
+    jcfg = jax_tiny_moe(num_layers=2)
+    cfg = tiny_moe_llm_config(num_layers=2)
+    jp = jq.init_params(jcfg, jax.random.PRNGKey(3))
+    rng = np.random.default_rng(3)
+    batches = [rng.integers(0, cfg.vocab_size, (B, T)) for _ in range(STEPS)]
+    mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("data", "tensor"))
+    with mesh:
+        grads = jax.device_get(jax.grad(jt.lm_loss)(jp, jnp.asarray(batches[0]), jcfg))
+    step, init, _ = jt.make_train_step(jcfg, mesh, jt.make_optimizer(LR))
+    start = jax.device_get(jp)
+    with mesh:
+        jp, js = init(jp)
+        j_losses = []
+        for b in batches:
+            jp, js, loss = step(jp, js, jnp.asarray(b))
+            j_losses.append(float(loss))
+
+    t_step, t_init = tt.make_train_step(cfg, device="cpu", optimizer=tt.make_optimizer(LR))
+    params, opt = t_init(tq.params_from_numpy(start, device="cpu"))
+    t_losses = []
+    for i, b in enumerate(batches):
+        params, opt, loss = t_step(params, opt, b)
+        t_losses.append(float(loss))
+        if i == 0:
+            for name, p, want in pairs(params, grads):
+                err = np.abs(p.grad.numpy() - want).max() / np.abs(want).max()
+                assert err <= GRAD_RTOL, (name, err)
+    assert np.abs(params["layers"]["router"].grad.numpy()).max() > 0
+    np.testing.assert_allclose(t_losses, j_losses, rtol=LOGIT_RTOL)
+    for name, p, want in pairs(params, jax.device_get(jp)):
+        err = np.abs(p.detach().numpy() - want).max()
+        assert err <= STEP_PARAM_TOL, (name, err)
 
 
 def test_step_gemm_flops_hand_count():
