@@ -137,6 +137,23 @@ Phases, each printed as it runs; every run makes all of them:
              FrameFusion and dense, encode and pixels-to-answer times, kernel
              launch counts read around the FrameFusion run, then the W8A8
              tower once.
+6b. checkpoint — the checkpoint entry point at full size: phase 6's seeded
+             model (drawn again on the card) written as a
+             LLaVA-Video-7B-Qwen2 hub directory (``config.json`` with
+             ``LlavaQwenForCausalLM`` and a SigLIP ``vision_config``, bf16
+             shards of at most 5 GB, ``model.safetensors.index.json``; HF's
+             names and layouts) into the temporary directory, then, in a
+             process of its own, ``TextPipeline.from_checkpoint(dir,
+             cost=0.3, quantize="int8")`` under ``runtime.profiling.trace``:
+             the seconds of the loader's stages (its spans in the trace),
+             of the copies to the card, the host's peak RSS (VmHWM) and the
+             card's memory; every loaded leaf bit for bit against an
+             in-memory twin of the same seeded tensors (the whole decoder
+             quantized by ``quantize_params_int8``); ``ask`` on phase 6's frames
+             through both: events, every layer's cache, the first-token
+             logits and 8 tokens equal; launches counted around the loaded
+             pipeline's ask; its pixels to answer timed. The directory is
+             deleted at the end, whatever the checks found.
 7. cross_baselines — the tiny model of phase 3 through every baseline
              method (FastV, StreamingLLM with kernel F, fixed-schedule merging,
              merge->FastV, FastV->merge, the sink-cache decode) via
@@ -339,8 +356,8 @@ Phases, each printed as it runs; every run makes all of them:
              (phase 3b's MoE model, 8 experts). Each held against the one-
              process run on its own device: events equal on every rank,
              first-token logits within LOGIT_RTOL, greedy tokens equal.
-19. parallel — the same at full width on the card. (a) Qwen2-7B, 28
-             layers, bf16 random weights drawn a (leaf, layer) at a time
+19. parallel — the same at full width on the card. (a) Qwen2-7B, 8 of
+             its 28 layers (PAR_LAYERS: the run's time limit), bf16 random weights drawn a (leaf, layer) at a time
              from a seed (``sharding.init_sharded_params``), the main-path
              prompt (11,697 tokens): the fused prefill at TP = 4 and TP = 2
              (gloo ranks on the one card) against the one-process run:
@@ -375,17 +392,18 @@ Phases, each printed as it runs; every run makes all of them:
              every rank. Then a world of one over NCCL: the step with a mesh
              bitwise the step without. NCCL across ranks runs only with two
              cards or more.
-21. train_ranks — training across ranks at full width on the card, a spawn
-             a run (gloo ranks sharing cuda:0, the collectives staged through
+21. train_ranks — training across ranks at full width on the card, one
+             spawn for (a)-(c) and one for (d) (gloo ranks sharing cuda:0, the collectives staged through
              the host: not a multi-card speed), each run's ms / step (median
              of steps 2+), tokens/s, peak GB a rank and collective calls,
-             host seconds and share: (a) Qwen2-7B, all 28 layers, TP 4, B 1
+             host seconds and share; the depths of (a)-(c) are cut for the
+             run's time limit: (a) Qwen2-7B, 8 of its 28 layers, TP 4, B 1
              x T 2,048, 3 AdamW steps (AdamW fused on the card: no
              whole-list temporaries):
              the first loss within TRAIN_BF16_LOSS_TOL of a one-process
-             no-grad forward of the same weights, the loss falls; (b) 4
+             no-grad forward of the same weights, the loss falls; (b) 2
              layers, TP 2 x DP 2, B 2 x T 2,048: the replicated leaves
-             bitwise equal on the four ranks; (c) the pipeline, 8 layers, 4
+             bitwise equal on the four ranks; (c) the pipeline, 4 layers, 4
              stages, 4 microbatches, B 4 x T 1,024: the first loss against
              the one-process ``lm_loss``, the bubble share (the stages' time
              in receives) beside GPipe's (S - 1) / (M + S - 1), the
@@ -1823,6 +1841,321 @@ def phase_pixels(chk: Checks, kernels: dict) -> None:
     log(f"  W8A8 tower: encode {t_enc_q:.2f} ms (bf16 {t_enc:.2f}), cosine to the bf16 features {cos:.5f}")
     chk.expect(feats_q.shape == feats.shape and bool(torch.isfinite(feats_q).all()),
                "W8A8 tower: features finite, same shape")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: the checkpoint entry point
+
+# The hub's shard size (``max_shard_size="5GB"``).
+CKPT_SHARD_BYTES = 5 * 10**9
+
+
+def ckpt_model(cfg, vcfg, device):
+    """Phase 6's seeded model: the decoder (seed 0), the SigLIP tower (seed
+    1) and the projector (seed 2, bf16), drawn on ``device``."""
+    from framefusion_tpu_torch.models import qwen2
+    from framefusion_tpu_torch.models.vision import llava_frontend, siglip
+
+    params = qwen2.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    vit = siglip.init_params(vcfg, torch.Generator(device=device).manual_seed(1))
+    proj = llava_frontend.init_projector(torch.Generator(device=device).manual_seed(2), vcfg.hidden_size,
+                                         cfg.hidden_size, dtype=torch.bfloat16)
+    return params, vit, proj
+
+
+def hub_tensors(cfg, vcfg, params, vit, proj) -> list:
+    """``(HF name, view)`` of every tensor of a LLaVA-Video-7B-Qwen2
+    (``LlavaQwenForCausalLM``) hub checkpoint holding ``params``, ``vit``
+    and ``proj``, in HF's names and ``(out, in)`` layouts: the inverse of
+    ``weights.params_from_state_dict``, ``siglip.params_from_hf`` and the
+    ``mm_projector.{0,2}`` import, written out here on their own."""
+    ly, out = params["layers"], [("model.embed_tokens.weight", params["embed"])]
+    for l in range(cfg.num_layers):
+        p = f"model.layers.{l}."
+        out += [(p + "input_layernorm.weight", ly["ln1"][l]), (p + "post_attention_layernorm.weight", ly["ln2"][l])]
+        for hf, ours in (("q", "q"), ("k", "k"), ("v", "v")):
+            out += [(p + f"self_attn.{hf}_proj.weight", ly[f"w{ours}"][l].T),
+                    (p + f"self_attn.{hf}_proj.bias", ly[f"b{ours}"][l])]
+        out += [(p + "self_attn.o_proj.weight", ly["wo"][l].T), (p + "mlp.gate_proj.weight", ly["w_gate"][l].T),
+                (p + "mlp.up_proj.weight", ly["w_up"][l].T), (p + "mlp.down_proj.weight", ly["w_down"][l].T)]
+    out += [("model.norm.weight", params["final_norm"]), ("lm_head.weight", params["lm_head"].T)]
+    vl, t = vit["layers"], "model.vision_tower.vision_tower.vision_model."
+    out += [(t + "embeddings.patch_embedding.weight", vit["patch_kernel"].permute(3, 2, 0, 1)),
+            (t + "embeddings.patch_embedding.bias", vit["patch_bias"]),
+            (t + "embeddings.position_embedding.weight", vit["pos_embed"]),
+            (t + "post_layernorm.weight", vit["post_ln_w"]), (t + "post_layernorm.bias", vit["post_ln_b"])]
+    for l in range(vcfg.num_layers):
+        p = f"{t}encoder.layers.{l}."
+        out += [(p + "layer_norm1.weight", vl["ln1_w"][l]), (p + "layer_norm1.bias", vl["ln1_b"][l]),
+                (p + "layer_norm2.weight", vl["ln2_w"][l]), (p + "layer_norm2.bias", vl["ln2_b"][l])]
+        for hf, ours in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("out_proj", "o")):
+            out += [(p + f"self_attn.{hf}.weight", vl[f"w{ours}"][l].T), (p + f"self_attn.{hf}.bias", vl[f"b{ours}"][l])]
+        out += [(p + "mlp.fc1.weight", vl["w_fc1"][l].T), (p + "mlp.fc1.bias", vl["b_fc1"][l]),
+                (p + "mlp.fc2.weight", vl["w_fc2"][l].T), (p + "mlp.fc2.bias", vl["b_fc2"][l])]
+    out += [("model.mm_projector.0.weight", proj["w1"].T), ("model.mm_projector.0.bias", proj["b1"]),
+            ("model.mm_projector.2.weight", proj["w2"].T), ("model.mm_projector.2.bias", proj["b2"]),
+            ("model.image_newline", proj["image_newline"])]
+    return out
+
+
+def hub_config(cfg, vcfg) -> dict:
+    """config.json of a LLaVA-Video-7B-Qwen2 hub directory at ``cfg`` and
+    ``vcfg``'s geometry, with a SigLIP ``vision_config``."""
+    return {"architectures": ["LlavaQwenForCausalLM"], "model_type": "llava_qwen", "torch_dtype": "bfloat16",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps, "tie_word_embeddings": False,
+            "vision_config": {"model_type": "siglip_vision_model", "image_size": vcfg.image_size,
+                              "patch_size": vcfg.patch_size, "hidden_size": vcfg.hidden_size,
+                              "intermediate_size": vcfg.intermediate_size,
+                              "num_hidden_layers": vcfg.num_layers, "num_attention_heads": vcfg.num_heads}}
+
+
+def write_hub_dir(path: str, config: dict, tensors: list, shard_bytes: int = CKPT_SHARD_BYTES) -> int:
+    """Write ``tensors`` (``(name, tensor)``, any device) as bf16 safetensors
+    shards of at most ``shard_bytes`` (a tensor larger than that gets a
+    shard of its own), ``model.safetensors.index.json`` and ``config.json``
+    into ``path``: the hub layout, with the safetensors format written out
+    by hand (8-byte little-endian header length, the JSON header padded with
+    spaces to 8 bytes, the raw bytes). One tensor at a time is on the host.
+    Returns the tensors' bytes."""
+    groups, size = [[]], 0
+    for name, t in tensors:
+        n = t.numel() * 2
+        if groups[-1] and size + n > shard_bytes:
+            groups.append([])
+            size = 0
+        groups[-1].append((name, t))
+        size += n
+    weight_map, total = {}, 0
+    for i, group in enumerate(groups):
+        fname = f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors"
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for name, t in group:
+            header[name] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [offset, offset + t.numel() * 2]}
+            offset += t.numel() * 2
+        blob = json.dumps(header).encode()
+        blob += b" " * (-len(blob) % 8)
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(len(blob).to_bytes(8, "little"))
+            f.write(blob)
+            for name, t in group:
+                f.write(t.to(torch.bfloat16).contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+                weight_map[name] = fname
+        total += offset
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    return total
+
+
+def _proc_status_kib(field: str):
+    """A ``/proc/self/status`` field in KiB (``VmHWM``, ``VmRSS``), or None
+    where the file lacks it."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith(field + ":"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return None
+
+
+def _leaf_checks(got, want, prefix: str = "") -> list:
+    """``(name, equal)`` for each leaf of ``want``: ``got``'s leaf has its
+    keys, dtype, shape and every bit."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            return [(f"{prefix} (keys {sorted(got) if isinstance(got, dict) else type(got)} vs {sorted(want)})",
+                     False)]
+        return [c for k in want for c in _leaf_checks(got[k], want[k], f"{prefix}/{k}")]
+    same = (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)))
+    return [(f"{prefix} ({got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)})", same)]
+
+
+def checkpoint_run(ckpt_dir: str, cfg, vcfg, n_frames: int = 64, device: str = "cuda") -> dict:
+    """Phase 6b's measured half, run in a process of its own (so the load
+    starts cold and ``VmHWM`` is its own): ``TextPipeline.from_checkpoint``
+    of ``ckpt_dir`` in int8 under ``profiling.trace``, each loaded leaf against an in-memory twin of
+    phase 6's seeded model (its decoder quantized on ``device`` by
+    ``quantize_params_int8``, its projector in fp32), then ``ask`` on phase
+    6's coherent frames through both (launches counted around the loaded
+    pipeline's), then the loaded pipeline's pixels to answer timed.
+    Returns what the parent checks and logs."""
+    import shutil
+    import tempfile
+
+    from framefusion_tpu_torch import native
+    from framefusion_tpu_torch.interface import FAMILIES, FrameFusionModel, apply_framefusion
+    from framefusion_tpu_torch.ops.quant import quantize_params_int8
+    from framefusion_tpu_torch.pipeline import TextPipeline
+    from framefusion_tpu_torch.runtime import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    native.load(required=True)
+    on_card = device == "cuda"
+    out = {"rss_before_kib": _proc_status_kib("VmRSS")}
+    trace_dir = tempfile.mkdtemp(prefix="ff_load_trace_")
+    try:
+        with profiling.trace(trace_dir):  # the trace is written out after the block, outside load_s
+            t0 = time.perf_counter()
+            pipe = TextPipeline.from_checkpoint(ckpt_dir, cost=0.3, quantize="int8", tokenizer=StubTokenizer(),
+                                                device=device)
+            if on_card:
+                torch.cuda.synchronize()
+            out["load_s"] = time.perf_counter() - t0
+        (trace_file,) = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, trace_file)) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    # The load's stages are weights.load_checkpoint's record_function spans;
+    # the host-to-card copies are the trace's device memcpy events.
+    stages: dict = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("weights."):
+            stages[e["name"]] = stages.get(e["name"], 0.0) + e["dur"] / 1e6
+    upload_us = sum(e["dur"] for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""))
+    out.update(stages={k: round(v, 3) for k, v in stages.items()}, upload_s=upload_us / 1e6 if on_card else None,
+               vm_hwm_kib=_proc_status_kib("VmHWM"), card_bytes=torch.cuda.memory_allocated() if on_card else None)
+    import resource
+
+    out["ru_maxrss_kib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    model = pipe.model
+    out["family"], out["cfg_equal"] = model.family, (model.cfg == cfg, pipe.vit_cfg == vcfg)
+
+    params, vit, proj = ckpt_model(cfg, vcfg, device)
+    params = quantize_params_int8(params)
+    proj = {k: v.float() for k, v in proj.items()}
+    leaves = (_leaf_checks(model.params, params, "llm") + _leaf_checks(pipe.vit_params, vit, "tower")
+              + _leaf_checks(pipe.projector, proj, "projector"))
+    out["leaves"], out["leaf_diffs"] = len(leaves), [name for name, same in leaves if not same]
+
+    twin = apply_framefusion(FrameFusionModel(family="llava_video", cfg=cfg, params=params),
+                             0.3, FAMILIES["llava_video"].default_similarity_lower_bound, 0.1)
+    twin_pipe = TextPipeline(model=twin, tokenizer=StubTokenizer(), vit_params=vit, vit_cfg=vcfg, projector=proj)
+    frames = coherent_frames(np.random.default_rng(0), n_frames, 360, 480)
+    wrappers = _all_wrappers()
+    runs = {}
+    for tag, p in (("loaded", pipe), ("twin", twin_pipe)):
+        _zero_counts(wrappers)
+        toks = [int(t) for t in p.ask(QUESTION, frames=frames, max_new_tokens=8).split()]
+        if on_card:
+            torch.cuda.synchronize()
+        res = p.last_result
+        runs[tag] = dict(tokens=toks, events=_events(res), logits=res.logits.float().cpu(),
+                         caches=[(k.cpu(), v.cpu(), n) for k, v, n in res.layer_caches],
+                         mode=res.mode, valid_len=res.valid_len, launches=_ran(wrappers))
+    a, b = runs["loaded"], runs["twin"]
+    out.update(tokens=a["tokens"], twin_tokens=b["tokens"], events=a["events"], twin_events=b["events"],
+               mode=a["mode"], valid_len=a["valid_len"], launches=a["launches"], twin_launches=b["launches"],
+               logits_equal=torch.equal(a["logits"], b["logits"]),
+               logits_finite=bool(torch.isfinite(a["logits"]).all()),
+               logits_max_diff=float((a["logits"] - b["logits"]).abs().max()),
+               caches_equal=len(a["caches"]) == len(b["caches"]) and all(
+                   x[2] == y[2] and torch.equal(x[0][:x[2]], y[0][:y[2]]) and torch.equal(x[1][:x[2]], y[1][:y[2]])
+                   for x, y in zip(a["caches"], b["caches"])),
+               cache_lens=[c[2] for c in a["caches"]])
+    del runs, twin_pipe, twin, params, vit
+    if on_card:
+        out["pixels_to_answer_ms"] = cuda_time_ms(lambda: pipe.ask(QUESTION, frames=frames, max_new_tokens=8),
+                                                  iters=3, warmup=1)
+        out["card_peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def phase_checkpoint(chk: Checks, kernels: dict, cfg=None, vcfg=None, n_frames: int = 64,
+                     device: str = "cuda") -> None:
+    """Phase 6b (module docstring): write phase 6's seeded model as a hub
+    directory, then load it and answer in a process of its own."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from framefusion_tpu_torch.config import qwen2_7b_config
+    from framefusion_tpu_torch.models.vision import siglip
+
+    cfg = cfg or qwen2_7b_config()
+    vcfg = vcfg or siglip.ViTConfig(dtype=torch.bfloat16)
+    room = shutil.disk_usage(tempfile.gettempdir()).free
+    t0 = time.perf_counter()
+    params, vit, proj = ckpt_model(cfg, vcfg, device)
+    tensors = hub_tensors(cfg, vcfg, params, vit, proj)
+    need = sum(t.numel() * 2 for _, t in tensors)
+    log(f"  hub dir: {len(tensors)} tensors, {need / 1e9:.3f} GB in bf16; {room / 1e9:.1f} GB free under "
+        f"{tempfile.gettempdir()}")
+    chk.expect(room > need + 2 * 10**9, "checkpoint: the temporary directory's disk has room for the hub dir")
+    if room <= need + 2 * 10**9:
+        return
+    ckpt_dir = tempfile.mkdtemp(prefix="ff_hub_")
+    try:
+        written = write_hub_dir(ckpt_dir, hub_config(cfg, vcfg), tensors)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t_write = time.perf_counter() - t0
+        del params, vit, proj, tensors
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        shards = sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".safetensors"))
+        log(f"  wrote {written / 1e9:.3f} GB in {len(shards)} shards in {t_write:.1f} s "
+            f"({written / t_write / 1e9:.2f} GB/s; the seeded model drawn on the card first)")
+        # A pool's exit terminates its worker without waiting for it, so a
+        # load past its time limit cannot hold the hub dir's removal back.
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            r = pool.apply_async(checkpoint_run, (ckpt_dir, cfg, vcfg, n_frames, device)).get(timeout=900)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    chk.expect(not os.path.exists(ckpt_dir), "checkpoint: the hub dir is deleted")
+    st = r["stages"]
+    gib = 2**20
+    read_s, llm_s, tower_s, up_s = (st.get("weights.load_state"), st.get("weights.import_decoder"),
+                                    st.get("weights.load_vision"), r["upload_s"])
+    chk.expect(None not in (read_s, llm_s, tower_s), f"checkpoint: the trace of the load holds its three stages {st}")
+    if None in (read_s, llm_s, tower_s):
+        return
+    host_s = None if up_s is None else llm_s + tower_s - up_s
+    log(f"  from_checkpoint(int8): {r['load_s']:.2f} s: read (load_state) {read_s:.3f} s, decoder import, upload "
+        f"and quantize on the card {llm_s:.2f} s, tower + projector {tower_s:.2f} s; host-to-card copies "
+        f"{up_s if up_s is None else round(up_s, 3)} s (the trace's device time), so the rest (the host's reads "
+        f"of the mapped pages, the card's casts and quantize) {host_s if host_s is None else round(host_s, 2)} s")
+    peak, source = ((r["vm_hwm_kib"], "VmHWM") if r["vm_hwm_kib"] is not None
+                    else (r["ru_maxrss_kib"], "ru_maxrss; /proc/self/status has no VmHWM here"))
+    log(f"  host peak RSS of the loading process {peak / gib:.2f} GiB ({source}); RSS before the load "
+        f"{r['rss_before_kib'] / gib:.2f} GiB; the checkpoint's mapped pages count once read")
+    if r["card_bytes"] is not None:
+        log(f"  card memory after the load {r['card_bytes'] / 2**30:.3f} GiB allocated; peak of the process "
+            f"{r['card_peak_bytes'] / 2**30:.2f} GiB")
+    chk.expect(r["family"] == "llava_video" and all(r["cfg_equal"]),
+               f"checkpoint: family {r['family']}, LLM and tower configs equal the written ones {r['cfg_equal']}")
+    chk.expect(not r["leaf_diffs"], f"checkpoint: all {r['leaves']} loaded leaves equal the in-memory twin's bit for "
+                                    f"bit (the int8 decoder quantized a layer at a time on load vs by "
+                                    f"quantize_params_int8; differ: {r['leaf_diffs'][:8]})")
+    log(f"  ask: mode {r['mode']}, events {r['events']}, final length {r['valid_len']}, tokens {r['tokens']}")
+    chk.expect(r["events"] == r["twin_events"] and r["caches_equal"],
+               "checkpoint: merge events, each layer's cached keys and values (the keep sets) and the prune's "
+               "size equal the twin's")
+    chk.expect(r["logits_equal"], f"checkpoint: first-token logits equal the twin's bit for bit "
+                                  f"(max diff {r['logits_max_diff']:.3e})")
+    chk.expect(r["tokens"] == r["twin_tokens"], f"checkpoint: greedy tokens equal the twin's ({r['twin_tokens']})")
+    chk.expect(r["logits_finite"] and len(r["tokens"]) == 8 and len(r["events"]) > 0,
+               "checkpoint: logits finite, 8 tokens, the prompt compressed")
+    pruned = any(e[1] == "prune" for e in r["events"])
+    log(f"  launches on the loaded pipeline's ask: {r['launches']} (the twin's: {r['twin_launches']}); "
+        f"the prompt {'prunes' if pruned else 'does not prune: kernel B is not on this path'}")
+    for name, n in r["launches"].items():
+        if name == "sink_attn_fwd" or (name == "attn_importance_rows" and not pruned):
+            continue
+        chk.expect(n > 0, f"checkpoint: {name}: {n} launches on the loaded pipeline's ask")
+        if name in kernels:
+            kernels[name]["checkpoint_launches"] = n
+    if "pixels_to_answer_ms" in r:
+        log(f"  pixels-to-answer ms through the loaded int8 pipeline (64 uint8 frames -> 8 tokens; CUDA events, "
+            f"mean of 3): {r['pixels_to_answer_ms']:.2f}")
 
 
 def baseline_methods(n_layers: int) -> dict:
@@ -4631,6 +4964,10 @@ def phase_scripts(chk: Checks, kernels: dict) -> None:
 PAR_SEED = 18
 PAR_DECODE = 16  # tokens of the sharded int8 decodes
 EP_LAYERS = 14  # Qwen2-57B-A14B's depth for expert parallelism on one card (module docstring, 19c)
+# Qwen2-7B's depth for the sharded serving runs (19a, 19b): their host-staged
+# collectives take ~0.94 of a TP prefill and grow with the layers, and the
+# whole run has to stay inside its time limit.
+PAR_LAYERS = 8
 PAR_PATHS = ("tp2", "tp4", "ep2")
 
 
@@ -4930,7 +5267,7 @@ def phase_parallel(chk: Checks, kernels: dict, ctx: dict) -> None:
 
     ctx.clear()
     torch.cuda.empty_cache()
-    cfg = qwen2_7b_config()
+    cfg = qwen2_7b_config(num_layers=PAR_LAYERS)
     mcfg = qwen2_moe_a14b_config(num_layers=EP_LAYERS)
     ff = FrameFusionConfig(cost=0.3, similarity_lower_bound=0.6, ratio_lower_bound=0.1)
     mff = FrameFusionConfig(*MOE_KNOBS)
@@ -4939,7 +5276,7 @@ def phase_parallel(chk: Checks, kernels: dict, ctx: dict) -> None:
     prompt = {"video": dict(seed=0)}
     ref = _ref_full(cfg, ff, args, PAR_DECODE)
     mref = _ref_full(mcfg, mff, args, PAR_DECODE, int8_prefill=True)
-    log(f"  one process: Qwen2-7B built in {ref['build_s']:.1f} s, fused prefill {ref['prefill_ms']:.1f} ms, events "
+    log(f"  one process: Qwen2-7B ({PAR_LAYERS} of 28 layers) built in {ref['build_s']:.1f} s, fused prefill {ref['prefill_ms']:.1f} ms, events "
         f"{ref['prefill']['events']}, segmented {ref['segmented']['events']}, int8 decode {ref['decode_ms_step']:.3f} "
         f"ms/step; Qwen2-57B-A14B at {EP_LAYERS} layers int8 built in {mref['build_s']:.1f} s, fused "
         f"{mref['prefill_ms']:.1f} ms, events {mref['prefill']['events']}, decode {mref['decode_ms_step']:.3f} ms/step")
@@ -5197,24 +5534,33 @@ def phase_train_ranks(chk: Checks, ctx: dict) -> None:
         torch.cuda.empty_cache()
         return loss
 
-    def spawn(job, world):
+    def spawn(jobs, world):
+        """Each job's ranks' results, the jobs run one after another in one
+        spawn of ``world`` ranks."""
         t0 = time.perf_counter()
         # Expandable segments: four ranks' caching allocators share the card's 80 GB with less slack.
         alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
         os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
         try:
-            outs = launch.spawn(workers.run_jobs, world, [job], backend="gloo", device="cuda", timeout_s=600)
+            outs = launch.spawn(workers.run_jobs, world, jobs, backend="gloo", device="cuda", timeout_s=600)
         finally:
             if alloc is None:
                 os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
             else:
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-        log(f"  {job['kind']} on {world} ranks: {time.perf_counter() - t0:.1f} s with the spawn")
-        return [o[0] for o in outs]
+        log(f"  {[job['kind'] for job in jobs]} on {world} ranks: {time.perf_counter() - t0:.1f} s with the spawn")
+        return [[o[j] for o in outs] for j in range(len(jobs))]
 
     base = dict(seed=TRAIN_RANKS_SEED, ids_seed=TRAIN_RANKS_SEED, steps=3, lr=1e-4)
-    # (a) Qwen2-7B, 28 layers, TP 4.
-    cfg = qwen2_7b_config()
+    # (a) Qwen2-7B, 8 of 28 layers, TP 4; (b) 2 layers, TP 2 x DP 2; (c) the
+    # pipeline, 4 layers, 4 stages, 4 microbatches: one spawn. The depths are
+    # cut for the run's time limit: the host-staged collectives take 0.95-0.99
+    # of each step.
+    cfg, cfg2, cfg4 = (qwen2_7b_config(num_layers=n) for n in (8, 2, 4))
+    shared = ("/embed", "/final_norm", "/lm_head")
+    runs = spawn([dict(base, kind="train_full", cfg=cfg, tensor=4, batch=(1, 2048), digests=[]),
+                  dict(base, kind="train_full", cfg=cfg2, tensor=2, batch=(2, 2048)),
+                  dict(base, kind="pipe_full", cfg=cfg4, stages=4, n_micro=4, batch=(4, 1024), digests=shared)], 4)
     n = _param_count(cfg)
     state = n * 8 / 1e9
     stash = cfg.num_layers * 2048 * cfg.hidden_size * 2 / 1e9
@@ -5223,8 +5569,8 @@ def phase_train_ranks(chk: Checks, ctx: dict) -> None:
         f"{stash:.2f}, one layer's recomputation ~0.5 (fp32 scores {7 * 2048 ** 2 * 4 / 1e9:.2f} a copy) and the "
         f"vocabulary-slice loss ~1 GB: ~{state + 4 * (0.5 + stash + 1.5):.0f} GB on the card; fused AdamW (no "
         f"whole-list temporaries)")
-    ranks = spawn(dict(base, kind="train_full", cfg=cfg, tensor=4, batch=(1, 2048), digests=[]), 4)
-    losses = _train_report("train_ranks 7b tp4 (28 layers)", ranks, 2048)
+    ranks = runs[0]
+    losses = _train_report("train_ranks 7b tp4 (8 layers)", ranks, 2048)
     ref = one_process_loss(cfg, (1, 2048))
     chk.expect(all(math.isfinite(x) for x in losses), "train_ranks 7b tp4: every loss finite")
     chk.expect(abs(losses[0] - ref) <= TRAIN_BF16_LOSS_TOL,
@@ -5232,21 +5578,16 @@ def phase_train_ranks(chk: Checks, ctx: dict) -> None:
                f"one-process no-grad forward's {ref:.5f}")
     chk.expect(losses[-1] < losses[0], "train_ranks 7b tp4: the loss falls over 3 steps")
     chk.expect(all(r["losses"] == ranks[0]["losses"] for r in ranks), "train_ranks 7b tp4: every rank's losses equal")
-    # (b) 4 layers, TP 2 x DP 2.
-    cfg4 = qwen2_7b_config(num_layers=4)
-    ranks = spawn(dict(base, kind="train_full", cfg=cfg4, tensor=2, batch=(2, 2048)), 4)
-    losses = _train_report("train_ranks 7b tp2 x dp2 (4 layers)", ranks, 2 * 2048)
+    ranks = runs[1]
+    losses = _train_report("train_ranks 7b tp2 x dp2 (2 layers)", ranks, 2 * 2048)
     chk.expect(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
                f"train_ranks tp2 x dp2: losses finite and falling ({losses})")
-    chk.expect(_same_bits_where_replicated([[r] for r in ranks], 0, cfg4, "train", "digests"),
+    chk.expect(_same_bits_where_replicated([[r] for r in ranks], 0, cfg2, "train", "digests"),
                "train_ranks tp2 x dp2: the replicated leaves bitwise equal on the four ranks (the split ones on "
                "both data replicas)")
-    # (c) The pipeline: 8 layers, 4 stages, 4 microbatches.
-    cfg8 = qwen2_7b_config(num_layers=8)
-    shared = ("/embed", "/final_norm", "/lm_head")
-    ranks = spawn(dict(base, kind="pipe_full", cfg=cfg8, stages=4, n_micro=4, batch=(4, 1024), digests=shared), 4)
-    losses = _train_report("train_ranks pipeline s4 m4 (8 layers)", ranks, 4 * 1024)
-    ref = one_process_loss(cfg8, (4, 1024))
+    ranks = runs[2]
+    losses = _train_report("train_ranks pipeline s4 m4 (4 layers)", ranks, 4 * 1024)
+    ref = one_process_loss(cfg4, (4, 1024))
     shares = [[w / s for w, s in zip(r["wait_s"], r["schedule_s"])] for r in ranks]
     bubble = float(np.mean([sh[i] for sh in shares for i in range(1, 3)]))
     log(f"  train_ranks pipeline: bubble share measured {bubble:.3f} (each stage's host time in receives over its "
@@ -5280,7 +5621,7 @@ def phase_train_ranks(chk: Checks, ctx: dict) -> None:
     del params, opt, step, init
     torch.cuda.empty_cache()
     whole = [k for k, axis in _split_axis(mcfg, "train").items() if axis is None]
-    ranks = spawn(dict(base, kind="train_full", cfg=mcfg, tensor=2, batch=(1, 1024), digests=whole), 2)
+    (ranks,) = spawn([dict(base, kind="train_full", cfg=mcfg, tensor=2, batch=(1, 1024), digests=whole)], 2)
     losses = _train_report("train_ranks 57b tp2 (2 layers)", ranks, 1024)
     log(f"  train_ranks 57b tp2: load_balancing_loss and drops a layer {ranks[0]['router']}")
     chk.expect(all(math.isfinite(x) for x in one + losses), "train_ranks 57b: every loss finite")
@@ -5351,7 +5692,7 @@ def main() -> int:
               "cross_internvl": lambda: phase_cross_internvl(chk),
               "cross_families": lambda: phase_cross_families(chk),
               "cross_qwen25vl": lambda: phase_cross_qwen25vl(chk),
-              "pixels": lambda: phase_pixels(chk, kernels),
+              "pixels": lambda: phase_pixels(chk, kernels), "checkpoint": lambda: phase_checkpoint(chk, kernels),
               "cross_baselines": lambda: phase_cross_baselines(chk),
               "baselines": lambda: phase_baselines(chk, kernels), "batch": lambda: phase_batch(chk, kernels, ctx),
               "spec_serve": lambda: phase_spec_serve(chk, kernels, ctx),
@@ -5403,6 +5744,9 @@ def main() -> int:
     unmeasured += [f"{n}.batch_launches" for n in ("flash_attn_fwd", "attn_importance_rows", "gemv_stacked",
                                                    "gemv_gateup") if "batch_launches" not in kernels[n]]
     unmeasured += [f"{n}.spec_launches" for n in ("gemv_stacked", "gemv_gateup") if "spec_launches" not in kernels[n]]
+    unmeasured += [f"{n}.checkpoint_launches" for n in ("flash_attn_fwd", "gemv_stacked", "gemv_gateup",
+                                                       "bidir_attn_fwd", "ragged_decode_attn")
+                   if "checkpoint_launches" not in kernels[n]]
     chk.expect(not unmeasured, f"every number of the kernels line was measured in this run (missing: {unmeasured})")
     if chk.failures:
         log("FAILED: " + "; ".join(chk.failures))

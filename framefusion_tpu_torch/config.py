@@ -204,3 +204,21 @@ def internlm2_8b_config(**kw) -> LLMConfig:
     )
     base.update(kw)
     return LLMConfig(**base)
+
+
+def qwen2_1_5b_config(**kw) -> LLMConfig:
+    """Qwen2-1.5B geometry (LLaVA-OneVision's small backbone): 28 layers,
+    hidden 1536, GQA 12 / 2 (head dim 128), intermediate 8960, tied
+    embeddings."""
+    base = dict(
+        vocab_size=151936,
+        hidden_size=1536,
+        intermediate_size=8960,
+        num_layers=28,
+        num_heads=12,
+        num_kv_heads=2,
+        rope_theta=1e6,
+        tie_word_embeddings=True,
+    )
+    base.update(kw)
+    return LLMConfig(**base)

@@ -139,17 +139,13 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = H100_BF16_OPS_PER_S) 
 
 def events_time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean time per call of ``fn()`` over eager launches, by CUDA events
-    (for calls that keep the card busy for milliseconds)."""
+    (``runtime.profiling.elapsed``; for calls that keep the card busy for
+    milliseconds)."""
+    from .runtime.profiling import elapsed
+
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return elapsed(fn, True, iters)[0] * 1e3
 
 
 def graph_time_ms(fn, iters: int) -> float:

@@ -53,7 +53,8 @@ import numpy as np
 import torch
 
 from ..config import LLMConfig
-from ..ops.attention import causal_attention_einsum, decode_attention, last_rows_importance, verify_attention
+from ..ops.attention import (causal_attention, causal_attention_einsum, decode_attention, last_rows_importance,
+                             verify_attention)
 from ..ops.kernels import flash_prefill, matvec_q8
 from ..ops.kernels.decode_attention import ragged_decode_attention
 from ..ops.rope import apply_rope, mrope_cos_sin, rope_cos_sin
@@ -252,17 +253,14 @@ def _project_qkv(lp: dict, x: torch.Tensor, cfg: LLMConfig):
 def attention_kernel_dispatch(q, k, v, attn_impl: str, capture_num: int, valid_len, key_valid):
     """Attention plus, when ``capture_num > 0``, the prune importance of the
     last ``capture_num`` live rows. Returns (attn (S, Hq, D), importance-or-None).
-    Under a tensor group the importance (a mean over this rank's heads) is
+    The attention is ``ops.attention.causal_attention``'s, unless kernel A
+    computes both at once. Under a tensor group the importance (a mean over this rank's heads) is
     made the mean over all heads."""
-    if attn_impl == "flash":
-        if capture_num:
-            attn, importance = flash_prefill.flash_causal_attention_importance(
-                q, k, v, valid_len, capture_num, key_valid=key_valid)
-            return attn, collectives.tensor_mean(importance)
-        return flash_prefill.flash_causal_attention(q, k, v, key_valid=key_valid), None
-    if attn_impl != "einsum":
-        raise ValueError(f"unknown attention impl: {attn_impl}")
-    attn = causal_attention_einsum(q, k, v, key_valid=key_valid)
+    if capture_num and attn_impl == "flash":
+        attn, importance = flash_prefill.flash_causal_attention_importance(
+            q, k, v, valid_len, capture_num, key_valid=key_valid)
+        return attn, collectives.tensor_mean(importance)
+    attn = causal_attention(q, k, v, attn_impl, key_valid=key_valid)
     importance = None
     if capture_num:
         importance = collectives.tensor_mean(

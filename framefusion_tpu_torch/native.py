@@ -77,6 +77,8 @@ def load(required: bool = False):
                                          ctypes.c_int, ctypes.c_int, ctypes.c_int, f32p, f32p,
                                          ctypes.c_float, f32p]
         lib.ff_resize_frames.restype = None
+        lib.ff_normalize.argtypes = [f32p, ctypes.c_int64, ctypes.c_int, f32p, f32p, ctypes.c_float]
+        lib.ff_normalize.restype = None
         _LOADER.lib = lib
         return lib
 
@@ -104,3 +106,18 @@ def resize_frames(lib, frames: np.ndarray, out_h: int, out_w: int, resample: str
         mp, sp, rs = _f32p(mean), _f32p(std), float(rescale)
     lib.ff_resize_frames(_f32p(frames), t, h, w, c, out_h, out_w, _RESAMPLE[resample], mp, sp, rs, _f32p(out))
     return out
+
+
+def normalize_frames(lib, frames: np.ndarray, mean, std, rescale: float) -> np.ndarray:
+    """``(frames * rescale - mean) / std`` over the trailing channel axis,
+    threaded (``ff_normalize``); in place when ``frames`` is already
+    contiguous float32, else on a contiguous float32 copy, which is
+    returned."""
+    frames = np.ascontiguousarray(frames, np.float32)
+    c = frames.shape[-1]
+    mean = np.ascontiguousarray(mean, np.float32)
+    std = np.ascontiguousarray(std, np.float32)
+    if mean.shape != (c,) or std.shape != (c,):
+        raise ValueError(f"mean/std must have {c} channels")
+    lib.ff_normalize(_f32p(frames), frames.size // c, c, _f32p(mean), _f32p(std), float(rescale))
+    return frames

@@ -145,3 +145,22 @@ def verify_attention(q, k_cache, v_cache, base_len: int) -> torch.Tensor:
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("nhgk,hkd->nhgd", probs, vf)
     return out.reshape(kq, hq, d).to(q.dtype)
+
+
+def causal_attention(q, k, v, impl: str, key_valid=None) -> torch.Tensor:
+    """Causal GQA prefill attention by ``impl``: ``"einsum"`` is the plain
+    fp32 version above; ``"flash"`` (and JAX's name for its kernel,
+    ``"pallas"``) is kernel A (``ops/kernels/flash_prefill``), which runs its
+    plain version for CPU tensors. JAX's ``"chunked"`` is its memory-bounded
+    path for backends other than the TPU; the port does not have it (the
+    CPU runs the plain einsum, the card kernel A) and raises."""
+    if impl == "einsum":
+        return causal_attention_einsum(q, k, v, key_valid=key_valid)
+    if impl in ("flash", "pallas"):
+        from .kernels.flash_prefill import flash_causal_attention
+
+        return flash_causal_attention(q, k, v, key_valid=key_valid)
+    if impl == "chunked":
+        raise NotImplementedError('impl="chunked" is JAX\'s memory-bounded path off the TPU and is not ported: '
+                                  'use "einsum" on the CPU, "flash" on the card')
+    raise ValueError(f"unknown attention impl: {impl}")

@@ -49,10 +49,10 @@ def dequantize_weight(wq: dict, dtype=torch.float32) -> torch.Tensor:
 
 
 def quantize_weight_host(w) -> dict:
-    """Host (numpy) twin of :func:`quantize_weight` for quantize-on-load, so
-    the device never holds the bf16 originals. Same math (fp32 max/127 per
-    output channel, round half to even, clip to +-127). Returns numpy
-    {"q8", "scale"}; the caller uploads."""
+    """Host (numpy) twin of :func:`quantize_weight`, JAX's quantize-on-load
+    (the port's loader quantizes on the device with ``quantize_weight``
+    itself). Same math (fp32 max/127 per output channel, round half to
+    even, clip to +-127). Returns numpy {"q8", "scale"}."""
     w32 = np.asarray(w, dtype=np.float32)
     scale = np.maximum(np.max(np.abs(w32), axis=-2, keepdims=True) / 127.0, 1e-12)
     q8 = np.clip(np.rint(w32 / scale), -127, 127).astype(np.int8)

@@ -158,6 +158,26 @@ def param_pspecs(cfg: LLMConfig) -> dict:
     return specs
 
 
+def param_shardings(cfg: LLMConfig, mesh) -> dict:
+    """JAX's ``param_shardings``: each leaf of the split's table
+    (``ShardAxis.specs``: ``param_pspecs`` on a ``(data, tensor)`` mesh) as
+    its placement on ``mesh`` (a DeviceMesh, or a ``ShardAxis``), a tuple
+    of ``torch.distributed.tensor`` placements a mesh dimension, ``data``
+    first: ``Shard(dim)`` on the split axis for a leaf that splits along
+    ``dim``, ``Replicate()`` otherwise. ``shard_params`` gives each rank
+    its block of those dims (the vocabulary padded first under TP)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    ax = shard_axis(mesh)
+
+    def place(spec):
+        if isinstance(spec, dict):
+            return {k: place(v) for k, v in spec.items()}
+        return Replicate(), Shard(spec.index(ax.axis)) if ax.axis in spec else Replicate()
+
+    return place(ax.specs(cfg))
+
+
 def pipe_param_pspecs(cfg: LLMConfig) -> dict:
     """JAX's ``pipe_param_pspecs``: the layer stack split over ``stage``
     along its layer axis, everything else whole."""

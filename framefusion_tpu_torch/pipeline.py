@@ -87,7 +87,8 @@ class TextPipeline:
         The tokenizer loads from the same directory through
         transformers.AutoTokenizer (local files) unless one is passed; S_th
         defaults to the family's value (interface.FAMILIES). ``quantize="int8"``
-        quantizes the decoder weights on the host during import.
+        quantizes the decoder weights on the device during import, a layer
+        at a time.
         ``device=None`` puts the model on the card and raises without one;
         ``device="cpu"`` asks for the CPU."""
         from .interface import FAMILIES, apply_framefusion

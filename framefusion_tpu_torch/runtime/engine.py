@@ -113,6 +113,17 @@ def _device_keep_count(x: float) -> int:
     return 0 if math.isnan(x) else _round_half_even(x)
 
 
+def plan_length(orig_len: int, image_len: int, ff: FrameFusionConfig, assumed_events: int = 4,
+                margin: float = 1.05) -> int:
+    """The analytic static bucket for ``prefill_planned``: the cost schedule
+    bounds the density after the prune by ``cost * L / (L - n_events)``;
+    assume ``assumed_events`` compression events and a safety margin. A
+    plan that proves too tight falls back to the fused executor."""
+    layers = ff.schedule_num_layers
+    d_max = min(1.0, ff.cost * layers / max(layers - assumed_events, 1) * margin)
+    return bucket_length(orig_len - image_len + math.ceil(image_len * d_max), ff.bucket)
+
+
 def plan_length_measured(orig_len: int, frame_token_num: int, first_merge_count: int,
                          ff: FrameFusionConfig) -> tuple[int, int]:
     """``(pre_plan_len, plan_len)`` buckets from the measured first-merge count.
@@ -1333,6 +1344,7 @@ __all__ = [
     "PrefillResult",
     "best_tail_split",
     "best_tail_split_batch",
+    "plan_length",
     "plan_length_analytic",
     "plan_length_measured",
     "pre_plan_length",

@@ -17,10 +17,11 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 
 import numpy as np
 import torch
+
+from ..runtime import profiling
 
 
 def add_device_arg(parser: argparse.ArgumentParser) -> None:
@@ -134,25 +135,14 @@ def timing_note(device: torch.device, reps: int = 3) -> str:
 
 
 class DeviceTimer:
-    """Timing that waits for the device's work: CUDA events around each run,
-    closed by ``torch.cuda.synchronize()`` on the card; the host clock on
-    the CPU."""
+    """Timing that waits for the device's work, run by run, through the
+    port's timer ``runtime.profiling.elapsed`` (CUDA events on the card, the
+    host clock on the CPU)."""
 
     @staticmethod
     def once(fn, on_card: bool):
-        """(seconds, fn()) of one run."""
-        if on_card:  # events on the current stream, which each replica of the demo has of its own
-            stream = torch.cuda.current_stream()
-            stream.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-            out = fn()
-            end.record(stream)
-            end.synchronize()
-            return start.elapsed_time(end) * 1e-3, out
-        t0 = time.perf_counter()
-        out = fn()
-        return time.perf_counter() - t0, out
+        """(seconds, fn()) of one run (``runtime.profiling.elapsed``)."""
+        return profiling.elapsed(fn, on_card)
 
     @staticmethod
     def timeit(fn, probe, reps=3):

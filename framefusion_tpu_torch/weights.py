@@ -7,7 +7,9 @@ Linear weights transpose from HF's (out, in) to (in, out), so the forward
 is plain ``x @ w``; layer weights stack along a leading layer axis. Entry
 points: ``params_from_state_dict`` (any mapping name -> numpy array or
 tensor), ``params_from_state_dict_internlm2`` (InternLM2's fused ``wqkv``),
-``load_state`` (safetensors shards of a checkpoint directory) and
+``load_state`` (safetensors shards of a checkpoint directory, read by the
+port's own ``safetensors_io``), ``load_safetensors`` (a directory -> the
+decoder's params) and
 ``load_checkpoint`` (config.json + shards -> a ``FrameFusionModel`` with its
 vision tower attached: SigLIP and the LLaVA projector, MiniCPM-V's SigLIP
 and resampler, the Qwen2-VL or Qwen2.5-VL tower, or InternViT and the
@@ -27,7 +29,9 @@ import re
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from . import safetensors_io
 from .config import LLMConfig
 
 _QWEN2_LAYER_KEYS = {
@@ -82,15 +86,39 @@ def _to_tensor(t) -> torch.Tensor:
     return t.detach() if isinstance(t, torch.Tensor) else torch.from_numpy(np.asarray(t))
 
 
-def _stack_layer_weight(name: str, stacked: torch.Tensor, cfg: LLMConfig, quantize, device):
-    """Upload one stacked layer weight; ``quantize="int8"`` quantizes the
-    decoder matmul weights on the host first (ops/quant.quantize_weight_host)."""
-    from .ops.quant import QUANTIZED_LAYER_WEIGHTS, quantize_weight_host
+def _put(t, device, dtype) -> torch.Tensor:
+    """``t`` on ``device`` in ``dtype``, row-major: a transposed view is
+    copied as it lies and made row-major there (as the in-memory layouts
+    are); a tensor that already is all three is returned as it is."""
+    return _to_tensor(t).to(device=device).to(dtype=dtype).contiguous()
 
-    if quantize == "int8" and name in QUANTIZED_LAYER_WEIGHTS:
-        q = quantize_weight_host(to_numpy(stacked))
-        return {"q8": torch.from_numpy(q["q8"]).to(device), "scale": torch.from_numpy(q["scale"]).to(device)}
-    return stacked.to(device=device, dtype=cfg.dtype)
+
+def _stack_layer_weight(name: str, mats, cfg: LLMConfig, quantize, device):
+    """One (L, ...) layer stack on ``device``, filled a layer at a time from
+    ``mats`` (one tensor a layer, or a list of expert matrices a layer):
+    each layer's matrices are copied to ``device`` as they lie, then cast
+    into their slot there. ``quantize="int8"`` quantizes each of the
+    decoder's matmul weights there (``ops/quant.quantize_weight``, the
+    function ``quantize_params_int8`` runs) before its int8 copy goes into
+    its slot, so the device never holds more than one layer's originals."""
+    from .ops.quant import QUANTIZED_LAYER_WEIGHTS, quantize_weight
+
+    int8 = quantize == "int8" and name in QUANTIZED_LAYER_WEIGHTS
+    out = None
+    for i, mat in enumerate(mats):
+        mat = torch.stack([m.to(device) for m in mat]) if isinstance(mat, list) else mat.to(device)
+        if not int8:
+            if out is None:
+                out = torch.empty((len(mats),) + mat.shape, dtype=cfg.dtype, device=device)
+            out[i].copy_(mat)
+            continue
+        q = quantize_weight(mat)
+        if out is None:
+            out = {"q8": torch.empty((len(mats),) + q["q8"].shape, dtype=torch.int8, device=device),
+                   "scale": torch.empty((len(mats),) + q["scale"].shape, dtype=torch.float32, device=device)}
+        out["q8"][i].copy_(q["q8"])
+        out["scale"][i].copy_(q["scale"])
+    return out
 
 
 def resolve_device(device=None) -> torch.device:
@@ -115,9 +143,9 @@ def params_from_state_dict(state_dict, cfg: LLMConfig, prefix: str = "model.", q
         state_dict: mapping of HF parameter names to numpy arrays or tensors.
         prefix: path of the language model inside the checkpoint
             (``"model."`` for LLaVA-Video).
-        quantize: ``"int8"`` quantizes the decoder matmul weights on the
-            host during import (the expert stacks a (layer, expert) at a
-            time).
+        quantize: ``"int8"`` quantizes the decoder matmul weights on
+            ``device`` during import, a layer at a time (the expert stacks a
+            (layer, expert) at a time).
         device: where the params go: the card when None (which raises
             without one); ``"cpu"`` for the CPU.
     """
@@ -149,19 +177,18 @@ def params_from_state_dict(state_dict, cfg: LLMConfig, prefix: str = "model.", q
 
     layers = {}
     for ours, by_idx in per_layer.items():
-        if len(by_idx) != cfg.num_layers:
+        if sorted(by_idx) != list(range(cfg.num_layers)):
             raise ValueError(f"{ours}: got {len(by_idx)} layers, want {cfg.num_layers}")
-        stacked = torch.stack([by_idx[i] for i in range(cfg.num_layers)])
-        layers[ours] = _stack_layer_weight(ours, stacked, cfg, quantize, device)
+        layers[ours] = _stack_layer_weight(ours, [by_idx[i] for i in range(cfg.num_layers)], cfg, quantize, device)
     for ours, by_le in per_expert.items():
         if len(by_le) != cfg.num_layers * cfg.num_experts:
             raise ValueError(f"{ours}: got {len(by_le)} expert matrices, want {cfg.num_layers}x{cfg.num_experts}")
-        stacked = torch.stack([torch.stack([by_le[(l, e)] for e in range(cfg.num_experts)])
-                               for l in range(cfg.num_layers)])
-        layers[ours] = _stack_layer_weight(ours, stacked, cfg, quantize, device)
+        layers[ours] = _stack_layer_weight(
+            ours, [[by_le[(l, e)] for e in range(cfg.num_experts)] for l in range(cfg.num_layers)], cfg, quantize,
+            device)
 
     def plain(key):
-        return _to_tensor(state_dict[key]).to(device=device, dtype=cfg.dtype)
+        return _put(state_dict[key], device, cfg.dtype)
 
     params = {"embed": plain(prefix + "embed_tokens.weight"), "layers": layers,
               "final_norm": plain(prefix + "norm.weight")}
@@ -170,7 +197,7 @@ def params_from_state_dict(state_dict, cfg: LLMConfig, prefix: str = "model.", q
         candidates = [k for k in state_dict if k.endswith("lm_head.weight")]
         if not candidates:
             raise ValueError("untied config but no lm_head in checkpoint")
-        params["lm_head"] = _to_tensor(state_dict[candidates[0]]).T.to(device=device, dtype=cfg.dtype)
+        params["lm_head"] = _put(_to_tensor(state_dict[candidates[0]]).T, device, cfg.dtype)
     return params
 
 
@@ -209,11 +236,10 @@ def params_from_state_dict_internlm2(state_dict, cfg: LLMConfig, prefix: str = "
                                       ("w_down", "feed_forward.w2.weight", True)):
             t = layer(i, name)
             per_layer.setdefault(ours, []).append(t.T if transpose else t)
-    layers = {ours: _stack_layer_weight(ours, torch.stack(ts), cfg, quantize, device)
-              for ours, ts in per_layer.items()}
+    layers = {ours: _stack_layer_weight(ours, ts, cfg, quantize, device) for ours, ts in per_layer.items()}
 
     def plain(key):
-        return _to_tensor(state_dict[key]).to(device=device, dtype=cfg.dtype)
+        return _put(state_dict[key], device, cfg.dtype)
 
     params = {"embed": plain(prefix + "tok_embeddings.weight"), "layers": layers,
               "final_norm": plain(prefix + "norm.weight")}
@@ -221,28 +247,37 @@ def params_from_state_dict_internlm2(state_dict, cfg: LLMConfig, prefix: str = "
         heads = [k for k in state_dict if k.endswith("output.weight") or k.endswith("lm_head.weight")]
         if not heads:
             raise ValueError("untied config but no output head in checkpoint")
-        params["lm_head"] = _to_tensor(state_dict[heads[0]]).T.to(device=device, dtype=cfg.dtype)
+        params["lm_head"] = _put(_to_tensor(state_dict[heads[0]]).T, device, cfg.dtype)
     return params
 
 
 def load_state(checkpoint_dir: str) -> dict:
     """Read a (possibly sharded) safetensors checkpoint directory into a
     name -> CPU tensor mapping (HF hub layout: ``model.safetensors.index.json``
-    with a weight_map, or loose ``*.safetensors`` shards)."""
-    from safetensors import safe_open  # lazy: optional dependency
-
+    with a weight_map, or loose ``*.safetensors`` shards). The port's own
+    reader (``safetensors_io``) maps each shard: the tensors are views of the
+    files until they are used, and no ``safetensors`` package is needed."""
     index_path = os.path.join(checkpoint_dir, "model.safetensors.index.json")
     if os.path.exists(index_path):
         with open(index_path) as f:
             shards = sorted(set(json.load(f)["weight_map"].values()))
+        missing = [s for s in shards if not os.path.isfile(os.path.join(checkpoint_dir, s))]
+        if missing:
+            raise FileNotFoundError(f"{checkpoint_dir}: its index names shards that are not there: {missing}")
     else:
         shards = sorted(f for f in os.listdir(checkpoint_dir) if f.endswith(".safetensors"))
     state = {}
     for shard in shards:
-        with safe_open(os.path.join(checkpoint_dir, shard), framework="pt") as f:
-            for name in f.keys():
-                state[name] = f.get_tensor(name)
+        state.update(safetensors_io.read_file(os.path.join(checkpoint_dir, shard)))
     return state
+
+
+def load_safetensors(checkpoint_dir: str, cfg: LLMConfig, prefix: str = "model.", quantize=None,
+                     device=None) -> dict:
+    """A (possibly sharded) safetensors checkpoint directory -> the stacked
+    params of ``cfg``'s decoder: ``load_state`` then
+    ``params_from_state_dict`` (``quantize`` and ``device`` as there)."""
+    return params_from_state_dict(load_state(checkpoint_dir), cfg, prefix=prefix, quantize=quantize, device=device)
 
 
 def llm_config_from_hf(cfg_dict: dict, dtype=torch.bfloat16):
@@ -438,7 +473,7 @@ def _load_vision(family: str, state: dict, cfg_dict: dict, llm_cfg: LLMConfig, d
         if "model.mm_projector.0.weight" in state:
             def f32(key, transpose=False):
                 t = _to_tensor(state[key])
-                return (t.T if transpose else t).to(device=device, dtype=torch.float32)
+                return _put(t.T if transpose else t, device, torch.float32)
 
             newline = (f32("model.image_newline") if "model.image_newline" in state
                        else torch.zeros((llm_cfg.hidden_size,), dtype=torch.float32, device=device))
@@ -454,8 +489,8 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
     """config.json-driven geometry + family dispatch -> a ``FrameFusionModel``
     (vision tower attached when the checkpoint carries one).
 
-    ``quantize="int8"``: decoder matmul weights are quantized on the host
-    during import, so the device never holds the bf16 originals. The vision
+    ``quantize="int8"``: decoder matmul weights are quantized on ``device``
+    during import, a layer at a time, so it never holds the bf16 stacks. The vision
     tower, embeddings, norms and lm_head keep ``dtype``; the LLaVA projector
     and MiniCPM-V's resampler are fp32, as in the JAX loader, InternVL's
     ``mlp1`` takes ``dtype``. An InternVL checkpoint's InternLM2 goes through
@@ -467,11 +502,14 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
     ``device="cpu"`` asks for the CPU. ``mesh`` (a rank's DeviceMesh,
     ``parallel.sharding.make_mesh`` or ``models.moe.make_expert_mesh``): only
     this rank's shard (``shard_params``) goes to ``device``, and the model
-    carries the mesh. The host cost is not sharded: each rank reads the
-    whole checkpoint and imports the whole decoder on the host before it
-    takes its shard, so while it loads a rank holds about twice the
-    checkpoint's bytes in host memory (the tensors read, and their stacked
-    copy), as a load without a mesh does.
+    carries the mesh. The host cost is not sharded: each rank imports the
+    whole decoder into host memory before it takes its shard. Without a
+    mesh the decoder goes to ``device`` a layer at a time (``_stack_layer_weight``):
+    the host holds the mapped checkpoint pages it has read.
+    The three stages run inside ``torch.profiler.record_function`` spans
+    (``weights.load_state``, ``weights.import_decoder``,
+    ``weights.load_vision``), which a ``runtime.profiling.trace`` of the load
+    records.
     """
     from .interface import FAMILIES, FrameFusionModel
 
@@ -486,17 +524,20 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
     spec = FAMILIES[family]
     if llm_cfg.qkv_bias != spec.qkv_bias:
         raise ValueError(f"config qkv_bias={llm_cfg.qkv_bias} vs family {family}")
-    state = load_state(checkpoint_dir)
+    with record_function("weights.load_state"):
+        state = load_state(checkpoint_dir)
     importer = params_from_state_dict_internlm2 if family == "internvl" else params_from_state_dict
-    if mesh is None:
-        params = importer(state, llm_cfg, prefix=spec.llm_prefix, quantize=quantize, device=device)
-    else:
-        from .parallel.sharding import shard_params
+    with record_function("weights.import_decoder"):
+        if mesh is None:
+            params = importer(state, llm_cfg, prefix=spec.llm_prefix, quantize=quantize, device=device)
+        else:
+            from .parallel.sharding import shard_params
 
-        whole = importer(state, llm_cfg, prefix=spec.llm_prefix, quantize=quantize, device="cpu")
-        params = _to_device(shard_params(whole, llm_cfg, mesh), device)
-        del whole
-    vision = _load_vision(family, state, cfg_dict, llm_cfg, device)
+            whole = importer(state, llm_cfg, prefix=spec.llm_prefix, quantize=quantize, device="cpu")
+            params = _to_device(shard_params(whole, llm_cfg, mesh), device)
+            del whole
+    with record_function("weights.load_vision"):
+        vision = _load_vision(family, state, cfg_dict, llm_cfg, device)
     return FrameFusionModel(family=family, cfg=llm_cfg, params=params, vision=vision, mesh=mesh)
 
 
