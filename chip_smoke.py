@@ -527,6 +527,27 @@ BATCH_SIZES = (1,) + BATCH_ROWS
 # (draft_len 4) solo, B * K = 20 at B = 4.
 SPEC_DRAFT, SPEC_B = 4, 4
 VERIFY_ROWS = (SPEC_DRAFT + 1, SPEC_B * (SPEC_DRAFT + 1))
+# Kernels C and D's times before the rows shared each weight tile (ms, one
+# H100 80GB HBM3 at 700 W; PERF.md section 6's kernel table, rows 8-10,
+# 8b-10e, 8s and 10j), printed beside this run's as "was": (name, weights,
+# rows) -> ms; routed rows as ("routed down" / "routed gateup", "int8",
+# rows).
+WAS_MS = {
+    **{(n, "bf16", 1): t for n, t in zip(("qkv", "wo", "w_down", "gateup"), (0.0160, 0.0138, 0.0485, 0.0984))},
+    **{(n, "int8", 1): t for n, t in zip(("qkv", "wo", "w_down", "gateup"), (0.0123, 0.0115, 0.0291, 0.0570))},
+    **{(n, "bf16", b): t for n, ts in (("qkv", (0.0217, 0.0435, 0.0843, 0.0646, 0.1860)),
+                                       ("wo", (0.0178, 0.0338, 0.0632, 0.0445, 0.1562)),
+                                       ("w_down", (0.0917, 0.1427, 0.2831, 0.1878, 0.8546)),
+                                       ("gateup", (0.1932, 0.3549, 0.6932, 0.4625, 1.7668)))
+       for b, t in zip((2, 4, 8, 5, 20), ts)},
+    **{(n, "int8", b): t for n, ts in (("qkv", (0.0169, 0.0272, 0.0557, 0.0361, 0.1232)),
+                                       ("wo", (0.0147, 0.0227, 0.0429, 0.0274, 0.1086)),
+                                       ("w_down", (0.0510, 0.0973, 0.1830, 0.1178, 0.4491)),
+                                       ("gateup", (0.1090, 0.1941, 0.3650, 0.2385, 0.9049)))
+       for b, t in zip((2, 4, 8, 5, 20), ts)},
+    ("routed down", "int8", 8): 0.0330, ("routed down", "int8", 64): 0.2139,
+    ("routed gateup", "int8", 8): 0.0586, ("routed gateup", "int8", 64): 0.3969,
+}
 
 
 def log(msg: str) -> None:
@@ -563,7 +584,7 @@ def phase_device(chk: Checks) -> None:
     for name, usage in ptxas_usage(build_log):
         log(f"  ptxas: {name}: {usage}")
         if name.startswith(("attn_importance_rows_kernel", "bidir_attn_kernel", "decode_attn_kernel",
-                            "flash_attn_fwd_kernel", "gemv_kernel", "sink_attn_fwd_kernel")):
+                            "flash_attn_fwd_kernel", "gemv_kernel", "rows_kernel", "sink_attn_fwd_kernel")):
             # the kernels redesigned for Hopper
             chk.expect("0 bytes spill stores, 0 bytes spill loads" in usage, f"{name}: no register spills")
     # ptxas's advisories that a kernel's wgmma instructions run one after
@@ -579,8 +600,8 @@ def phase_device(chk: Checks) -> None:
 
 
 def _kernel_name(mangled: str) -> str:
-    """Short name of a mangled ``namespace::kernel<arg>``: the last name of
-    the nested-name, with its template argument (an int, or the uint16_t /
+    """Short name of a mangled ``namespace::kernel<args>``: the last name of
+    the nested-name, with its template arguments (ints, or the uint16_t /
     int8_t element type of the bf16 / int8 instantiations)."""
     i, name = 3, mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -589,10 +610,11 @@ def _kernel_name(mangled: str) -> str:
             j += 1
         n = int(mangled[i:j])
         name, i = mangled[j:j + n], j + n
-    arg = re.match(r"I(?:Li(\d+)|([ta]))E", mangled[i:])
-    if arg is None:
+    args = re.match(r"I((?:Li\d+E|[ta])+)E", mangled[i:])
+    if args is None:
         return name
-    return f"{name}<{arg.group(1) or {'t': 'bf16', 'a': 'int8'}[arg.group(2)]}>"
+    parts = re.findall(r"Li(\d+)E|([ta])", args.group(1))
+    return f"{name}<{', '.join(d or {'t': 'bf16', 'a': 'int8'}[c] for d, c in parts)}>"
 
 
 def ptxas_usage(log_text: str) -> list:
@@ -777,9 +799,10 @@ def _cd_rows(chk, kernels, gen, name: str, wdtype: str, kdim: int, ns: list, row
     count of activation rows in ``rows_list``, against its plain version;
     timed from graph replays over layer stacks cycled past the 50 MB L2
     (as a decode step finds each layer cold), beside its bound and, for
-    bf16 C, one ``torch.matmul`` against the stacks side by side. Returns
-    one entry a row count (shape ``"{name} {wdtype}[ B=rows]"``; with
-    ``path``, that key and the K and N too)."""
+    bf16 C, one ``torch.matmul`` against the stacks side by side, and the
+    time before this design (``WAS_MS``) where Qwen2-7B's widths have one.
+    Returns one entry a row count (shape ``"{name} {wdtype}[ B=rows]"``;
+    with ``path``, that key and the K and N too)."""
     from framefusion_tpu_torch.kernel_bench import graph_time_ms
     from framefusion_tpu_torch.ops.kernels import matvec_q8 as mv
     from framefusion_tpu_torch.ops.quant import quantize_weight
@@ -838,8 +861,10 @@ def _cd_rows(chk, kernels, gen, name: str, wdtype: str, kdim: int, ns: list, row
         entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
         entries.append(entry)
         vs_one = f", {t_k / entries[0]['ms']:.2f}x its 1-row time" if rows > 1 else ""
+        was = WAS_MS.get((name, wdtype, rows)) if path is None else None
         log(f"  {tag}: kernel {t_k:.4f} ms ({per_layer / (t_k * 1e-3) / 1e9:.0f} GB/s of weights{vs_one}, "
-            f"{t_b / t_k:.3f} of the bound {t_b:.4f} ms, {entry['bound_by']}), plain {t_p:.4f} ms, torch.matmul "
+            f"{t_b / t_k:.3f} of the bound {t_b:.4f} ms, {entry['bound_by']}"
+            f"{'' if was is None else f'; was {was:.4f} ms'}), plain {t_p:.4f} ms, torch.matmul "
             f"{'none' if t_l is None else f'{t_l:.4f} ms (kernel / library {t_k / t_l:.3f})'}")
     return entries
 
@@ -946,8 +971,8 @@ def phase_kernels(chk: Checks, kernels: dict) -> None:
 
     # -- kernels C and D at the decode shapes, one row and the batched
     # decode's and the verify's rows (phases 9 and 10: B rows in one launch,
-    # each row its own pass over the weights, grid.z; the split plan depends
-    # on the rows, so each is a launch shape of its own) ---------------------
+    # one pass over the weights for all of them, on the tensor cores; the
+    # split plan does not depend on the rows) -----------------------------------
     hid, inter = 3584, 18944
     shapes = {"qkv": (hid, [hid, 512, 512]), "wo": (hid, [hid]), "w_down": (inter, [hid]),
               "gateup": (hid, [inter, inter])}
@@ -1597,7 +1622,8 @@ def phase_graph(chk: Checks, kernels: dict, ctx: dict) -> None:
     if prof["launches"]:
         log(f"  graph ragged, profiler over 8 replays: device idle share {prof['idle_share']:.4f} of the "
             f"{prof['window_us'] / 8e3:.3f} ms a step; {prof['launches'] / 8:.0f} device operations a step; device ms a "
-            f"step: C+D pass (gemv_kernel) {part('gemv_kernel'):.3f}, D epilogue {part('gateup_reduce'):.3f}, "
+            f"step: C+D pass (gemv_kernel, rows_kernel) {part('gemv_kernel') + part('rows_kernel'):.3f}, D epilogue "
+            f"{part('gateup_reduce'):.3f}, "
             f"G {part('decode_attn_kernel'):.3f}, all {prof['busy_us'] / 8e3:.3f}")
         log(f"  graph ragged, top device kernels a step (us): "
             f"{ {k[:60]: round(v, 2) for k, v in list(per_step.items())[:8]} }")
@@ -3606,9 +3632,10 @@ def _routed_row(chk, kernels, gen, name: str, w, scales, idx_sets, path: str) ->
     per_expert = k * n * len(w) + (n * 4 * len(w) if name == "gateup" else 0)  # D reads the scales, C's caller
     t_b = _bound(entry, distinct * per_expert + rows * (k * 2 + n * 4 + 4), 2 * rows * k * n * len(w))
     entry.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+    was = WAS_MS.get((f"routed {name}", "int8", rows)) if path == "moe_57b" else None
     log(f"  {key} {shape}: kernel {t_k:.4f} ms ({t_b / t_k:.3f} of the bound {t_b:.4f} ms over {distinct:.1f} "
-        f"distinct experts, {entry['bound_by']}), plain {t_p:.4f} ms, torch.bmm on pre-gathered bf16 {t_l:.4f} ms "
-        f"(kernel / library {t_k / t_l:.3f})")
+        f"distinct experts, {entry['bound_by']}{'' if was is None else f'; was {was:.4f} ms'}), "
+        f"plain {t_p:.4f} ms, torch.bmm on pre-gathered bf16 {t_l:.4f} ms (kernel / library {t_k / t_l:.3f})")
     return entry
 
 
@@ -4207,7 +4234,8 @@ def phase_batch(chk: Checks, kernels: dict, ctx: dict) -> None:
             chk.expect(prof["launches"] > 0, f"decode B={bsz}: the profiler saw the replays' device operations")
             log(f"  decode B={bsz}, profiler over 8 replays: device idle share {prof['idle_share']:.4f} of the "
                 f"{prof['window_us'] / 8e3:.3f} ms a step; {prof['launches'] / 8:.0f} device operations a step; "
-                f"device ms a step: C+D pass (gemv_kernel) {part_ms('gemv_kernel'):.3f}, D epilogue "
+                f"device ms a step: C+D pass (gemv_kernel, rows_kernel) "
+                f"{part_ms('gemv_kernel') + part_ms('rows_kernel'):.3f}, D epilogue "
                 f"{part_ms('gateup_reduce'):.3f}, all {prof['busy_us'] / 8e3:.3f}")
             log(f"  decode B={bsz}, top device kernels a step (us): "
                 f"{ {k[:60]: round(v, 2) for k, v in list(per_step.items())[:8]} }")

@@ -108,8 +108,8 @@ ENTRY_POINTS = {
     "ff_flash_attn_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "ff_attn_importance_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "ff_attn_importance_rows_smem": [_I, _I],
-    "ff_gemv_stacked": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
-    "ff_gemv_gateup": [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+    "ff_gemv_stacked": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+    "ff_gemv_gateup": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P],
     "ff_bidir_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "ff_sink_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "ff_ragged_decode_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

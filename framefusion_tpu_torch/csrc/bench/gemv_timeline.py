@@ -60,7 +60,7 @@ def instrumented_source() -> str:
         raise RuntimeError("the ticket was not found once in matvec.cu")
     src = src.replace(ticket, "  consumers_sync();\n  if (threadIdx.x == 0 && pid < 4096) g_probe[pid][3] = gtime();\n"
                       "  if (!*is_last) return;\n")
-    tail = "    if (gc < n) out[static_cast<size_t>(b) * n + gc] = part[h];\n  }\n}\n"
+    tail = "    if (gc < n) out[gc] = part[h];\n  }\n}\n"
     if src.count(tail) != 1:
         raise RuntimeError("the merge's end was not found once in matvec.cu")
     src = src.replace(tail, tail[:-2] + "  if (threadIdx.x == 0 && pid < 4096) g_probe[pid][4] = gtime();\n}\n")
@@ -81,15 +81,15 @@ def build(tmp: Path) -> ctypes.CDLL:
 
 
 def run(lib, x, stacks, layer, counters) -> None:
-    wtype, tiles, chunks, kchunk = mv._kernel_plan(x, stacks)
+    wtype, tiles, chunks, kchunk = mv._kernel_plan(x, stacks, 1)
     ns = [w.shape[2] for w in stacks]
     outs = [torch.empty((1, n), dtype=torch.float32, device="cuda") for n in ns]
     ws = torch.empty((chunks, 1, sum(ns)), dtype=torch.float32, device="cuda")
     pad = 3 - len(stacks)
-    status = lib.ff_gemv_stacked(x.data_ptr(), 1, x.shape[1], layer, wtype,
+    status = lib.ff_gemv_stacked(x.data_ptr(), 1, x.shape[1], x.shape[1], layer, stacks[0].shape[0], wtype,
                                  *([w.data_ptr() for w in stacks] + [None] * pad), *(ns + [0] * pad),
                                  *([o.data_ptr() for o in outs] + [None] * pad), ws.data_ptr(), counters.data_ptr(),
-                                 chunks, kchunk, None, _build.stream_ptr(x.device))
+                                 chunks, kchunk, None, 1, _build.stream_ptr(x.device))
     _build.check(status, "gemv_stacked (instrumented)")
 
 

@@ -54,6 +54,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tma_map.cuh"
 #include "wgmma_rs.cuh"
 
 namespace {
@@ -324,33 +325,17 @@ bidir_attn_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_consta
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // The TMA map of a (B, N, H, hd) bf16 tensor as five dims, innermost first:
 // 8 dims of a chunk, keys (H * hd apart), chunks (16 bytes apart), heads,
 // batches; its box is one 64-key tile of one (batch, head).
 int tile_map(CUtensorMap* map, const void* ptr, int B, int N, int H, int hd) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
   const cuuint64_t dims[5] = {8, static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(hd / 8),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t row = static_cast<cuuint64_t>(H) * hd * 2;  // bytes between keys
   const cuuint64_t strides[4] = {row, 16, static_cast<cuuint64_t>(hd) * 2, row * N};
   const cuuint32_t box[5] = {8, kBN, static_cast<cuuint32_t>(hd / 8), 1, 1};
-  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims, strides, box,
-                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, ptr, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 
 template <int HD8>

@@ -45,6 +45,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tma_map.cuh"
 #include "wgmma_rs.cuh"
 
 namespace {
@@ -349,32 +350,16 @@ __device__ __forceinline__ void attn_fwd_cta(const CUtensorMap& map_k, const CUt
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // The TMA map of an (S, Hk, 128) bf16 tensor as four dims, innermost first:
 // 64 dims of a half, keys (Hk * 256 bytes apart), halves (128 bytes apart),
 // KV heads (256 bytes apart); its box is one kBN-key tile of one KV head,
 // landing as [half][key][64 dims] with the 128-byte swizzle.
 int kv_map(CUtensorMap* map, const void* ptr, int S, int Hk) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
   const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S), 2, static_cast<cuuint64_t>(Hk)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(Hk) * kD * 2, 128, kD * 2};
   const cuuint32_t box[4] = {64, kBN, 2, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
 // The K and V maps of one launch, and the opt-in above 48 KB of dynamic

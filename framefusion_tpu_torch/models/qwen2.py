@@ -566,7 +566,8 @@ def decode_step(params: dict, token_embed, position_id, k_pool, v_pool, cache_le
 def verify_step(params: dict, token_embeds, position_ids, k_pool, v_pool, cache_lens, cfg: LLMConfig,
                 attn_impl: str = "flash", tail_split=None, gate=None):
     """Speculative-verify step: K candidate rows through the stack together
-    (one launch of kernels C and D each, which read the weights once a row).
+    (one launch of kernels C and D each, which read each weight tile once
+    for all K rows).
 
     Row 0 is the last committed token, rows 1..K-1 draft continuations. All
     K rows' K/V are written IN PLACE at each layer's own offset ``[len,

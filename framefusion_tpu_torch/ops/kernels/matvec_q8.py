@@ -8,7 +8,10 @@ it):
   one, two or three (L, K, N) weight stacks (bf16 or int8), fp32 out; the
   caller applies int8 scales. One launch: K is split over CTAs by
   ``split_plan`` and the last CTA of each column tile merges the partials
-  in a fixed order, behind arrival counters kept per (device, stream).
+  in a fixed order, behind arrival counters kept per (device, stream). One
+  row streams the weights on the CUDA cores; 2-64 rows share each weight
+  tile a CTA reads, as the TPU kernel's row block does, and multiply on the
+  tensor cores, so the plan and the bytes read do not grow with the rows.
   ``matvec_stacked`` and ``matvec_stacked_qkv`` keep the JAX entry points.
 * ``gemv_gateup`` (kernel D) — ``silu(x@Wg*sg) * (x@Wu*su)`` over the two
   MLP stacks (``matvec_stacked_gateup``): the same pass, then an epilogue
@@ -20,8 +23,10 @@ it):
   rows (the Qwen2-MoE decode): each row reads its own matrix of a stack
   viewed as (L * E, K, N), chosen by a device ``int32`` index a row
   (``index=``), so the routed experts' weights are read in place, never
-  gathered; more than ``MAX_ROWS`` rows go as several launches
-  (``by_row_blocks``).
+  gathered. The kernel groups the rows by index on the card: a launch has
+  ``min(B, L * E)`` group slots, and each distinct matrix is read once for
+  all the rows that chose it. More than ``MAX_ROWS`` rows go as several
+  launches (``by_row_blocks``).
 
 Like the TPU kernels, the activation row is rounded to bf16 and the weights
 are read as bf16 or int8 (a float weight stack is rounded to bf16 by the
@@ -46,8 +51,9 @@ MAX_ROWS = 64
 # ~25 KB an SM needs in flight for 3.35 TB/s. One, three and four an SM
 # timed slower on the card at the decode shapes.
 CTAS_PER_SM = 2
-MAX_KCHUNK = 2048  # rows of x a CTA stages in shared memory (the kernel's kMaxKChunk)
-TILE_BYTES = 512  # bytes of each weight row a CTA reads (the kernel's kSeg)
+MAX_KCHUNK = 2048  # rows of x a one-row CTA stages in shared memory (the kernel's kMaxKChunk)
+TILE_BYTES = 512  # bytes of each weight row a one-row CTA reads (the kernel's kSeg)
+ROWS_TILE = 256  # columns of each weight row a CTA of 2-64 rows reads (the kernel's kTileCols)
 ROW_STEP = 8  # K-chunks are whole multiples of the CTA's eight warps
 
 
@@ -76,29 +82,33 @@ def _plain_product(x, w, layer, index=None):
     return (xf[:, None, :] @ w[index.long()].to(torch.bfloat16).to(torch.float32))[:, 0]
 
 
-def column_tiles(ns, int8: bool) -> int:
-    """Column tiles of the stacks' widths ``ns``: a CTA reads ``TILE_BYTES``
-    of each weight row (256 bf16 or 512 int8 columns)."""
-    width = TILE_BYTES // (1 if int8 else 2)
+def column_tiles(ns, int8: bool, rows: int = 1) -> int:
+    """Column tiles of the stacks' widths ``ns``: a CTA of one row reads
+    ``TILE_BYTES`` of each weight row (256 bf16 or 512 int8 columns), one of
+    2-64 rows ``ROWS_TILE`` columns (its accumulators, 8 a thread for each 8
+    rows, keep two CTAs an SM at 256 columns)."""
+    width = TILE_BYTES // (1 if int8 else 2) if rows == 1 else ROWS_TILE
     return sum(-(-n // width) for n in ns)
 
 
-def split_plan(k: int, tiles: int, rows: int, sm_count: int = SM_COUNT) -> tuple[int, int]:
+def split_plan(k: int, tiles: int, slots: int = 1, sm_count: int = SM_COUNT) -> tuple[int, int]:
     """(chunks, kchunk): K cut into ``chunks`` ranges of ``kchunk`` rows (a
-    multiple of ``ROW_STEP``, at most ``MAX_KCHUNK``). The fewest chunks are
-    as many as keep the ``tiles * chunks * rows`` CTAs within one wave of
-    ``CTAS_PER_SM`` an SM, or as ``MAX_KCHUNK`` forces; up to twice that, the
-    count with the fewest waves per chunk wins (each chunk's CTAs do 1 /
-    chunks of the work), so a plan that spills past a wave fills its last
-    one; ties go to fewer chunks."""
+    multiple of ``ROW_STEP``, at most ``MAX_KCHUNK``). A CTA serves all of a
+    launch's rows, so the rows do not enter the plan; ``slots`` counts the
+    distinct matrices a launch may read (routed rows: one a group slot). The
+    fewest chunks are as many as keep the ``tiles * chunks * slots`` CTAs
+    within one wave of ``CTAS_PER_SM`` an SM, or as ``MAX_KCHUNK`` forces; up
+    to twice that, the count with the fewest waves per chunk wins (each
+    chunk's CTAs do 1 / chunks of the work), so a plan that spills past a
+    wave fills its last one; ties go to fewer chunks."""
     wave = sm_count * CTAS_PER_SM
-    fewest = max(1, wave // (tiles * rows), -(-k // MAX_KCHUNK))
-    chunks = min(range(fewest, 2 * fewest + 1), key=lambda c: (Fraction(-(-tiles * c * rows // wave), c), c))
+    fewest = max(1, wave // (tiles * slots), -(-k // MAX_KCHUNK))
+    chunks = min(range(fewest, 2 * fewest + 1), key=lambda c: (Fraction(-(-tiles * c * slots // wave), c), c))
     kchunk = -(-(-(-k // chunks)) // ROW_STEP) * ROW_STEP
     return -(-k // kchunk), kchunk
 
 
-def _kernel_plan(x, stacks):
+def _kernel_plan(x, stacks, slots: int):
     """Validate CUDA operands; return (wtype, column tiles, chunks, kchunk)."""
     dtype = stacks[0].dtype
     if any(w.dtype != dtype for w in stacks) or dtype not in (torch.bfloat16, torch.int8):
@@ -112,9 +122,25 @@ def _kernel_plan(x, stacks):
     vec = 16 if dtype == torch.int8 else 8
     if any(w.shape[2] % vec for w in stacks):
         raise ValueError(f"CUDA gemv needs every N to be a multiple of {vec}")
-    tiles = column_tiles([w.shape[2] for w in stacks], dtype == torch.int8)
-    chunks, kchunk = split_plan(x.shape[1], tiles, x.shape[0], _sm_count(x.device.index))
+    tiles = column_tiles([w.shape[2] for w in stacks], dtype == torch.int8, x.shape[0])
+    chunks, kchunk = split_plan(x.shape[1], tiles, slots, _sm_count(x.device.index))
     return (1 if dtype == torch.int8 else 0), tiles, chunks, kchunk
+
+
+def _slots(x, stack, index) -> int:
+    """Group slots of a launch: one, or for routed rows one for each
+    distinct matrix there may be."""
+    return 1 if index is None else min(x.shape[0], stack.shape[0])
+
+
+def _rows_operand(x):
+    """x as the kernel reads it: at 2-64 rows the producer copies each
+    row's K-values with the copy engines, which want 16-byte aligned rows,
+    so rows are padded with zeros to a multiple of 8 (a copy only for a K
+    off 8 or a misaligned view). Returns (x, ldx)."""
+    if x.shape[0] > 1 and (x.shape[1] % 8 or x.data_ptr() % 16):
+        x = torch.nn.functional.pad(x, (0, -x.shape[1] % 8))
+    return x, x.shape[1]
 
 
 def gemv_stacked_plain(x, stacks, layer: int, index=None):
@@ -135,18 +161,20 @@ def gemv_stacked(x, stacks, layer: int, index=None):
     from ... import _build
 
     lib = _build.load_library()
-    wtype, tiles, chunks, kchunk = _kernel_plan(x, stacks)
+    slots = _slots(x, stacks[0], index)
+    wtype, tiles, chunks, kchunk = _kernel_plan(x, stacks, slots)
     b, k = x.shape
-    counters = _counters(x.device, b * tiles)
+    counters = _counters(x.device, slots * tiles)
     ns = [w.shape[2] for w in stacks]
     outs = [torch.empty((b, n), dtype=torch.float32, device=x.device) for n in ns]
     ws = torch.empty((chunks if chunks > 1 else 0, b, sum(ns)), dtype=torch.float32, device=x.device)
     pad = 3 - len(stacks)
     w_ptrs = [w.data_ptr() for w in stacks] + [None] * pad
     o_ptrs = [o.data_ptr() for o in outs] + [None] * pad
+    xr, ldx = _rows_operand(x)
     status = lib.ff_gemv_stacked(
-        x.data_ptr(), b, k, layer, wtype, *w_ptrs, *(ns + [0] * pad), *o_ptrs,
-        ws.data_ptr(), counters.data_ptr(), chunks, kchunk, _index_ptr(index), _build.stream_ptr(x.device),
+        xr.data_ptr(), b, ldx, k, layer, stacks[0].shape[0], wtype, *w_ptrs, *(ns + [0] * pad), *o_ptrs,
+        ws.data_ptr(), counters.data_ptr(), chunks, kchunk, _index_ptr(index), slots, _build.stream_ptr(x.device),
     )
     _build.check(status, "gemv_stacked")
     _count_launch(gemv_stacked)
@@ -191,7 +219,8 @@ def gemv_gateup(x, wg, wu, sg, su, layer: int, index=None):
     from ... import _build
 
     lib = _build.load_library()
-    wtype, _, chunks, kchunk = _kernel_plan(x, [wg, wu])
+    slots = _slots(x, wg, index)
+    wtype, _, chunks, kchunk = _kernel_plan(x, [wg, wu], slots)
     b, k = x.shape
     n = wg.shape[2]
     # Routed rows read their scales from the whole tables in the epilogue.
@@ -199,11 +228,12 @@ def gemv_gateup(x, wg, wu, sg, su, layer: int, index=None):
     su_l = (su if index is not None else su[layer]).contiguous() if su is not None else None
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     ws = torch.empty((chunks, b, 2 * n), dtype=torch.float32, device=x.device)
+    xr, ldx = _rows_operand(x)
     status = lib.ff_gemv_gateup(
-        x.data_ptr(), b, k, layer, wtype, wg.data_ptr(), wu.data_ptr(), n,
+        xr.data_ptr(), b, ldx, k, layer, wg.shape[0], wtype, wg.data_ptr(), wu.data_ptr(), n,
         sg_l.data_ptr() if sg_l is not None else None,
         su_l.data_ptr() if su_l is not None else None,
-        out.data_ptr(), ws.data_ptr(), chunks, kchunk, _index_ptr(index), _build.stream_ptr(x.device),
+        out.data_ptr(), ws.data_ptr(), chunks, kchunk, _index_ptr(index), slots, _build.stream_ptr(x.device),
     )
     _build.check(status, "gemv_gateup")
     _count_launch(gemv_gateup)

@@ -22,8 +22,8 @@ back to back and the host reads ``out`` once.
 ``BatchDecodeGraph`` does the same for the batched step
 (``qwen2.decode_step_batch``, JAX's ``_decode_loop_batch``): B sequences'
 pools side by side, B tokens a replay. Kernels C and D take the B rows
-in one launch each, but read the weights once a row (the rows are their
-grid.z), where the TPU kernel reads each weight tile once for all rows.
+in one launch each and read each weight tile once for all of them, as the
+TPU kernel does.
 
 ``SpecDecodeGraph`` and ``SpecBatchDecodeGraph`` capture one speculative
 macro step (runtime/spec_decode.py: drafts, ``verify_step`` or

@@ -1267,7 +1267,7 @@ class CompressionEngine:
         offset ``S_pool - max_new_tokens`` past every prefix, and
         ``max_new_tokens - 1`` replays of the batched decode graph back to
         back (each step one launch of kernels C and D for all B rows, which
-        read the weights once a row). Greedy by default;
+        read each weight tile once for all of them). Greedy by default;
         a sampled decode draws a (max_new_tokens, B) block of uniforms from
         ``generator`` first. One read at the end, then each row is cut after
         ``eos_token_id``. Returns a list of token lists."""
@@ -1304,7 +1304,8 @@ class CompressionEngine:
                             eos_token_id: Optional[int] = None, return_stats: bool = False):
         """Batched speculative greedy decode: every sequence's K candidate
         rows verified in one pass (kernels C and D at B * K rows, which read
-        the weights once a row); the same tokens as ``generate_batch``.
+        each weight tile once for all of them); the same tokens as
+        ``generate_batch``.
         ``prompt_ids``: one text id list (or None) a sequence."""
         return spec_decode.generate_spec_batch(self, results, max_new_tokens, draft_len=draft_len,
                                                prompt_ids=prompt_ids, eos_token_id=eos_token_id,

@@ -21,9 +21,9 @@ scalar, ``min(emitted)``. Every replay is gated on the device by the loop's
 own condition, so a replay after the end commits nothing, counts nothing
 and writes no row.
 
-Kernel C reads the weights once per activation row (the rows are its
-``grid.z``), so on the card a K-row pass costs about K one-row passes; the
-TPU kernel streams the weights once for all rows.
+Kernels C and D read each weight tile once for all of a pass's rows (on
+the tensor cores), as the TPU kernel streams the weights once for all rows,
+so on the card a K-row pass costs little more than a one-row pass.
 """
 
 from __future__ import annotations

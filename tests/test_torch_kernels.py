@@ -115,7 +115,7 @@ def _stack(rng, dtype, l, k, n):
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
-@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("rows", [1, 3, 8, 20])
 def test_matvec_stacked_and_qkv_match_pallas(dtype, rows):
     rng = np.random.default_rng(40 + rows)
     L, k = 3, 512
@@ -132,7 +132,8 @@ def test_matvec_stacked_and_qkv_match_pallas(dtype, rows):
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
-def test_matvec_gateup_matches_pallas(dtype):
+@pytest.mark.parametrize("rows", [1, 2, 8, 20])
+def test_matvec_gateup_matches_pallas(dtype, rows):
     rng = np.random.default_rng(50)
     L, k, n = 3, 512, 768
     wg, wu = _stack(rng, dtype, L, k, n), _stack(rng, dtype, L, k, n)
@@ -143,35 +144,39 @@ def test_matvec_gateup_matches_pallas(dtype):
     else:
         sg = su = jnp.ones((1, n), jnp.float32)
         sg_t = su_t = None
-    x = jnp.asarray(rng.standard_normal((2, k)) * 0.1, jnp.bfloat16)
+    x = jnp.asarray(rng.standard_normal((rows, k)) * 0.1, jnp.bfloat16)
     for l in (0, L - 1):
         got = tmv.matvec_stacked_gateup(to_t(x), to_t(wg), to_t(wu), sg_t, su_t, l)
         ref = jmv.matvec_stacked_gateup(x, wg, wu, sg, su, l, interpret=True)
         assert_mv_close(got, ref)
 
 
+@pytest.mark.parametrize("rows", [1, 20])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("k,ns", [(3584, [3584, 512, 512]), (3584, [3584]), (18944, [3584])])  # qkv, wo, w_down
-def test_gemv_split_plan_fills_one_wave(k, ns, int8):
-    """At the decode projections' shapes (B = 1) the plan covers K exactly
-    once, and its column tiles times K-chunks put at least one CTA on every
-    SM and stay within one wave of ``CTAS_PER_SM`` CTAs an SM."""
-    tiles = tmv.column_tiles(ns, int8)
-    chunks, kchunk = tmv.split_plan(k, tiles, 1)
+def test_gemv_split_plan_fills_one_wave(k, ns, int8, rows):
+    """At the decode projections' shapes the plan covers K exactly once, and
+    its column tiles times K-chunks put at least one CTA on every SM and
+    stay within one wave of ``CTAS_PER_SM`` CTAs an SM: at one row (512-byte
+    tiles) and at 2-64 (256-column tiles), where the rows share each CTA
+    and do not enter the plan."""
+    tiles = tmv.column_tiles(ns, int8, rows)
+    chunks, kchunk = tmv.split_plan(k, tiles)
     assert chunks * kchunk >= k > (chunks - 1) * kchunk
     assert kchunk % tmv.ROW_STEP == 0 and kchunk <= tmv.MAX_KCHUNK
     assert tmv.SM_COUNT <= tiles * chunks <= tmv.SM_COUNT * tmv.CTAS_PER_SM
 
 
-@pytest.mark.parametrize("k,tiles,rows", [(8, 1, 1), (1003, 4, 3), (3584, 18, 64), (18944, 148, 1), (100000, 1, 1)])
-def test_gemv_split_plan_covers_k(k, tiles, rows):
-    """Any shape: whole K-chunks of at most ``MAX_KCHUNK`` rows cover K, the
-    last one not empty, and at most twice the fewest chunks that keep one
-    wave (or that ``MAX_KCHUNK`` forces)."""
-    chunks, kchunk = tmv.split_plan(k, tiles, rows)
+@pytest.mark.parametrize("k,tiles,slots", [(8, 1, 1), (1003, 4, 3), (3584, 18, 64), (18944, 148, 1), (100000, 1, 1)])
+def test_gemv_split_plan_covers_k(k, tiles, slots):
+    """Any shape and any count of routed group slots: whole K-chunks of at
+    most ``MAX_KCHUNK`` rows cover K, the last one not empty, and at most
+    twice the fewest chunks that keep one wave (or that ``MAX_KCHUNK``
+    forces)."""
+    chunks, kchunk = tmv.split_plan(k, tiles, slots)
     assert chunks * kchunk >= k > (chunks - 1) * kchunk
     assert 0 < kchunk <= tmv.MAX_KCHUNK and kchunk % tmv.ROW_STEP == 0
-    assert chunks <= 2 * max(1, tmv.SM_COUNT * tmv.CTAS_PER_SM // (tiles * rows), -(-k // tmv.MAX_KCHUNK))
+    assert chunks <= 2 * max(1, tmv.SM_COUNT * tmv.CTAS_PER_SM // (tiles * slots), -(-k // tmv.MAX_KCHUNK))
 
 
 @pytest.mark.parametrize("int8,chunks", [(False, 3), (True, 3)])
@@ -181,7 +186,21 @@ def test_gemv_split_plan_fills_its_last_wave(int8, chunks):
     stages): three chunks fill two waves better than two chunks fill
     1.12 (and int8's 74 tiles fit three chunks in one wave)."""
     tiles = tmv.column_tiles([18944, 18944], int8)
-    assert tmv.split_plan(3584, tiles, 1)[0] == chunks
+    assert tmv.split_plan(3584, tiles)[0] == chunks
+
+
+@pytest.mark.parametrize("k", [1003, 1008])
+def test_rows_operand_pads_k_to_a_multiple_of_8(k):
+    """At 2-64 rows the kernel copies 8-value pieces of each activation row:
+    a K off 8 is padded with zeros (the values kept), a K on 8 passes as it
+    is, and one row passes as it is whatever its K."""
+    x = torch.randn((3, k), generator=torch.Generator().manual_seed(k)).to(torch.bfloat16)
+    xr, ldx = tmv._rows_operand(x)
+    assert ldx == -(-k // 8) * 8 and xr.shape == (3, ldx)
+    assert torch.equal(xr[:, :k], x) and not xr[:, k:].any()
+    assert (xr is x) == (k % 8 == 0)
+    one, ld1 = tmv._rows_operand(x[:1])
+    assert one.data_ptr() == x.data_ptr() and ld1 == k
 
 
 def test_float_weights_are_read_as_bf16():
@@ -532,11 +551,12 @@ def test_cuda_plain_matvec_entry_points_match_plain(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("rows", [1, 3, 64])
+@pytest.mark.parametrize("rows", [1, 2, 3, 8, 20, 64])
 def test_cuda_gemv_edge_shapes_match_plain(cuda, dtype, rows):
-    """Kernel C with N off the column tile (784 = 3 x 256 + 16 bf16, 512 +
-    272 int8), K = 1003 off every K-chunk, and B = 1, 3 and 64 rows: fp32
-    sums in another order, 1e-4 of the largest output."""
+    """Kernel C with N off the column tile (784 = 3 x 256 + 16), K = 1003
+    off every K-chunk and off the 8-value pieces the rows kernel copies, and
+    B = 1, 2, 3, 8, 20 and 64 rows (one, two, three and eight 8-row tiles):
+    fp32 sums in another order, 1e-4 of the largest output."""
     gen = torch.Generator(device=cuda).manual_seed(rows)
 
     def stack(n):
@@ -554,23 +574,30 @@ def test_cuda_gemv_edge_shapes_match_plain(cuda, dtype, rows):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
-def test_cuda_gemv_is_repeatable(cuda, dtype):
-    """Two calls give the same bits, and so do three replays of a captured
-    call: the last CTA of each column tile adds the K-chunks in chunk order,
-    whichever arrives last, and leaves the arrival counters at zero."""
+@pytest.mark.parametrize("rows", [1, 8, 20])
+def test_cuda_gemv_is_repeatable(cuda, dtype, rows):
+    """Kernels C and D: two calls give the same bits, and so do three
+    replays of a captured call: the last CTA of each column tile (C) and
+    D's epilogue add the K-chunks in chunk order, whichever CTA arrives
+    last, and C leaves the arrival counters at zero."""
     gen = torch.Generator(device=cuda).manual_seed(3)
 
     def stack(n):
         w = torch.randn((2, 3584, n), generator=gen, device=cuda)
         return (w * 40).clamp(-127, 127).to(torch.int8) if dtype == torch.int8 else w.to(torch.bfloat16)
 
-    x = torch.randn((1, 3584), generator=gen, device=cuda).to(torch.bfloat16)
+    x = torch.randn((rows, 3584), generator=gen, device=cuda).to(torch.bfloat16)
     stacks = [stack(3584), stack(512), stack(512)]
-    first = tmv.gemv_stacked(x, stacks, 1)
-    assert all(torch.equal(a, b) for a, b in zip(tmv.gemv_stacked(x, stacks, 1), first))
+    sc = torch.rand((2, 3584), generator=gen, device=cuda) if dtype == torch.int8 else None
+
+    def both():
+        return [*tmv.gemv_stacked(x, stacks, 1), tmv.gemv_gateup(x, stacks[0], stacks[0], sc, sc, 1)]
+
+    first = both()
+    assert all(torch.equal(a, b) for a, b in zip(both(), first))
     # warmed up, then captured, on the capture stream (which then owns its arrival counters)
     held = {}
-    graph = capture_graph(lambda: held.update(outs=tmv.gemv_stacked(x, stacks, 1)), cuda)
+    graph = capture_graph(lambda: held.update(outs=both()), cuda)
     outs = held["outs"]
     for _ in range(3):
         for o in outs:

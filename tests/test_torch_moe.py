@@ -335,16 +335,19 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
-def test_cuda_routed_rows_match_plain_and_repeat(cuda, dtype):
+@pytest.mark.parametrize("routing", ["random", "one_expert", "distinct"])
+def test_cuda_routed_rows_match_plain_and_repeat(cuda, dtype, routing):
     """Kernels C and D with a device stack index a row against their plain
-    versions (1e-4 of the largest output: fp32 sums in another order), over
-    more than 64 rows (two launches); each replay of a captured routed call
-    gives the eager call's output bit for bit."""
+    versions (1e-4 of the largest output: fp32 sums in another order): 65
+    random indices (two launches, experts shared by several rows), 64 rows
+    on one expert (one group of eight 8-row tiles) and 16 rows on 16
+    distinct matrices (every group slot used); each replay of a captured
+    routed call gives the eager call's output bit for bit."""
     from framefusion_tpu_torch.runtime.decode_graph import capture_graph
 
     gen = torch.Generator(device=cuda).manual_seed(7)
     n_l, e, k, n = 2, 8, 1003, 784
-    rows = tmv.MAX_ROWS + 8
+    rows = {"random": tmv.MAX_ROWS + 1, "one_expert": tmv.MAX_ROWS, "distinct": n_l * e}[routing]
 
     def stack(*shape):
         w = torch.randn(shape, generator=gen, device=cuda)
@@ -355,15 +358,21 @@ def test_cuda_routed_rows_match_plain_and_repeat(cuda, dtype):
     if dtype == torch.int8:
         sg, su = (torch.rand((n_l, e, n), generator=gen, device=cuda) * 0.01 for _ in range(2))
     x = torch.randn((rows, k), generator=gen, device=cuda).to(torch.bfloat16)
-    idx = torch.randint(0, n_l * e, (rows,), generator=gen, device=cuda, dtype=torch.int32)
+    if routing == "random":
+        idx = torch.randint(0, n_l * e, (rows,), generator=gen, device=cuda, dtype=torch.int32)
+    elif routing == "one_expert":
+        idx = torch.full((rows,), n_l * e - 3, device=cuda, dtype=torch.int32)
+    else:
+        idx = torch.randperm(n_l * e, generator=gen, device=cuda).to(torch.int32)
     launches = (tmv.gemv_stacked.launches, tmv.gemv_gateup.launches)
     gu = tmv.matvec_routed_gateup(x, wg, wu, sg, su, idx)
     down = tmv.matvec_routed(gu.to(torch.bfloat16), wd, idx)
-    assert (tmv.gemv_stacked.launches - launches[0], tmv.gemv_gateup.launches - launches[1]) == (2, 2)
+    n_launch = -(-rows // tmv.MAX_ROWS)
+    assert (tmv.gemv_stacked.launches - launches[0], tmv.gemv_gateup.launches - launches[1]) == (n_launch, n_launch)
     ref_gu = torch.cat([tmv.gemv_gateup_plain(x[i:i + 64], wg.flatten(0, 1), wu.flatten(0, 1),
                                               None if sg is None else sg.flatten(0, 1),
                                               None if su is None else su.flatten(0, 1), 0, idx[i:i + 64])
-                        for i in (0, 64)])
+                        for i in range(0, rows, tmv.MAX_ROWS)])
     ref_down = tmv.gemv_stacked_plain(gu.to(torch.bfloat16), [wd.flatten(0, 1)], 0, idx)[0]
     for got, ref in ((gu, ref_gu), (down, ref_down)):
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
