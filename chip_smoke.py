@@ -2040,11 +2040,11 @@ def checkpoint_run(ckpt_dir: str, cfg, vcfg, n_frames: int = 64, device: str = "
             events = json.load(f)["traceEvents"]
     finally:
         shutil.rmtree(trace_dir, ignore_errors=True)
-    # The load's stages are weights.load_checkpoint's record_function spans;
-    # the host-to-card copies are the trace's device memcpy events.
+    # The load's stages are weights.load_checkpoint's framefusion.weights.*
+    # spans; the host-to-card copies are the trace's device memcpy events.
     stages: dict = {}
     for e in events:
-        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("weights."):
+        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("framefusion.weights."):
             stages[e["name"]] = stages.get(e["name"], 0.0) + e["dur"] / 1e6
     upload_us = sum(e["dur"] for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""))
     out.update(stages={k: round(v, 3) for k, v in stages.items()}, upload_s=upload_us / 1e6 if on_card else None,
@@ -2139,8 +2139,9 @@ def phase_checkpoint(chk: Checks, kernels: dict, cfg=None, vcfg=None, n_frames: 
     chk.expect(not os.path.exists(ckpt_dir), "checkpoint: the hub dir is deleted")
     st = r["stages"]
     gib = 2**20
-    read_s, llm_s, tower_s, up_s = (st.get("weights.load_state"), st.get("weights.import_decoder"),
-                                    st.get("weights.load_vision"), r["upload_s"])
+    read_s, llm_s, tower_s, up_s = (st.get("framefusion.weights.load_state"),
+                                    st.get("framefusion.weights.import_decoder"),
+                                    st.get("framefusion.weights.load_vision"), r["upload_s"])
     chk.expect(None not in (read_s, llm_s, tower_s), f"checkpoint: the trace of the load holds its three stages {st}")
     if None in (read_s, llm_s, tower_s):
         return
@@ -4525,8 +4526,8 @@ def phase_spec_serve(chk: Checks, kernels: dict, ctx: dict) -> None:
         log(f"  serving draft_len {draft} (slots {loop.b}, chunk {loop.chunk}, max_new_cap {loop.max_new_cap}, "
             f"tail_pool (2, 3456), phys {loop.phys}: pools {tuple(loop.k_pool.shape)}"
             f"{'' if loop.k_tail is None else f' + {tuple(loop.k_tail.shape)}'}): "
-            f"{loop._chunk_idx} chunks, {loop.chunk_s / max(loop._chunk_idx, 1) * 1e3:.2f} ms a chunk, admission "
-            f"{loop.admit_s / len(inputs) * 1e3:.1f} ms each, {loop.captures} captures in "
+            f"{loop._chunk_idx} chunks, admission "
+            f"{sum(r.admit_s for r in results.values()) / len(results) * 1e3:.1f} ms each, {loop.captures} captures in "
             f"{loop.capture_s * 1e3:.1f} ms, {loop.compactions} compactions; {len(inputs) / wall:.3f} requests/s, "
             f"{n_tok / wall:.1f} tokens/s over {wall:.2f} s; mean queue_s "
             f"{sum(r.queue_s for r in results.values()) / len(results):.3f}, serve_s "

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ...ops.kernels.bidir_attention import flash_bidir_attention
+from ...runtime.profiling import span
 from ...weights import resolve_device, to_numpy
 from ..qwen2 import layer_slice
 from .siglip import _layernorm
@@ -318,10 +319,12 @@ def extract_features(vit_params: dict, proj_params: dict, pixels, cfg: InternViT
 
     Returns: (B, tokens_per_image, text_hidden_size).
     """
-    feats = encode(vit_params, pixels, cfg, attn_impl)[:, 1:, :]  # drop CLS
-    b, side = feats.shape[0], cfg.patches_per_side
-    feats = pixel_shuffle(feats.reshape(b, side, side, cfg.hidden_size), cfg.downsample_ratio)
-    feats = feats.reshape(b, -1, feats.shape[-1])
-    z = _layernorm(feats, proj_params["ln_w"], proj_params["ln_b"], 1e-5)
-    z = torch.nn.functional.gelu(z @ proj_params["w1"] + proj_params["b1"])
-    return z @ proj_params["w2"] + proj_params["b2"]
+    with span("vision.tower"):
+        feats = encode(vit_params, pixels, cfg, attn_impl)[:, 1:, :]  # drop CLS
+    with span("vision.project"):
+        b, side = feats.shape[0], cfg.patches_per_side
+        feats = pixel_shuffle(feats.reshape(b, side, side, cfg.hidden_size), cfg.downsample_ratio)
+        feats = feats.reshape(b, -1, feats.shape[-1])
+        z = _layernorm(feats, proj_params["ln_w"], proj_params["ln_b"], 1e-5)
+        z = torch.nn.functional.gelu(z @ proj_params["w1"] + proj_params["b1"])
+        return z @ proj_params["w2"] + proj_params["b2"]

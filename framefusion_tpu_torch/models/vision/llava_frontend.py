@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ...runtime.profiling import span
 from . import siglip
 from ..qwen2 import params_from_numpy  # noqa: F401  (the projector's dict carries over alike)
 
@@ -66,14 +67,16 @@ def encode_video(vit_params: dict, vit_cfg: siglip.ViTConfig, proj: dict, frames
     frames = torch.as_tensor(frames)
 
     def encode_batch(batch):
-        feats = siglip.encode(vit_params, batch, vit_cfg, feature_layer=feature_layer, attn_impl=attn_impl,
-                              w8a8=w8a8)
-        feats = project(proj, feats)
-        grid, ps = pool_2d(feats, vit_cfg.patches_per_side, pool_stride)
-        b, d = grid.shape[0], grid.shape[-1]
-        newline = proj["image_newline"].expand(b, ps, 1, d).to(grid.dtype)
-        with_newline = torch.cat([grid, newline], dim=2)  # (B, ps, ps + 1, D)
-        return with_newline.reshape(b * ps * (ps + 1), d)
+        with span("vision.tower"):
+            feats = siglip.encode(vit_params, batch, vit_cfg, feature_layer=feature_layer, attn_impl=attn_impl,
+                                  w8a8=w8a8)
+        with span("vision.project"):
+            feats = project(proj, feats)
+            grid, ps = pool_2d(feats, vit_cfg.patches_per_side, pool_stride)
+            b, d = grid.shape[0], grid.shape[-1]
+            newline = proj["image_newline"].expand(b, ps, 1, d).to(grid.dtype)
+            with_newline = torch.cat([grid, newline], dim=2)  # (B, ps, ps + 1, D)
+            return with_newline.reshape(b * ps * (ps + 1), d)
 
     n = frames.shape[0]
     if n <= frame_batch:

@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from ...runtime.profiling import span
 from . import siglip
 from .siglip import _layernorm
 from ..qwen2 import params_from_numpy  # noqa: F401  (JAX's resampler tree carries over alike)
@@ -147,6 +148,9 @@ def encode_video(vit_params: dict, vit_cfg: siglip.ViTConfig, res_params: dict, 
     side = vit_cfg.patches_per_side
     outs = []
     for i in range(0, frames.shape[0], frame_batch):
-        feats = siglip.encode(vit_params, frames[i:i + frame_batch], vit_cfg, feature_layer=-1, attn_impl=attn_impl)
-        outs.append(resample(res_params, feats, side, side, res_cfg))
+        with span("vision.tower"):
+            feats = siglip.encode(vit_params, frames[i:i + frame_batch], vit_cfg, feature_layer=-1,
+                                  attn_impl=attn_impl)
+        with span("vision.project"):
+            outs.append(resample(res_params, feats, side, side, res_cfg))
     return outs[0] if len(outs) == 1 else torch.cat(outs)

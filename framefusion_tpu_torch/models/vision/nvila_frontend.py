@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from ...runtime.profiling import span
 from . import siglip
 from .siglip import _layernorm
 # JAX's connector tree (``jax.device_get`` of its ``init_projector``) as this
@@ -79,6 +80,9 @@ def encode_video(vit_params: dict, vit_cfg: siglip.ViTConfig, proj: dict, cfg: N
     frames = torch.as_tensor(frames)
     outs = []
     for i in range(0, frames.shape[0], frame_batch):
-        feats = siglip.encode(vit_params, frames[i:i + frame_batch], vit_cfg, feature_layer=-2, attn_impl=attn_impl)
-        outs.append(project(proj, feats, cfg, vit_cfg.patches_per_side))
+        with span("vision.tower"):
+            feats = siglip.encode(vit_params, frames[i:i + frame_batch], vit_cfg, feature_layer=-2,
+                                  attn_impl=attn_impl)
+        with span("vision.project"):
+            outs.append(project(proj, feats, cfg, vit_cfg.patches_per_side))
     return outs[0] if len(outs) == 1 else torch.cat(outs)

@@ -22,6 +22,7 @@ import torch
 from .interface import FrameFusionModel
 from .models import qwen2
 from .models.adapters import internvl, llava_video, minicpmv, nvila, qwen2_vl
+from .runtime.profiling import span
 
 DEFAULT_TEMPLATE = (
     "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n"
@@ -146,18 +147,19 @@ class TextPipeline:
         temporal grid step (1.0 when None)."""
         self._prompt_ids_acc = []
         try:
-            frames = self._prepare_frames(frames)
-            if self.model.family == "qwen2_vl":
-                inputs = self._build_qwen2_vl_inputs(question, frames, video_features, video_grid_thw,
-                                                     second_per_grid_ts)
-            elif self.model.family == "internvl":
-                inputs = self._build_internvl_inputs(question, frames, video_features)
-            elif self.model.family == "minicpmv":
-                inputs = self._build_minicpmv_inputs(question, frames, video_features)
-            elif self.model.family == "nvila":
-                inputs = self._build_nvila_inputs(question, frames, video_features)
-            else:
-                inputs = self._build_llava_inputs(question, frames, video_features)
+            with span("pipeline.build_inputs"):
+                frames = self._prepare_frames(frames)
+                if self.model.family == "qwen2_vl":
+                    inputs = self._build_qwen2_vl_inputs(question, frames, video_features, video_grid_thw,
+                                                         second_per_grid_ts)
+                elif self.model.family == "internvl":
+                    inputs = self._build_internvl_inputs(question, frames, video_features)
+                elif self.model.family == "minicpmv":
+                    inputs = self._build_minicpmv_inputs(question, frames, video_features)
+                elif self.model.family == "nvila":
+                    inputs = self._build_nvila_inputs(question, frames, video_features)
+                else:
+                    inputs = self._build_llava_inputs(question, frames, video_features)
         finally:
             self.last_prompt_ids = list(self._prompt_ids_acc)
             self._prompt_ids_acc = None
@@ -200,12 +202,13 @@ class TextPipeline:
             video_features = encode_video(self.vit_params, self.vit_cfg, self.projector, frames,
                                           attn_impl=self.model.resolved_attn_impl())
 
-        ids = ids_before + [self.PLACEHOLDER_ID] + ids_after
-        text_embeds = self._embed_ids(ids)
-        feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
-        pps = self.vit_cfg.patches_per_side if self.vit_cfg is not None else 27
-        return llava_video.build_prefill_inputs(text_embeds, feats, image_token_pos=len(ids_before),
-                                                num_patches_per_side=pps)
+        with span("pipeline.prompt"):
+            ids = ids_before + [self.PLACEHOLDER_ID] + ids_after
+            text_embeds = self._embed_ids(ids)
+            feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
+            pps = self.vit_cfg.patches_per_side if self.vit_cfg is not None else 27
+            return llava_video.build_prefill_inputs(text_embeds, feats, image_token_pos=len(ids_before),
+                                                    num_patches_per_side=pps)
 
     def _build_qwen2_vl_inputs(self, question: str, frames, video_features, video_grid_thw,
                                second_per_grid_ts=None):
@@ -228,25 +231,28 @@ class TextPipeline:
                                  "or video_features with video_grid_thw")
             patches, video_grid_thw = qwen2_vl_vit.pixels_to_patches(np.asarray(frames, np.float32), self.vit_cfg)
             tower = qwen25_vl_vit if is_qwen25 else qwen2_vl_vit
-            video_features = tower.encode_video(self.vit_params, patches, *video_grid_thw, self.vit_cfg,
-                                                attn_impl=self.model.resolved_attn_impl())
+            with span("vision.tower"):  # its patch merger included
+                video_features = tower.encode_video(self.vit_params, patches, *video_grid_thw, self.vit_cfg,
+                                                    attn_impl=self.model.resolved_attn_impl())
         if video_grid_thw is None:
             raise ValueError("qwen2_vl video_features need video_grid_thw")
         grid_t, grid_h, grid_w = (int(x) for x in video_grid_thw)
-        prompt = self._render_prompt("<|vision_start|><|video_pad|><|vision_end|>", question,
-                                     self._template().format(question=question))
-        before, _, after = prompt.partition("<|video_pad|>")
-        ids_before = list(self.tokenizer.encode(before))
-        ids_after = list(self.tokenizer.encode(after))
-        text_embeds = self._embed_ids(ids_before + [self.PLACEHOLDER_ID] + ids_after)
-        feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
-        merge = getattr(self.vit_cfg, "spatial_merge_size", 2)
-        if is_qwen25 and second_per_grid_ts is None:
-            second_per_grid_ts = 1.0
-        return qwen2_vl.build_prefill_inputs(text_embeds, feats, video_token_pos=len(ids_before), grid_t=grid_t,
-                                             grid_h=grid_h, grid_w=grid_w, spatial_merge_size=merge,
-                                             second_per_grid_ts=second_per_grid_ts,
-                                             tokens_per_second=self.vit_cfg.tokens_per_second if is_qwen25 else 2)
+        with span("pipeline.prompt"):
+            prompt = self._render_prompt("<|vision_start|><|video_pad|><|vision_end|>", question,
+                                         self._template().format(question=question))
+            before, _, after = prompt.partition("<|video_pad|>")
+            ids_before = list(self.tokenizer.encode(before))
+            ids_after = list(self.tokenizer.encode(after))
+            text_embeds = self._embed_ids(ids_before + [self.PLACEHOLDER_ID] + ids_after)
+            feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
+            merge = getattr(self.vit_cfg, "spatial_merge_size", 2)
+            if is_qwen25 and second_per_grid_ts is None:
+                second_per_grid_ts = 1.0
+            return qwen2_vl.build_prefill_inputs(text_embeds, feats, video_token_pos=len(ids_before), grid_t=grid_t,
+                                                 grid_h=grid_h, grid_w=grid_w, spatial_merge_size=merge,
+                                                 second_per_grid_ts=second_per_grid_ts,
+                                                 tokens_per_second=self.vit_cfg.tokens_per_second if is_qwen25
+                                                 else 2)
 
     def _build_internvl_inputs(self, question: str, frames, video_features):
         """InternVL: a ``FrameN: <image>`` line a frame, each frame's features
@@ -263,28 +269,29 @@ class TextPipeline:
                                  "or per-frame video_features")
             video_features = extract_features(self.vit_params, self.projector, np.asarray(frames, np.float32),
                                               self.vit_cfg, attn_impl=self.model.resolved_attn_impl())
-        feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
-        if feats.ndim != 3:
-            raise ValueError(f"internvl video_features must be (n_frames, tokens_per_frame, D), got "
-                             f"{tuple(feats.shape)}")
-        n_frames, tpf, _ = feats.shape
-        video_prefix = "".join(f"Frame{i + 1}: {self.image_token}\n" for i in range(n_frames))
-        prompt = self._render_prompt(video_prefix, question,
-                                     self._template().format(video_prefix=video_prefix, question=question))
-        segments = prompt.split(self.image_token)
-        if len(segments) != n_frames + 1:
-            raise ValueError(f"the prompt holds {len(segments) - 1} {self.image_token} placeholders for "
-                             f"{n_frames} frames")
-        embeds, mask = [], []
-        for i, seg in enumerate(segments):
-            ids = list(self.tokenizer.encode(seg))
-            if ids:
-                embeds.append(self._embed_ids(ids))
-                mask.append(np.zeros(len(ids), bool))
-            if i < n_frames:
-                embeds.append(feats[i])
-                mask.append(np.ones(tpf, bool))
-        return internvl.build_prefill_inputs(torch.cat(embeds), np.concatenate(mask), tokens_per_frame=tpf)
+        with span("pipeline.prompt"):
+            feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
+            if feats.ndim != 3:
+                raise ValueError(f"internvl video_features must be (n_frames, tokens_per_frame, D), got "
+                                 f"{tuple(feats.shape)}")
+            n_frames, tpf, _ = feats.shape
+            video_prefix = "".join(f"Frame{i + 1}: {self.image_token}\n" for i in range(n_frames))
+            prompt = self._render_prompt(video_prefix, question,
+                                         self._template().format(video_prefix=video_prefix, question=question))
+            segments = prompt.split(self.image_token)
+            if len(segments) != n_frames + 1:
+                raise ValueError(f"the prompt holds {len(segments) - 1} {self.image_token} placeholders for "
+                                 f"{n_frames} frames")
+            embeds, mask = [], []
+            for i, seg in enumerate(segments):
+                ids = list(self.tokenizer.encode(seg))
+                if ids:
+                    embeds.append(self._embed_ids(ids))
+                    mask.append(np.zeros(len(ids), bool))
+                if i < n_frames:
+                    embeds.append(feats[i])
+                    mask.append(np.ones(tpf, bool))
+            return internvl.build_prefill_inputs(torch.cat(embeds), np.concatenate(mask), tokens_per_frame=tpf)
 
     def _build_minicpmv_inputs(self, question: str, frames, video_features):
         """MiniCPM-V: each frame's resampled block at the ``<image>`` line,
@@ -303,23 +310,24 @@ class TextPipeline:
             video_features = encode_video(self.vit_params, self.vit_cfg, self.projector["params"],
                                           self.projector["cfg"], np.asarray(frames, np.float32),
                                           attn_impl=self.model.resolved_attn_impl())
-        feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
-        if feats.ndim != 3:
-            raise ValueError(f"minicpmv video_features must be (n_frames, tokens_per_frame, D), got "
-                             f"{tuple(feats.shape)}")
-        n_frames, tpf, _ = feats.shape
-        prompt = self._render_prompt(f"{self.image_token}\n", question, self._template().format(question=question))
-        before, _, after = prompt.partition(self.image_token)
-        emb_before = self._embed_ids(list(self.tokenizer.encode(before)))
-        emb_after = self._embed_ids(list(self.tokenizer.encode(after)))
-        sep = self._embed_ids((list(self.tokenizer.encode(")\n")) + [self.PLACEHOLDER_ID] * 2)[:2])
-        chunks, bounds, cursor = [emb_before], [], emb_before.shape[0]
-        for f in range(n_frames):
-            chunks += [feats[f], sep]
-            bounds.append([cursor, cursor + tpf])
-            cursor += tpf + 2
-        chunks.append(emb_after)
-        return minicpmv.build_prefill_inputs(torch.cat(chunks), np.asarray(bounds), num_frames=n_frames)
+        with span("pipeline.prompt"):
+            feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
+            if feats.ndim != 3:
+                raise ValueError(f"minicpmv video_features must be (n_frames, tokens_per_frame, D), got "
+                                 f"{tuple(feats.shape)}")
+            n_frames, tpf, _ = feats.shape
+            prompt = self._render_prompt(f"{self.image_token}\n", question, self._template().format(question=question))
+            before, _, after = prompt.partition(self.image_token)
+            emb_before = self._embed_ids(list(self.tokenizer.encode(before)))
+            emb_after = self._embed_ids(list(self.tokenizer.encode(after)))
+            sep = self._embed_ids((list(self.tokenizer.encode(")\n")) + [self.PLACEHOLDER_ID] * 2)[:2])
+            chunks, bounds, cursor = [emb_before], [], emb_before.shape[0]
+            for f in range(n_frames):
+                chunks += [feats[f], sep]
+                bounds.append([cursor, cursor + tpf])
+                cursor += tpf + 2
+            chunks.append(emb_after)
+            return minicpmv.build_prefill_inputs(torch.cat(chunks), np.asarray(bounds), num_frames=n_frames)
 
     def _build_nvila_inputs(self, question: str, frames, video_features):
         """NVILA: one contiguous media block at the ``<image>`` placeholder
@@ -342,14 +350,15 @@ class TextPipeline:
             n_frames = getattr(self, "nvila_num_frames", None)
             if not n_frames:
                 raise ValueError("set pipeline.nvila_num_frames with precomputed nvila video_features")
-        prompt = self._render_prompt(f"{self.image_token}\n", question, self._template().format(question=question))
-        before, _, after = prompt.partition(self.image_token)
-        ids_before = list(self.tokenizer.encode(before))
-        ids_after = list(self.tokenizer.encode(after))
-        text_embeds = self._embed_ids(ids_before + [self.PLACEHOLDER_ID] + ids_after)
-        feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
-        return nvila.build_prefill_inputs_video(text_embeds, feats, media_token_pos=len(ids_before),
-                                                num_frames=n_frames)
+        with span("pipeline.prompt"):
+            prompt = self._render_prompt(f"{self.image_token}\n", question, self._template().format(question=question))
+            before, _, after = prompt.partition(self.image_token)
+            ids_before = list(self.tokenizer.encode(before))
+            ids_after = list(self.tokenizer.encode(after))
+            text_embeds = self._embed_ids(ids_before + [self.PLACEHOLDER_ID] + ids_after)
+            feats = torch.as_tensor(video_features).to(device=self.device, dtype=torch.float32)
+            return nvila.build_prefill_inputs_video(text_embeds, feats, media_token_pos=len(ids_before),
+                                                    num_frames=n_frames)
 
     def ask(self, question: str, frames=None, video_features=None, max_new_tokens: int = 64,
             eos_token_id: Optional[int] = None, video_grid_thw=None, second_per_grid_ts=None,

@@ -23,6 +23,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from .runtime.profiling import span
+
 _CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 _CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -165,5 +167,6 @@ def preprocess_frames(frames: np.ndarray, family: str, *, target: Optional[Tuple
             raise ValueError("pass target=(h, w) or, for qwen2_vl-style geometry, factor=")
         kwargs = {} if max_pixels is None else {"max_pixels": max_pixels}
         target = smart_resize(h, w, factor=factor, **kwargs)
-    return resize_frames(frames.astype(np.float32), target[0], target[1], resample=resample, impl=impl,
-                         normalize=(mean, std, cfg.rescale))
+    with span("preprocess.frames"):
+        return resize_frames(frames.astype(np.float32), target[0], target[1], resample=resample, impl=impl,
+                             normalize=(mean, std, cfg.rescale))

@@ -90,6 +90,7 @@ from ..ops.sampling import SamplerConfig, draw_uniforms
 from ..parallel import collectives
 from . import spec_decode
 from .decode_graph import BatchDecodeGraph, DecodeGraph, SpecBatchDecodeGraph, SpecDecodeGraph, slots_for
+from .profiling import span
 from .telemetry import CompressionEvent, PrefillTelemetry
 
 f32 = np.float32
@@ -372,7 +373,8 @@ def _sim_count(h, pt, live, patch_num: int, s_th: float):
     """Patch-major order, similarities and the above-threshold count (host int)."""
     order, n_img = order_by_patch(pt, live, patch_num)
     sim = similarity_by_patch(h, pt, order, n_img)
-    count = int((sim >= float(f32(s_th))).sum())
+    with span("engine.read"):
+        count = int((sim >= float(f32(s_th))).sum())
     return sim, order, count
 
 
@@ -526,22 +528,23 @@ class CompressionEngine:
         lockstep batch runs such a sequence on, as JAX's does). ``decide``:
         the fp32 twin (the planned executors, as JAX's device programs) or
         the fused executor's ``_host_merge_decision``."""
-        ff = self.ff
-        live = torch.arange(h.shape[0], device=h.device) < valid
-        sim, order, count = _sim_count(h, pt, live, patch_num, ff.similarity_lower_bound)
-        k_marked, kind, above, budget = decide(st, count, ff)
-        new_valid = valid - k_marked
-        if new_len is None:
-            new_len = bucket_length(new_valid, ff.bucket)
-        merged, keep = apply_merge(h, mark_topk(sim, k_marked), order)
-        out, _ = compact_tokens(keep & live, new_len, new_valid, {"h": merged, "pos": pos, "patch_type": pt})
-        if st.sims is not None:
-            st.sims.append(sim)
-        st.n_live, st.frame_tok = new_valid, st.frame_tok - k_marked
-        st.events.append(CompressionEvent(layer=-1, kind=kind, tokens_removed=k_marked,
-                                          tokens_after=new_valid, above_ratio=above,
-                                          budget=budget, bucket=new_len))
-        return out["h"], out["patch_type"], out["pos"], new_len
+        with span("engine.pre_event"):
+            ff = self.ff
+            live = torch.arange(h.shape[0], device=h.device) < valid
+            sim, order, count = _sim_count(h, pt, live, patch_num, ff.similarity_lower_bound)
+            k_marked, kind, above, budget = decide(st, count, ff)
+            new_valid = valid - k_marked
+            if new_len is None:
+                new_len = bucket_length(new_valid, ff.bucket)
+            merged, keep = apply_merge(h, mark_topk(sim, k_marked), order)
+            out, _ = compact_tokens(keep & live, new_len, new_valid, {"h": merged, "pos": pos, "patch_type": pt})
+            if st.sims is not None:
+                st.sims.append(sim)
+            st.n_live, st.frame_tok = new_valid, st.frame_tok - k_marked
+            st.events.append(CompressionEvent(layer=-1, kind=kind, tokens_removed=k_marked,
+                                              tokens_after=new_valid, above_ratio=above,
+                                              budget=budget, bucket=new_len))
+            return out["h"], out["patch_type"], out["pos"], new_len
 
     def _phase(self, h, pt, pos, live, st: _PhaseState, *, orig_len: int, image_start: int,
                image_len: int, patch_num: int, stop_layer: int, include_pre_event: bool,
@@ -551,34 +554,35 @@ class CompressionEngine:
 
         Returns (h, live, layer_end, phase caches [(k, v, live-at-attention)],
         pending MLP layer or -1)."""
-        cfg, ff = self.cfg, self.ff
-        cos, sin = qwen2.token_cos_sin(pos, cfg)
-        bucket = h.shape[0]
-        if include_pre_event:
-            h, live = self._merge_event(st, h, live, pt, patch_num, -1, bucket)
+        with span("engine.phase"):
+            cfg, ff = self.cfg, self.ff
+            cos, sin = qwen2.token_cos_sin(pos, cfg)
+            bucket = h.shape[0]
+            if include_pre_event:
+                h, live = self._merge_event(st, h, live, pt, patch_num, -1, bucket)
 
-        caches, pending, layer = [], -1, 0
-        while layer < stop_layer and not st.done:
-            lp = qwen2.layer_slice(self.params["layers"], layer)
-            prune_now = st.fm
-            h_mid, k, v, importance = qwen2.layer_attention(
-                lp, h, cos, sin, cfg, attn_impl=self.attn_impl,
-                capture_num=ff.num_importance_queries if prune_now else 0,
-                valid_len=st.n_live, key_valid=live,
-            )
-            caches.append((k, v, live))
-            if not prune_now:
-                h, live = self._merge_event(st, h_mid, live, pt, patch_num, layer, bucket)
-            else:
-                live = self._prune_event(st, importance, live, layer, orig_len=orig_len, image_start=image_start,
-                                         image_len=image_len)
-                h = h_mid
-            if defer_final_mlp and st.done:
-                pending = layer
-            else:
-                h = qwen2.layer_mlp(lp, h, cfg, live=live)
-            layer += 1
-        return h, live, layer, caches, pending
+            caches, pending, layer = [], -1, 0
+            while layer < stop_layer and not st.done:
+                lp = qwen2.layer_slice(self.params["layers"], layer)
+                prune_now = st.fm
+                h_mid, k, v, importance = qwen2.layer_attention(
+                    lp, h, cos, sin, cfg, attn_impl=self.attn_impl,
+                    capture_num=ff.num_importance_queries if prune_now else 0,
+                    valid_len=st.n_live, key_valid=live,
+                )
+                caches.append((k, v, live))
+                if not prune_now:
+                    h, live = self._merge_event(st, h_mid, live, pt, patch_num, layer, bucket)
+                else:
+                    live = self._prune_event(st, importance, live, layer, orig_len=orig_len, image_start=image_start,
+                                             image_len=image_len)
+                    h = h_mid
+                if defer_final_mlp and st.done:
+                    pending = layer
+                else:
+                    h = qwen2.layer_mlp(lp, h, cfg, live=live)
+                layer += 1
+            return h, live, layer, caches, pending
 
     def _merge_event(self, st: _PhaseState, h, live, pt, patch_num: int, layer: int, bucket: int):
         """One merge event on a sequence's mask-only state (the solo phase and
@@ -756,24 +760,25 @@ class CompressionEngine:
                 "segmented" (a compaction at every event) or "dense".
         """
         args = (input_embeds, patch_type, position_ids, patch_num, image_token_start, image_token_length)
-        if mode == "auto":
-            frame_tok = self._frame_tokens(patch_type)
-            suggestion = None
-            if patch_num > 0 and frame_tok and frame_tok % patch_num == 0:
-                suggestion = self.plan_history.suggest(
-                    PlanHistory.key(patch_num, frame_tok // patch_num, self.ff), self.ff.bucket)
-            return self.prefill_measured(*args) if suggestion is None else self.prefill_planned(*args)
-        if mode == "measured":
-            return self.prefill_measured(*args)
-        if mode == "dense":
-            return self.dense_prefill(input_embeds, position_ids)
-        if mode == "fused":
-            return self._prefill_fused(*args)
-        if mode == "planned":
-            return self.prefill_planned(*args)
-        if mode == "segmented":
-            return self._prefill_segmented(*args)
-        raise ValueError(f"unknown prefill mode: {mode!r}")
+        with span("engine.prefill"):
+            if mode == "auto":
+                frame_tok = self._frame_tokens(patch_type)
+                suggestion = None
+                if patch_num > 0 and frame_tok and frame_tok % patch_num == 0:
+                    suggestion = self.plan_history.suggest(
+                        PlanHistory.key(patch_num, frame_tok // patch_num, self.ff), self.ff.bucket)
+                return self.prefill_measured(*args) if suggestion is None else self.prefill_planned(*args)
+            if mode == "measured":
+                return self.prefill_measured(*args)
+            if mode == "dense":
+                return self.dense_prefill(input_embeds, position_ids)
+            if mode == "fused":
+                return self._prefill_fused(*args)
+            if mode == "planned":
+                return self.prefill_planned(*args)
+            if mode == "segmented":
+                return self._prefill_segmented(*args)
+            raise ValueError(f"unknown prefill mode: {mode!r}")
 
     @_scoped
     def prefill_measured(self, input_embeds, patch_type, position_ids, patch_num: int,
@@ -792,10 +797,11 @@ class CompressionEngine:
         return res
 
     def _measured_plan(self, input_embeds, patch_type, position_ids, patch_num: int):
-        h, pt, _, orig_len = self._prep_inputs(input_embeds, patch_type, position_ids)
-        live = torch.arange(h.shape[0], device=h.device) < orig_len
-        _, _, count = _sim_count(h, pt, live, patch_num, self.ff.similarity_lower_bound)
-        return plan_length_measured(orig_len, self._frame_tokens(patch_type), count, self.ff)
+        with span("engine.plan"):
+            h, pt, _, orig_len = self._prep_inputs(input_embeds, patch_type, position_ids)
+            live = torch.arange(h.shape[0], device=h.device) < orig_len
+            _, _, count = _sim_count(h, pt, live, patch_num, self.ff.similarity_lower_bound)
+            return plan_length_measured(orig_len, self._frame_tokens(patch_type), count, self.ff)
 
     def _prefill_fused(self, input_embeds, patch_type, position_ids, patch_num: int,
                        image_token_start: int, image_token_length: int) -> PrefillResult:
@@ -817,9 +823,9 @@ class CompressionEngine:
             include_pre_event=include_pre, defer_final_mlp=False)
         if st.infeasible:
             raise CostInfeasibleError("The cost is too small")
-        s_small = bucket_length(st.n_live, ff.bucket)
-        out, _ = compact_tokens(live, s_small, st.n_live, {"h": h, "pos": pos})
-        logits, k_tail, v_tail = self._tail(out["h"], out["pos"], st.n_live, layer_end)
+        with span("engine.tail"):
+            out, _ = compact_tokens(live, bucket_length(st.n_live, ff.bucket), st.n_live, {"h": h, "pos": pos})
+            logits, k_tail, v_tail = self._tail(out["h"], out["pos"], st.n_live, layer_end)
         telemetry.similarities = st.sims
         return self._finish(telemetry, st, caches, layer_end, logits, k_tail, v_tail,
                             orig_len=orig_len, image_token_length=image_token_length, patch_num=patch_num,
@@ -865,7 +871,8 @@ class CompressionEngine:
                 plan_source = "analytic"
 
         def fallback():
-            res = self._prefill_fused(*args)
+            with span("engine.fallback"):
+                res = self._prefill_fused(*args)
             res.mode = "planned_fallback_fused"
             res.plan_source = plan_source
             return res
@@ -889,8 +896,9 @@ class CompressionEngine:
             return fallback()
         for ev in st.events[1 if two_stage else 0:]:
             ev.bucket = plan_len
-        out, _ = compact_tokens(live, plan_len, st.n_live, {"h": h, "pos": pos})
-        logits, k_tail, v_tail = self._tail(out["h"], out["pos"], st.n_live, layer_end, pending)
+        with span("engine.tail"):
+            out, _ = compact_tokens(live, plan_len, st.n_live, {"h": h, "pos": pos})
+            logits, k_tail, v_tail = self._tail(out["h"], out["pos"], st.n_live, layer_end, pending)
         return self._finish(telemetry, st, caches, layer_end, logits, k_tail, v_tail,
                             orig_len=orig_len, image_token_length=image_token_length, patch_num=patch_num,
                             patch_type=patch_type, position_ids=position_ids, mode="planned",
@@ -963,9 +971,10 @@ class CompressionEngine:
         pos = torch.stack(poss)
         live = torch.arange(pre_plan_len, device=self.device)[None, :] < torch.tensor(
             [st.n_live for st in states], device=self.device)[:, None]
-        h, live, layer_end, caches, pending = self._phase_batch(
-            torch.stack(hs), pts, pos, live, states, orig_lens=orig_lens, image_starts=img_starts,
-            image_lens=img_lens, patch_num=patch_num)
+        with span("engine.phase"):
+            h, live, layer_end, caches, pending = self._phase_batch(
+                torch.stack(hs), pts, pos, live, states, orig_lens=orig_lens, image_starts=img_starts,
+                image_lens=img_lens, patch_num=patch_num)
 
         planned = []
         for i, st in enumerate(states):
@@ -977,16 +986,19 @@ class CompressionEngine:
                 planned.append(i)
         tail = {}
         if planned:
-            outs = [compact_tokens(live[i], plan_len, states[i].n_live, {"h": h[i], "pos": pos[i]})[0] for i in planned]
-            logits, k_tail, v_tail = self._tail_batch(torch.stack([o["h"] for o in outs]),
-                                                      torch.stack([o["pos"] for o in outs]),
-                                                      [states[i].n_live for i in planned], layer_end, pending)
+            with span("engine.tail"):
+                outs = [compact_tokens(live[i], plan_len, states[i].n_live, {"h": h[i], "pos": pos[i]})[0]
+                        for i in planned]
+                logits, k_tail, v_tail = self._tail_batch(torch.stack([o["h"] for o in outs]),
+                                                          torch.stack([o["pos"] for o in outs]),
+                                                          [states[i].n_live for i in planned], layer_end, pending)
             tail = {i: j for j, i in enumerate(planned)}
 
         results = []
         for i, (embeds, patch_type, position_ids, img_s, img_l) in enumerate(batch):
             if i not in tail:
-                res = self._prefill_fused(embeds, patch_type, position_ids, patch_num, img_s, img_l)
+                with span("engine.fallback"):
+                    res = self._prefill_fused(embeds, patch_type, position_ids, patch_num, img_s, img_l)
                 res.mode, res.plan_source = "planned_fallback_fused", plan_source
                 results.append(res)
                 continue
@@ -1044,7 +1056,8 @@ class CompressionEngine:
                 telemetry.events.append(event)
             layer += 1
 
-        logits, k_tail, v_tail = self._tail(h, pos, valid, layer)
+        with span("engine.tail"):
+            logits, k_tail, v_tail = self._tail(h, pos, valid, layer)
         for j in range(layer, cfg.num_layers):
             layer_caches[j] = (k_tail[j], v_tail[j], valid)
         telemetry.sparsity_list = list(state.sparsity)

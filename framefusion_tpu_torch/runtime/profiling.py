@@ -3,10 +3,13 @@
 ``trace`` records what runs inside it with ``torch.profiler`` (host
 operations, and the card's kernels and copies where there is a card) and
 writes a Chrome trace that Perfetto (ui.perfetto.dev) and chrome://tracing
-open. ``elapsed`` is the port's timer (CUDA events on the card, the host
-clock on the CPU); ``timeit``, ``scripts.common.DeviceTimer`` and
-``kernel_bench.events_time_ms`` time through it. ``force`` waits for the
-card and reads one scalar back.
+open. ``span`` marks the program's own stages in that trace (and in any
+other ``torch.profiler`` window the caller opens): the serving loop, the
+compressed prefill, ingest and the checkpoint load; with no profiler
+recording it costs one check. ``elapsed`` is the port's timer (CUDA events
+on the card, the host clock on the CPU); ``timeit``,
+``scripts.common.DeviceTimer`` and ``kernel_bench.events_time_ms`` time
+through it. ``force`` waits for the card and reads one scalar back.
 """
 
 from __future__ import annotations
@@ -17,6 +20,23 @@ import tempfile
 import time
 
 import torch
+
+SPAN_PREFIX = "framefusion."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, n: int | None = None):
+    """A named range of the program's host time in the profiler's timeline:
+    ``with span("serve.admit", rid): ...`` records
+    ``framefusion.serve.admit#<rid>`` as a ``user_annotation`` event, on the
+    clock of the card's kernels. ``n`` (a request id, a count) goes into the
+    name after ``#``: the Chrome trace exports no other attribute of a
+    range. With no profiler recording, returns one shared no-op context and
+    formats nothing. Not for code a CUDA graph captures: a replay records no
+    host range."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name + ("" if n is None else f"#{n}"))
 
 
 @contextlib.contextmanager

@@ -50,6 +50,7 @@ from ..core import bucket_length
 from ..parallel import collectives
 from .decode_graph import StepGraph
 from .engine import best_tail_split_batch
+from .profiling import span
 from .spec_decode import spec_macro_step, update_rows
 
 __all__ = ["ServeRequest", "ServeResult", "ServingLoop"]
@@ -71,10 +72,21 @@ class ServeResult:
     tokens: list
     prefill_mode: str
     admitted_step: int  # chunk index at admission
-    # Host perf_counter seconds: queue_s from submit to admission, serve_s
-    # from admission to retirement; both move in steps of a chunk.
+    # Host perf_counter seconds: queue_s from submit to the end of the
+    # admission (its prefill and splice included), serve_s from there to
+    # retirement; both move in steps of a chunk. queue_s is wait_s, submit
+    # to the admission's start, plus admit_s, the admission's host seconds.
     queue_s: float = 0.0
     serve_s: float = 0.0
+    wait_s: float = 0.0
+    admit_s: float = 0.0
+    # The prefill's telemetry: the prompt's length, the tokens it kept, the
+    # share of video tokens removed and [(layer, kind, tokens_removed)] of
+    # each compression event (a dense prefill keeps every token).
+    prompt_len: int = 0
+    kept_len: int = 0
+    vision_token_reduction: float = 0.0
+    events: list = dataclasses.field(default_factory=list)
 
 
 def _first_eos_clamp(t, n_new, eos_ids, kq: int):
@@ -149,9 +161,13 @@ class ServingLoop:
     whose layers >= P hold more than ``tail_prefix_cap`` rows.
 
     Introspection: ``compactions``, ``captures`` and ``capture_s`` (the
-    chunk graphs made and the seconds their warm-up and capture took),
-    ``chunk_s`` and ``admit_s`` (host wall seconds in the chunks, their
-    read included, and in the admissions).
+    chunk graphs made and the seconds their warm-up and capture took); each
+    ``ServeResult``'s queue wait, admission seconds and compressed length;
+    and, under a ``torch.profiler`` window, ``profiling.span`` ranges:
+    ``serve.submit#rid``, ``serve.step`` > ``serve.admit#rid`` (>
+    ``engine.prefill``, ``serve.splice``) and ``serve.chunk#active`` (>
+    ``serve.compact``, ``serve.capture``, ``serve.upload``,
+    ``serve.replay``, ``serve.read``, ``serve.retire#rid``).
     """
 
     def __init__(self, engine, max_slots: int = 4, max_new_cap: int = 64, chunk_steps: int = 8, draft_len: int = 0,
@@ -225,9 +241,10 @@ class ServingLoop:
         # they bound every layer's live prefix (compaction folds at most
         # max_new_cap committed rows in), the tail split's bound.
         self._admit_lens = [[0] * cfg.num_layers for _ in range(self.b)]
-        self._slot_mode = ["fused"] * self.b
-        self._admitted_at = [0] * self.b
-        self._slot_times = [(0.0, 0.0)] * self.b  # (queue_s, admitted perf_counter)
+        # Each slot's result, filled at admission and completed at
+        # retirement, and the perf_counter time its admission ended.
+        self._slot_result: list = [None] * self.b
+        self._admitted_at = [0.0] * self.b
         self._results: dict = {}
         self._next_id = 0
         self._chunk_idx = 0
@@ -237,7 +254,7 @@ class ServingLoop:
         self._tail_split_stale = True
         self._graphs: dict = {}  # tail split -> its captured chunk step
         self.compactions = 0
-        self.captures, self.capture_s, self.chunk_s, self.admit_s = 0, 0.0, 0.0, 0.0
+        self.captures, self.capture_s = 0, 0.0
 
     # -- the chunk program ------------------------------------------------------
 
@@ -276,14 +293,15 @@ class ServingLoop:
     def _graph(self, split) -> _ServeChunk:
         graph = self._graphs.get(split)
         if graph is None:
-            if self.k_pool.device.type == "cuda":
-                torch.cuda.synchronize(self.k_pool.device)
-            t0 = time.perf_counter()
-            graph = self._graphs[split] = _ServeChunk(self, split)
-            if self.k_pool.device.type == "cuda":
-                torch.cuda.synchronize(self.k_pool.device)
-            self.captures += graph.graph is not None
-            self.capture_s += time.perf_counter() - t0
+            with span("serve.capture"):
+                if self.k_pool.device.type == "cuda":
+                    torch.cuda.synchronize(self.k_pool.device)
+                t0 = time.perf_counter()
+                graph = self._graphs[split] = _ServeChunk(self, split)
+                if self.k_pool.device.type == "cuda":
+                    torch.cuda.synchronize(self.k_pool.device)
+                self.captures += graph.graph is not None
+                self.capture_s += time.perf_counter() - t0
         return graph
 
     # -- request lifecycle --------------------------------------------------
@@ -296,10 +314,11 @@ class ServingLoop:
             raise ValueError(f"max_new_tokens must be at least 1, got {request.max_new_tokens}")
         rid = self._next_id
         self._next_id += 1
-        self._queue.append((rid, request, time.perf_counter()))
+        with span("serve.submit", rid):
+            self._queue.append((rid, request, time.perf_counter()))
         return rid
 
-    def _admit(self, slot: int, rid: int, request: ServeRequest, submitted_at: float) -> None:
+    def _admit(self, slot: int, rid: int, request: ServeRequest, submitted_at: float, started_at: float) -> None:
         eng, inp = self.engine, request.inputs
         result = eng.prefill(inp.input_embeds, inp.patch_type, inp.position_ids, patch_num=inp.patch_num,
                              image_token_start=inp.image_token_start, image_token_length=inp.image_token_length,
@@ -314,9 +333,7 @@ class ServingLoop:
         if max_prefix > prefix_limit:
             raise ValueError(f"prefix {max_prefix} exceeds prefix capacity {prefix_limit} (= region_start "
                              f"{self.region_start} - max_new_cap {self.max_new_cap}); raise prefix_cap")
-        if self.phys is None:
-            lens = _splice_slot(eng, result, self.k_pool, self.v_pool, slot)
-        else:
+        if self.phys is not None:
             p = self.tail_layers
             tail_prefix = max(c[2] for c in result.layer_caches[p:])
             tail_limit = self.tail_rs - self.max_new_cap
@@ -324,27 +341,31 @@ class ServingLoop:
                 raise ValueError(f"layer>={p} prefix {tail_prefix} exceeds tail pool capacity {tail_limit} (= tail "
                                  f"region {self.tail_rs} - max_new_cap {self.max_new_cap}); raise tail_pool's "
                                  f"tail_prefix_cap or lower P")
-            # The tail pool's rows [0, S_tail) are the prefix and dead padding:
-            # the first S_tail rows of the uniform layout's column.
-            lens = (_splice_slot(eng, dataclasses.replace(result, layer_caches=result.layer_caches[:p]),
-                                 self.k_pool, self.v_pool, slot)
-                    + _splice_slot(eng, dataclasses.replace(result, layer_caches=result.layer_caches[p:]),
-                                   self.k_tail, self.v_tail, slot))
-        self.cache_lens[:, slot] = torch.as_tensor(lens, dtype=torch.int64)
-        self.dmask[slot] = False
-        # Token 0 stays on the device (no read at admission): a request
-        # whose token 0 is its eos is killed in the chunk's first step.
-        tok0 = torch.argmax(result.logits)
-        self.out[slot] = 0
-        self.out[slot, 0] = tok0
-        self.last_tok[slot] = tok0
-        pids = (np.zeros((0,), np.int64) if request.prompt_ids is None
-                else np.asarray(request.prompt_ids, np.int64).reshape(-1))[-self.seed_cap:]
-        seed = np.zeros((self.hist.shape[1],), np.int64)
-        seed[: len(pids)] = pids
-        self.hist[slot] = torch.from_numpy(seed).to(self.hist.device)
-        self.hist[slot, len(pids)] = tok0
-        self.hist_len[slot] = len(pids) + 1
+        with span("serve.splice"):
+            if self.phys is None:
+                lens = _splice_slot(eng, result, self.k_pool, self.v_pool, slot)
+            else:
+                # The tail pool's rows [0, S_tail) are the prefix and dead
+                # padding: the first S_tail rows of the uniform layout's column.
+                lens = (_splice_slot(eng, dataclasses.replace(result, layer_caches=result.layer_caches[:p]),
+                                     self.k_pool, self.v_pool, slot)
+                        + _splice_slot(eng, dataclasses.replace(result, layer_caches=result.layer_caches[p:]),
+                                       self.k_tail, self.v_tail, slot))
+            self.cache_lens[:, slot] = torch.as_tensor(lens, dtype=torch.int64)
+            self.dmask[slot] = False
+            # Token 0 stays on the device (no read at admission): a request
+            # whose token 0 is its eos is killed in the chunk's first step.
+            tok0 = torch.argmax(result.logits)
+            self.out[slot] = 0
+            self.out[slot, 0] = tok0
+            self.last_tok[slot] = tok0
+            pids = (np.zeros((0,), np.int64) if request.prompt_ids is None
+                    else np.asarray(request.prompt_ids, np.int64).reshape(-1))[-self.seed_cap:]
+            seed = np.zeros((self.hist.shape[1],), np.int64)
+            seed[: len(pids)] = pids
+            self.hist[slot] = torch.from_numpy(seed).to(self.hist.device)
+            self.hist[slot, len(pids)] = tok0
+            self.hist_len[slot] = len(pids) + 1
         self.emitted[slot] = 1
         self.active[slot] = request.max_new_tokens > 1
         self.budgets[slot] = request.max_new_tokens
@@ -353,35 +374,41 @@ class ServingLoop:
         self._admit_lens[slot] = [int(c[2]) for c in result.layer_caches]
         self._tail_split_stale = True
         self._slot_req[slot] = rid
-        self._slot_mode[slot] = result.mode
-        self._admitted_at[slot] = self._chunk_idx
+        tel = result.telemetry
         now = time.perf_counter()
-        self._slot_times[slot] = (now - submitted_at, now)
+        self._admitted_at[slot] = now
+        self._slot_result[slot] = ServeResult(
+            request_id=rid, tokens=[], prefill_mode=result.mode, admitted_step=self._chunk_idx,
+            queue_s=now - submitted_at, wait_s=started_at - submitted_at, admit_s=now - started_at,
+            prompt_len=int(inp.input_embeds.shape[0]) if tel is None else tel.original_length,
+            kept_len=result.valid_len if tel is None else tel.final_length,
+            vision_token_reduction=0.0 if tel is None else tel.vision_token_reduction,
+            events=[] if tel is None else [(e.layer, e.kind, int(e.tokens_removed)) for e in tel.events])
 
     def _retire(self, slot: int, emitted: int, out_row) -> None:
         rid = self._slot_req[slot]
-        toks = [int(x) for x in out_row[:emitted]]
-        eos = int(self.eos_ids[slot])
-        if eos >= 0 and eos in toks:
-            toks = toks[: toks.index(eos) + 1]
-        queue_s, admitted_at = self._slot_times[slot]
-        self._results[rid] = ServeResult(request_id=rid, tokens=toks, prefill_mode=self._slot_mode[slot],
-                                         admitted_step=self._admitted_at[slot], queue_s=queue_s,
-                                         serve_s=time.perf_counter() - admitted_at)
-        self._slot_req[slot] = None
-        self.active[slot] = False
+        with span("serve.retire", rid):
+            toks = [int(x) for x in out_row[:emitted]]
+            eos = int(self.eos_ids[slot])
+            if eos >= 0 and eos in toks:
+                toks = toks[: toks.index(eos) + 1]
+            res = self._slot_result[slot]
+            res.tokens, res.serve_s = toks, time.perf_counter() - self._admitted_at[slot]
+            self._results[rid] = res
+            self._slot_req[slot] = self._slot_result[slot] = None
+            self.active[slot] = False
 
     # -- scheduling ----------------------------------------------------------
 
     def _fill_slots(self) -> None:
         for slot in range(self.b):
             if self._slot_req[slot] is None and self._queue:
-                t0 = time.perf_counter()
-                rid, req, submitted_at = self._queue.pop(0)
-                self._admit(slot, rid, req, submitted_at)
-                if not self.active[slot]:  # a single-token request retires at once
-                    self._retire(slot, int(self.emitted[slot]), self.out[slot].tolist())
-                self.admit_s += time.perf_counter() - t0
+                with span("serve.admit", self._queue[0][0]):
+                    started_at = time.perf_counter()
+                    rid, req, submitted_at = self._queue.pop(0)
+                    self._admit(slot, rid, req, submitted_at, started_at)
+                    if not self.active[slot]:  # a single-token request retires at once
+                        self._retire(slot, int(self.emitted[slot]), self.out[slot].tolist())
 
     def _compact(self) -> None:
         if self.phys is None:
@@ -401,15 +428,23 @@ class ServingLoop:
     def step(self) -> bool:
         """Admit, one chunk of decode, retire. Returns whether work remains.
         Runs under the engine's collectives scope (a sharded engine's)."""
-        with collectives.use(getattr(self.engine, "scope", None)):
+        with collectives.use(getattr(self.engine, "scope", None)), span("serve.step"):
             return self._step()
 
     def _step(self) -> bool:
         self._fill_slots()
         if not self.active.any():
             return bool(self._queue)
+        with span("serve.chunk", int(self.active.sum())):
+            self._chunk()
+        return bool(self._queue) or bool(self.active.any())
+
+    def _chunk(self) -> None:
+        """Compact if the chunk would not fit, upload the slot state, replay
+        the chunk graph, read the state back and retire the finished slots."""
         if self._cursor + self.scratch > self.s_pool:  # the next chunk would not fit
-            self._compact()
+            with span("serve.compact"):
+                self._compact()
         if self.phys is not None:
             split = None  # the physical split is the narrow read
         else:
@@ -420,26 +455,28 @@ class ServingLoop:
                 self._tail_split_stale = False
             split = self._tail_split
         graph = self._graph(split)
-        t0 = time.perf_counter()
-        for buf, host in ((self.emitted_d, self.emitted), (self.active_d, self.active),
-                          (self.budgets_d, self.budgets), (self.eos_d, self.eos_ids), (self.pos_d, self.pos_bases)):
-            buf.copy_(torch.from_numpy(host))
-        graph._replay(self.chunk)
+        with span("serve.upload"):
+            for buf, host in ((self.emitted_d, self.emitted), (self.active_d, self.active),
+                              (self.budgets_d, self.budgets), (self.eos_d, self.eos_ids),
+                              (self.pos_d, self.pos_bases)):
+                buf.copy_(torch.from_numpy(host))
+        with span("serve.replay"):
+            graph._replay(self.chunk)
         self._chunk_idx += 1
         # One read a chunk: emitted, active and the cursor (and the out rows
         # of the slots that retire).
-        state = torch.cat([self.emitted_d, self.active_d.to(torch.int64), self.cursor[None]]).tolist()
+        with span("serve.read"):
+            state = torch.cat([self.emitted_d, self.active_d.to(torch.int64), self.cursor[None]]).tolist()
         emitted, active_now, self._cursor = state[:self.b], state[self.b:2 * self.b], state[-1]
         out_host = None
         for slot in range(self.b):
             if self._slot_req[slot] is not None and self.active[slot] and not active_now[slot]:
                 if out_host is None:
-                    out_host = self.out.tolist()
+                    with span("serve.read"):
+                        out_host = self.out.tolist()
                 self._retire(slot, emitted[slot], out_host[slot])
         self.emitted = np.asarray(emitted, np.int64)
         self.active = np.asarray([bool(active_now[s]) and self._slot_req[s] is not None for s in range(self.b)])
-        self.chunk_s += time.perf_counter() - t0
-        return bool(self._queue) or bool(self.active.any())
 
     def run(self, max_chunks: int = 10_000) -> dict:
         """Drain the queue and every slot; returns {request_id: ServeResult}."""

@@ -26,13 +26,14 @@ import torch
 from .common import add_device_arg, device_label, generator, resolve_device, tiny_config
 
 
-def percentiles(vals, ps=(50, 95)):
-    """{"p50": ms, ...} of second values (nearest rank)."""
+def percentiles(vals, ps=(50, 95), scale=1e3):
+    """{"p50": ms, ...} of second values (nearest rank); ``scale=1`` keeps
+    the values' own unit."""
     vals = sorted(vals)
     out = {}
     for p in ps:
         k = min(int(round(p / 100 * (len(vals) - 1))), len(vals) - 1)
-        out[f"p{p}"] = round(vals[k] * 1e3, 1)
+        out[f"p{p}"] = round(vals[k] * scale, 1 if scale != 1 else 4)
     return out
 
 
@@ -40,8 +41,8 @@ def run_loop(engine, reqs, arrival_offsets, *, slots, chunk, max_new, prefix_cap
              tail_pool=None):
     """Serve ``reqs``, request i submitted ``arrival_offsets[i]`` seconds
     after the start (0: all queued at once). The loop steps through idle
-    gaps, so late requests join when their time comes and ``queue_s`` is
-    the scheduling wait. Returns (results by request index, wall seconds,
+    gaps, so late requests join when their time comes and ``wait_s`` is
+    the scheduling wait (``queue_s`` adds the admission). Returns (results by request index, wall seconds,
     the loop)."""
     from ..runtime.serving import ServingLoop
 
@@ -150,11 +151,20 @@ def serve(engine, reqs, args, prefix_cap: int, frames: int) -> tuple:
         row = {"slots": slots, "wall_ms": round(dt_s * 1e3, 1), "tokens": toks_s,
                "tokens_per_s": round(toks_s / dt_s, 1), "chunks": loop_s._chunk_idx,
                "compactions": loop_s.compactions, "queue_ms": percentiles([res_s[i].queue_s for i in res_s]),
+               # queue_ms is the wait in the queue plus the admission (prefill and splice)
+               "wait_ms": percentiles([res_s[i].wait_s for i in res_s]),
+               "admit_ms": percentiles([res_s[i].admit_s for i in res_s]),
+               "kept_tokens": percentiles([res_s[i].kept_len for i in res_s], scale=1),
+               "vision_token_reduction": percentiles([res_s[i].vision_token_reduction for i in res_s], scale=1),
                "serve_ms": percentiles([res_s[i].serve_s for i in res_s]), "request_latency_ms": percentiles(lat)}
         sweep_rows.append(row)
         print(f"  B={slots}: {row['wall_ms']:.0f} ms, {row['tokens_per_s']} tok/s, {row['chunks']} chunks, "
               f"{row['compactions']} compactions; latency p50/p95 {row['request_latency_ms']['p50']:.0f}/"
-              f"{row['request_latency_ms']['p95']:.0f} ms")
+              f"{row['request_latency_ms']['p95']:.0f} ms (queue {row['queue_ms']['p50']:.0f}/"
+              f"{row['queue_ms']['p95']:.0f}: wait {row['wait_ms']['p50']:.0f}/{row['wait_ms']['p95']:.0f}, "
+              f"admission {row['admit_ms']['p50']:.0f}/{row['admit_ms']['p95']:.0f}); kept tokens p50 "
+              f"{row['kept_tokens']['p50']:.0f} of {len(reqs[0].inputs.patch_type)}, vision-token reduction p50 "
+              f"{row['vision_token_reduction']['p50']:.3f}")
         if slots == args.slots or results is None:
             results, dt, main_row = res_s, dt_s, row
         del loop_s  # free this B's pools before the next allocates

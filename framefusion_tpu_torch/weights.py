@@ -29,7 +29,6 @@ import re
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import safetensors_io
 from .config import LLMConfig
@@ -506,12 +505,13 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
     whole decoder into host memory before it takes its shard. Without a
     mesh the decoder goes to ``device`` a layer at a time (``_stack_layer_weight``):
     the host holds the mapped checkpoint pages it has read.
-    The three stages run inside ``torch.profiler.record_function`` spans
-    (``weights.load_state``, ``weights.import_decoder``,
-    ``weights.load_vision``), which a ``runtime.profiling.trace`` of the load
-    records.
+    The three stages run inside ``runtime.profiling.span`` ranges
+    (``framefusion.weights.load_state``, ``framefusion.weights.import_decoder``,
+    ``framefusion.weights.load_vision``), which a ``runtime.profiling.trace``
+    of the load records.
     """
     from .interface import FAMILIES, FrameFusionModel
+    from .runtime.profiling import span
 
     device = resolve_device(device)
 
@@ -524,10 +524,10 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
     spec = FAMILIES[family]
     if llm_cfg.qkv_bias != spec.qkv_bias:
         raise ValueError(f"config qkv_bias={llm_cfg.qkv_bias} vs family {family}")
-    with record_function("weights.load_state"):
+    with span("weights.load_state"):
         state = load_state(checkpoint_dir)
     importer = params_from_state_dict_internlm2 if family == "internvl" else params_from_state_dict
-    with record_function("weights.import_decoder"):
+    with span("weights.import_decoder"):
         if mesh is None:
             params = importer(state, llm_cfg, prefix=spec.llm_prefix, quantize=quantize, device=device)
         else:
@@ -536,7 +536,7 @@ def load_checkpoint(checkpoint_dir: str, family=None, dtype=torch.bfloat16, quan
             whole = importer(state, llm_cfg, prefix=spec.llm_prefix, quantize=quantize, device="cpu")
             params = _to_device(shard_params(whole, llm_cfg, mesh), device)
             del whole
-    with record_function("weights.load_vision"):
+    with span("weights.load_vision"):
         vision = _load_vision(family, state, cfg_dict, llm_cfg, device)
     return FrameFusionModel(family=family, cfg=llm_cfg, params=params, vision=vision, mesh=mesh)
 
