@@ -1,23 +1,39 @@
-// Native host-side frame preprocessing: PIL-semantics separable resize with
-// an optional fused rescale/normalize epilogue, threaded over output rows.
+// Native host-side frame preprocessing: the caller's uint8 (or float) frames
+// to normalized float32 pixels in one pass. PIL-semantics separable resize
+// with an optional fused rescale/normalize epilogue.
 //
-// This is the C++ twin of framefusion_tpu/preprocess.py (the NumPy reference
-// implementation); bit-level parity within fp32 accumulation-order noise is
-// pinned by tests/test_preprocess.py. The reference project does this work
-// in PIL via each model's HF processor (e.g. invoked from
-// /root/reference/script/playground/example_qwen2vl.py); a serving host
-// needs it off the Python heap and parallel so preprocessing overlaps the
-// TPU stream.
+// Same math as preprocess.py's NumPy twin (resize_weights, then
+// normalize_frames), and each output element takes the same float operations
+// in the same order as the JAX package's native/prep.cpp, so the two agree bit
+// for bit (tests/test_torch_vision.py holds them equal). That needs products
+// and sums left apart: native.py builds with -ffp-contract=off, so no target
+// fuses them into FMAs.
 //
-// Build: g++ -O3 -fPIC -shared -pthread prep.cpp -o libffprep.so
-// (done on demand by framefusion_tpu/native/__init__.py).
+// One pass: a task is one frame and one band of output rows. For each output
+// row the vertical taps accumulate into a per-thread row buffer (w*c floats,
+// in L1), then the horizontal taps and the epilogue write that output row
+// once. No video-sized intermediate; uint8 is widened in registers. The
+// threads are started once a call and take tasks from an atomic counter, so
+// a one-frame call still spreads over the cores.
+//
+// Build: g++ -O3 -ffp-contract=off -fPIC -shared -pthread -std=c++17 prep.cpp
+// (done on demand by framefusion_tpu_torch/native.py).
 
 #include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
-#include <functional>
+#include <cstring>
+#include <map>
+#include <memory>
+#include <mutex>
 #include <thread>
+#include <tuple>
 #include <vector>
+
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
 
 namespace {
 
@@ -35,76 +51,220 @@ double filt(double x, int resample) {
 }
 
 struct Weights {
-  // banded row-stochastic resize matrix: per output index, the input band
-  // [jmin, jmin+len) and its normalized weights
-  std::vector<int> jmin, len;
-  std::vector<float> w;  // out_size rows, padded to max_len
-  int max_len = 0;
+  // banded row-stochastic resize matrix: output index o reads the input
+  // band [jmin[o], jmin[o] + taps), taps the same for every o (the widest
+  // band; a narrower one is padded with zero weights and moved inside the
+  // input at the edges)
+  std::vector<int> jmin;
+  std::vector<float> w;  // out_size rows of taps
+  int taps = 0;
 };
 
 // Half-pixel centers, filter support scaled by the downscale factor
 // (antialiasing on downscale), per-row normalization — identical math to
-// preprocess.resize_weights (weights in double, stored as float).
+// preprocess.resize_weights (weights in double, stored as float). A zero
+// weight, dropped or padded, adds +0 or -0 to a sum that starts at +0 and so
+// never is -0: for finite inputs the sums are bit for bit those over the
+// conservative bands of the JAX package's kernel.
 Weights make_weights(int in_size, int out_size, int resample) {
   const double support0 = resample == 0 ? 1.0 : 2.0;
   const double scale = double(in_size) / out_size;
   const double fscale = std::max(scale, 1.0);
   const double support = support0 * fscale;
-  Weights ws;
-  ws.jmin.resize(out_size);
-  ws.len.resize(out_size);
+  std::vector<int> lo(out_size);
   std::vector<std::vector<double>> rows(out_size);
+  Weights ws;
   for (int o = 0; o < out_size; ++o) {
     const double center = (o + 0.5) * scale;
-    int lo = std::max(0, int(std::floor(center - support - 0.5)));
+    lo[o] = std::max(0, int(std::floor(center - support - 0.5)));
     int hi = std::min(in_size, int(std::ceil(center + support + 0.5)));
-    // trim exact zeros at the band edges so lengths match the math, not the
-    // conservative bound
-    std::vector<double> row;
-    row.reserve(hi - lo);
+    std::vector<double>& row = rows[o];
+    row.reserve(hi - lo[o]);
     double sum = 0.0;
-    for (int j = lo; j < hi; ++j) {
+    for (int j = lo[o]; j < hi; ++j) {
       double v = filt((j + 0.5 - center) / fscale, resample);
       row.push_back(v);
       sum += v;
     }
     if (sum < 1e-12) sum = 1e-12;
     for (auto& v : row) v /= sum;
-    ws.jmin[o] = lo;
-    ws.len[o] = int(row.size());
-    ws.max_len = std::max(ws.max_len, ws.len[o]);
-    rows[o] = std::move(row);
+    // the bound above is conservative: drop the exact zeros at its ends
+    while (row.size() > 1 && row.back() == 0.0) row.pop_back();
+    while (row.size() > 1 && row.front() == 0.0) {
+      row.erase(row.begin());
+      ++lo[o];
+    }
+    ws.taps = std::max(ws.taps, int(row.size()));
   }
-  ws.w.assign((size_t)out_size * ws.max_len, 0.f);
-  for (int o = 0; o < out_size; ++o)
-    for (int j = 0; j < ws.len[o]; ++j)
-      ws.w[(size_t)o * ws.max_len + j] = float(rows[o][j]);
+  ws.jmin.resize(out_size);
+  ws.w.assign((size_t)out_size * ws.taps, 0.f);
+  for (int o = 0; o < out_size; ++o) {
+    ws.jmin[o] = std::min(lo[o], in_size - ws.taps);
+    float* wrow = ws.w.data() + (size_t)o * ws.taps + (lo[o] - ws.jmin[o]);
+    for (size_t j = 0; j < rows[o].size(); ++j) wrow[j] = float(rows[o][j]);
+  }
   return ws;
 }
 
-void parallel_for(int n, const std::function<void(int, int)>& body) {
+// The process's weight tables by (in, out, resample): a server's requests
+// share a few geometries. Bounded, since Qwen2-VL's geometry follows each
+// input's size.
+constexpr size_t kMaxTables = 64;
+
+std::shared_ptr<const Weights> weights(int in_size, int out_size, int resample) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int>, std::shared_ptr<const Weights>> tables;
+  const auto key = std::make_tuple(in_size, out_size, resample);
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = tables.find(key);
+  if (it != tables.end()) return it->second;
+  if (tables.size() >= kMaxTables) tables.clear();
+  auto ws = std::make_shared<const Weights>(make_weights(in_size, out_size, resample));
+  tables.emplace(key, ws);
+  return ws;
+}
+
+// Runs worker() on min(hardware threads, n_tasks) threads, the caller's
+// among them; the workers share the tasks through their own counter.
+template <class Worker>
+void on_threads(int n_tasks, const Worker& worker) {
   unsigned hw = std::thread::hardware_concurrency();
-  int nt = std::max(1, std::min<int>(hw ? hw : 1, n));
-  if (nt == 1) {
-    body(0, n);
-    return;
-  }
+  int nt = std::max(1, std::min<int>(hw ? hw : 1, n_tasks));
   std::vector<std::thread> pool;
-  pool.reserve(nt);
-  int chunk = (n + nt - 1) / nt;
-  for (int i = 0; i < nt; ++i) {
-    int lo = i * chunk, hi = std::min(n, lo + chunk);
-    if (lo >= hi) break;
-    pool.emplace_back([&, lo, hi] { body(lo, hi); });
-  }
+  pool.reserve(nt - 1);
+  for (int i = 1; i < nt; ++i) pool.emplace_back([&] { worker(); });
+  worker();
   for (auto& th : pool) th.join();
+}
+
+// Four floats: the unit of both passes. Vector loads of four channels let
+// the horizontal taps read an interleaved row of any channel count.
+typedef float v4f __attribute__((vector_size(16)));
+constexpr int kLanes = 4;
+constexpr int kBandRows = 16;  // output rows a task
+
+inline v4f load4(const float* p) {
+  v4f v;
+  std::memcpy(&v, p, sizeof v);
+  return v;
+}
+
+// Sixteen input values as four vectors: plain loads for float, widened in
+// registers for uint8 (SSE2 unpacks on x86-64, which compilers do not emit
+// for a generic vector conversion; lane by lane elsewhere).
+inline void load16(const float* p, v4f v[4]) { std::memcpy(v, p, 4 * sizeof(v4f)); }
+
+inline void load16(const uint8_t* p, v4f v[4]) {
+#if defined(__SSE2__)
+  const __m128i z = _mm_setzero_si128();
+  const __m128i b = _mm_loadu_si128(reinterpret_cast<const __m128i*>(p));
+  const __m128i lo = _mm_unpacklo_epi8(b, z), hi = _mm_unpackhi_epi8(b, z);
+  v[0] = (v4f)_mm_cvtepi32_ps(_mm_unpacklo_epi16(lo, z));
+  v[1] = (v4f)_mm_cvtepi32_ps(_mm_unpackhi_epi16(lo, z));
+  v[2] = (v4f)_mm_cvtepi32_ps(_mm_unpacklo_epi16(hi, z));
+  v[3] = (v4f)_mm_cvtepi32_ps(_mm_unpackhi_epi16(hi, z));
+#else
+  for (int q = 0; q < 4; ++q)
+    v[q] = v4f{float(p[4 * q]), float(p[4 * q + 1]), float(p[4 * q + 2]), float(p[4 * q + 3])};
+#endif
+}
+
+inline void store4(float* p, v4f v) { std::memcpy(p, &v, sizeof v); }
+
+// Each output element below is 0 + w[0]*x[0] + w[1]*x[1] + ... in tap
+// order, as in the JAX kernel's passes; the blocks of independent
+// accumulators only hide the adds' latency.
+
+// Vertical taps of output row oh: acc[x] = sum_j wy[j] * src[j][x].
+template <class In>
+void vertical(const In* frame, size_t row_in, const Weights& wy, int oh, float* acc) {
+  const float* wrow = wy.w.data() + (size_t)oh * wy.taps;
+  const In* src0 = frame + (size_t)wy.jmin[oh] * row_in;
+  size_t x = 0;
+  for (; x + 4 * kLanes <= row_in; x += 4 * kLanes) {
+    v4f a[4] = {}, v[4];
+    for (int j = 0; j < wy.taps; ++j) {
+      load16(src0 + (size_t)j * row_in + x, v);
+      for (int q = 0; q < 4; ++q) a[q] += wrow[j] * v[q];
+    }
+    for (int q = 0; q < 4; ++q) store4(acc + x + q * kLanes, a[q]);
+  }
+  for (; x < row_in; ++x) {
+    float a = 0.f;
+    for (int j = 0; j < wy.taps; ++j) a += wrow[j] * float(src0[(size_t)j * row_in + x]);
+    acc[x] = a;
+  }
+}
+
+// Horizontal taps and epilogue of output pixels [ow, ow + N), channels
+// [ch0, ch0 + 4), into the output row orow. Each store writes four floats:
+// past a partial chunk it runs into the next pixel's first channels, which
+// resize() writes later (partial chunk first, pixels in order), or into the
+// row's pad.
+template <int N>
+__attribute__((always_inline)) inline void pixels(const float* acc, int c, int ch0, const Weights& wx, int ow,
+                                                  bool norm, float rescale, v4f m, v4f s, float* orow) {
+  const float* xw = wx.w.data() + (size_t)ow * wx.taps;
+  const float* src[N];
+  v4f a[N];
+  for (int q = 0; q < N; ++q) {
+    src[q] = acc + (size_t)wx.jmin[ow + q] * c + ch0;
+    a[q] = v4f{};
+  }
+  for (int j = 0; j < wx.taps; ++j)
+    for (int q = 0; q < N; ++q) a[q] += xw[(size_t)q * wx.taps + j] * load4(src[q] + (size_t)j * c);
+  for (int q = 0; q < N; ++q) {
+    if (norm) a[q] = (a[q] * rescale - m) / s;
+    store4(orow + (size_t)(ow + q) * c + ch0, a[q]);
+  }
+}
+
+template <class In>
+void resize(const In* in, int t, int h, int w, int c, int out_h, int out_w,
+            int resample, const float* mean, const float* stdv, float rescale,
+            float* out) {
+  const auto wy = weights(h, out_h, resample);
+  const auto wx = weights(w, out_w, resample);
+  const size_t row_in = (size_t)w * c, row_out = (size_t)out_w * c;
+  const bool norm = mean != nullptr && stdv != nullptr;
+  // the epilogue's mean and std by chunk of four channels
+  std::vector<v4f> mv((c + kLanes - 1) / kLanes, v4f{}), sv(mv.size(), v4f{} + 1.f);
+  for (int ch = 0; ch < c && norm; ++ch) {
+    mv[ch / kLanes][ch % kLanes] = mean[ch];
+    sv[ch / kLanes][ch % kLanes] = stdv[ch];
+  }
+  const int bands = (out_h + kBandRows - 1) / kBandRows;
+  const int n_tasks = t * bands;
+  std::atomic<int> next{0};
+
+  on_threads(n_tasks, [&] {
+    // one output row's vertical result and the output row itself, each
+    // padded for the last pixel's four-lane loads and stores
+    std::vector<float> acc(row_in + kLanes, 0.f), orow(row_out + kLanes);
+    for (int k; (k = next.fetch_add(1, std::memory_order_relaxed)) < n_tasks;) {
+      const int ti = k / bands;
+      const int oh0 = (k % bands) * kBandRows, oh1 = std::min(out_h, oh0 + kBandRows);
+      for (int oh = oh0; oh < oh1; ++oh) {
+        vertical(in + (size_t)ti * h * row_in, row_in, *wy, oh, acc.data());
+        for (int ch0 = (c - 1) / kLanes * kLanes; ch0 >= 0; ch0 -= kLanes) {
+          const v4f m = mv[ch0 / kLanes], s = sv[ch0 / kLanes];
+          int ow = 0;
+          for (; ow + 4 <= out_w; ow += 4)
+            pixels<4>(acc.data(), c, ch0, *wx, ow, norm, rescale, m, s, orow.data());
+          for (; ow < out_w; ++ow) pixels<1>(acc.data(), c, ch0, *wx, ow, norm, rescale, m, s, orow.data());
+        }
+        std::memcpy(out + ((size_t)ti * out_h + oh) * row_out, orow.data(), row_out * sizeof(float));
+      }
+    }
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// in:  (t, h, w, c) float32 contiguous
+// in:  (t, h, w, c) contiguous, float32 (ff_resize_frames) or uint8
+//      (ff_resize_frames_u8)
 // out: (t, out_h, out_w, c) float32 contiguous
 // resample: 0 = bilinear, 1 = bicubic
 // mean/stdv: per-channel (c) pointers or nullptr; epilogue computes
@@ -113,54 +273,14 @@ void ff_resize_frames(const float* in, int t, int h, int w, int c,
                       int out_h, int out_w, int resample,
                       const float* mean, const float* stdv, float rescale,
                       float* out) {
-  const Weights wy = make_weights(h, out_h, resample);
-  const Weights wx = make_weights(w, out_w, resample);
-  const size_t row_in = (size_t)w * c;
-  std::vector<float> tmp((size_t)t * out_h * row_in);
+  resize(in, t, h, w, c, out_h, out_w, resample, mean, stdv, rescale, out);
+}
 
-  // pass 1 (vertical): tmp[ti][oh][x][ch] = sum_j wy[oh][j] * in[ti][jmin+j][x][ch]
-  parallel_for(t * out_h, [&](int lo, int hi) {
-    for (int k = lo; k < hi; ++k) {
-      const int ti = k / out_h, oh = k % out_h;
-      float* dst = tmp.data() + (size_t)k * row_in;
-      std::fill(dst, dst + row_in, 0.f);
-      const float* wrow = wy.w.data() + (size_t)oh * wy.max_len;
-      const float* src0 = in + (size_t)ti * h * row_in + (size_t)wy.jmin[oh] * row_in;
-      for (int j = 0; j < wy.len[oh]; ++j) {
-        const float wj = wrow[j];
-        const float* src = src0 + (size_t)j * row_in;
-        for (size_t x = 0; x < row_in; ++x) dst[x] += wj * src[x];
-      }
-    }
-  });
-
-  // pass 2 (horizontal) + optional normalize epilogue
-  const size_t row_out = (size_t)out_w * c;
-  const bool norm = mean != nullptr && stdv != nullptr;
-  parallel_for(t * out_h, [&](int lo, int hi) {
-    std::vector<float> acc(c);
-    for (int k = lo; k < hi; ++k) {
-      const float* src = tmp.data() + (size_t)k * row_in;
-      float* dst = out + (size_t)k * row_out;
-      for (int ow = 0; ow < out_w; ++ow) {
-        std::fill(acc.begin(), acc.end(), 0.f);
-        const float* wrow = wx.w.data() + (size_t)ow * wx.max_len;
-        const float* s0 = src + (size_t)wx.jmin[ow] * c;
-        for (int j = 0; j < wx.len[ow]; ++j) {
-          const float wj = wrow[j];
-          const float* s = s0 + (size_t)j * c;
-          for (int ch = 0; ch < c; ++ch) acc[ch] += wj * s[ch];
-        }
-        float* d = dst + (size_t)ow * c;
-        if (norm) {
-          for (int ch = 0; ch < c; ++ch)
-            d[ch] = (acc[ch] * rescale - mean[ch]) / stdv[ch];
-        } else {
-          for (int ch = 0; ch < c; ++ch) d[ch] = acc[ch];
-        }
-      }
-    }
-  });
+void ff_resize_frames_u8(const uint8_t* in, int t, int h, int w, int c,
+                         int out_h, int out_w, int resample,
+                         const float* mean, const float* stdv, float rescale,
+                         float* out) {
+  resize(in, t, h, w, c, out_h, out_w, resample, mean, stdv, rescale, out);
 }
 
 // Standalone in-place normalize for pre-sized frames:

@@ -1,14 +1,16 @@
 """Build-on-demand ctypes bindings for the native frame preprocessing.
 
-The C++ source is the port's own ``csrc/prep.cpp``, a byte-for-byte copy of
-the JAX package's ``native/prep.cpp`` (that package imports jax through its
-``__init__``, and the port reads none of its files). ``load()`` compiles it with
-the system g++ the first time, into ``_build/libffprep-<hash>.so`` beside
-this file (keyed on the source hash, so an edited source rebuilds), and
+The C++ source is the port's own ``csrc/prep.cpp``: one fused pass from the
+caller's uint8 (or float32) frames to normalized float32 pixels, with the
+same math as the JAX package's ``native/prep.cpp`` and the NumPy twin in
+preprocess.py (the port reads none of the JAX package's files; that package
+imports jax through its ``__init__``). ``load()`` compiles it with the
+system g++ the first time, into ``_build/libffprep-<hash>.so`` beside this
+file (keyed on the source and the flags, so an edit to either rebuilds), and
 returns the loaded library, or ``None`` when no toolchain is available and
-the caller did not require it (callers then run the NumPy twin in
-preprocess.py, which computes the same math). ctypes releases the GIL for
-the call, so the threaded resize overlaps the Python thread.
+the caller did not require it (callers then run the NumPy twin, which
+computes the same math). ctypes releases the GIL for the call, so the
+threaded resize overlaps the Python thread.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ import numpy as np
 SRC = Path(__file__).resolve().parent / "csrc" / "prep.cpp"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _RESAMPLE = {"bilinear": 0, "bicubic": 1}
+# Baseline ISA only, so a library built on one host loads on any other;
+# products and sums stay apart (no FMA) so results match the JAX package's
+# kernel bit for bit on every target.
+_FLAGS = ["-O3", "-ffp-contract=off", "-fPIC", "-shared", "-pthread", "-std=c++17"]
 
 
 class _Loader:
@@ -41,14 +47,14 @@ _LOADER = _Loader()
 
 
 def _build() -> Path:
-    tag = hashlib.sha256(SRC.read_bytes()).hexdigest()[:16]
+    tag = hashlib.sha256(SRC.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libffprep-{tag}.so"
     if not so.exists():
         # A temp file per process, then an atomic rename: processes compiling
         # at once (parallel test workers) never leave a torn library behind.
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = ["g++", "-O3", "-fPIC", "-shared", "-pthread", "-std=c++17", str(SRC), "-o", str(tmp)]
+        cmd = ["g++", *_FLAGS, str(SRC), "-o", str(tmp)]
         try:
             subprocess.run(cmd, check=True, capture_output=True)
             os.replace(tmp, so)
@@ -73,10 +79,11 @@ def load(required: bool = False):
                 raise RuntimeError(f"native preprocessing unavailable: {exc!r}") from exc
             return None
         f32p = ctypes.POINTER(ctypes.c_float)
-        lib.ff_resize_frames.argtypes = [f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_int, ctypes.c_int, f32p, f32p,
-                                         ctypes.c_float, f32p]
+        dims = [ctypes.c_int] * 7
+        lib.ff_resize_frames.argtypes = [f32p, *dims, f32p, f32p, ctypes.c_float, f32p]
         lib.ff_resize_frames.restype = None
+        lib.ff_resize_frames_u8.argtypes = [ctypes.POINTER(ctypes.c_uint8), *dims, f32p, f32p, ctypes.c_float, f32p]
+        lib.ff_resize_frames_u8.restype = None
         lib.ff_normalize.argtypes = [f32p, ctypes.c_int64, ctypes.c_int, f32p, f32p, ctypes.c_float]
         lib.ff_normalize.restype = None
         _LOADER.lib = lib
@@ -89,11 +96,18 @@ def _f32p(a: np.ndarray):
 
 def resize_frames(lib, frames: np.ndarray, out_h: int, out_w: int, resample: str,
                   normalize: Optional[tuple] = None) -> np.ndarray:
-    """(T, H, W, C) float32 -> (T, out_h, out_w, C) float32 through the
-    native threaded kernel; ``normalize=(mean, std, rescale)`` fuses the
-    normalization into its column pass."""
+    """(T, H, W, C) uint8 or float -> (T, out_h, out_w, C) float32 through
+    the native threaded kernel, into a fresh array. uint8 frames are read as
+    they are; other dtypes are converted to float32 once.
+    ``normalize=(mean, std, rescale)`` fuses the normalization into the
+    kernel's epilogue."""
     t, h, w, c = frames.shape
-    frames = np.ascontiguousarray(frames, np.float32)
+    if frames.dtype == np.uint8:
+        frames = np.ascontiguousarray(frames)
+        entry, src = lib.ff_resize_frames_u8, frames.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    else:
+        frames = np.ascontiguousarray(frames, np.float32)
+        entry, src = lib.ff_resize_frames, _f32p(frames)
     out = np.empty((t, out_h, out_w, c), np.float32)
     null = ctypes.POINTER(ctypes.c_float)()
     mp, sp, rs = null, null, 1.0
@@ -104,7 +118,7 @@ def resize_frames(lib, frames: np.ndarray, out_h: int, out_w: int, resample: str
         if mean.shape != (c,) or std.shape != (c,):
             raise ValueError(f"mean/std must have {c} channels")
         mp, sp, rs = _f32p(mean), _f32p(std), float(rescale)
-    lib.ff_resize_frames(_f32p(frames), t, h, w, c, out_h, out_w, _RESAMPLE[resample], mp, sp, rs, _f32p(out))
+    entry(src, t, h, w, c, out_h, out_w, _RESAMPLE[resample], mp, sp, rs, _f32p(out))
     return out
 
 

@@ -4,11 +4,11 @@ its package does, so the port carries its own copy).
 
 Resize semantics are PIL's, which the HF processors assume: separable
 convolution with the filter support scaled by the downscale factor (always
-antialiased), half-pixel centers, weights normalized per output pixel;
-uint8 inputs are converted once to float32 and resized in float. The hot
-loops also have a native C++ implementation (``native.py`` builds the port's
-``csrc/prep.cpp``, a copy of the JAX package's), with this NumPy path as its
-twin.
+antialiased), half-pixel centers, weights normalized per output pixel,
+computed in float32. The hot loops also have a native C++ implementation
+(``native.py`` builds the port's own ``csrc/prep.cpp``: one fused pass that
+reads uint8 frames as the caller gives them), with this NumPy path, which
+converts the frames to float32 first, as its twin.
 
 Normalization constants per family follow the upstream processors: CLIP
 stats for Qwen2-VL, ImageNet for InternVL, 0.5/0.5 for the SigLIP-fronted
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,6 +32,18 @@ _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
 _SIGLIP_MEAN = (0.5, 0.5, 0.5)
 _SIGLIP_STD = (0.5, 0.5, 0.5)
+
+#: Calls of :func:`resize_frames` by the path that ran them: the native
+#: kernel on uint8 frames as given, the native kernel on float32 frames, or
+#: the NumPy twin. Read it to see whether ingest takes the uint8 path.
+path_counts = {"native_u8": 0, "native_float": 0, "numpy": 0}
+_path_lock = threading.Lock()
+
+
+def _count(path: str) -> None:
+    with _path_lock:
+        path_counts[path] += 1
+
 
 FAMILY_IMAGE_STATS = {
     "qwen2_vl": (_CLIP_MEAN, _CLIP_STD),
@@ -83,26 +96,29 @@ def resize_weights(in_size: int, out_size: int, resample: str = "bicubic") -> np
 
 def resize_frames(frames: np.ndarray, out_h: int, out_w: int, resample: str = "bicubic", impl: str = "auto",
                   normalize: Optional[tuple] = None) -> np.ndarray:
-    """Resize (T, H, W, C) or (H, W, C) frames to (..., out_h, out_w, C)
-    float32. ``impl``: "numpy", "native" (C++ threads; raises if it cannot
-    be built), or "auto" (native when it builds and loads, else numpy).
+    """Resize (T, H, W, C) or (H, W, C) uint8 or float frames to
+    (..., out_h, out_w, C) float32, a fresh array each call. ``impl``:
+    "numpy", "native" (C++ threads; raises if it cannot be built), or
+    "auto" (native when it builds and loads, else numpy).
     ``normalize=(mean, std, rescale)`` applies the normalization epilogue
-    (fused into the native kernel's column pass; after the resize on the
+    (fused into the native kernel's epilogue; after the resize on the
     numpy path)."""
     if impl not in ("auto", "native", "numpy"):
         raise ValueError(f"unknown impl {impl!r} (auto|native|numpy)")
     squeeze = frames.ndim == 3
     if squeeze:
         frames = frames[None]
-    frames = np.ascontiguousarray(frames, np.float32)
-    _, h, w, _ = frames.shape
     if impl != "numpy":
         from . import native
 
         lib = native.load(required=impl == "native")
         if lib is not None:
             out = native.resize_frames(lib, frames, out_h, out_w, resample, normalize=normalize)
+            _count("native_u8" if frames.dtype == np.uint8 else "native_float")
             return out[0] if squeeze else out
+    _count("numpy")
+    frames = np.ascontiguousarray(frames, np.float32)
+    _, h, w, _ = frames.shape
     wy = resize_weights(h, out_h, resample)
     wx = resize_weights(w, out_w, resample)
     # separable: rows then columns, as the C++ twin goes
@@ -168,5 +184,5 @@ def preprocess_frames(frames: np.ndarray, family: str, *, target: Optional[Tuple
         kwargs = {} if max_pixels is None else {"max_pixels": max_pixels}
         target = smart_resize(h, w, factor=factor, **kwargs)
     with span("preprocess.frames"):
-        return resize_frames(frames.astype(np.float32), target[0], target[1], resample=resample, impl=impl,
+        return resize_frames(frames, target[0], target[1], resample=resample, impl=impl,
                              normalize=(mean, std, cfg.rescale))

@@ -19,6 +19,7 @@ The ``gpu``-marked test holds kernel E against its plain version on a card
 (``python -m pytest -m gpu tests/test_torch_vision.py`` there); here it skips.
 """
 
+import ctypes
 from pathlib import Path
 
 import jax
@@ -180,11 +181,20 @@ def test_native_build_lands_in_the_port(monkeypatch, tmp_path):
 
     port_root = Path(framefusion_tpu_torch.__file__).resolve().parent
     assert native.SRC.is_file() and native.SRC.resolve().is_relative_to(port_root)
-    # the port builds its own copy of the JAX package's source, byte for byte
+    # the port builds its own source (its results are held to the JAX
+    # package's kernel bit for bit by test_preprocess_matches_jax), with the
+    # JAX kernel's entry points and the uint8 one
     jax_src = Path(jpp.__file__).resolve().parent / "native" / "prep.cpp"
-    assert native.SRC.read_bytes() == jax_src.read_bytes()
+    assert native.SRC.resolve() != jax_src.resolve()
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
-    assert native._build().parent == tmp_path
+    so = native._build()
+    assert so.parent == tmp_path
+    lib = ctypes.CDLL(str(so))
+    for entry in ("ff_resize_frames", "ff_resize_frames_u8", "ff_normalize"):
+        assert hasattr(lib, entry)
+    # the library's name follows its flags as well as its source
+    monkeypatch.setattr(native, "_FLAGS", [*native._FLAGS, "-DFF_TAG_TEST"])
+    assert native._build().name != so.name
 
 
 def _tree_leaves(tree, prefix=""):
