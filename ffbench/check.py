@@ -21,6 +21,13 @@ number of sampled requests whose compression events (layer, kind, tokens
 removed) differ from the reference's, has the limit 0.
 ``readings(..., control=True)`` gives the same numbers for the control: the
 reference in the next precision down.
+
+The decoder of both is the kind's (``reference.decoder``): the one that
+``reference/<kind>.py`` defines, or the dense stacks of
+``weights.decoder_tensors`` in ``common.Decoder`` for a kind that defines
+none. ``forward`` takes the whole sample layer-major, so a decoder that
+draws and frees its layers as the pass reaches them draws each once; the
+control's decoder is made after the reference's is freed.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import reference, weights
+from . import reference
 from .reference import common
 
 NAMES = ("pixel_err", "feature_err", "logit_gap")
@@ -81,27 +88,24 @@ def readings(config: dict, seed: int, samples: list, device, control: bool = Fal
                                                  _rel(fc.reshape(-1, fc.shape[-1]), f.reshape(-1, f.shape[-1])))
             feats.append((f, fc))
         del tower, proj
-        dec_w: dict = {"layers": {}}
-        for path, t in weights.decoder_tensors(config["text"], seed, device, getattr(torch, config["dtype"])):
-            node = dec_w
-            for key in path[:-1]:
-                node = node[key]
-            node[path[-1]] = t
-        dec = common.Decoder(config["text"], dec_w, common.REFERENCE)
-        ctl = common.Decoder(config["text"], dec_w, common.CONTROL) if control else None
-        for s, (f, fc) in zip(samples, feats):
-            logits, events = dec.forward(ref.prompt(config, s.request.question, f, dec.embed), s.tokens,
-                                         config["framefusion"])
+        ff, served = config["framefusion"], [s.tokens for s in samples]
+        dec = reference.decoder(config, seed, device, common.REFERENCE)
+        prompts = [ref.prompt(config, s.request.question, f, dec.embed) for s, (f, _) in zip(samples, feats)]
+        if control:
+            prompts_c = [ref.prompt(config, s.request.question, fc, dec.embed) for s, (_, fc) in zip(samples, feats)]
+        del feats
+        passed = dec.forward(prompts, served, ff)
+        del dec, prompts
+        for s, (logits, events) in zip(samples, passed):
             out["logit_gap"] = max(out["logit_gap"], common.served_gap(logits, s.tokens))
             if s.events is not None and [tuple(e) for e in s.events] != [tuple(e) for e in events]:
                 events_differ += 1
-            if control:
-                logits_c, events_c = ctl.forward(ref.prompt(config, s.request.question, fc, dec.embed), s.tokens,
-                                                 config["framefusion"])
+        if control:
+            ctl = reference.decoder(config, seed, device, common.CONTROL)
+            for (logits, events), (logits_c, events_c) in zip(passed, ctl.forward(prompts_c, served, ff)):
                 control_events_differ += [tuple(e) for e in events_c] != [tuple(e) for e in events]
                 picks = torch.argmax(logits_c, dim=1)
                 out["control.logit_gap"] = max(out["control.logit_gap"], common.served_gap(logits, picks))
-            del logits
     out["events_differ"] = events_differ
     if control:
         out["control.events_differ"] = control_events_differ

@@ -8,7 +8,6 @@ from ffbench import spans
 
 
 def read(run):
-    found = getattr(run.trace, "spans", None)
-    if run.trace is None or not found:
+    if run.trace is None or not run.trace.spans:
         return None
-    return spans.idle_ms_per_span(run.trace, found, "serve.admit")
+    return spans.idle_ms_per_span(run.trace, run.trace.spans, "serve.admit")

@@ -10,7 +10,6 @@ from ffbench import spans
 
 
 def read(run):
-    found = getattr(run.trace, "spans", None)
-    if run.trace is None or not found:
+    if run.trace is None or not run.trace.spans:
         return None
-    return spans.idle_ms_per_span(run.trace, found, "serve.chunk")
+    return spans.idle_ms_per_span(run.trace, run.trace.spans, "serve.chunk")

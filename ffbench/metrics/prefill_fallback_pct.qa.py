@@ -8,7 +8,6 @@ from ffbench import spans
 
 
 def read(run):
-    found = getattr(run.trace, "spans", None)
-    if run.trace is None or not found:
+    if run.trace is None or not run.trace.spans:
         return None
-    return spans.fallback_pct(run.trace, found)
+    return spans.fallback_pct(run.trace, run.trace.spans)

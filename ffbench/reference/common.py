@@ -22,6 +22,8 @@ import math
 import numpy as np
 import torch
 
+from .. import weights
+
 IGNORE = -2.0  # the similarity of a position that no merge may take
 ATTN_BLOCK = 1024  # query rows a block
 SCHEDULE_LAYERS = 28  # FrameFusion's cost schedule counts 28 layers (the upstream constant)
@@ -285,9 +287,23 @@ class Prompt:
     patch_num: int
 
 
+@dataclasses.dataclass
+class Pass:
+    """One sampled request on its way through the decoder's layers."""
+    st: FFState
+    h: torch.Tensor  # (S, D) the compressed prompt's rows, then the served tokens'
+    pt: torch.Tensor  # (S,) patch type
+    pos: torch.Tensor  # (S,) rotary positions
+    n_prompt: int  # rows of ``h`` that are the prompt's
+
+
 class Decoder:
     """The decoder's weights as one seeded draw (bf16 stacks), rounded per
-    ``precision`` a layer at a time as the forward pass reaches it."""
+    ``precision`` a layer at a time as the forward pass reaches it, and
+    freed after it. A kind's own decoder may subclass it: one larger than
+    the card overrides ``layer`` to draw layer l's leaves only then, each
+    from its own stream (``weights.Draws(..., key=(leaf, l))``); another
+    feed-forward overrides ``mlp``."""
 
     def __init__(self, text: dict, tensors: dict, precision: Precision):
         self.text, self.w, self.precision = text, tensors, precision
@@ -301,6 +317,9 @@ class Decoder:
                 out[name] = lw[name][l].float()
         return out
 
+    def mlp(self, lw: dict, x: torch.Tensor) -> torch.Tensor:
+        return (torch.nn.functional.silu(x @ lw["w_gate"]) * (x @ lw["w_up"])) @ lw["w_down"]
+
     def embed(self, ids) -> torch.Tensor:
         return self.w["embed"][torch.as_tensor(ids, dtype=torch.long, device=self.w["embed"].device)].float()
 
@@ -309,12 +328,25 @@ class Decoder:
         head = self.w["lm_head"].float()
         return torch.cat([x[i:i + 256] @ head for i in range(0, x.shape[0], 256)])
 
-    def forward(self, prompt: Prompt, served: list, ff: dict):
-        """The compressed prompt and then the served tokens, in one causal
-        pass. Returns (logits (n, V): row j predicts served token j, the FrameFusion events)."""
-        t = self.text
-        hq, hk = t["num_attention_heads"], t["num_key_value_heads"]
-        hd = t.get("head_dim") or t["hidden_size"] // hq
+    def forward(self, prompts: list, served: list, ff: dict) -> list:
+        """Each compressed prompt and then its served tokens, in one causal
+        pass, layer-major over the prompts: layer l is made once (``layer``),
+        every prompt goes through it, and it is freed before layer l + 1. A
+        prompt's FrameFusion events at a layer depend on its own input to
+        that layer alone, so each reads as it would alone. Returns, a
+        prompt, (logits (n, V): row j predicts served token j, the events)."""
+        passes = [self.start(p, s, ff) for p, s in zip(prompts, served)]
+        for l in range(self.text["num_hidden_layers"]):
+            lw = self.layer(l)
+            for p in passes:
+                self.block(p, lw, l)
+            del lw
+        if any(p.st.infeasible for p in passes):
+            raise ValueError("the cost is too small for this prompt")
+        return [(self.logits(p.h[p.n_prompt - 1:]), p.st.events) for p in passes]
+
+    def start(self, prompt: Prompt, served: list, ff: dict) -> Pass:
+        """The merge before layer 0, and the served tokens after the prompt."""
         st = FFState(cost=ff["cost"], s_th=ff["similarity_lower_bound"], r_min=ff["ratio_lower_bound"],
                      frame_tok=int((prompt.patch_type >= 0).sum()), orig_len=prompt.embeds.shape[0],
                      image_start=prompt.image_start, image_len=prompt.image_len)
@@ -331,32 +363,48 @@ class Decoder:
         h = torch.cat([h, tail])
         pos = torch.cat([pos, n_prompt + torch.arange(len(served) - 1, device=dev)])
         pt = torch.cat([pt, torch.full((len(served) - 1,), -1, device=dev, dtype=pt.dtype)])
-        for l in range(t["num_hidden_layers"]):
-            lw = self.layer(l)
-            x = rms_norm(h, lw["ln1"], t["rms_norm_eps"])
-            q, k, v = x @ lw["wq"], x @ lw["wk"], x @ lw["wv"]
-            if "bq" in lw:
-                q, k, v = q + lw["bq"], k + lw["bk"], v + lw["bv"]
-            s = h.shape[0]
-            q = rope(q.reshape(s, hq, hd), pos, t["rope_theta"])
-            k = rope(k.reshape(s, hk, hd), pos, t["rope_theta"])
-            prune_now = not st.done and st.merging_done
-            attn, importance = causal_attention(q, k, v.reshape(s, hk, hd), n_prompt - 1 if prune_now else -1)
-            h = h + attn.reshape(s, hq * hd) @ lw["wo"]
-            if not st.done:
-                if prune_now:
-                    keep = prune_event(st, importance[:n_prompt], n_prompt, l)
-                    keep = torch.cat([keep, torch.ones(s - n_prompt, dtype=torch.bool, device=dev)])
-                else:
-                    h, keep = merge_event(st, h, pt, n_prompt, l)
-                h, pt, pos = h[keep], pt[keep], pos[keep]
-                n_prompt = int(keep[:n_prompt].sum())
-            x = rms_norm(h, lw["ln2"], t["rms_norm_eps"])
-            h = h + (torch.nn.functional.silu(x @ lw["w_gate"]) * (x @ lw["w_up"])) @ lw["w_down"]
-            del lw
-        if st.infeasible:
-            raise ValueError("the cost is too small for this prompt")
-        return self.logits(h[n_prompt - 1:]), st.events
+        return Pass(st=st, h=h, pt=pt, pos=pos, n_prompt=n_prompt)
+
+    def block(self, p: Pass, lw: dict, l: int) -> None:
+        """Layer l over one pass: attention, then the merge or prune event
+        that falls there, then the feed-forward."""
+        t, st = self.text, p.st
+        hq, hk = t["num_attention_heads"], t["num_key_value_heads"]
+        hd = t.get("head_dim") or t["hidden_size"] // hq
+        h = p.h
+        x = rms_norm(h, lw["ln1"], t["rms_norm_eps"])
+        q, k, v = x @ lw["wq"], x @ lw["wk"], x @ lw["wv"]
+        if "bq" in lw:
+            q, k, v = q + lw["bq"], k + lw["bk"], v + lw["bv"]
+        s = h.shape[0]
+        q = rope(q.reshape(s, hq, hd), p.pos, t["rope_theta"])
+        k = rope(k.reshape(s, hk, hd), p.pos, t["rope_theta"])
+        prune_now = not st.done and st.merging_done
+        attn, importance = causal_attention(q, k, v.reshape(s, hk, hd), p.n_prompt - 1 if prune_now else -1)
+        h = h + attn.reshape(s, hq * hd) @ lw["wo"]
+        if not st.done:
+            if prune_now:
+                keep = prune_event(st, importance[:p.n_prompt], p.n_prompt, l)
+                keep = torch.cat([keep, torch.ones(s - p.n_prompt, dtype=torch.bool, device=h.device)])
+            else:
+                h, keep = merge_event(st, h, p.pt, p.n_prompt, l)
+            h, p.pt, p.pos = h[keep], p.pt[keep], p.pos[keep]
+            p.n_prompt = int(keep[:p.n_prompt].sum())
+        x = rms_norm(h, lw["ln2"], t["rms_norm_eps"])
+        p.h = h + self.mlp(lw, x)
+
+
+def dense_decoder(config: dict, seed: int, device, precision: Precision) -> Decoder:
+    """The decoder of a kind whose reference defines none: the dense stacks
+    of ``weights.decoder_tensors``, drawn whole in one stream, in the type
+    they are served in."""
+    tensors: dict = {"layers": {}}
+    for path, t in weights.decoder_tensors(config["text"], seed, device, getattr(torch, config["dtype"])):
+        node = tensors
+        for key in path[:-1]:
+            node = node[key]
+        node[path[-1]] = t
+    return Decoder(config["text"], tensors, precision)
 
 
 def served_gap(logits: torch.Tensor, tokens) -> float:

@@ -85,12 +85,16 @@ class Bench:
 
 
 class RunView:
-    """What a metric reader reads: the window's records, the trace, the cell's files."""
+    """What a metric reader reads: the window's records, the trace with the
+    program's spans, the program's counters over the traced window (each
+    read at its close less its open; None for a family that states none,
+    or without a traced window), the cell's files."""
 
     def __init__(self, *, config, traffic, cell, family, window, tracer, setup_s, end_s):
         self.config, self.traffic, self.cell, self.family = config, traffic, cell, family
         self.window, self.tracer, self.setup_s, self.end_s = window, tracer, setup_s, end_s
         self.trace = tracer.trace
+        self.counters = tracer.counted
 
     def _in_trace(self, t) -> bool:
         return (t is not None and self.tracer.opened_at is not None
@@ -222,7 +226,9 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float, trace: bool
     if fault is not None:
         fault(program, loop)
     traced = min(float(traffic["trace_seconds"]), seconds)
-    tracer = tracing.Tracer(trace, start_s=(seconds - traced) / 2, seconds=traced)
+    counters = getattr(family, "counters", None)
+    tracer = tracing.Tracer(trace, start_s=(seconds - traced) / 2, seconds=traced,
+                            counters=None if counters is None else (lambda: counters(program)))
     tracer.warm_up()
     on_card = device != "cpu"
     if on_card:
@@ -267,7 +273,7 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float, trace: bool
 
     # The program's state goes before the reference runs.
     del program, loop, view, st
-    tracer.trace = None
+    tracer.trace = tracer.counters = None
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()

@@ -37,6 +37,7 @@ class Record:
     tokens: Optional[list] = None
     prompt_len: int = 0
     error: Optional[str] = None
+    wait_s: Optional[float] = None  # the loop's host seconds from submit to its admission's start
 
 
 @dataclasses.dataclass
@@ -181,6 +182,7 @@ def run(program, loop, requests: list, frames: dict, seconds: float, tracer, kee
                 if res is not None:  # retired: stamped by the loop after the chunk's device read
                     rec = in_flight.pop(rid)
                     rec.done_s = rec.submit_s + res.queue_s + res.serve_s
+                    rec.wait_s = res.wait_s
                     rec.tokens = list(res.tokens)
         elif nxt < len(requests):
             with tracer.range("wait"):

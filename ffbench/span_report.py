@@ -2,11 +2,10 @@
 
     python3 -m ffbench.span_report --workload <name> --seed <n> [--seconds <s>] [--out FILE]
 
-The run is ``run.run_cell`` with ``--trace 1``. The harness's trace reader
-keeps the device's operations and its own ``ffbench.*`` ranges; here the
-program's ``framefusion.*`` spans are read from the same Chrome trace too
-(``spans.parse_events``) and handed to the trace as ``trace.spans``, where
-the span readers in ``metrics/`` find them. The last line of standard
+The run is ``run.run_cell`` with ``--trace 1``, whose trace reader
+(``tracing.parse_chrome_trace``) keeps the device's operations, its own
+``ffbench.*`` ranges and the program's ``framefusion.*`` spans
+(``trace.spans``); the report reads that same trace. The last line of standard
 output is one JSON object: the run's result line, the span readings, the
 device idle of the window by innermost span (``spans.idle_by_span``), the
 idle under the ``ffbench.step`` ranges and the share the admissions and
@@ -24,21 +23,18 @@ import sys
 
 
 @contextlib.contextmanager
-def program_spans():
-    """Hand each parsed trace the program's spans from its file; yields
-    the list of traces parsed."""
-    from . import spans, tracing
+def parsed_traces():
+    """Keep each trace the harness parses, which the run lets go before
+    its reference check; yields the list of them."""
+    from . import tracing
 
     parse, parsed = tracing.parse_chrome_trace, []
 
-    def with_spans(path):
-        trace = parse(path)
-        with open(path) as f:
-            trace.spans = spans.parse_events(json.load(f)["traceEvents"])
-        parsed.append(trace)
-        return trace
+    def keep(path):
+        parsed.append(parse(path))
+        return parsed[-1]
 
-    tracing.parse_chrome_trace = with_spans
+    tracing.parse_chrome_trace = keep
     try:
         yield parsed
     finally:
@@ -83,7 +79,7 @@ def main(argv=None) -> int:
         os.environ.setdefault(var, "0")
     bench = run.Bench(run.HERE.parent / "BENCHMARK.json")
     seconds = args.seconds or float(bench.data["run_seconds"])
-    with program_spans() as parsed:
+    with parsed_traces() as parsed:
         result, _ = run.run_cell(bench, args.workload, args.seed, seconds, True)
     out = {"workload": args.workload, "seed": args.seed, "result": result,
            "spans": report(parsed[-1]) if parsed else None}

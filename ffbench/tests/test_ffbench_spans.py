@@ -2,12 +2,14 @@
 
 A synthetic Chrome trace holds the harness's ranges, the program's
 ``framefusion.*`` spans and device operations with their launches. On it:
-each span reader reads its hand-computed value; ``idle_in`` agrees with
-``busy_intervals()``; and the trace the harness parses today, with every
-existing per-layer reader and ``breakdown()``, reads the same with the
-program's spans in the file and without them.
+the harness's parse hands the program's spans to the trace as
+``spans.parse_events`` reads them; each span reader reads its
+hand-computed value; ``idle_in`` agrees with ``busy_intervals()``; and the
+trace, with every other per-layer reader and ``breakdown()``, reads the
+same with the program's spans in the file and without them.
 """
 
+import dataclasses
 import json
 import types
 
@@ -82,7 +84,7 @@ def _parse(tmp_path, events, name="trace.json"):
 @pytest.fixture
 def traced(tmp_path):
     trace, found = _parse(tmp_path, HARNESS + DEVICE + PROGRAM)
-    trace.spans = found
+    assert trace.spans == found
     return trace
 
 
@@ -101,22 +103,33 @@ def test_span_names_and_ids_are_read_from_the_event_names(traced):
     ("admit_idle_ms.qa", sum(ADMIT_IDLE_US) / 2 * 1e-3),
     ("chunk_idle_ms.qa", sum(CHUNK_IDLE_US) / 2 * 1e-3),
     ("chunk_idle_ms.captions", sum(CHUNK_IDLE_US) / 2 * 1e-3),
-    ("queue_wait_ms.qa", (102 - 92) * 1e-3),  # request 0 only: request 1's submit is before the window
     ("prefill_fallback_pct.qa", 50.0),
 ])
 def test_each_span_reader_reads_its_hand_computed_value(traced, name, want):
     bench = run.Bench(tiny.REPO / "BENCHMARK.json")
     assert bench.reader(name)(_view(traced)) == pytest.approx(want, rel=1e-9)
+    # the report's traced queue wait: request 0 only, request 1's submit is before the window
+    assert spans.queue_wait_ms(traced, traced.spans) == pytest.approx((102 - 92) * 1e-3, rel=1e-9)
 
 
-@pytest.mark.parametrize("name", ["admit_idle_ms.qa", "chunk_idle_ms.qa", "queue_wait_ms.qa",
-                                  "prefill_fallback_pct.qa"])
+@pytest.mark.parametrize("opened_at,want_ms", [(0.5, (0.02 + 0.1) / 2 * 1e3), (None, (0.02 + 0.3 + 0.1) / 3 * 1e3),
+                                               (0.05, None)])
+def test_queue_wait_reads_the_loops_host_waits_admitted_before_the_trace(opened_at, want_ms):
+    """``queue_wait_ms.qa`` is the mean of the loop's ``wait_s`` over the
+    requests whose admission started before the traced window opened (all
+    of them without one); a request not retired has no wait."""
+    recs = [serve.Record(i, 0.0, 16, 8, submit_s=sub, wait_s=wait)
+            for i, (sub, wait) in enumerate([(0.1, 0.02), (0.3, 0.3), (0.35, None), (0.2, 0.1)])]
+    view = types.SimpleNamespace(window=types.SimpleNamespace(records=recs), tracer=types.SimpleNamespace(opened_at=opened_at))
+    got = run.Bench(tiny.REPO / "BENCHMARK.json").reader("queue_wait_ms.qa")(view)
+    assert got == (None if want_ms is None else pytest.approx(want_ms, rel=1e-12))
+
+
+@pytest.mark.parametrize("name", ["admit_idle_ms.qa", "chunk_idle_ms.qa", "prefill_fallback_pct.qa"])
 def test_span_readers_read_nothing_without_the_program_spans(tmp_path, name):
     trace, found = _parse(tmp_path, HARNESS + DEVICE)
-    assert found == []
+    assert found == [] and trace.spans == []
     reader = run.Bench(tiny.REPO / "BENCHMARK.json").reader(name)
-    assert reader(_view(trace)) is None  # a parsed trace without a ``spans`` field
-    trace.spans = found
     assert reader(_view(trace)) is None
     assert reader(_view(None)) is None
 
@@ -168,7 +181,7 @@ def _run_view(trace, config_name):
     window = serve.Window(records=records, admissions=[serve.Admission(0.7, 3000, []),
                                                        serve.Admission(0.8, 3100, [])],
                           seconds=3.0, tokens=16, kept={}, trace_tokens=(3, 11))
-    tracer = types.SimpleNamespace(trace=trace, opened_at=0.4, closed_at=1.4)
+    tracer = types.SimpleNamespace(trace=trace, opened_at=0.4, closed_at=1.4, counted=None)
     return run.RunView(config=config, traffic={}, cell={}, family=families.load(config["kind"]), window=window,
                        tracer=tracer, setup_s=12.0, end_s=4.0)
 
@@ -177,12 +190,11 @@ def _run_view(trace, config_name):
 def test_existing_readers_and_breakdown_ignore_the_program_spans(tmp_path, config_name):
     with_spans, found = _parse(tmp_path, HARNESS + DEVICE + PROGRAM, "with.json")
     without, _ = _parse(tmp_path, HARNESS + DEVICE, "without.json")
-    assert found and with_spans == without
+    assert found and with_spans.spans == found and dataclasses.replace(with_spans, spans=[]) == without
     assert json.dumps(with_spans.breakdown()) == json.dumps(without.breakdown())
     bench = run.Bench(tiny.REPO / "BENCHMARK.json")
     existing = [m["name"] for m in bench.data["per_layer"] if m["name"] not in
-                ("admit_idle_ms.qa", "chunk_idle_ms.qa", "chunk_idle_ms.captions", "queue_wait_ms.qa",
-                 "prefill_fallback_pct.qa")]
+                ("admit_idle_ms.qa", "queue_wait_ms.qa", "prefill_fallback_pct.qa")]
     assert len(existing) == 10
     read_some = 0
     for name in existing:
@@ -194,22 +206,42 @@ def test_existing_readers_and_breakdown_ignore_the_program_spans(tmp_path, confi
 
 
 def test_a_traced_cpu_run_reads_the_span_metrics(tmp_path):
-    """The tiny benchmark on the CPU with the program's spans handed to the
-    trace (``span_report.program_spans``): the span readers read, and the
-    report splits the whole idle time."""
+    """The tiny benchmark on the CPU, traced: the harness's own parse hands
+    the program's spans to the trace, the span entries of ``BENCHMARK.json``
+    and the host queue wait read, and the report on that same trace
+    (``span_report.parsed_traces``) splits the whole idle time."""
     bench = tiny.make_bench(tmp_path)
-    names = ["admit_idle_ms.qa", "chunk_idle_ms.qa", "queue_wait_ms.qa", "prefill_fallback_pct.qa"]
-    bench.data["per_layer"] += [{"name": n, "unit": "ms", "better": "lower", "source": "device_trace",
-                                 "layer": "test", "moves": "answer_p90_ms", "workloads": ["llava7b.qa"]}
-                                for n in names]
+    names = [m["name"] for m in bench.metrics("llava7b.qa", trace=True) if m["source"] == "program_span"]
+    assert sorted(names) == ["admit_idle_ms.qa", "prefill_fallback_pct.qa"]
     parse = tracing.parse_chrome_trace
-    with span_report.program_spans() as parsed:
+    with span_report.parsed_traces() as parsed:
         result, _ = run.run_cell(bench, "llava7b.qa", SEED, 3.0, True, device="cpu")
     assert tracing.parse_chrome_trace is parse and len(parsed) == 1
-    got = {n: result["metrics"][n]["value"] for n in names if n in result["metrics"]}
-    assert set(got) >= {"admit_idle_ms.qa", "chunk_idle_ms.qa", "prefill_fallback_pct.qa"}, got
-    assert got["admit_idle_ms.qa"] > 0 and got["chunk_idle_ms.qa"] > 0 and 0 <= got["prefill_fallback_pct.qa"] <= 100
+    got = {n: result["metrics"][n]["value"] for n in names + ["queue_wait_ms.qa"] if n in result["metrics"]}
+    assert set(got) == {"admit_idle_ms.qa", "prefill_fallback_pct.qa", "queue_wait_ms.qa"}, got
+    assert got["admit_idle_ms.qa"] > 0 and 0 <= got["prefill_fallback_pct.qa"] <= 100 and got["queue_wait_ms.qa"] >= 0
     rep = span_report.report(parsed[0])
     assert sum(rep["idle_by_span"].values()) == pytest.approx(rep["window_s"] - rep["busy_s"], rel=1e-9)
     assert rep["admissions"] > 0 and rep["chunks"] > 0 and rep["step_coverage"]["share"] > 0
     assert json.loads(json.dumps(rep, allow_nan=False)) == rep
+
+
+def test_a_recorded_trace_carries_the_program_spans(tmp_path):
+    """A trace the profiler records holds the harness's window and the
+    program's spans, a request id among them: the harness's parse keeps the
+    same spans that ``spans.parse_events`` reads from its events."""
+    import torch
+
+    from framefusion_tpu_torch.runtime import profiling
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function(tracing.PREFIX + "window"):
+            with profiling.span("serve.step"), profiling.span("serve.admit", 7):
+                torch.ones(64).sum()
+            with profiling.span("serve.chunk", 2):
+                torch.ones(64).sum()
+    path = tmp_path / "recorded.json"
+    prof.export_chrome_trace(str(path))
+    trace = tracing.parse_chrome_trace(str(path))
+    assert trace.spans == spans.parse_events(json.loads(path.read_text())["traceEvents"])
+    assert [(s.name, s.n) for s in trace.spans] == [("serve.step", None), ("serve.admit", 7), ("serve.chunk", 2)]

@@ -6,8 +6,14 @@ the serving loop, the waits for the next arrival). The profiler's Chrome
 trace is read back into ``Trace``: the device's operations (kernels, copies,
 fills), each attributed to the host range that launched it through the
 profiler's correlation ids, and told apart as a graph replay's when its
-launch was a ``cudaGraphLaunch``. The trace file lives in the run's
+launch was a ``cudaGraphLaunch``; and the program's own ``framefusion.*``
+spans (``spans.parse_events``). The trace file lives in the run's
 temporary directory and is deleted once read.
+
+Where the configuration's family states counters
+(``families/<kind>.py``'s ``counters(program)``: a dict of host numbers),
+the tracer reads them as the window opens and as it closes, after the
+close's own synchronisation.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import dataclasses
 import json
 import os
 import tempfile
+
+from . import spans as program_spans
 
 PREFIX = "ffbench."
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -39,6 +47,7 @@ class Trace:
     ranges: list  # (name, start_us, end_us) of the harness's ranges, sorted
     window_us: tuple  # (start, end) of the traced window
     graph_launches: int  # cudaGraphLaunch calls in the window
+    spans: list = dataclasses.field(default_factory=list)  # the program's spans.Span, by start
 
     @property
     def window_s(self) -> float:
@@ -126,20 +135,26 @@ def parse_chrome_trace(path: str) -> Trace:
     ops.sort(key=lambda o: o.start_us)
     if window is None:
         raise RuntimeError("the trace holds no ffbench.window range")
-    return Trace(ops=ops, ranges=ranges, window_us=window, graph_launches=graph_launches)
+    return Trace(ops=ops, ranges=ranges, window_us=window, graph_launches=graph_launches,
+                 spans=program_spans.parse_events(events))
 
 
 class Tracer:
     """Ranges around the harness's calls, and a profiler window over
     [start_s, start_s + seconds) of the run's clock. Without tracing, the
-    ranges are no-ops."""
+    ranges are no-ops. ``counters``, a callable returning a dict of host
+    numbers, is read at the window's two edges; ``counted`` is then each
+    number's close reading less its open reading (None until the window
+    has closed, and without ``counters``)."""
 
-    def __init__(self, enabled: bool, start_s: float = 0.0, seconds: float = 0.0):
+    def __init__(self, enabled: bool, start_s: float = 0.0, seconds: float = 0.0, counters=None):
         self.enabled, self.start_s, self.stop_s = enabled, start_s, start_s + seconds
         self.prof = None
         self.window_cm = None
         self.trace = None
         self.opened_at = self.closed_at = None
+        self.counters = counters
+        self.opened_counts = self.counted = None
 
     def range(self, name: str):
         if not self.enabled:
@@ -170,6 +185,8 @@ class Tracer:
             self.window_cm = torch.profiler.record_function(PREFIX + "window")
             self.window_cm.__enter__()
             self.opened_at = now_s
+            if self.counters is not None:
+                self.opened_counts = dict(self.counters())
         elif self.prof is not None and self.closed_at is None and now_s >= self.stop_s:
             self.close(now_s)
 
@@ -181,6 +198,8 @@ class Tracer:
         self.window_cm.__exit__(None, None, None)
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+        if self.counters is not None:
+            self.counted = {k: v - self.opened_counts.get(k, 0) for k, v in self.counters().items()}
         self.prof.stop()
         self.closed_at = now_s
 

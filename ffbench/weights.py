@@ -7,6 +7,13 @@ tensor in a fixed order, each drawn in one call in the type it is served in
 its set-up does (``framefusion_tpu_torch.ops.quant``); the reference works
 the int8 values out again from these draws.
 
+The dense kinds draw their decoder as one stream (``decoder_tensors``),
+whole stacks in order. A kind added later draws each (leaf, layer) from a
+stream of its own, ``Draws(seed, 0, ..., key=(leaf, layer))``, a child of
+the seed that no other leaf or layer shares: either side can then draw
+layer l alone, in any order, and a reference larger than the card draws,
+rounds and frees one layer at a time.
+
 Layouts (the port's; matrices are ``(K, O)``, applied as ``x @ w``, layer
 stacks carry a leading layer axis):
 
@@ -21,6 +28,9 @@ stacks carry a leading layer axis):
 
 from __future__ import annotations
 
+import zlib
+
+import numpy as np
 import torch
 
 from .generator import STREAM_WEIGHTS, child_seed
@@ -34,10 +44,17 @@ STD = 0.02
 class Draws:
     """One seeded stream of draws on ``device``: every call takes its values
     from the same generator, so two streams of one seed give equal tensors
-    when they make the same calls in the same order."""
+    when they make the same calls in the same order. ``key``, a leaf's name
+    and a layer, gives that (leaf, layer) a stream of its own."""
 
-    def __init__(self, seed: int, part: int, device, dtype, std: float = STD):
-        self.gen = torch.Generator(device=device).manual_seed(child_seed(seed, STREAM_WEIGHTS, part + 1)[part])
+    def __init__(self, seed: int, part: int, device, dtype, std: float = STD, key: tuple = ()):
+        if key:
+            leaf, layer = key
+            entropy = [int(seed), STREAM_WEIGHTS, part, zlib.crc32(leaf.encode()), int(layer) + 1]
+            gen_seed = int(np.random.SeedSequence(entropy).generate_state(1, dtype=np.uint64)[0]) >> 1
+        else:
+            gen_seed = child_seed(seed, STREAM_WEIGHTS, part + 1)[part]
+        self.gen = torch.Generator(device=device).manual_seed(gen_seed)
         self.device, self.dtype, self.std = torch.device(device), dtype, std
 
     def normal(self, *shape, std=None, mean: float = 0.0) -> torch.Tensor:
